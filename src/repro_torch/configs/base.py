@@ -1,0 +1,67 @@
+"""Model configuration dataclass (a copy of ``repro.configs.base``, trimmed
+to what the port's dense decoder family reads)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | enc_dec | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                 # 0 for attention-free families
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_capacity_factor: float = 1.25
+    # hybrid: repeating layer pattern
+    layer_pattern: Tuple[str, ...] = ()
+    local_window: int = 2048
+    # enc-dec
+    enc_layers: int = 0
+    dec_layers: int = 0
+    # modality frontend stub
+    frontend: str = "none"
+    n_frontend_tokens: int = 0
+    # the paper's technique: block-sparse FFN weights
+    ffn_block_sparse: bool = False
+    ffn_block: int = 64
+    ffn_density: float = 0.25
+    # misc
+    dtype: str = "bfloat16"
+    remat: bool = True
+    attn_chunk: int = 1024
+    seq_shard: bool = False
+    kv_cache_dtype: str = "bfloat16"
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to 256 (Megatron-style TP padding)."""
+        return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    def layer_kind(self, i: int) -> str:
+        """Block kind for layer i: attn | moe | rec | local | rwkv."""
+        if self.family == "ssm":
+            return "rwkv"
+        if self.layer_pattern:
+            return self.layer_pattern[i % len(self.layer_pattern)]
+        if self.n_experts:
+            return "moe"
+        return "attn"

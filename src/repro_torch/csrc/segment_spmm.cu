@@ -1,0 +1,329 @@
+// Segment-scheduled block-sparse x dense matmul, forward: C = BSR(A) @ B.
+//
+// Replaces the TPU kernel src/repro/kernels/segment_spmm.py::segment_spmm
+// (forward mode, fp32 blocks).  Built with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// into a library with the plain C interface at the bottom of this file,
+// loaded from Python with ctypes (src/repro_torch/kernels/build.py).
+//
+// Work decomposition.  The TPU grid walks one lane per core and keeps a C
+// tile in VMEM across consecutive items of the same output block row.  On
+// the GPU a lane is far too little parallelism (the sparse FFN plans one
+// lane), but the planner keeps every output block row (its "owner run":
+// all of its items, folded continuations included) contiguous inside one
+// lane.  So this kernel launches one thread block per (N tile, owner run):
+// the run's items are walked in schedule order by that block alone, which is
+// exact and needs no atomics.  The wrapper derives the run offsets once per
+// plan.  N tiles are the fast grid axis, so the tiles of one run run back
+// to back and share its A tiles in L2.
+//
+// Per item the block follows the plan's flags as the TPU kernel does:
+// zero the fp32 accumulator at seg_start, reload it from C at accum_prev
+// (folded continuation: the same thread wrote that element at the
+// segment's earlier seg_write), add A_tile @ B_slice when valid, store at
+// seg_write.  Pad items (valid == 0) carry no flags and move no data.
+//
+// Data movement.  A tiles (bm x bk fp32, addressed through slot_idx in BSR
+// storage order) stream through a 3-stage shared-memory ring filled with
+// cp.async, so the next two tiles are in flight while one is multiplied.
+// The B slice (bk x tile_n) of the next item is loaded into registers during
+// the current item's arithmetic and stored to a second shared buffer after
+// it.  N tiles are 4..32 wide: a 64-wide tile needs 16 accumulators and 16
+// staged B values a thread and spills at 255 registers.  B is read by
+// stride, so the sparse FFN's B = x.T (a transposed view, k-contiguous)
+// needs no copy; the loader lets neighbouring threads walk whichever axis
+// has unit stride.  The ragged N edge is masked here, so B is
+// never padded.
+//
+// Numerics.  Accumulation is fp32 on the CUDA cores (fmaf), never TF32 mma,
+// to keep fp32 parity with the reference.  B may be fp32 or bf16 (converted
+// to fp32 on load); C is written as fp32 or bf16.
+//
+// Bound.  At decode widths (N = 4) the kernel must read every stored A
+// tile once: 3200 tiles of 64x64 fp32 = 52.4 MB per FFN projection, which is
+// 15.7 us at 3.35 TB/s, so bytes bind.  At N = 64 the 1.68 GFLOP against
+// the 67 TFLOP/s fp32 CUDA-core peak (25 us) binds.  The cp.async ring keeps
+// ~3 A tiles of each block in flight for the first; the register-blocked
+// inner loop (float4 A reads, one B value reused across a thread's rows)
+// serves the second.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kStages = 3;       // depth of the A-tile ring
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <int BM, int BK, int TN>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (size_t(kStages) * BM * (BK + 4) + size_t(2) * BK * (TN + 1));
+}
+
+// One thread block per (N tile, owner run); 4*BM threads.  Thread t owns
+// column t % TN of the tile and rows t / TN + i * (4*BM / TN), i < TN / 4.
+template <int BM, int BK, int TN, typename TB, typename TO>
+__global__ void __launch_bounds__(4 * BM) segment_spmm_fwd_kernel(
+    const float* __restrict__ a, const TB* __restrict__ b, TO* c,
+    const int* __restrict__ slot_idx, const int* __restrict__ m_idx,
+    const int* __restrict__ k_idx, const int* __restrict__ seg_start,
+    const int* __restrict__ seg_write, const int* __restrict__ accum_prev,
+    const int* __restrict__ valid, const int* __restrict__ run_off, int n,
+    long long sbk, long long sbn) {
+  constexpr int THREADS = 4 * BM;
+  constexpr int AP = BK + 4;               // padded A row, 16-byte aligned
+  constexpr int BP = TN + 1;               // padded B row, conflict-free
+  constexpr int NG = THREADS / TN;         // row groups
+  constexpr int P = BM / NG;               // outputs per thread
+  constexpr int BEL = BK * TN / THREADS;   // B elements per thread per item
+  constexpr int ACH = BM * BK / 4 / THREADS;  // 16-byte A chunks per thread
+  static_assert(THREADS % TN == 0 && BM % NG == 0, "bad N tile");
+  static_assert((BK * TN) % THREADS == 0, "bad B split");
+  static_assert((BM * BK / 4) % THREADS == 0 && BK % 4 == 0, "bad A split");
+
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                        // [kStages][BM][AP]
+  float* bs = smem + kStages * BM * AP;    // [2][BK][BP]
+
+  const int t = threadIdx.x;
+  const int lo = run_off[blockIdx.y];
+  const int hi = run_off[blockIdx.y + 1];
+  const int n0 = blockIdx.x * TN;
+  const int col = t % TN;
+  const int grp = t / TN;
+  const bool col_ok = n0 + col < n;
+  const long long row0 = static_cast<long long>(m_idx[lo]) * BM;
+  const bool k_fast = sbk == 1;  // B is k-contiguous (the FFN's x.T view)
+
+  auto issue_a = [&](int it) {
+    if (it < hi && valid[it]) {
+      const float* src = a + static_cast<long long>(slot_idx[it]) * (BM * BK);
+      float* dst = as + ((it - lo) % kStages) * (BM * AP);
+#pragma unroll
+      for (int q = 0; q < ACH; ++q) {
+        const int idx = t + q * THREADS;
+        const int r = idx / (BK / 4);
+        const int c4 = (idx % (BK / 4)) * 4;
+        cp_async16(dst + r * AP + c4, src + r * BK + c4);
+      }
+    }
+    cp_async_commit();  // empty groups keep the wait count uniform
+  };
+
+  float breg[BEL];
+  auto b_coord = [&](int e, int& kk, int& nn) {
+    const int idx = t + e * THREADS;
+    if (k_fast) {
+      kk = idx % BK;
+      nn = idx / BK;
+    } else {
+      nn = idx % TN;
+      kk = idx / TN;
+    }
+  };
+  auto load_b = [&](int it) {
+    if (it < hi && valid[it]) {
+      const TB* src = b + static_cast<long long>(k_idx[it]) * BK * sbk;
+#pragma unroll
+      for (int e = 0; e < BEL; ++e) {
+        int kk, nn;
+        b_coord(e, kk, nn);
+        breg[e] = n0 + nn < n ? to_f32(src[kk * sbk + (n0 + nn) * sbn]) : 0.f;
+      }
+    }
+  };
+  auto store_b = [&](int it) {
+    if (it < hi && valid[it]) {
+      float* dst = bs + ((it - lo) & 1) * (BK * BP);
+#pragma unroll
+      for (int e = 0; e < BEL; ++e) {
+        int kk, nn;
+        b_coord(e, kk, nn);
+        dst[kk * BP + nn] = breg[e];
+      }
+    }
+  };
+
+  float acc[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) acc[i] = 0.f;
+
+  for (int s = 0; s < kStages - 1; ++s) issue_a(lo + s);
+  load_b(lo);
+  store_b(lo);
+
+  for (int it = lo; it < hi; ++it) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of item `it` landed
+    __syncthreads();               // everyone's copies and B stores visible;
+                                   // item it-1's buffers are free again
+    issue_a(it + kStages - 1);
+    load_b(it + 1);
+
+    if (seg_start[it]) {
+      if (accum_prev[it]) {
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+          acc[i] = col_ok ? to_f32(c[(row0 + grp + i * NG) * n + n0 + col])
+                          : 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < P; ++i) acc[i] = 0.f;
+      }
+    }
+    if (valid[it]) {
+      const float* at = as + ((it - lo) % kStages) * (BM * AP);
+      const float* bt = bs + ((it - lo) & 1) * (BK * BP) + col;
+#pragma unroll 4
+      for (int k = 0; k < BK; k += 4) {
+        const float b0 = bt[k * BP];
+        const float b1 = bt[(k + 1) * BP];
+        const float b2 = bt[(k + 2) * BP];
+        const float b3 = bt[(k + 3) * BP];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const float4 av =
+              *reinterpret_cast<const float4*>(at + (grp + i * NG) * AP + k);
+          acc[i] = fmaf(av.x, b0, acc[i]);
+          acc[i] = fmaf(av.y, b1, acc[i]);
+          acc[i] = fmaf(av.z, b2, acc[i]);
+          acc[i] = fmaf(av.w, b3, acc[i]);
+        }
+      }
+    }
+    if (seg_write[it] && col_ok) {
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        store_as(&c[(row0 + grp + i * NG) * n + n0 + col], acc[i]);
+    }
+    store_b(it + 1);
+  }
+  cp_async_wait<0>();
+}
+
+template <int BM, int TN, typename TB, typename TO>
+int launch(const void* a, const void* b, void* c, const int* slot_idx,
+           const int* m_idx, const int* k_idx, const int* seg_start,
+           const int* seg_write, const int* accum_prev, const int* valid,
+           const int* run_off, int n_runs, int n, long long sbk,
+           long long sbn, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<BM, BM, TN>();
+  auto kernel = segment_spmm_fwd_kernel<BM, BM, TN, TB, TO>;
+  // the opt-in to > 48 KB of dynamic shared memory is per device; set it
+  // once (a repeated set is harmless, so the unlocked flag is enough)
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return -1;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  const dim3 grid((n + TN - 1) / TN, n_runs);
+  kernel<<<grid, 4 * BM, smem, stream>>>(
+      static_cast<const float*>(a), static_cast<const TB*>(b),
+      static_cast<TO*>(c), slot_idx, m_idx, k_idx, seg_start, seg_write,
+      accum_prev, valid, run_off, n, sbk, sbn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, typename TB, typename TO>
+int by_tile(int tile_n, const void* a, const void* b, void* c,
+            const int* slot_idx, const int* m_idx, const int* k_idx,
+            const int* seg_start, const int* seg_write,
+            const int* accum_prev, const int* valid, const int* run_off,
+            int n_runs, int n, long long sbk, long long sbn,
+            cudaStream_t stream) {
+#define SEGMENT_SPMM_TILE(TN)                                               \
+  case TN:                                                                  \
+    return launch<BM, TN, TB, TO>(a, b, c, slot_idx, m_idx, k_idx,          \
+                                  seg_start, seg_write, accum_prev, valid,  \
+                                  run_off, n_runs, n, sbk, sbn, stream);
+  switch (tile_n) {
+    SEGMENT_SPMM_TILE(4)
+    SEGMENT_SPMM_TILE(8)
+    SEGMENT_SPMM_TILE(16)
+    SEGMENT_SPMM_TILE(32)
+  }
+#undef SEGMENT_SPMM_TILE
+  return -1;
+}
+
+template <int BM>
+int by_dtype(int b_bf16, int c_bf16, int tile_n, const void* a,
+             const void* b, void* c, const int* slot_idx, const int* m_idx,
+             const int* k_idx, const int* seg_start, const int* seg_write,
+             const int* accum_prev, const int* valid, const int* run_off,
+             int n_runs, int n, long long sbk, long long sbn,
+             cudaStream_t stream) {
+#define SEGMENT_SPMM_ARGS                                                    \
+  tile_n, a, b, c, slot_idx, m_idx, k_idx, seg_start, seg_write, accum_prev, \
+      valid, run_off, n_runs, n, sbk, sbn, stream
+  if (!b_bf16 && !c_bf16) return by_tile<BM, float, float>(SEGMENT_SPMM_ARGS);
+  if (!b_bf16 && c_bf16)
+    return by_tile<BM, float, __nv_bfloat16>(SEGMENT_SPMM_ARGS);
+  if (b_bf16 && !c_bf16)
+    return by_tile<BM, __nv_bfloat16, float>(SEGMENT_SPMM_ARGS);
+  return by_tile<BM, __nv_bfloat16, __nv_bfloat16>(SEGMENT_SPMM_ARGS);
+#undef SEGMENT_SPMM_ARGS
+}
+
+}  // namespace
+
+extern "C" {
+
+// C[(grid_m*bm), n] (row-major, fp32 or bf16) = BSR(A) @ B under the plan's
+// lane-major schedule.  A: (n_blocks, bm, bm) fp32, contiguous, 16-byte
+// aligned.  B: (K, n) fp32 or bf16 read at B[k * sbk + j * sbn].  run_off:
+// n_runs + 1 offsets into the schedule arrays.  Returns 0, a cudaError_t
+// value, or -1 for an unsupported block size, N tile or device index.
+int segment_spmm_fwd(const void* a, const void* b, void* c,
+                     const int* slot_idx, const int* m_idx, const int* k_idx,
+                     const int* seg_start, const int* seg_write,
+                     const int* accum_prev, const int* valid,
+                     const int* run_off, int n_runs, int bm, int n,
+                     long long sbk, long long sbn, int tile_n, int b_bf16,
+                     int c_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 64)
+    return by_dtype<64>(b_bf16, c_bf16, tile_n, a, b, c, slot_idx, m_idx,
+                        k_idx, seg_start, seg_write, accum_prev, valid,
+                        run_off, n_runs, n, sbk, sbn, s);
+  if (bm == 32)
+    return by_dtype<32>(b_bf16, c_bf16, tile_n, a, b, c, slot_idx, m_idx,
+                        k_idx, seg_start, seg_write, accum_prev, valid,
+                        run_off, n_runs, n, sbk, sbn, s);
+  return -1;
+}
+
+const char* segment_spmm_error_string(int code) {
+  if (code == -1) return "unsupported block size, N tile or device index";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
