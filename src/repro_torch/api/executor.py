@@ -49,15 +49,26 @@ def _resolve_bn(plan: SegmentPlan, bn: Optional[int]) -> int:
 def _run_spmm(plan: SegmentPlan, x: torch.Tensor, *, blocks: torch.Tensor,
               backend: str, bn: int, out_dtype: torch.dtype) -> torch.Tensor:
     """``BSR(blocks) @ x`` under ``plan``'s schedule; ``bn`` caps the
-    kernel's N tile (the kernel masks a ragged N edge)."""
+    kernel's N tile (the kernel masks a ragged N edge).
+
+    ``blocks`` are always the stored tiles (BSR storage order); a
+    ``transpose_lhs`` plan (the backward schedule) contracts them along
+    their row axis instead of copying a transposed array."""
     gm, gk = plan.grid
-    bm, bk = plan.block_shape
-    if x.ndim != 2 or x.shape[0] != gk * bk:
-        raise ValueError(f"rhs must be (K={gk * bk}, N) dense, got "
+    bm, bk = blocks.shape[1], blocks.shape[2]
+    contract_blk = bm if plan.transpose_lhs else bk
+    if x.ndim != 2 or x.shape[0] != gk * contract_blk:
+        raise ValueError(f"rhs must be (K={gk * contract_blk}, N) dense, got "
                          f"{tuple(x.shape)}")
     if backend == "reference":
-        return ref.spmm_ref(blocks, plan.a_brow, plan.a_bcol, gm, gk,
-                            x).to(out_dtype)
+        if plan.transpose_lhs:
+            # a_brow/a_bcol describe the forward storage, whose grid is the
+            # plan's grid reversed
+            out = ref.spmm_ref(blocks, plan.a_brow, plan.a_bcol, gk, gm, x,
+                               transpose_lhs=True)
+        else:
+            out = ref.spmm_ref(blocks, plan.a_brow, plan.a_bcol, gm, gk, x)
+        return out.to(out_dtype)
     out = segment_spmm(
         blocks, plan.slot_idx, plan.m_idx, plan.k_idx,
         plan.seg_start, plan.seg_write, plan.accum_prev, plan.valid, x,
@@ -66,7 +77,8 @@ def _run_spmm(plan: SegmentPlan, x: torch.Tensor, *, blocks: torch.Tensor,
         prefetch=plan.prefetch, runs=plan.run_offsets)
     if plan.n_runs < gm:
         # block rows no item visits are never written by the kernel
-        live = torch.repeat_interleave(plan.row_mask > 0, bm)[:, None]
+        live = torch.repeat_interleave(plan.row_mask > 0,
+                                       plan.block_shape[0])[:, None]
         out = torch.where(live, out, torch.zeros((), dtype=out.dtype,
                                                  device=out.device))
     return out
@@ -102,21 +114,48 @@ def execute_plan(plan: SegmentPlan, rhs: torch.Tensor, *,
                      out_dtype=_out_dtype(plan, out_dtype))
 
 
+def _block_sddmm(plan: SegmentPlan, dy: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """``dW[s] = dy[brow_s·bm:(brow_s+1)·bm] @ x[bcol_s·bk:(bcol_s+1)·bk]ᵀ``
+    for every stored block ``s``, in fp32: the weight gradient sampled at
+    the pattern, in the plan's storage order."""
+    bm, bk = plan.block_shape
+    gm, gk = plan.grid
+    dyb = dy.float().reshape(gm, bm, -1)[plan.a_brow.long()]
+    xb = x.float().reshape(gk, bk, -1)[plan.a_bcol.long()]
+    return torch.bmm(dyb, xb.transpose(1, 2))
+
+
 class _Apply(torch.autograd.Function):
     """``y = W @ x`` with ``W``'s blocks as a differentiable input."""
 
     @staticmethod
     def forward(ctx, x, blocks, plan, backend, bn):
+        ctx.save_for_backward(x, blocks)
+        ctx.plan, ctx.backend, ctx.bn = plan, backend, bn
         out = _run_spmm(plan, x, blocks=blocks, backend=backend, bn=bn,
                         out_dtype=torch.float32)
         return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "apply_plan backward (dx by the transpose_lhs SpMM, dW by the "
-            "block SDDMM) is not ported yet; see ROADMAP 'transpose_lhs and "
-            "the training slice'")
+        x, blocks = ctx.saved_tensors
+        plan = ctx.plan
+        g = plan.grad_plan
+        if g is None:
+            raise ValueError("plan was built without with_grad=True; no "
+                             "transposed schedule is available for the "
+                             "backward pass — rebuild it with "
+                             "plan_matmul(..., with_grad=True)")
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the kernel reads dy (a bf16 transposed view in the sparse FFN)
+            # by stride and converts on load, as dy.astype(f32) does in repro
+            dx = _run_spmm(g, dy, blocks=blocks, backend=ctx.backend,
+                           bn=ctx.bn, out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _block_sddmm(plan, dy, x).to(blocks.dtype)
+        return dx, dw, None, None, None
 
 
 def apply_plan(plan: SegmentPlan, x: torch.Tensor, *,
@@ -126,7 +165,12 @@ def apply_plan(plan: SegmentPlan, x: torch.Tensor, *,
     """Differentiable ``y = W @ x`` for an spmm plan (``x``: ``(K, N)``);
     the output has ``x``'s dtype, accumulation is fp32.  ``blocks``
     (default ``plan.lhs_blocks``) are W's values in the plan's storage
-    order, so layers that share a plan pass their own without copying it."""
+    order, so layers that share a plan pass their own without copying it.
+
+    Gradients flow to ``x`` (in ``x``'s dtype) and to ``blocks`` (in their
+    dtype), never to the plan.  The backward pass needs the plan's
+    ``grad_plan`` (``plan_matmul(..., with_grad=True)``) and raises
+    ``ValueError`` without it; it runs on the backend resolved here."""
     if plan.kind != SPMM:
         raise ValueError("apply_plan supports spmm plans")
     if blocks is None:

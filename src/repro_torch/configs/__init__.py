@@ -2,7 +2,7 @@
 import dataclasses
 
 from . import granite_3_8b
-from .base import ModelConfig
+from .base import ModelConfig, ShapeConfig
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in (granite_3_8b,)}
 
@@ -33,4 +33,5 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         remat=False)
 
 
-__all__ = ["REGISTRY", "ModelConfig", "get_config", "reduced_config"]
+__all__ = ["REGISTRY", "ModelConfig", "ShapeConfig", "get_config",
+           "reduced_config"]

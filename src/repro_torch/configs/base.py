@@ -1,5 +1,5 @@
-"""Model configuration dataclass (a copy of ``repro.configs.base``, trimmed
-to what the port's dense decoder family reads)."""
+"""Model and shape configuration dataclasses (a copy of
+``repro.configs.base``, trimmed to what the port reads)."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,3 +65,35 @@ class ModelConfig:
         if self.n_experts:
             return "moe"
         return "attn"
+
+    def param_count(self) -> int:
+        """Approximate total parameters (as ``repro`` counts them: dense
+        FFN weights, no biases or norms)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        hd = self.hd
+        per_layer = 0
+        n_layers = self.n_layers if not self.enc_layers else (
+            self.enc_layers + self.dec_layers)
+        for i in range(n_layers):
+            kind = self.layer_kind(i)
+            attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv * hd) \
+                + (self.n_heads * hd) * d
+            if kind == "moe":
+                per_layer += attn + self.n_experts * 3 * d * ff + d * self.n_experts
+            elif kind == "rec":
+                per_layer += 4 * d * d + 3 * d * ff  # rglru block + mlp
+            elif kind == "rwkv":
+                per_layer += 5 * d * d + 2 * d * ff
+            else:
+                per_layer += attn + 3 * d * ff
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return per_layer + emb
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                    # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    accum_steps: int = 1         # gradient-accumulation microbatches (train)

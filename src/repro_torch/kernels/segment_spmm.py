@@ -1,7 +1,8 @@
-"""Segment-scheduled block-sparse × dense matmul, forward (``C = BSR(A) @ B``).
+"""Segment-scheduled block-sparse × dense matmul: ``C = BSR(A) @ B``, or
+``C = BSR(A)ᵀ @ B`` in the ``transpose_lhs`` mode (the backward pass).
 
-Replaces ``src/repro/kernels/segment_spmm.py::segment_spmm`` (forward mode,
-fp32 blocks) with a CUDA kernel written for Hopper,
+Replaces ``src/repro/kernels/segment_spmm.py::segment_spmm`` (forward and
+``transpose_lhs`` modes, fp32 blocks) with a CUDA kernel written for Hopper,
 ``src/repro_torch/csrc/segment_spmm.cu``; the design and its bound are noted
 at the top of that source.  :func:`segment_spmm` launches the kernel for
 CUDA tensors and runs :func:`segment_spmm_plain` for CPU tensors.  It takes
@@ -9,15 +10,21 @@ the plan's lane-major schedule arrays as they are, plus the owner-run
 offsets (:func:`run_offsets`) that give the kernel one thread block per
 output block row.
 
-B is read by stride: the sparse FFN passes ``x.T``, a transposed view, and
-the kernel reads it without a copy.  Layouts without a unit stride raise.
+In the ``transpose_lhs`` mode the schedule is a backward plan's (the
+planner's ``grad_plan``): its ``slot_idx`` addresses the forward weight
+storage and each stored tile is contracted along its row axis, so ``dx =
+Wᵀ @ dy`` reads the forward blocks with no transposed copy.
 
-Not ported yet (ROADMAP): ``transpose_lhs`` (the backward pass), quantized
-payloads (``a_scales``) and the TPU's ``prefetch="cross_pass"`` DMA timing.
-They raise ``NotImplementedError``.  The TPU kernel's fetch flags and ring
-slots (``a_fetch``/``b_fetch``/``a_slot``/``b_slot``) and its ``pipeline``
-switch describe TPU DMA timing and change no result; this kernel does not
-read them.
+B is read by stride: the sparse FFN passes ``x.T`` (and the backward pass
+``dy``), transposed views that the kernel reads without a copy.  Layouts
+without a unit stride raise.
+
+Not ported yet (ROADMAP): quantized payloads (``a_scales``) and the TPU's
+``prefetch="cross_pass"`` DMA timing.  They raise ``NotImplementedError``.
+The TPU kernel's fetch flags and ring slots
+(``a_fetch``/``b_fetch``/``a_slot``/``b_slot``) and its ``pipeline`` switch
+describe TPU DMA timing and change no result; this kernel does not read
+them.
 """
 from __future__ import annotations
 
@@ -40,8 +47,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.segment_spmm_fwd.argtypes = [p] * 11 + [i, i, i, ll, ll, i, i, i, p]
-        lib.segment_spmm_fwd.restype = i
+        lib.segment_spmm.argtypes = [p] * 11 + [i, i, i, ll, ll, i, i, i, i,
+                                                p]
+        lib.segment_spmm.restype = i
         lib.segment_spmm_error_string.argtypes = [i]
         lib.segment_spmm_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -101,22 +109,27 @@ def _tile_n(n: int, bn: int) -> int:
 
 
 def segment_spmm_plain(a_blocks, slot_idx, m_idx, k_idx, valid, b_dense, *,
-                       grid_m: int, out_dtype=torch.float32) -> torch.Tensor:
-    """The kernel's plain torch version: gather each item's A tile and B
-    row-block, one batched fp32 matmul, zero the pad items, ``index_add_``
-    into C by block row.  For a planned schedule (every owner's segments
-    summed once into its tile) this equals the kernel's result up to fp32
-    summation order; rows no item visits come out zero."""
-    _, bm, bk = a_blocks.shape
-    k_dim, n = b_dense.shape
+                       grid_m: int, transpose_lhs: bool = False,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """The kernel's plain torch version: gather each item's A tile
+    (transposed in the ``transpose_lhs`` mode) and B row-block, one batched
+    fp32 matmul, zero the pad items, ``index_add_`` into C by block row.
+    For a planned schedule (every owner's segments summed once into its
+    tile) this equals the kernel's result up to fp32 summation order; rows
+    no item visits come out zero."""
     a = a_blocks[slot_idx.long()].float()
-    b = b_dense.float().reshape(k_dim // bk, bk, n)[k_idx.long()]
+    if transpose_lhs:
+        a = a.transpose(1, 2)
+    _, out_blk, contract_blk = a.shape
+    k_dim, n = b_dense.shape
+    b = b_dense.float().reshape(k_dim // contract_blk, contract_blk,
+                                n)[k_idx.long()]
     contrib = torch.bmm(a, b)
     contrib = torch.where(valid.bool()[:, None, None], contrib, 0.0)
-    out = torch.zeros((grid_m, bm, n), dtype=torch.float32,
+    out = torch.zeros((grid_m, out_blk, n), dtype=torch.float32,
                       device=b_dense.device)
     out.index_add_(0, m_idx.long(), contrib)
-    return out.reshape(grid_m * bm, n).to(out_dtype)
+    return out.reshape(grid_m * out_blk, n).to(out_dtype)
 
 
 def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
@@ -125,29 +138,31 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
                  out_dtype=torch.float32, a_scales=None,
                  prefetch: Optional[str] = None,
                  runs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``C = BSR(A) @ B`` under a lane-major Segment schedule.
+    """``C = BSR(A) @ B`` (or ``BSR(A)ᵀ @ B`` with ``transpose_lhs``) under a
+    lane-major Segment schedule.
 
     Args:
-      a_blocks: ``(n_blocks, bm, bk)`` fp32 A tiles in BSR storage order.
+      a_blocks: ``(n_blocks, bm, bk)`` fp32 A tiles in BSR storage order
+        (the forward storage in both modes).
       slot_idx/m_idx/k_idx: ``(n_items,)`` int32 per-item block slot and
         block coordinates, lane-major.
       seg_start/seg_write/accum_prev/valid: ``(n_items,)`` int32 flags.
-      b_dense: ``(K, N)`` fp32 or bf16, any layout with a unit stride.
+      b_dense: ``(K, N)`` fp32 or bf16, any layout with a unit stride; K
+        is a multiple of the contraction block (``bk``, or ``bm`` with
+        ``transpose_lhs``).
       grid_m: number of output block rows.
       n_lanes/unroll: the schedule's lane count and unroll (validated).
       bn: widest N tile to use (the kernel picks 4..32).
+      transpose_lhs: contract each stored tile along its row axis.
       out_dtype: fp32 or bf16; accumulation is always fp32.
       runs: the plan's owner-run offsets (:func:`run_offsets`, derived
         once per plan by the planner) on the device; required for CUDA
         tensors, unused by the plain version.
 
-    Returns the ``(grid_m*bm, N)`` product.  Block rows that no item visits
-    are left unwritten by the kernel (the executor zeroes them).
+    Returns the ``(grid_m*bm, N)`` product (``(grid_m*bk, N)`` with
+    ``transpose_lhs``).  Block rows that no item visits are left unwritten
+    by the kernel (the executor zeroes them).
     """
-    if transpose_lhs:
-        raise NotImplementedError(
-            "segment_spmm: transpose_lhs (the backward pass) is not ported "
-            "yet; see ROADMAP 'transpose_lhs and the training slice'")
     if a_scales is not None:
         raise NotImplementedError(
             "segment_spmm: quantized payloads are not ported yet; see "
@@ -158,30 +173,33 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
         raise NotImplementedError(
             "segment_spmm: prefetch='cross_pass' is a TPU DMA-timing mode "
             "with identical results; plan without it")
-    n_blocks, bm, bk = a_blocks.shape
+    _, bm, bk = a_blocks.shape
+    contract_blk = bm if transpose_lhs else bk
     k_dim, n = b_dense.shape
-    if k_dim % bk:
+    if k_dim % contract_blk:
         raise ValueError(f"rhs K={k_dim} is not a multiple of the "
-                         f"contraction block {bk}")
+                         f"contraction block {contract_blk}")
     validate_schedule_args(
         seg_start.shape[0], n_lanes, unroll,
         {"slot_idx": slot_idx, "m_idx": m_idx, "k_idx": k_idx,
          "seg_write": seg_write, "accum_prev": accum_prev, "valid": valid})
     if b_dense.device.type == "cpu":
         return segment_spmm_plain(a_blocks, slot_idx, m_idx, k_idx, valid,
-                                  b_dense, grid_m=grid_m, out_dtype=out_dtype)
+                                  b_dense, grid_m=grid_m,
+                                  transpose_lhs=transpose_lhs,
+                                  out_dtype=out_dtype)
     if b_dense.device.type != "cuda":
         raise ValueError(f"segment_spmm runs on cuda or cpu tensors, got "
                          f"{b_dense.device}")
     return _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
-                   accum_prev, valid, b_dense, grid_m, n_lanes, bn, out_dtype,
-                   runs)
+                   accum_prev, valid, b_dense, grid_m, bn, transpose_lhs,
+                   out_dtype, runs)
 
 
 def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
-            accum_prev, valid, b_dense, grid_m, n_lanes, bn, out_dtype,
+            accum_prev, valid, b_dense, grid_m, bn, transpose_lhs, out_dtype,
             runs) -> torch.Tensor:
-    n_blocks, bm, bk = a_blocks.shape
+    _, bm, bk = a_blocks.shape
     k_dim, n = b_dense.shape
     device = b_dense.device
     if bm != bk or bm not in _BLOCKS:
@@ -216,6 +234,7 @@ def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
     if runs is None or runs.device != device or runs.dtype != torch.int32:
         raise ValueError("segment_spmm: CUDA tensors need the plan's owner-"
                          f"run offsets (plan.run_offsets) as int32 on {device}")
+    # square blocks: the output tile has bm rows in either mode
     out = torch.empty((grid_m * bm, n), dtype=out_dtype, device=device)
     n_runs = runs.shape[0] - 1
     if n_runs == 0 or n == 0:
@@ -224,19 +243,24 @@ def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
         raise ValueError(f"segment_spmm: {n_runs} owner runs exceed the "
                          f"65535 thread-block rows of one launch")
     lib = _lib()
-    rc = lib.segment_spmm_fwd(
+    rc = lib.segment_spmm(
         a_blocks.data_ptr(), b_dense.data_ptr(), out.data_ptr(),
         *(t.data_ptr() for t in sched), runs.data_ptr(), n_runs, bm, n,
-        sbk, sbn, _tile_n(n, bn), int(b_dense.dtype == torch.bfloat16),
+        sbk, sbn, _tile_n(n, bn), int(transpose_lhs),
+        int(b_dense.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_spmm launch failed: "
                            f"{lib.segment_spmm_error_string(rc).decode()}")
     segment_spmm.launches += 1
+    if transpose_lhs:
+        segment_spmm.transposed_launches += 1
     return out
 
 
-#: Kernel launches since the count was last set to 0 (only
-#: :func:`segment_spmm` on CUDA tensors adds to it).
+#: Kernel launches since the count was last set to 0, in both modes (only
+#: :func:`segment_spmm` on CUDA tensors adds to it) ...
 segment_spmm.launches = 0
+#: ... and, of those, the launches in the ``transpose_lhs`` mode.
+segment_spmm.transposed_launches = 0

@@ -1,0 +1,69 @@
+"""End-to-end training from the command line (the port).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
+        --reduced --steps 200 --batch 8 --seq 256 --ckpt-dir /tmp/run1
+
+The flags are ``repro.launch.train``'s, plus ``--device``: the run is on
+the card unless given ``--device cpu``.  ``--reduced`` trains the
+smoke-scale config; ``--sparse-ffn`` switches the FFN to the Segment
+block-sparse kernel path (the paper's technique as a training feature).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+from repro_torch.configs import REGISTRY, ShapeConfig, get_config, reduced_config
+from repro_torch.models import build_model
+from repro_torch.runtime import Trainer, TrainerConfig
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-8b", choices=list(REGISTRY))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--sparse-ffn", action="store_true")
+    ap.add_argument("--d-model", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="default: the card; 'cpu' runs on the CPU")
+    args = ap.parse_args()
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    over = {}
+    if args.sparse_ffn:
+        over.update(ffn_block_sparse=True, ffn_block=32, ffn_density=0.5)
+    if args.d_model:
+        over["d_model"] = args.d_model
+    if args.layers:
+        over["n_layers"] = args.layers
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
+
+    shape = ShapeConfig("cli", "train", seq_len=args.seq,
+                        global_batch=args.batch, accum_steps=args.accum)
+    tcfg = TrainerConfig(steps=args.steps, peak_lr=args.lr,
+                         accum_steps=args.accum, ckpt_dir=args.ckpt_dir,
+                         ckpt_every=args.ckpt_every,
+                         log_every=max(1, args.steps // 20))
+    trainer = Trainer(build_model(cfg, device=args.device), cfg, shape, tcfg)
+    out = trainer.run()
+    for h in out["history"]:
+        print(f"step {h['step']:6d}  loss {h['loss']:.4f}  "
+              f"gnorm {h['grad_norm']:.3f}")
+    print(json.dumps({"final_loss": out["final_loss"],
+                      "params": cfg.param_count()}))
+
+
+if __name__ == "__main__":
+    main()

@@ -257,3 +257,17 @@ class Embedding(nn.Module):
 def lm_head_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied or untied head: x (B,T,D) @ table^T → (B,T,V)."""
     return x @ table.to(x.dtype).T
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in fp32 (``mask``: optional (B, T) weights; the mean
+    is then over their sum, at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = lse - true_logit
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / mask.sum().clamp_min(1)
+    return nll.mean()

@@ -10,6 +10,12 @@ param dict (``embed.table``, ``layers.<i>.attn.wq.w``,
 
 The KV cache is a dict of two ``(n_layers, B, T_max, n_kv, hd)`` tensors;
 :meth:`Transformer.decode_step` writes into it in place.
+
+Training: :meth:`Transformer.loss_fn` is ``repro``'s.  With ``cfg.remat``
+each block of a forward pass that records gradients is rematerialized
+(``torch.utils.checkpoint``, as ``repro`` wraps its layer scan in
+``jax.checkpoint``): only block inputs are kept, and the backward pass runs
+each block's forward again.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import BSR
@@ -127,10 +134,27 @@ class Transformer(nn.Module):
         x = self.embed(tokens).to(act_dtype(self.cfg))
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
-            x = blk(x, positions=positions)
+            if remat:
+                # the blocks draw no random numbers: no RNG state to keep
+                x = checkpoint(blk, x, positions=positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = blk(x, positions=positions)
         x = self.final_norm(x, self.cfg.norm_eps)
         return layers.lm_head_apply(self._head(), x)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor]):
+        """batch: dict(tokens (B, T), targets (B, T)[, mask (B, T)]).
+
+        Returns ``(loss + 0.01·aux, {"loss", "aux"})`` as ``repro`` does;
+        the dense family has no auxiliary loss, so ``aux`` is 0."""
+        logits = self(batch["tokens"])
+        loss = layers.cross_entropy(logits, batch["targets"],
+                                    batch.get("mask"))
+        aux = torch.zeros((), device=loss.device)
+        return loss + 0.01 * aux, {"loss": loss.detach(), "aux": aux}
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

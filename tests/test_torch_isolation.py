@@ -36,7 +36,8 @@ def test_no_jax_or_repro_import(path):
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.models, "
             "repro_torch.runtime, repro_torch.convert, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -63,6 +64,12 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
     a = BSR.random(np.random.default_rng(0), (64, 64), (32, 32), 0.5)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.plan_matmul(a, 4)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "1"], env=env, capture_output=True, text=True,
+        timeout=120)
+    assert run.returncode != 0 and "device='cpu'" in run.stderr
 
 
 def test_engine_rejects_quantize():
