@@ -4,8 +4,21 @@
     python3 chip_smoke.py
 
 1. Card: name and power limit, versions, and the ``nvcc`` build of every
-   CUDA source of ``src/repro_torch/csrc`` (for ``sm_90a``).
-2. Kernel vs plain version: the Segment SpMM kernel on the shapes the main
+   CUDA source of ``src/repro_torch/csrc`` (for ``sm_90a``), all at once.
+2. SpGEMM (before the model exists, so its transients never meet the
+   model's): ``plan_matmul(A, B)`` → ``plan()`` on granite-3-8b's FFN
+   shapes (W_down @ W_up and W_up @ W_down, 64×64 blocks at 25 % density,
+   from ``SEED``), in fp32 and, on W_up @ W_down, in the four quantized
+   modes (int8/fp8, per block or rowwise); exactly one Segment SpGEMM
+   launch per ``plan()``.  Each result is held against the kernel's plain
+   version and the ``"reference"`` backend (≤ 1e-5), and a quantized one
+   against the fp32 result (int8 < 5e-2, fp8 < 1e-1); device times of the
+   kernel and the plain version, the bound, and the library's dense fp32
+   product (cuBLAS, TF32 off) beside one ``torch.sparse.mm`` of CSR
+   tensors (cuSPARSE).  Then 50 small plans at the kernel's edges
+   (schedules, storage modes, 32 and 64 tiles), bf16 output, an empty
+   symbolic C (no launch), a one-item plan, and a tile that must raise.
+3. Kernel vs plain version: the Segment SpMM kernel on the shapes the main
    paths give it (granite-3-8b's up/gate and down FFN patterns at N = 4,
    16, 64, B in bf16 and fp32; the training width N = 2048), plus a
    ``fold_len=8`` plan, an ``n_lanes=4, unroll=2`` plan and a pattern with
@@ -18,14 +31,14 @@
    (of W, or of Wᵀ built once), a yardstick the port never calls.  Then a
    sweep of small plans at the kernel's edges, in both modes (block sizes,
    folds, lanes, ragged N, layouts, output dtype, a mode that must raise).
-3. Serve: granite-3-8b at full published width (all 40 layers, random
+4. Serve: granite-3-8b at full published width (all 40 layers, random
    weights from ``SEED``) with the block-sparse FFN, through ``Engine``:
    6 requests, 4 slots.  The kernel's launch count over that run must be
    3 projections × 40 layers × model calls.  One decode step's logits on
    the ``"cuda"`` backend are held against the ``"reference"`` backend,
    and one decode step is profiled (device busy share, top operations).
    Then 32 decode steps with all 4 slots live are timed one by one.
-4. Train: the same model (40 layers, full width, remat on) on batches of
+5. Train: the same model (40 layers, full width, remat on) on batches of
    8 × 256 tokens with fp32 AdamW.  One step's loss and gradients on the
    ``"cuda"`` backend are held against the ``"reference"`` backend, then
    ``Trainer.run`` takes ``TRAIN_STEPS`` steps (loss, grad norm, ms/step,
@@ -66,6 +79,22 @@ GRAD_RTOL = 5e-2
 GNORM_RTOL = 2e-2
 TRAIN_STEPS = 4
 TRAIN_BATCH, TRAIN_SEQ = 8, 256       # launch/train.py's defaults
+# int8 and fp8 tensor-core peaks (same data sheet): the bound of a kernel
+# whose inputs are int8/fp8 payloads
+QUANT_OPS = 1979e12
+# SpGEMM on granite-3-8b's FFN projections (ffn_block=64, ffn_density=0.25):
+# C = A @ B with A drawn from seed SEED and B from SEED + 1.  down_up has
+# 4,096 long C segments, up_down 39,322 short ones; up_down plans with
+# gustavson because the segment policy's run chaining is quadratic in the
+# number of C blocks on the host.
+SPGEMM_CASES = {
+    "spgemm_down_up": ((4096, 12800), (12800, 4096), "segment"),
+    "spgemm_up_down": ((12800, 4096), (4096, 12800), "gustavson"),
+}
+SPGEMM_QUANT_CASE = "spgemm_up_down"
+# quantized SpGEMM vs the fp32 SpGEMM of the same operands, max error over
+# the fp32 result's max magnitude: the gates of benchmarks/kernel_bench.py
+QUANT_GATE = {"int8": 5e-2, "fp8": 1e-1}
 
 
 def check(cond, msg):
@@ -326,6 +355,262 @@ def phase_edges(dev):
           f"(grad plans): {count[True]}, all within {KERNEL_RTOL} of the "
           f"plain version and the oracle (worst {worst[False]:.2e} / "
           f"{worst[True]:.2e}); bf16 folded reload ok; cross_pass raises "
+          f"NotImplementedError")
+
+
+def _rel(got, want):
+    """max |got - want| over max |want| (both as fp32), and the max
+    absolute difference."""
+    diff = float((got.float() - want.float()).abs().max())
+    return diff / max(float(want.float().abs().max()), 1e-30), diff
+
+
+def _dense_of(plan, side):
+    """Dense fp32 (dequantized) operand of an spgemm plan, for the library
+    yardstick."""
+    from repro_torch.kernels import ref
+    if side == "a":
+        blocks, scales, rows, cols = (plan.lhs_blocks, plan.lhs_scales,
+                                      plan.a_brow, plan.a_bcol)
+        grid = plan.grid
+    else:
+        blocks, scales, rows, cols = (plan.rhs_blocks, plan.rhs_scales,
+                                      plan.b_brow, plan.b_bcol)
+        grid = plan.rhs_grid
+    return ref.bsr_to_dense(ref.dequant_blocks_ref(blocks, scales), rows,
+                            cols, *grid)
+
+
+def spgemm_case(label, plan, out, fp32_out=None, library_ms=None):
+    """One main-path SpGEMM output ``out`` (from ``plan()``) against the
+    plain version and the ``"reference"`` backend, and (for a quantized
+    plan) against the fp32 result; times of the kernel, the plain version
+    and the library's dense product.  Returns a record."""
+    from repro_torch.kernels.segment_spgemm import (segment_spgemm,
+                                                    segment_spgemm_plain)
+
+    def kern():
+        return segment_spgemm(
+            plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx,
+            plan.c_idx, plan.seg_start, plan.seg_write, plan.accum_prev,
+            plan.valid, n_c_blocks=plan.n_out_blocks, n_lanes=plan.n_lanes,
+            unroll=plan.unroll, a_scales=plan.lhs_scales,
+            b_scales=plan.rhs_scales, runs=plan.run_offsets)
+
+    def plain():
+        return segment_spgemm_plain(
+            plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx,
+            plan.c_idx, plan.valid, n_c_blocks=plan.n_out_blocks,
+            a_scales=plan.lhs_scales, b_scales=plan.rhs_scales)
+
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    rel_plain, abs_plain = _rel(out, plain())
+    rel_ref, _ = _rel(out, plan(backend="reference"))
+    check(rel_plain <= KERNEL_RTOL and rel_ref <= KERNEL_RTOL,
+          f"{label}: kernel vs plain {rel_plain:.3g}, vs reference "
+          f"{rel_ref:.3g} > {KERNEL_RTOL}")
+    rec = dict(case=label, mode=plan.block_dtype, rel_err=rel_plain,
+               max_abs_err=abs_plain, rel_err_ref=rel_ref,
+               items=int(plan.valid.sum()), c_blocks=plan.n_out_blocks)
+    if fp32_out is not None:
+        gate = QUANT_GATE[plan.block_dtype.split(".")[0]]
+        rec["quant_err"], _ = _rel(out, fp32_out)
+        check(rec["quant_err"] < gate, f"{label}: vs fp32 "
+                                       f"{rec['quant_err']:.3g} >= {gate}")
+    # bound: each stored tile (payload and scales) read once, C written
+    # once; 2 * bm * bk * bn operations per valid triple, at the fp32
+    # CUDA-core peak for fp32 tiles and the tensor-core peak of the
+    # payload type for int8/fp8 tiles
+    bm, bk = plan.block_shape
+    bn = plan.rhs_blocks.shape[2]
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        plan.lhs_blocks, plan.rhs_blocks, plan.lhs_scales, plan.rhs_scales)
+        if t is not None) + out.numel() * out.element_size()
+    ops = 2 * rec["items"] * bm * bk * bn
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (QUANT_OPS if plan.quantized else FP32_FLOPS)
+    rec.update(ms=device_ms(kern, 4), plain_ms=device_ms(plain, 2),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               fp32_bound_ms=ops / FP32_FLOPS * 1e3)
+    if library_ms is None:
+        # the library's dense fp32 product of the (dequantized) operands
+        a, b = _dense_of(plan, "a"), _dense_of(plan, "b")
+        library_ms = device_ms(lambda: a @ b, 2)
+        del a, b
+    rec["library_ms"] = library_ms
+    print(f"[spgemm] {label:<15} {plan.block_dtype:<12} items={rec['items']} "
+          f"c_blocks={rec['c_blocks']} rel_err plain={rel_plain:.2e} "
+          f"ref={rel_ref:.2e}"
+          + (f" vs_fp32={rec['quant_err']:.2e}" if fp32_out is not None
+             else "")
+          + f" kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+          f"library_ms={library_ms:.4f} (dense fp32 cuBLAS)")
+    return rec
+
+
+def cusparse_ms(plan):
+    """One ``torch.sparse.mm`` of the two operands as CSR tensors on the
+    card (cuSPARSE SpGEMM), timed between CUDA events, first call; or why
+    it could not run."""
+    a = _dense_of(plan, "a").to_sparse_csr()
+    b = _dense_of(plan, "b").to_sparse_csr()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        c = torch.sparse.mm(a, b)
+        end.record()
+        end.synchronize()
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    nnz = c._nnz()
+    del a, b, c
+    return start.elapsed_time(end), f"nnz(C) {nnz}"
+
+
+def phase_spgemm(dev):
+    """SpGEMM through ``plan_matmul(A, B)`` → ``plan()`` at granite-3-8b's
+    FFN shapes (both cases in fp32, the four quantized modes on up_down),
+    each held against the plain version and the reference backend, then
+    the edge sweep.  Returns the records and the main path's launch
+    counts (all, quantized)."""
+    from repro_torch import api
+    from repro_torch.core.formats import BSR, QUANT_MODES
+    from repro_torch.kernels.segment_spgemm import segment_spgemm
+
+    runs = []
+    for case, (a_shape, b_shape, policy) in SPGEMM_CASES.items():
+        a = BSR.random(np.random.default_rng(SEED), a_shape, (64, 64), 0.25)
+        b = BSR.random(np.random.default_rng(SEED + 1), b_shape, (64, 64),
+                       0.25)
+        modes = (None,) + (QUANT_MODES if case == SPGEMM_QUANT_CASE else ())
+        for q in modes:
+            t0 = time.perf_counter()
+            plan = api.plan_matmul(a, b, policy=policy, quantize=q,
+                                   device=dev)
+            print(f"[spgemm] plan {case} {plan.block_dtype} ({policy}): "
+                  f"{plan.n_items} items, {plan.n_out_blocks} C blocks, "
+                  f"{plan.n_runs} owner runs, planned in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            runs.append((case, plan))
+        del a, b
+    # the main path: every plan once through plan(), counts set just before
+    torch.cuda.synchronize()
+    segment_spgemm.launches = segment_spgemm.quantized_launches = 0
+    outs = [plan() for _, plan in runs]
+    torch.cuda.synchronize()
+    launches = segment_spgemm.launches
+    quantized = segment_spgemm.quantized_launches
+    n_quant = sum(plan.quantized for _, plan in runs)
+    check(launches == len(runs) and quantized == n_quant,
+          f"spgemm main path: {launches} launches ({quantized} quantized) "
+          f"!= {len(runs)} ({n_quant})")
+    print(f"[spgemm] main path: {len(runs)} plan() calls, segment_spgemm "
+          f"launches {launches} ({quantized} quantized)")
+
+    recs, fp32_out, library = [], {}, {}
+    for (case, plan), out in zip(runs, outs):
+        rec = spgemm_case(case, plan, out, fp32_out.get(case),
+                          library.get(case))
+        if not plan.quantized:
+            fp32_out[case] = out
+            library[case] = rec["library_ms"]
+        recs.append(rec)
+    for case, plan in runs:
+        if not plan.quantized:
+            ms, note = cusparse_ms(plan)
+            print(f"[spgemm] {case}: torch.sparse.mm on CSR (cuSPARSE), one "
+                  f"call: " + (f"{ms:.2f} ms, " if ms is not None else "")
+                  + note)
+    del runs, outs, fp32_out
+    phase_spgemm_edges(dev)
+    return recs, launches, quantized
+
+
+def phase_spgemm_edges(dev):
+    """Small SpGEMM plans at the kernel's edges: 32 and 64 tiles; segment,
+    folded (``fold_len=2``), four-lane, gustavson with ``n_lanes=2,
+    unroll=2`` and k-major outer plans; fp32 and every quantized mode; each
+    through ``plan()`` against the plain version and the oracle, one launch
+    each.  Also bf16 output with every item folded, an empty symbolic C (no
+    launch), a one-item plan, and a tile the kernel does not take (must
+    raise on the card)."""
+    from repro_torch import api
+    from repro_torch.core.formats import BSR, QUANT_MODES
+    from repro_torch.kernels.segment_spgemm import (segment_spgemm,
+                                                    segment_spgemm_plain)
+
+    def run(plan, want_launches=1):
+        segment_spgemm.launches = segment_spgemm.quantized_launches = 0
+        got = plan()
+        check(segment_spgemm.launches == want_launches
+              and segment_spgemm.quantized_launches
+              == want_launches * plan.quantized,
+              f"edge {plan.policy} {plan.block_dtype}: "
+              f"{segment_spgemm.launches} launches")
+        return got
+
+    worst, count = 0.0, 0
+    variants = [{}, {"fold_len": 2}, {"n_lanes": 4},
+                {"policy": "gustavson", "n_lanes": 2, "unroll": 2},
+                {"policy": "outer", "n_lanes": 2}]
+    for block in (32, 64):
+        rng = np.random.default_rng(block)
+        a = BSR.random(rng, (12 * block, 9 * block), (block, block), 0.35)
+        b = BSR.random(rng, (9 * block, 10 * block), (block, block), 0.35)
+        for kw in variants:
+            for q in (None,) + QUANT_MODES:
+                plan = api.plan_matmul(a, b, quantize=q, device=dev, **kw)
+                got = run(plan)
+                plain = segment_spgemm_plain(
+                    plan.lhs_blocks, plan.rhs_blocks, plan.a_idx,
+                    plan.b_idx, plan.c_idx, plan.valid,
+                    n_c_blocks=plan.n_out_blocks, a_scales=plan.lhs_scales,
+                    b_scales=plan.rhs_scales)
+                want = plan(backend="reference")
+                err = max(_rel(got, plain)[0], _rel(got, want)[0])
+                check(err <= KERNEL_RTOL, f"spgemm edge block={block} {kw} "
+                                          f"{q}: {err:.3g}")
+                worst, count = max(worst, err), count + 1
+        # bf16 output: every item its own folded segment, so each partial
+        # sum is stored and reloaded in bf16 (2**-8 each time)
+        plan = api.plan_matmul(a, b, fold_len=1, device=dev,
+                               out_dtype=torch.bfloat16)
+        got = run(plan)
+        err = _rel(got, plan(backend="reference", out_dtype=torch.float32))[0]
+        check(got.dtype == torch.bfloat16 and err <= 1e-2,
+              f"spgemm bf16 folded reload: {err:.3g}")
+        one = BSR((block, block), (block, block), np.zeros(1, np.int32),
+                  np.zeros(1, np.int32), rng.standard_normal(
+                      (1, block, block)).astype(np.float32))
+        plan = api.plan_matmul(one, one, device=dev)
+        check(plan.n_items == 1, "one-item plan")
+        err = _rel(run(plan), plan(backend="reference"))[0]
+        check(err <= KERNEL_RTOL, f"spgemm one-item plan: {err:.3g}")
+    ones = np.ones((2, 32, 32), np.float32)
+    a = BSR((64, 64), (32, 32), np.array([0, 1], np.int32),
+            np.array([0, 0], np.int32), ones)
+    b = BSR((64, 64), (32, 32), np.array([1], np.int32),
+            np.array([0], np.int32), ones[:1])
+    for q in (None, "int8"):
+        plan = api.plan_matmul(a, b, quantize=q, device=dev)
+        got = run(plan, want_launches=0)
+        check(tuple(got.shape) == (0, 32, 32), f"empty C: {got.shape}")
+    wide = BSR.random(np.random.default_rng(3), (64, 128), (32, 64), 0.5)
+    tall = BSR.random(np.random.default_rng(4), (128, 64), (64, 32), 0.5)
+    try:
+        api.plan_matmul(wide, tall, device=dev)()
+    except NotImplementedError:
+        pass
+    else:
+        raise RuntimeError("a non-square tile ran on the card")
+    print(f"[spgemm-edges] {count} plans (5 schedules x 5 storage modes x 2 "
+          f"tiles) within {KERNEL_RTOL} of the plain version and the oracle "
+          f"(worst {worst:.2e}), one launch each; bf16 folded reload and "
+          f"one-item plans ok; empty C: no launch; non-square tiles raise "
           f"NotImplementedError")
 
 
@@ -613,6 +898,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = phase_card()
+    spgemm_recs, spgemm_launches, spgemm_quantized = phase_spgemm(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(get_config("granite-3-8b"),
                               ffn_block_sparse=True, ffn_block=64,
@@ -636,28 +924,45 @@ def main():
     torch.cuda.empty_cache()
     train_launches, transposed = phase_train(model, dev)
 
-    def entry(name, mode, path, n_launches, main_rec):
-        mine = [r for r in recs if r["mode"] == mode]
+    def entry(name, mode, path, n_launches, main_rec, mine,
+              kernel="segment_spmm"):
         return {"name": name, "route": "cuda", "mode": mode, "path": path,
-                "source": "src/repro_torch/csrc/segment_spmm.cu",
-                "replaces": "src/repro/kernels/segment_spmm.py:335",
+                "source": f"src/repro_torch/csrc/{kernel}.cu",
+                "replaces": {"segment_spmm": "src/repro/kernels/"
+                                             "segment_spmm.py:335",
+                             "segment_spgemm": "src/repro/kernels/"
+                                               "segment_spgemm.py:227"}[kernel],
                 "launches": n_launches,
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
                 "bound_ms": main_rec["bound_ms"],
                 "bound_by": main_rec["bound_by"],
-                "library_ms": main_rec["library_ms"], "n": main_rec["n"]}
+                "library_ms": main_rec["library_ms"],
+                "case": main_rec["case"], "n": main_rec.get("n")}
 
     # forward: up projection at decode width, bf16 x.T view (the serve
     # path); transpose_lhs: up's dx at the training width (the train path)
     fwd_rec = recs[0]
     t_rec = next(r for r in recs if r["mode"] == "transpose_lhs"
                  and r["case"].startswith("up") and r["n"] == 2048)
+    # spgemm: fp32 timed on down_up; quantized on up_down in int8, with
+    # the worst error over the four modes
+    g32 = [r for r in spgemm_recs if r["mode"] == "fp32"]
+    gq = [r for r in spgemm_recs if r["mode"] != "fp32"]
     print(smi)
     print(json.dumps({"kernels": [
-        entry("segment_spmm", "forward", "serve", launches, fwd_rec),
+        entry("segment_spmm", "forward", "serve", launches, fwd_rec,
+              [r for r in recs if r["mode"] == "forward"]),
         entry("segment_spmm.transpose_lhs", "transpose_lhs", "train",
-              transposed, t_rec)]}))
+              transposed, t_rec,
+              [r for r in recs if r["mode"] == "transpose_lhs"]),
+        entry("segment_spgemm", "fp32", "spgemm",
+              spgemm_launches - spgemm_quantized,
+              next(r for r in g32 if r["case"] == "spgemm_down_up"), g32,
+              kernel="segment_spgemm"),
+        entry("segment_spgemm.quantized", "int8/fp8", "spgemm",
+              spgemm_quantized, next(r for r in gq if r["mode"] == "int8"),
+              gq, kernel="segment_spgemm")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

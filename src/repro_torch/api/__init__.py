@@ -1,9 +1,12 @@
-"""``repro_torch.api`` — plan, execute and apply Segment-dataflow SpMMs.
+"""``repro_torch.api`` — plan, execute and apply Segment-dataflow sparse
+matmuls.
 
     from repro_torch import api
 
-    plan = api.plan_matmul(A, x.shape, policy="segment")   # build (cached)
+    plan = api.plan_matmul(A, x.shape, policy="segment")   # SpMM (cached)
     y = plan(x)                                            # execute
+    gplan = api.plan_matmul(A, B, quantize="int8")         # SpGEMM, B a BSR
+    c_blocks = gplan()                # (n_c_blocks, bm, bn) at gplan.c_brow/c_bcol
 """
 from repro_torch.core.policies import (SchedulePolicy, available_policies,
                                        get_policy, register_policy,
@@ -12,12 +15,12 @@ from repro_torch.core.policies import (SchedulePolicy, available_policies,
 from .backends import (BACKENDS, default_backend, resolve_backend,
                        resolve_device, use_backend)
 from .executor import apply_plan, execute_plan, pick_bn
-from .plan import SPMM, SegmentPlan
+from .plan import SPGEMM, SPMM, SegmentPlan
 from .planner import (clear_plan_cache, pattern_fingerprint, plan_cache_stats,
                       plan_matmul)
 
 __all__ = [
-    "SegmentPlan", "SPMM",
+    "SegmentPlan", "SPMM", "SPGEMM",
     "plan_matmul", "execute_plan", "apply_plan", "pick_bn",
     "clear_plan_cache", "plan_cache_stats", "pattern_fingerprint",
     "SchedulePolicy", "register_policy", "unregister_policy", "get_policy",

@@ -1,12 +1,11 @@
 """Plan execution: backend dispatch and the differentiable matmul entry.
 
 ``execute_plan`` runs a :class:`~repro_torch.api.plan.SegmentPlan` on the
-``"cuda"`` backend (the Segment SpMM kernel; its plain version for CPU
-tensors) or the ``"reference"`` backend (the dense oracle).  ``apply_plan``
-is the entry the sparse layers call: a ``torch.autograd.Function`` whose
-forward is the same SpMM.  Its backward (``dx = Wᵀ @ dy`` in the kernel's
-``transpose_lhs`` mode and the block SDDMM for ``dW``) belongs to the
-training slice and raises ``NotImplementedError`` until then.
+``"cuda"`` backend (the Segment SpMM or SpGEMM kernel; their plain versions
+for CPU tensors) or the ``"reference"`` backend (the dense oracles).
+``apply_plan`` is the entry the sparse layers call: a
+``torch.autograd.Function`` around the SpMM whose backward runs ``dx = Wᵀ @
+dy`` in the kernel's ``transpose_lhs`` mode and the block SDDMM for ``dW``.
 """
 from __future__ import annotations
 
@@ -15,10 +14,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.segment_spgemm import segment_spgemm
 from repro_torch.kernels.segment_spmm import segment_spmm
 
 from .backends import resolve_backend
-from .plan import SPMM, SegmentPlan
+from .plan import SPGEMM, SPMM, SegmentPlan
 
 
 def pick_bn(n: int, bn: int) -> Tuple[int, int]:
@@ -84,6 +84,31 @@ def _run_spmm(plan: SegmentPlan, x: torch.Tensor, *, blocks: torch.Tensor,
     return out
 
 
+def _run_spgemm(plan: SegmentPlan, *, backend: str,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """The ``(n_out_blocks, bm, bn)`` C blocks of an spgemm plan."""
+    if plan.n_out_blocks == 0:
+        # no A column meets a B row: the symbolic C is empty, nothing runs
+        bm = plan.block_shape[0]
+        bn = plan.rhs_blocks.shape[2]
+        return torch.zeros((0, bm, bn), dtype=out_dtype,
+                           device=plan.lhs_blocks.device)
+    if backend == "reference":
+        out = ref.spgemm_ref(
+            plan.lhs_blocks, plan.a_brow, plan.a_bcol, plan.grid,
+            plan.rhs_blocks, plan.b_brow, plan.b_bcol, plan.rhs_grid,
+            plan.c_brow_arr, plan.c_bcol_arr,
+            a_scales=plan.lhs_scales, b_scales=plan.rhs_scales)
+        return out.to(out_dtype)
+    return segment_spgemm(
+        plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx, plan.c_idx,
+        plan.seg_start, plan.seg_write, plan.accum_prev, plan.valid,
+        n_c_blocks=plan.n_out_blocks, n_lanes=plan.n_lanes,
+        unroll=plan.unroll, out_dtype=out_dtype, a_scales=plan.lhs_scales,
+        b_scales=plan.rhs_scales, prefetch=plan.prefetch,
+        runs=plan.run_offsets)
+
+
 def _out_dtype(plan: SegmentPlan, out_dtype) -> torch.dtype:
     """Explicit argument > ``plan.out_dtype`` > float32."""
     if out_dtype is None:
@@ -95,23 +120,28 @@ def _out_dtype(plan: SegmentPlan, out_dtype) -> torch.dtype:
     return getattr(torch, str(out_dtype))
 
 
-def execute_plan(plan: SegmentPlan, rhs: torch.Tensor, *,
+def execute_plan(plan: SegmentPlan, rhs: Optional[torch.Tensor] = None, *,
                  bn: Optional[int] = None, backend: Optional[str] = None,
                  out_dtype=None) -> torch.Tensor:
-    """Forward-only plan execution (``plan(...)`` delegates here).
+    """Forward-only plan execution (``plan(...)`` delegates here): an spmm
+    plan takes the dense rhs, an spgemm plan none (B is in the plan).
 
     Backend: explicit argument > ``plan.backend`` > the process default.
     Accumulation is always fp32; ``out_dtype`` only sets the written tiles.
     """
-    if plan.kind != SPMM:
-        raise NotImplementedError("only spmm plans are ported; see ROADMAP "
-                                  "'SpGEMM'")
-    if rhs is None:
-        raise ValueError("spmm plan needs a dense right-hand side")
     backend = resolve_backend(backend if backend is not None else plan.backend)
-    return _run_spmm(plan, rhs, blocks=plan.lhs_blocks, backend=backend,
-                     bn=_resolve_bn(plan, bn),
-                     out_dtype=_out_dtype(plan, out_dtype))
+    out_dtype = _out_dtype(plan, out_dtype)
+    if plan.kind == SPMM:
+        if rhs is None:
+            raise ValueError("spmm plan needs a dense right-hand side")
+        return _run_spmm(plan, rhs, blocks=plan.lhs_blocks, backend=backend,
+                         bn=_resolve_bn(plan, bn), out_dtype=out_dtype)
+    if plan.kind == SPGEMM:
+        if rhs is not None:
+            raise ValueError("spgemm plan takes no right-hand side (B is "
+                             "frozen into the plan)")
+        return _run_spgemm(plan, backend=backend, out_dtype=out_dtype)
+    raise ValueError(f"unknown plan kind {plan.kind!r}")
 
 
 def _block_sddmm(plan: SegmentPlan, dy: torch.Tensor,

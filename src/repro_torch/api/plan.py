@@ -3,18 +3,22 @@
 The torch counterpart of ``repro.api.plan.SegmentPlan``: the same static
 (aux) fields and the same tensor (leaf) fields, so a plan of this package
 can be compared leaf by leaf with the JAX one.  One field is added:
-``run_offsets``, the owner-run offsets the CUDA kernel launches one thread
-block per run from (derived once per plan by the planner).  Only SpMM plans
-are built so far; the SpGEMM leaves stay ``None``.
+``run_offsets``, the owner-run offsets the CUDA kernels launch one thread
+block per run from (derived once per plan by the planner: over ``m_idx``
+for SpMM plans, over ``c_idx`` for SpGEMM plans).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.formats import QUANT_DTYPES, quant_base_dtype
+
 SPMM = "spmm"
+SPGEMM = "spgemm"
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SegmentPlan:
@@ -24,6 +28,13 @@ class SegmentPlan:
     storage order; the lane-major schedule addresses them through
     ``slot_idx``.  Calling the plan with a dense ``(K, N)`` right-hand side
     returns the dense ``(M, N)`` product.
+
+    ``kind == "spgemm"``: ``lhs_blocks``/``rhs_blocks`` are the A/B tiles in
+    original BSR order (fp32, or a quantized payload beside
+    ``lhs_scales``/``rhs_scales``), ``a_idx``/``b_idx``/``c_idx`` map
+    schedule items to block slots, and calling the plan with no argument
+    returns the ``(n_out_blocks, bm, bn)`` C blocks at the symbolic pattern
+    (``c_brow``/``c_bcol``).
     """
 
     # --- static aux data ---
@@ -89,7 +100,8 @@ class SegmentPlan:
 
     @property
     def n_runs(self) -> int:
-        """Owner runs: output block rows that receive work."""
+        """Owner runs: output block rows (SpMM) or C blocks (SpGEMM) that
+        receive work."""
         return int(self.run_offsets.shape[0]) - 1
 
     @property
@@ -100,20 +112,78 @@ class SegmentPlan:
     def grid_k(self) -> int:
         return self.grid[1]
 
+    @property
+    def n_c_blocks(self) -> int:
+        if self.kind != SPGEMM:
+            raise AttributeError("n_c_blocks is only defined for spgemm plans")
+        return self.n_out_blocks
+
+    @property
+    def c_brow(self) -> np.ndarray:
+        """Symbolic C pattern rows (spgemm), as host numpy."""
+        return self.c_brow_arr.cpu().numpy()
+
+    @property
+    def c_bcol(self) -> np.ndarray:
+        return self.c_bcol_arr.cpu().numpy()
+
+    @property
+    def quantized(self) -> bool:
+        """True when block values are stored as a quantized payload."""
+        return self.block_dtype != "fp32"
+
     def replace(self, **kw) -> "SegmentPlan":
         return dataclasses.replace(self, **kw)
 
-    def with_values(self, lhs_blocks: torch.Tensor) -> "SegmentPlan":
-        """Same schedule, new block values (in the plan's storage order)."""
-        if (self.lhs_blocks is not None
-                and lhs_blocks.shape != self.lhs_blocks.shape):
-            raise ValueError(f"lhs_blocks has shape {tuple(lhs_blocks.shape)}, "
-                             f"expected {tuple(self.lhs_blocks.shape)}")
-        return dataclasses.replace(self, lhs_blocks=lhs_blocks)
+    def with_values(self, lhs_blocks: torch.Tensor,
+                    rhs_blocks: Optional[torch.Tensor] = None, *,
+                    lhs_scales: Optional[torch.Tensor] = None,
+                    rhs_scales: Optional[torch.Tensor] = None
+                    ) -> "SegmentPlan":
+        """Same schedule, new block values (in the plan's storage order).
+        Quantized plans take the payload and, optionally, new scales
+        (``None`` keeps the plan's)."""
+        kw: Dict[str, Any] = {}
+        for name, new in (("lhs_blocks", lhs_blocks),
+                          ("rhs_blocks", rhs_blocks)):
+            if new is None:
+                continue
+            old = getattr(self, name)
+            if old is not None and new.shape != old.shape:
+                raise ValueError(f"{name} has shape {tuple(new.shape)}, "
+                                 f"expected {tuple(old.shape)}")
+            self._check_value_dtype(name, new)
+            kw[name] = new
+        if lhs_scales is not None:
+            kw["lhs_scales"] = lhs_scales
+        if rhs_scales is not None:
+            kw["rhs_scales"] = rhs_scales
+        return dataclasses.replace(self, **kw)
 
-    def __call__(self, rhs: torch.Tensor, *, bn: Optional[int] = None,
-                 backend: Optional[str] = None, out_dtype=None) -> torch.Tensor:
-        """``plan(b_dense)`` → dense ``(M, N)``."""
+    def _check_value_dtype(self, name: str, blocks: torch.Tensor) -> None:
+        """New block values must match the plan's storage format: scales
+        applied to fp32 values, or a raw payload read as fp32, would be
+        wrong in a way no shape check catches."""
+        got = blocks.dtype
+        if self.quantized:
+            expect = QUANT_DTYPES[quant_base_dtype(self.block_dtype)]
+            if got != expect:
+                raise ValueError(
+                    f"{name} has dtype {got}, but this plan stores "
+                    f"{self.block_dtype} payloads ({expect}): quantize the "
+                    f"values (repro_torch.core.formats.quantize_blocks) or "
+                    f"use the fp32 plan of this pattern")
+        elif got in QUANT_DTYPES.values():
+            raise ValueError(
+                f"{name} has quantized payload dtype {got}, but this plan "
+                f"stores fp32 blocks: build it with plan_matmul(..., "
+                f"quantize=...) to carry the matching scales")
+
+    def __call__(self, rhs: Optional[torch.Tensor] = None, *,
+                 bn: Optional[int] = None, backend: Optional[str] = None,
+                 out_dtype=None) -> torch.Tensor:
+        """``plan(b_dense)`` → dense ``(M, N)`` (spmm); ``plan()`` → the
+        ``(n_out_blocks, bm, bn)`` C blocks (spgemm)."""
         from . import executor  # executor imports this module
         return executor.execute_plan(self, rhs, bn=bn, backend=backend,
                                      out_dtype=out_dtype)

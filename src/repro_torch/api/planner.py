@@ -1,15 +1,22 @@
-"""``plan_matmul`` — pattern → :class:`SegmentPlan` (SpMM half of
+"""``plan_matmul`` — pattern → :class:`SegmentPlan` (a trimmed copy of
 ``repro.api.planner``).
 
-Planning is host-side numpy work (ordering, folding, lane partitioning,
-finalization) that depends only on the sparsity pattern, so plans are cached
-by a pattern fingerprint; realization attaches the block values (uploaded
-in BSR storage order, never gathered) and the schedule leaves on the
-requested device.
+Planning is host-side numpy work (symbolic phase, ordering, folding, lane
+partitioning, finalization) that depends only on the sparsity pattern, so
+plans are cached by a pattern fingerprint; realization attaches the block
+values (uploaded in BSR storage order, never gathered) and the schedule
+leaves on the requested device.
 
-Not ported yet, and raising ``NotImplementedError`` (see ROADMAP): a BSR
-right-hand side (SpGEMM), ``policy="auto"`` and ``vmem_limit_bytes`` (the
-tuner and budget checks), ``verify`` (the plan verifier) and ``quantize``.
+``plan_matmul(A, B_or_shape)`` dispatches on the right-hand side: a ``BSR``
+gives a SpGEMM plan (B frozen into the plan; ``quantize=`` stores both
+operands as int8/fp8 payloads beside fp32 scales), a dense array, shape or
+``N`` an SpMM plan.  The storage dtype is part of the fingerprint, so fp32
+and quantized plans of one pattern are separate cache entries.
+
+Not ported yet, and raising ``NotImplementedError`` (see ROADMAP):
+``policy="auto"`` and ``vmem_limit_bytes`` (the tuner and budget checks),
+``verify`` (the plan verifier) and ``quantize`` on SpMM plans (the SpMM
+kernel's payload modes).
 """
 from __future__ import annotations
 
@@ -20,16 +27,20 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.formats import BSR
+from repro_torch.core.formats import (BSR, QUANT_DTYPES, QUANT_MODES,
+                                      QuantizedBlocks, quant_base_dtype,
+                                      quant_is_rowwise, quantize_blocks)
 from repro_torch.core.policies import get_policy
 from repro_torch.core.schedule import (PREFETCH_MODES, LaneLayout,
+                                       build_spgemm_schedule,
                                        build_spmm_schedule, fetch_flags,
                                        finalize_schedule, lane_select,
-                                       lane_traffic_spmm, partition_lanes)
+                                       lane_traffic_spgemm, lane_traffic_spmm,
+                                       partition_lanes)
 from repro_torch.kernels.segment_spmm import run_offsets
 
 from .backends import resolve_backend, resolve_device
-from .plan import SPMM, SegmentPlan
+from .plan import SPGEMM, SPMM, SegmentPlan
 
 
 def _freeze_traffic(traffic: dict) -> Tuple[Tuple[str, float], ...]:
@@ -43,6 +54,50 @@ def _scale_spmm_traffic(basis: dict, n_cols: int) -> dict:
     out["c_bytes"] = basis["c_bytes"] * n_cols
     out["total"] = basis["a_bytes"] + out["b_bytes"] + out["c_bytes"]
     return out
+
+
+def _scale_fetch_bytes(block_dtype: str, rows: int) -> int:
+    """fp32 scale bytes a quantized tile fetch brings along: one scalar per
+    block, or one per block row in a rowwise mode."""
+    return (rows if quant_is_rowwise(block_dtype) else 1) * 4
+
+
+def _quantize_spgemm_traffic(traffic: dict, block_dtype: str, bm: int,
+                             bk: int, bn: int) -> dict:
+    """Re-price an SpGEMM traffic estimate for quantized operands: each A
+    or B fetch moves its payload bytes plus its scales (B's rowwise scales
+    run over its ``bk`` rows); C stays fp32."""
+    if block_dtype == "fp32":
+        return traffic
+    itemsize = QUANT_DTYPES[quant_base_dtype(block_dtype)].itemsize
+    out = dict(traffic)
+    out["a_bytes"] = traffic["a_fetches"] * (
+        bm * bk * itemsize + _scale_fetch_bytes(block_dtype, bm))
+    out["b_bytes"] = traffic["b_fetches"] * (
+        bk * bn * itemsize + _scale_fetch_bytes(block_dtype, bk))
+    out["total"] = out["a_bytes"] + out["b_bytes"] + out["c_bytes"]
+    return out
+
+
+def _realize_values(blocks, block_dtype: str, device: torch.device
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(payload, scales)`` on ``device`` for a plan's value leaves.
+
+    fp32 plans upload the caller's blocks as they are (scales ``None``).
+    Quantized plans take a :class:`QuantizedBlocks` of the plan's mode
+    verbatim (weights quantized once, at load time), or fp32 blocks, which
+    are quantized here on the host, in storage order."""
+    if isinstance(blocks, QuantizedBlocks):
+        if blocks.dtype != block_dtype:
+            raise ValueError(
+                f"pre-quantized blocks are {blocks.dtype!r} but the plan "
+                f"was requested with quantize={block_dtype!r}")
+        return blocks.payload.to(device), blocks.scales.to(device)
+    blocks = np.asarray(blocks, np.float32)
+    if block_dtype == "fp32":
+        return torch.as_tensor(blocks, device=device), None
+    q = quantize_blocks(blocks, block_dtype)
+    return q.payload.to(device), q.scales.to(device)
 
 
 def _bucket_hint(n: Optional[int]) -> Optional[int]:
@@ -93,18 +148,21 @@ class _PlanTemplate:
             self.on_device[device] = got
         return got
 
-    def realize(self, blocks: Optional[torch.Tensor], device: torch.device,
+    def realize(self, values: dict, device: torch.device,
                 backend: Optional[str], n_cols: int,
                 out_dtype: Optional[str]) -> SegmentPlan:
+        """The plan on ``device`` with the value leaves in ``values``
+        (``lhs_blocks``, and for SpGEMM ``rhs_blocks`` and the scales)."""
         grad = None
         if self.grad is not None:
-            grad = self.grad.realize(None, device, None, n_cols, None)
+            grad = self.grad.realize({}, device, None, n_cols, None)
+        # SpGEMM traffic is fixed; SpMM's unit-N basis is priced at n_cols
+        traffic = (self.traffic_basis if self.aux["kind"] == SPGEMM
+                   else _scale_spmm_traffic(self.traffic_basis, n_cols))
         return SegmentPlan(
-            **self.aux, **self.device_leaves(device),
-            traffic_items=_freeze_traffic(
-                _scale_spmm_traffic(self.traffic_basis, n_cols)),
-            lhs_blocks=blocks, grad_plan=grad, backend=backend,
-            out_dtype=out_dtype)
+            **self.aux, **self.device_leaves(device), **values,
+            traffic_items=_freeze_traffic(traffic), grad_plan=grad,
+            backend=backend, out_dtype=out_dtype)
 
 
 _CACHE: Dict[str, _PlanTemplate] = {}
@@ -112,15 +170,37 @@ _STATS = {"hits": 0, "misses": 0}
 
 
 def clear_plan_cache() -> None:
-    """Drop every cached template."""
+    """Drop every cached template (fp32 and quantized entries alike)."""
     _CACHE.clear()
     for k in _STATS:
         _STATS[k] = 0
 
 
-def plan_cache_stats() -> Dict[str, int]:
-    """Hit/miss counters + cache size."""
-    return dict(_STATS, size=len(_CACHE))
+def plan_cache_stats() -> dict:
+    """Hit/miss counters, cache size, and the entries per ``block_dtype``
+    (``by_dtype``): quantized plans of a pattern are entries of their own."""
+    by_dtype: Dict[str, int] = {}
+    for tpl in _CACHE.values():
+        d = tpl.aux["block_dtype"]
+        by_dtype[d] = by_dtype.get(d, 0) + 1
+    return dict(_STATS, size=len(_CACHE), by_dtype=by_dtype)
+
+
+def _lane_flags(layout: LaneLayout, sched, fin, a_stream: np.ndarray,
+                b_stream: np.ndarray, unroll: int) -> dict:
+    """The lane-major int32 flag leaves of a built schedule (pads zeroed)
+    and the fetch flags and ring slots of its two operand streams (the A
+    slots, and the B row-blocks or B slots), on a ring of ``2·unroll``."""
+    valid = layout.valid.reshape(-1)
+    depth = 2 * unroll
+    a_f, a_s = fetch_flags(a_stream, valid, layout.n_lanes, depth=depth)
+    b_f, b_s = fetch_flags(b_stream, valid, layout.n_lanes, depth=depth)
+    flags = dict(
+        seg_start=lane_select(layout, sched.seg_start, zero_pads=True),
+        seg_write=lane_select(layout, sched.seg_write, zero_pads=True),
+        accum_prev=lane_select(layout, fin.accum_prev, zero_pads=True),
+        valid=valid, a_fetch=a_f, b_fetch=b_f, a_slot=a_s, b_slot=b_s)
+    return {k: v.astype(np.int32) for k, v in flags.items()}
 
 
 def _schedule_template(sched, layout: LaneLayout, fin, slots: np.ndarray,
@@ -130,29 +210,19 @@ def _schedule_template(sched, layout: LaneLayout, fin, slots: np.ndarray,
                        transpose_lhs: bool) -> _PlanTemplate:
     """Lane-major leaves, fetch schedule and traffic basis of one built
     schedule (the forward plan or its transposed backward twin)."""
-    valid = layout.valid.reshape(-1)
     lane_m = lane_select(layout, sched.m).astype(np.int32)
     lane_k = lane_select(layout, sched.k).astype(np.int32)
     lane_slot = lane_select(layout, slots).astype(np.int32)
-    flags = dict(
-        seg_start=lane_select(layout, sched.seg_start, zero_pads=True),
-        seg_write=lane_select(layout, sched.seg_write, zero_pads=True),
-        accum_prev=lane_select(layout, fin.accum_prev, zero_pads=True),
-        valid=valid.astype(np.int32))
-    depth = 2 * unroll
-    a_f, a_s = fetch_flags(lane_slot, valid, layout.n_lanes, depth=depth)
-    b_f, b_s = fetch_flags(lane_k, valid, layout.n_lanes, depth=depth)
+    flags = _lane_flags(layout, sched, fin, lane_slot, lane_k, unroll)
     basis = lane_traffic_spmm(
-        lane_m, lane_k, flags["seg_start"], valid, layout.n_lanes, bm, bk, 1,
-        unroll=unroll, pipeline=pipeline, prefetch=prefetch)
+        lane_m, lane_k, flags["seg_start"], flags["valid"], layout.n_lanes,
+        bm, bk, 1, unroll=unroll, pipeline=pipeline, prefetch=prefetch)
     basis.update(layout.stats)
     leaves = dict(
         m_idx=lane_m, k_idx=lane_k, slot_idx=lane_slot,
         row_mask=fin.row_mask, a_brow=a.brow.astype(np.int32),
         a_bcol=a.bcol.astype(np.int32),
-        a_fetch=a_f, b_fetch=b_f, a_slot=a_s, b_slot=b_s,
-        run_offsets=run_offsets(lane_m, layout.n_lanes),
-        **{k: v.astype(np.int32) for k, v in flags.items()})
+        run_offsets=run_offsets(lane_m, layout.n_lanes), **flags)
     aux = dict(kind=SPMM, policy=policy, block_shape=(bm, bk),
                grid=(sched.n_m_blocks, sched.n_k_blocks), rhs_grid=None,
                n_out_blocks=sched.n_m_blocks, fingerprint=fingerprint,
@@ -196,14 +266,49 @@ def _build_spmm_template(a: BSR, policy: str, fold_len: Optional[int],
     return tpl
 
 
-def _rhs_to_hint(a: BSR, b) -> int:
-    """Normalize ``B_or_shape`` → the dense-N traffic hint."""
+def _build_spgemm_template(a: BSR, b: BSR, policy: str,
+                           fold_len: Optional[int], n_lanes: int, unroll: int,
+                           fingerprint: str, block_dtype: str, pipeline: bool,
+                           bn_hint: Optional[int],
+                           prefetch: Optional[str]) -> _PlanTemplate:
+    sched = build_spgemm_schedule(a, b, policy=policy, fold_len=fold_len)
+    fin = finalize_schedule(sched.seg_start, sched.c_idx)
+    bm, bk = a.block_shape
+    bn = b.block_shape[1]
+    layout = partition_lanes(sched.c_idx, n_lanes, unroll=unroll,
+                             policy=policy, seg_start=sched.seg_start,
+                             seg_write=sched.seg_write,
+                             accum_prev=fin.accum_prev)
+    lane_a = lane_select(layout, sched.a_idx).astype(np.int32)
+    lane_b = lane_select(layout, sched.b_idx).astype(np.int32)
+    lane_c = lane_select(layout, sched.c_idx).astype(np.int32)
+    flags = _lane_flags(layout, sched, fin, lane_a, lane_b, unroll)
+    traffic = _quantize_spgemm_traffic(lane_traffic_spgemm(
+        lane_a, lane_b, lane_c, flags["seg_start"], flags["valid"],
+        layout.n_lanes, bm, bk, bn, unroll=unroll, pipeline=pipeline,
+        prefetch=prefetch), block_dtype, bm, bk, bn)
+    traffic.update(layout.stats)
+    leaves = dict(
+        a_idx=lane_a, b_idx=lane_b, c_idx=lane_c,
+        a_brow=a.brow.astype(np.int32), a_bcol=a.bcol.astype(np.int32),
+        b_brow=b.brow.astype(np.int32), b_bcol=b.bcol.astype(np.int32),
+        c_brow_arr=sched.c_brow, c_bcol_arr=sched.c_bcol,
+        run_offsets=run_offsets(lane_c, layout.n_lanes), **flags)
+    aux = dict(kind=SPGEMM, policy=policy, block_shape=(bm, bk),
+               grid=a.grid, rhs_grid=b.grid, n_out_blocks=sched.n_c_blocks,
+               fingerprint=fingerprint, block_dtype=block_dtype,
+               n_lanes=layout.n_lanes, unroll=unroll, pipeline=pipeline,
+               bn_hint=bn_hint, prefetch=prefetch,
+               has_pads=bool(not layout.valid.all()))
+    return _PlanTemplate(aux=aux, leaves=leaves, traffic_basis=traffic)
+
+
+def _rhs_to_hint(a: BSR, b) -> Tuple[Optional[BSR], int]:
+    """Normalize ``B_or_shape`` → (BSR | None, n_cols_hint)."""
     if b is None:
-        return 1024
+        return None, 1024
     if isinstance(b, BSR):
-        raise NotImplementedError(
-            "plan_matmul: SpGEMM (a BSR right-hand side) is not ported yet; "
-            "see ROADMAP 'SpGEMM'")
+        return b, b.shape[1]
     if isinstance(b, int):
         shape: Tuple[int, ...] = (a.shape[1], b)
     elif isinstance(b, tuple):
@@ -217,7 +322,7 @@ def _rhs_to_hint(a: BSR, b) -> int:
         raise ValueError(f"dense rhs must be 2-D (K, N), got shape {shape}")
     if shape[0] != a.shape[1]:
         raise ValueError(f"rhs K={shape[0]} does not match A K={a.shape[1]}")
-    return int(shape[1])
+    return None, int(shape[1])
 
 
 def _dtype_name(dtype) -> Optional[str]:
@@ -236,16 +341,21 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
                 vmem_limit_bytes: Optional[int] = None, pipeline: bool = True,
                 bn_hint: Optional[int] = None, prefetch: Optional[str] = None,
                 device=None) -> SegmentPlan:
-    """Plan a Segment-dataflow SpMM for the sparsity pattern of ``a``.
+    """Plan a Segment-dataflow matmul for the sparsity pattern of ``a``.
 
-    The knobs mean what they mean in ``repro.api.plan_matmul``:
-    ``policy`` (a registered policy), ``fold_len`` (temporal-fold cap),
-    ``with_grad`` (also build the transposed schedule), ``n_lanes`` and
-    ``unroll`` (lane partitioning), ``n_cols_hint`` (traffic hint),
-    ``out_dtype`` (default output dtype), ``cache`` (the fingerprint cache),
-    ``pipeline``/``bn_hint``/``prefetch`` (recorded on the plan; the TPU
-    DMA-timing knobs change no result).  ``device`` places the plan's
-    tensors; ``None`` means the card.
+    ``b_or_shape`` is a ``BSR`` (SpGEMM: ``plan()`` returns the C blocks at
+    the symbolic pattern), or the dense rhs, its ``(K, N)`` shape or ``N``
+    (SpMM: only a traffic hint).  The knobs mean what they mean in
+    ``repro.api.plan_matmul``: ``policy`` (a registered policy),
+    ``fold_len`` (temporal-fold cap), ``with_grad`` (also build the
+    transposed schedule; SpMM only), ``n_lanes`` and ``unroll`` (lane
+    partitioning), ``n_cols_hint`` (traffic hint), ``quantize`` (SpGEMM:
+    ``"int8"``/``"fp8"`` store both operands as payloads with one fp32
+    scale per block, ``"int8.rowwise"``/``"fp8.rowwise"`` one per block
+    row), ``out_dtype`` (default output dtype), ``cache`` (the fingerprint
+    cache), ``pipeline``/``bn_hint``/``prefetch`` (recorded on the plan;
+    the TPU DMA-timing knobs change no result).  ``device`` places the
+    plan's tensors; ``None`` means the card.
     """
     if policy == "auto":
         raise NotImplementedError(
@@ -259,33 +369,56 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
         raise NotImplementedError(
             "plan_matmul(vmem_limit_bytes=...): the budget check is not "
             "ported yet; see ROADMAP 'plan verification and tuning'")
-    if quantize is not None:
-        raise NotImplementedError(
-            "plan_matmul(quantize=...): quantized block storage is not "
-            "ported yet; see ROADMAP 'quantized serving'")
     if backend is not None:
         resolve_backend(backend)
+    if quantize is not None and quantize not in QUANT_MODES:
+        raise ValueError(f"unknown quantize dtype {quantize!r}; "
+                         f"available: {QUANT_MODES} or None")
     if prefetch not in PREFETCH_MODES:
         raise ValueError(f"prefetch={prefetch!r} not in {PREFETCH_MODES}")
     if prefetch is not None and not pipeline:
         raise ValueError("prefetch='cross_pass' requires pipeline=True")
-    device = resolve_device(device)
     pol = get_policy(policy)
-    hint = _rhs_to_hint(a, b_or_shape)
+    b, hint = _rhs_to_hint(a, b_or_shape)
     if n_cols_hint is not None:
         hint = n_cols_hint
-    key = pattern_fingerprint(SPMM, f"{policy}#{pol.serial}", fold_len,
-                              with_grad, a, n_lanes=n_lanes, unroll=unroll,
-                              n_bucket=_bucket_hint(hint), pipeline=pipeline,
-                              bn_hint=bn_hint, prefetch=prefetch)
+    if b is not None and with_grad:
+        raise NotImplementedError("with_grad is only supported for SpMM plans")
+    if b is None and quantize is not None:
+        raise NotImplementedError(
+            "plan_matmul(quantize=...) on an SpMM plan: the SpMM kernel's "
+            "int8/fp8 payload modes are not ported yet; see ROADMAP "
+            "'quantized serving'")
+    device = resolve_device(device)
+    block_dtype = quantize if quantize is not None else "fp32"
+    kind = SPGEMM if b is not None else SPMM
+    mats = (a, b) if b is not None else (a,)
+    key = pattern_fingerprint(kind, f"{policy}#{pol.serial}", fold_len,
+                              with_grad, *mats, n_lanes=n_lanes,
+                              unroll=unroll, block_dtype=block_dtype,
+                              n_bucket=_bucket_hint(hint) if b is None
+                              else None,
+                              pipeline=pipeline, bn_hint=bn_hint,
+                              prefetch=prefetch)
     tpl = _CACHE.get(key) if cache else None
     if tpl is None:
-        tpl = _build_spmm_template(a, policy, fold_len, with_grad, n_lanes,
-                                   unroll, key, pipeline, bn_hint, prefetch)
+        if kind == SPMM:
+            tpl = _build_spmm_template(a, policy, fold_len, with_grad,
+                                       n_lanes, unroll, key, pipeline,
+                                       bn_hint, prefetch)
+        else:
+            tpl = _build_spgemm_template(a, b, policy, fold_len, n_lanes,
+                                         unroll, key, block_dtype, pipeline,
+                                         bn_hint, prefetch)
         _STATS["misses"] += 1
         if cache:
             _CACHE[key] = tpl
     else:
         _STATS["hits"] += 1
-    blocks = torch.as_tensor(np.asarray(a.blocks, np.float32), device=device)
-    return tpl.realize(blocks, device, backend, hint, _dtype_name(out_dtype))
+    values = {}
+    values["lhs_blocks"], values["lhs_scales"] = _realize_values(
+        a.blocks, block_dtype, device)
+    if b is not None:
+        values["rhs_blocks"], values["rhs_scales"] = _realize_values(
+            b.blocks, block_dtype, device)
+    return tpl.realize(values, device, backend, hint, _dtype_name(out_dtype))

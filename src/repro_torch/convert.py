@@ -1,12 +1,13 @@
-"""Carry weights of the JAX model over to the port.
+"""Carry state of the JAX package over to the port.
 
 :func:`params_from_jax` takes the output of ``repro``'s ``Transformer.init``
 (layer-stacked leaves, converted to numpy by the caller) and returns the
 port's state dict, so that both packages compute the same function.  The
 block-sparse FFN blocks are in the storage order of the JAX model's shared
 patterns; the port's model must be built over the same patterns
-(``build_model(cfg, ffn_patterns=...)``).  The port never reproduces JAX's
-random numbers.
+(``build_model(cfg, ffn_patterns=...)``).  :func:`quantized_blocks_from_jax`
+does the same for ``repro``'s quantized block storage.  The port never
+reproduces JAX's random numbers.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.formats import (QUANT_DTYPES, QuantizedBlocks,
+                                      _check_quant_dtype, quant_base_dtype)
 from repro_torch.models.transformer import FfnPatterns
 
 _PROJS = ("up", "gate", "down")
@@ -61,3 +64,24 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping,
                 raise ValueError(f"mlp.{proj} has {got} blocks per layer but "
                                  f"its pattern has {n}")
     return sd
+
+
+def quantized_blocks_from_jax(payload, scales, mode: str) -> QuantizedBlocks:
+    """``repro``'s ``QuantizedBlocks`` (its ``payload``, ``scales`` and
+    ``dtype``, as numpy) → the port's, bit for bit.
+
+    ``torch.from_numpy`` takes no ``ml_dtypes`` array, so an fp8 payload is
+    passed as its ``uint8`` view (``payload.view(np.uint8)``); an int8
+    payload as it is.  The scales are fp32, ``(nblocks,)`` or
+    ``(nblocks, bm)``.
+    """
+    _check_quant_dtype(mode)
+    payload = np.ascontiguousarray(payload)
+    want = QUANT_DTYPES[quant_base_dtype(mode)]
+    if payload.dtype.itemsize != 1:
+        raise ValueError(f"a {mode} payload has 1-byte elements, got "
+                         f"{payload.dtype}")
+    t = torch.from_numpy(payload.view(np.uint8).copy()).view(want)
+    return QuantizedBlocks(
+        payload=t, scales=torch.from_numpy(np.array(scales, np.float32)),
+        dtype=mode)

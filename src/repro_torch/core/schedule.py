@@ -1,15 +1,17 @@
-"""Block-level Segment scheduler, SpMM half (a copy of
-``repro.core.schedule`` trimmed to what SpMM planning needs).
+"""Block-level Segment scheduler (a copy of ``repro.core.schedule``
+trimmed to what SpMM and SpGEMM planning need).
 
-A *work item* is one nonzero-block multiply; the policy orders the items so
-that consecutive items share operands, :func:`partition_lanes` cuts the
-ordered list into load-balanced lanes at segment-chain boundaries, and
-:func:`lane_traffic_spmm` prices a lane-cut schedule under the revisiting
-model.  All of it is host-side numpy and depends only on the pattern.
+A *work item* is one nonzero-block multiply (SpMM) or one ``(m, k, n)``
+block triple (SpGEMM); the policy orders the items so that consecutive
+items share operands, :func:`partition_lanes` cuts the ordered list into
+load-balanced lanes at segment-chain boundaries, and
+:func:`lane_traffic_spmm` / :func:`lane_traffic_spgemm` price a lane-cut
+schedule under the revisiting model.  All of it is host-side numpy and
+depends only on the pattern.
 
-The CUDA kernel reads the lane-major arrays as they are: every output
-block row (owner) sits in one contiguous run of one lane, so one thread
-block per run is exact.  ``check_lane_accum`` is this package's own copy of
+The CUDA kernels read the lane-major arrays as they are: every owner (an
+output block row, or a C block) sits in one contiguous run of one lane, so
+one thread block per run is exact.  ``check_lane_accum`` is this package's own copy of
 ``repro.analysis.invariants.check_lane_accum``: the package imports nothing
 of ``repro``.
 """
@@ -210,6 +212,91 @@ def build_spmm_schedule(a: BSR, policy: str = "segment",
                         seg_start=seg_start.astype(np.int32),
                         seg_write=_seg_write_from_starts(seg_start),
                         n_m_blocks=gm, n_k_blocks=gk, policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# SpGEMM (BSR × BSR → BSR): symbolic pattern + triple schedule
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SpgemmSchedule:
+    """Work list of ``(m, k, n)`` block triples + the symbolic C pattern.
+
+    ``c_idx[i]`` maps item ``i`` to its block slot in the C block array;
+    ``a_idx``/``b_idx`` map into the A/B block arrays.  Triples of one C
+    slot form output segments, ordered by the policy's ``spgemm_order``.
+    """
+
+    m: np.ndarray
+    n: np.ndarray
+    k: np.ndarray
+    a_idx: np.ndarray
+    b_idx: np.ndarray
+    c_idx: np.ndarray
+    seg_start: np.ndarray
+    seg_write: np.ndarray
+    c_brow: np.ndarray
+    c_bcol: np.ndarray
+    policy: str
+
+    @property
+    def n_items(self) -> int:
+        return int(self.m.shape[0])
+
+    @property
+    def n_c_blocks(self) -> int:
+        return int(self.c_brow.shape[0])
+
+
+def symbolic_spgemm(a_mask: np.ndarray,
+                    b_mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Block pattern of C = A @ B by a boolean matmul: ``(brow, bcol)``."""
+    c_mask = (a_mask.astype(np.int64) @ b_mask.astype(np.int64)) > 0
+    brow, bcol = np.nonzero(c_mask)
+    return brow.astype(np.int32), bcol.astype(np.int32)
+
+
+def build_spgemm_schedule(a: BSR, b: BSR, policy: str = "segment",
+                          fold_len: Optional[int] = None) -> SpgemmSchedule:
+    """Enumerate every ``(A block, B block)`` pair that meets on ``k`` and
+    order the triples into a kernel work list."""
+    get_policy(policy)   # fail fast before the symbolic phase
+    c_brow, c_bcol = symbolic_spgemm(a.block_mask(), b.block_mask())
+    c_slot = {(int(r), int(c)): i
+              for i, (r, c) in enumerate(zip(c_brow, c_bcol))}
+    a_slot = {(int(r), int(c)): i for i, (r, c) in enumerate(zip(a.brow, a.bcol))}
+    b_slot = {(int(r), int(c)): i for i, (r, c) in enumerate(zip(b.brow, b.bcol))}
+    b_rows: dict = {}
+    for (k_, n_), bi in b_slot.items():
+        b_rows.setdefault(k_, []).append((n_, bi))
+    for k_ in b_rows:
+        b_rows[k_].sort()
+    ms, ns, ks, ais, bis, cis = [], [], [], [], [], []
+    for (m_, k_), ai in a_slot.items():
+        for (n_, bi) in b_rows.get(k_, ()):
+            ms.append(m_)
+            ns.append(n_)
+            ks.append(k_)
+            ais.append(ai)
+            bis.append(bi)
+            cis.append(c_slot[(m_, n_)])
+    m_arr, n_arr, k_arr, a_arr, b_arr, c_arr = (
+        np.asarray(v, dtype=np.int64) for v in (ms, ns, ks, ais, bis, cis))
+
+    pol = get_policy(policy)
+    order = pol.spgemm_order(m_arr, n_arr, k_arr, c_arr)
+    c_o = c_arr[order]
+    seg_start = _runs_from_sorted(c_o)
+    if pol.supports_fold:
+        seg_start = _apply_fold(seg_start, fold_len)
+    return SpgemmSchedule(
+        m=m_arr[order].astype(np.int32), n=n_arr[order].astype(np.int32),
+        k=k_arr[order].astype(np.int32), a_idx=a_arr[order].astype(np.int32),
+        b_idx=b_arr[order].astype(np.int32), c_idx=c_o.astype(np.int32),
+        seg_start=seg_start.astype(np.int32),
+        seg_write=_seg_write_from_starts(seg_start.astype(np.int32)),
+        c_brow=c_brow, c_bcol=c_bcol, policy=policy)
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +582,39 @@ def lane_traffic_spmm(m, k, seg_start, valid, n_lanes: int, bm: int, bk: int,
     return dict(a_bytes=a_bytes, b_bytes=b_bytes, c_bytes=c_bytes, total=total,
                 a_fetches=a_fetches, b_fetches=b_fetches,
                 c_segments=c_segments, prefetch_fetches=prefetch_fetches)
+
+
+def lane_traffic_spgemm(a_idx, b_idx, c_idx, seg_start, valid, n_lanes: int,
+                        bm: int, bk: int, bn: int, bytes_per_el: int = 4,
+                        unroll: int = 1, pipeline: bool = True,
+                        prefetch: Optional[str] = None) -> dict:
+    """Revisiting-model bytes for the lane-parallel SpGEMM schedule: A and
+    B tiles are fetched when their index changes within a lane, C tiles
+    follow the segment write/revisit rule.  ``prefetch_fetches`` is always
+    0: the SpGEMM grid has no N-tile pass axis, so ``"cross_pass"`` is the
+    drained schedule."""
+    if prefetch not in PREFETCH_MODES:
+        raise ValueError(f"prefetch={prefetch!r} not in {PREFETCH_MODES}")
+    fetches, c_segments, c_bytes = _revisit_traffic(
+        [(a_idx, bm * bk * bytes_per_el, False),
+         (b_idx, bk * bn * bytes_per_el, False)],
+        c_idx, seg_start, valid, n_lanes, bm * bn * bytes_per_el,
+        unroll=unroll, pipeline=pipeline)
+    a_fetches, a_bytes = fetches[0]
+    b_fetches, b_bytes = fetches[1]
+    total = a_bytes + b_bytes + c_bytes
+    return dict(a_bytes=a_bytes, b_bytes=b_bytes, c_bytes=c_bytes, total=total,
+                a_fetches=a_fetches, b_fetches=b_fetches,
+                c_segments=c_segments, prefetch_fetches=0)
+
+
+def spgemm_schedule_traffic(sched: SpgemmSchedule, bm: int, bk: int, bn: int,
+                            bytes_per_el: int = 4) -> dict:
+    """:func:`lane_traffic_spgemm` of a single-lane schedule without pads."""
+    valid = np.ones(sched.n_items, dtype=bool)
+    return lane_traffic_spgemm(sched.a_idx, sched.b_idx, sched.c_idx,
+                               sched.seg_start, valid, 1, bm, bk, bn,
+                               bytes_per_el)
 
 
 def shard_schedule(sizes: np.ndarray, n_shards: int, policy: str = "segment"):

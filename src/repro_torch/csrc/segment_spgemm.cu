@@ -1,0 +1,397 @@
+// Segment-scheduled block-sparse x block-sparse matmul (the numeric SpGEMM
+// phase): the C blocks of BSR(A) @ BSR(B) at the symbolic pattern, under the
+// plan's lane-major list of (a_idx, b_idx, c_idx) block triples.
+//
+// Replaces the TPU kernel src/repro/kernels/segment_spgemm.py::segment_spgemm
+// (fp32 blocks, and int8 / fp8-e4m3 payloads with per-block or rowwise fp32
+// scales on both operands).  Built with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// into a library with the plain C interface at the bottom of this file,
+// loaded from Python with ctypes (src/repro_torch/kernels/build.py).
+//
+// Work decomposition.  The TPU grid walks one lane per core and keeps the C
+// tile in VMEM across the items of one C block.  The planner keeps every C
+// block's items (its "owner run": the whole chain, folded continuations
+// included) contiguous inside one lane, so this kernel launches one thread
+// block per owner run; the block walks the run's items in schedule order,
+// which is exact without atomics.  Every symbolic C block has at least one
+// item, so every C block is written and no dead-block masking is needed.
+// Per item the block follows the plan's flags as the TPU kernel does: zero
+// the fp32 accumulator at seg_start, reload it from C at accum_prev (a folded
+// continuation: the same thread stored those elements at the segment's
+// earlier seg_write), add A[a_idx] @ B[b_idx] when valid, store at
+// seg_write.  Pad items (valid == 0) carry no flags and move no data.
+//
+// Data movement.  Square T x T tiles, T = 32 or 64.  The A and B tiles of
+// the next two items are in flight in a 3-stage shared-memory ring filled
+// with cp.async while one item is multiplied.  Payload bytes move as they
+// are (4 bytes an element for fp32, 1 for int8 and fp8): that is what makes
+// the quantized modes cheaper in bytes.  A quantized item's two tiles are
+// then converted once, by the threads that copied them, into fp32 tiles in
+// shared memory (1/64 of the item's arithmetic), so one fp32 inner loop
+// serves every mode.
+//
+// Arithmetic.  T*T/16 threads; a thread owns a 4 x 4 block of C: rows
+// ty + (T/4) i (interleaved, so the two or four rows a warp reads from the
+// padded A tile fall in different banks) and columns 4 tx .. 4 tx + 3 (one
+// float4 of each B row, shared by the threads of a row group).  Each step
+// of 4 along k reads 4 float4s of A and 4 of B and does 64 FMAs into the
+// item's product p, all fp32 on the CUDA cores (fmaf), never TF32.
+//
+// Numerics follow the TPU kernel's order.  Rowwise scales (A rows -> C
+// rows, B rows -> the contraction axis) do not factor out of the product:
+// each payload element is converted to fp32 and multiplied by its row's
+// scale when the fp32 tile is made, before the product.  Per-block scales
+// are scalars of the tile: p = (p * a_scale) * b_scale after the product,
+// before p is added to the accumulator.  C is written as fp32 or bf16.
+//
+// Bound.  At granite-3-8b's FFN shapes (64 x 64 blocks at 25 % density)
+// the work is data-dependent: 2 * 64^3 operations per triple.  (4096 x
+// 12800) @ (12800 x 4096) has 50,311 triples, 26.4 GFLOP: 0.39 ms at the
+// 67 TFLOP/s fp32 CUDA-core peak, against ~0.05 ms for its 171 MB of tiles
+// and C; (12800 x 4096) @ (4096 x 12800) has 157,631 triples, 82.6 GFLOP
+// (1.23 ms) and a 644 MB C (0.19 ms).  Operations bind; the register-blocked
+// 4 x 4 loop (two float4 reads per 8 FMAs) serves that, and the ring hides
+// the tile loads behind it.
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kStages = 3;       // depth of the tile ring
+constexpr int kMaxDevices = 64;
+
+enum Payload { kF32 = 0, kI8 = 1, kF8 = 2 };
+enum ScaleMode { kNone = 0, kBlock = 1, kRow = 2 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// one payload byte to fp32 (exact for both types)
+template <int PAY>
+__device__ __forceinline__ float byte_to_f32(unsigned char x) {
+  if constexpr (PAY == kI8) {
+    return static_cast<float>(static_cast<signed char>(x));
+  } else {
+    __nv_fp8_e4m3 v;
+    v.__x = x;
+    return static_cast<float>(v);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared memory, in bytes: fp32 tiles are A [T][T + 4] (padded rows) and
+// B [T][T].  fp32 payloads: the ring holds those tiles.  1-byte payloads:
+// the ring holds the raw T x T bytes of both, and one fp32 A and B tile
+// follow it.
+template <int T, int PAY>
+constexpr size_t smem_bytes() {
+  constexpr size_t f32_tiles = sizeof(float) * (size_t(T) * (T + 4) + T * T);
+  if constexpr (PAY == kF32) return kStages * f32_tiles;
+  return kStages * size_t(2) * T * T + f32_tiles;
+}
+
+// One thread block per owner run; T*T/16 threads.
+template <int T, int PAY, int SCALE, typename TO>
+__global__ void __launch_bounds__(T * T / 16) segment_spgemm_kernel(
+    const void* __restrict__ a, const void* __restrict__ b, TO* c,
+    const float* __restrict__ a_scales, const float* __restrict__ b_scales,
+    const int* __restrict__ a_idx, const int* __restrict__ b_idx,
+    const int* __restrict__ c_idx, const int* __restrict__ seg_start,
+    const int* __restrict__ seg_write, const int* __restrict__ accum_prev,
+    const int* __restrict__ valid, const int* __restrict__ run_off) {
+  constexpr int THREADS = T * T / 16;
+  constexpr int AP = T + 4;            // padded fp32 A row, 16-byte aligned
+  constexpr int Q = T / 4;             // row groups = threads per C row
+  constexpr int ESZ = PAY == kF32 ? 4 : 1;   // payload bytes an element
+  constexpr int TILE_BYTES = T * T * ESZ;
+  constexpr int CHUNKS = TILE_BYTES / 16 / THREADS;  // 16-byte copies each
+  static_assert(THREADS == Q * Q && CHUNKS >= 1, "bad tile");
+  static_assert(PAY != kF32 || SCALE == kNone, "fp32 tiles take no scales");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  // fp32 payloads: stage s holds A at [s][0] and B after it.  1-byte
+  // payloads: stage s holds A's and B's bytes; the fp32 tiles follow.
+  constexpr int STAGE = PAY == kF32
+                            ? int(sizeof(float)) * (T * AP + T * T)
+                            : 2 * TILE_BYTES;
+  float* a32 = reinterpret_cast<float*>(smem + kStages * STAGE);
+  float* b32 = a32 + T * AP;
+
+  const int t = threadIdx.x;
+  const int tx = t % Q;
+  const int ty = t / Q;
+  const int lo = run_off[blockIdx.x];
+  const int hi = run_off[blockIdx.x + 1];
+  TO* ct = c + static_cast<long long>(c_idx[lo]) * (T * T);
+  auto c_at = [&](int i, int j) { return ct + (ty + Q * i) * T + 4 * tx + j; };
+
+  auto issue = [&](int it) {
+    if (it < hi && valid[it]) {
+      unsigned char* st = smem + ((it - lo) % kStages) * STAGE;
+      const unsigned char* sa = static_cast<const unsigned char*>(a) +
+                                static_cast<long long>(a_idx[it]) * TILE_BYTES;
+      const unsigned char* sb = static_cast<const unsigned char*>(b) +
+                                static_cast<long long>(b_idx[it]) * TILE_BYTES;
+#pragma unroll
+      for (int q = 0; q < CHUNKS; ++q) {
+        const int idx = t + q * THREADS;   // 16-byte chunk of the tile
+        if constexpr (PAY == kF32) {
+          const int r = idx / (T / 4);
+          const int c4 = (idx % (T / 4)) * 4;
+          float* as = reinterpret_cast<float*>(st);
+          cp_async16(as + r * AP + c4, sa + idx * 16);
+          cp_async16(as + T * AP + idx * 4, sb + idx * 16);
+        } else {
+          cp_async16(st + idx * 16, sa + idx * 16);
+          cp_async16(st + TILE_BYTES + idx * 16, sb + idx * 16);
+        }
+      }
+    }
+    cp_async_commit();  // empty groups keep the wait count uniform
+  };
+
+  // 1-byte payloads: the 16 elements this thread copied, to fp32 (times
+  // their row's scale in the rowwise mode)
+  auto dequant = [&](int it) {
+    const unsigned char* st = smem + ((it - lo) % kStages) * STAGE;
+    const int e0 = t * 16;                 // CHUNKS == 1 here
+    const int r = e0 / T;
+    const int k0 = e0 % T;
+    float sa = 1.f, sb = 1.f;
+    if constexpr (SCALE == kRow) {
+      sa = a_scales[static_cast<long long>(a_idx[it]) * T + r];
+      sb = b_scales[static_cast<long long>(b_idx[it]) * T + r];
+    }
+    float va[16], vb[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      va[j] = byte_to_f32<PAY>(st[e0 + j]);
+      vb[j] = byte_to_f32<PAY>(st[TILE_BYTES + e0 + j]);
+      if constexpr (SCALE == kRow) {
+        va[j] *= sa;
+        vb[j] *= sb;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; j += 4) {
+      *reinterpret_cast<float4*>(a32 + r * AP + k0 + j) =
+          make_float4(va[j], va[j + 1], va[j + 2], va[j + 3]);
+      *reinterpret_cast<float4*>(b32 + r * T + k0 + j) =
+          make_float4(vb[j], vb[j + 1], vb[j + 2], vb[j + 3]);
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < kStages - 1; ++s) issue(lo + s);
+
+  for (int it = lo; it < hi; ++it) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of item `it` landed
+    __syncthreads();               // everyone's copies visible; item it-1's
+                                   // ring slot and fp32 tiles are free again
+    issue(it + kStages - 1);
+    const bool live = valid[it] != 0;
+    const float* at;
+    const float* bt;
+    if constexpr (PAY == kF32) {
+      at = reinterpret_cast<const float*>(smem + ((it - lo) % kStages) * STAGE);
+      bt = at + T * AP;
+    } else {
+      if (live) dequant(it);
+      __syncthreads();
+      at = a32;
+      bt = b32;
+    }
+
+    if (seg_start[it]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = accum_prev[it] ? to_f32(*c_at(i, j)) : 0.f;
+    }
+    if (live) {
+      float p[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < T; k += 4) {
+        float av[4][4], bv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(at + (ty + Q * i) * AP + k);
+          av[i][0] = q.x;
+          av[i][1] = q.y;
+          av[i][2] = q.z;
+          av[i][3] = q.w;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(bt + (k + kk) * T + 4 * tx);
+          bv[kk][0] = q.x;
+          bv[kk][1] = q.y;
+          bv[kk][2] = q.z;
+          bv[kk][3] = q.w;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              p[i][j] = fmaf(av[i][kk], bv[kk][j], p[i][j]);
+      }
+      float sa = 1.f, sb = 1.f;
+      if constexpr (SCALE == kBlock) {
+        sa = a_scales[a_idx[it]];
+        sb = b_scales[b_idx[it]];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = p[i][j];
+          if constexpr (SCALE == kBlock) v = (v * sa) * sb;
+          acc[i][j] += v;
+        }
+    }
+    if (seg_write[it]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (sizeof(TO) == 4) {
+          *reinterpret_cast<float4*>(c_at(i, 0)) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) store_as(c_at(i, j), acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+struct Args {
+  const void* a;
+  const void* b;
+  void* c;
+  const float* a_scales;
+  const float* b_scales;
+  const int* a_idx;
+  const int* b_idx;
+  const int* c_idx;
+  const int* seg_start;
+  const int* seg_write;
+  const int* accum_prev;
+  const int* valid;
+  const int* run_off;
+  int n_runs;
+  cudaStream_t stream;
+};
+
+template <int T, int PAY, int SCALE, typename TO>
+int launch(const Args& x) {
+  constexpr size_t smem = smem_bytes<T, PAY>();
+  auto kernel = segment_spgemm_kernel<T, PAY, SCALE, TO>;
+  // the opt-in to > 48 KB of dynamic shared memory is per device; set it
+  // once (a repeated set is harmless, so the unlocked flag is enough)
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return -1;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  kernel<<<x.n_runs, T * T / 16, smem, x.stream>>>(
+      x.a, x.b, static_cast<TO*>(x.c), x.a_scales, x.b_scales, x.a_idx,
+      x.b_idx, x.c_idx, x.seg_start, x.seg_write, x.accum_prev, x.valid,
+      x.run_off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int T, typename TO>
+int by_mode(int payload, int scale_mode, const Args& x) {
+  if (payload == kF32 && scale_mode == kNone)
+    return launch<T, kF32, kNone, TO>(x);
+  if (payload == kI8 && scale_mode == kBlock)
+    return launch<T, kI8, kBlock, TO>(x);
+  if (payload == kI8 && scale_mode == kRow) return launch<T, kI8, kRow, TO>(x);
+  if (payload == kF8 && scale_mode == kBlock)
+    return launch<T, kF8, kBlock, TO>(x);
+  if (payload == kF8 && scale_mode == kRow) return launch<T, kF8, kRow, TO>(x);
+  return -1;
+}
+
+template <int T>
+int by_out(int payload, int scale_mode, int c_bf16, const Args& x) {
+  return c_bf16 ? by_mode<T, __nv_bfloat16>(payload, scale_mode, x)
+                : by_mode<T, float>(payload, scale_mode, x);
+}
+
+}  // namespace
+
+extern "C" {
+
+// C (n_c_blocks, tile, tile), row-major, fp32 or bf16 = the C blocks of
+// BSR(A) @ BSR(B) under the plan's lane-major triple schedule.  A and B:
+// (n, tile, tile) contiguous, 16-byte aligned; payload 0 = fp32, 1 = int8,
+// 2 = fp8-e4m3; scale_mode 0 = none (fp32 only), 1 = one fp32 scale per
+// block, 2 = one per block row (a_scales (na, tile), b_scales (nb, tile)).
+// run_off: n_runs + 1 offsets into the schedule arrays, one run per C
+// block.  Returns 0, a cudaError_t value, or -1 for an unsupported tile,
+// payload/scale combination or device index.
+int segment_spgemm(const void* a, const void* b, void* c,
+                   const float* a_scales, const float* b_scales,
+                   const int* a_idx, const int* b_idx, const int* c_idx,
+                   const int* seg_start, const int* seg_write,
+                   const int* accum_prev, const int* valid,
+                   const int* run_off, int n_runs, int tile, int payload,
+                   int scale_mode, int c_bf16, void* stream) {
+  const Args x{a, b, c, a_scales, b_scales, a_idx, b_idx, c_idx, seg_start,
+               seg_write, accum_prev, valid, run_off, n_runs,
+               static_cast<cudaStream_t>(stream)};
+  if (tile == 64) return by_out<64>(payload, scale_mode, c_bf16, x);
+  if (tile == 32) return by_out<32>(payload, scale_mode, c_bf16, x);
+  return -1;
+}
+
+const char* segment_spgemm_error_string(int code) {
+  if (code == -1)
+    return "unsupported tile, payload/scale combination or device index";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

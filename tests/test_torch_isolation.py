@@ -1,5 +1,6 @@
-"""The port stands alone: it imports nothing of JAX or of ``repro``, and its
-entry points never fall back to the CPU on their own."""
+"""The port stands alone: it imports nothing of JAX, of ``repro`` or of
+``ml_dtypes`` (the card's machine has no JAX, hence no ``ml_dtypes``), and
+its entry points never fall back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -29,17 +31,18 @@ def _imported_modules(path: Path):
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.models, "
-            "repro_torch.runtime, repro_torch.convert, "
+            "repro_torch.runtime, repro_torch.convert, repro_torch.core, "
+            "repro_torch.kernels, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

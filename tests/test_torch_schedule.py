@@ -88,7 +88,8 @@ def test_plan_cache_hits_on_same_pattern():
     a = _pattern()
     p1 = api.plan_matmul(a, 16, device="cpu")
     p2 = api.plan_matmul(a, 16, device="cpu")
-    assert api.plan_cache_stats() == {"hits": 1, "misses": 1, "size": 1}
+    assert api.plan_cache_stats() == {"hits": 1, "misses": 1, "size": 1,
+                                      "by_dtype": {"fp32": 1}}
     assert p1.slot_idx is p2.slot_idx     # leaves uploaded once per device
 
 
