@@ -38,7 +38,26 @@
    the ``"cuda"`` backend are held against the ``"reference"`` backend,
    and one decode step is profiled (device busy share, top operations).
    Then 32 decode steps with all 4 slots live are timed one by one.
-5. Train: the same model (40 layers, full width, remat on) on batches of
+5. Quantized kernel ([qkernel]): the Segment SpMM kernel's int8 / fp8
+   payload modes (per-block and rowwise scales) on layer 0's up and down
+   blocks as ``SparseLinear.quantize`` freezes them, forward at N = 4, 16,
+   64 and ``transpose_lhs`` at N = 4, 64, each held against its plain
+   version (≤ 1e-5), against the fp32 kernel on the dequantized blocks
+   (≤ 1e-5) and against the fp32 kernel on the source blocks (int8 <
+   5e-2, fp8 < 1e-1); device times, the bound (bytes of payload, scales, B
+   and C) and, as a yardstick, the library's fp32 BSR product of the
+   dequantized blocks.
+6. Quantized serving ([qserve]): ``Engine(model, quantize=mode)`` for int8
+   and fp8 on the serve phase's 6 requests (every launch quantized, 120
+   per decode step; decode logits ``"cuda"`` vs ``"reference"`` ≤ 5e-2;
+   greedy drift against the fp32 engine's tokens within ``repro``'s
+   bounds, int8 ≤ 0.25 and fp8 ≤ 0.5), a profiled decode step, 32 steady
+   decode steps and peak memory; then an int8 engine over an int8 KV cache
+   (prefill chunks of at most 8), its decode logits against the reference
+   backend.  [qgrad]: one loss and backward pass through the int8 model on
+   1 × 64 tokens, so dx runs the quantized ``transpose_lhs`` mode (loss and
+   gradients against the reference backend).
+7. Train: the same model (40 layers, full width, remat on) on batches of
    8 × 256 tokens with fp32 AdamW.  One step's loss and gradients on the
    ``"cuda"`` backend are held against the ``"reference"`` backend, then
    ``Trainer.run`` takes ``TRAIN_STEPS`` steps (loss, grad norm, ms/step,
@@ -95,6 +114,11 @@ SPGEMM_QUANT_CASE = "spgemm_up_down"
 # quantized SpGEMM vs the fp32 SpGEMM of the same operands, max error over
 # the fp32 result's max magnitude: the gates of benchmarks/kernel_bench.py
 QUANT_GATE = {"int8": 5e-2, "fp8": 1e-1}
+# greedy-token drift of a quantized engine against the fp32 engine: the
+# bounds of repro's tests/test_serving.py::test_quantized_greedy_drift_bounded
+DRIFT_BOUND = {"int8": 0.25, "fp8": 0.5}
+QSERVE_MODES = ("int8", "fp8")
+QGRAD_SEQ = 64                        # [qgrad]: 1 x 64 tokens, so dx's N = 64
 
 
 def check(cond, msg):
@@ -165,11 +189,13 @@ def phase_card():
     return smi
 
 
-def _bsr_tensor(plan, transpose=False):
-    """The library's BSR tensor of W (or of Wᵀ) from a forward plan."""
+def _bsr_tensor(plan, transpose=False, values=None):
+    """The library's BSR tensor of W (or of Wᵀ) from a forward plan, with
+    the plan's blocks or the fp32 ``values`` given."""
     gm, gk = plan.grid
     bm, bk = plan.block_shape
-    rows, cols, vals = plan.a_brow.long(), plan.a_bcol.long(), plan.lhs_blocks
+    rows, cols = plan.a_brow.long(), plan.a_bcol.long()
+    vals = plan.lhs_blocks if values is None else values
     shape = (gm * bm, gk * bk)
     if transpose:
         order = torch.argsort(cols * gm + rows)
@@ -284,6 +310,109 @@ def phase_kernels(model, dev):
         plan = api.plan_matmul(mat, 16, device=dev, **kw)
         x = torch.randn(16, mat.shape[1], generator=gen, device=dev)
         recs.append(kernel_case(label, plan, x.T.to(torch.bfloat16)))
+    return recs
+
+
+def qkernel_case(label, plan, src_blocks, b, transpose, library):
+    """One quantized kernel call against its plain version, against the
+    fp32 kernel on the dequantized blocks and against the fp32 kernel on
+    the source blocks ``src_blocks`` (the quantization gate); with
+    ``transpose`` the plan's grad plan in the ``transpose_lhs`` mode.
+    Returns a record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import (segment_spmm,
+                                                  segment_spmm_plain)
+    sched = plan.grad_plan if transpose else plan
+    args = (sched.slot_idx, sched.m_idx, sched.k_idx, sched.seg_start,
+            sched.seg_write, sched.accum_prev, sched.valid, b)
+    kw = dict(grid_m=sched.grid_m, n_lanes=sched.n_lanes,
+              unroll=sched.unroll, transpose_lhs=transpose,
+              runs=sched.run_offsets)
+    deq = ref.dequant_blocks_ref(plan.lhs_blocks, plan.lhs_scales)
+
+    def kern():
+        return segment_spmm(plan.lhs_blocks, *args, a_scales=plan.lhs_scales,
+                            **kw)
+
+    def plain():
+        return segment_spmm_plain(plan.lhs_blocks, sched.slot_idx,
+                                  sched.m_idx, sched.k_idx, sched.valid, b,
+                                  grid_m=sched.grid_m, transpose_lhs=transpose,
+                                  a_scales=plan.lhs_scales)
+
+    live = torch.repeat_interleave(sched.row_mask > 0, sched.block_shape[0])
+    got = kern()[live]
+    rel_plain, abs_plain = _rel(got, plain()[live])
+    rel_deq, _ = _rel(got, segment_spmm(deq, *args, **kw)[live])
+    quant_err, _ = _rel(got, segment_spmm(src_blocks, *args, **kw)[live])
+    torch.cuda.synchronize()
+    mode = plan.block_dtype
+    gate = QUANT_GATE[mode.split(".")[0]]
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    check(rel_plain <= KERNEL_RTOL and rel_deq <= KERNEL_RTOL,
+          f"{label} {mode}: vs plain {rel_plain:.3g}, vs the fp32 kernel on "
+          f"the dequantized blocks {rel_deq:.3g} > {KERNEL_RTOL}")
+    check(quant_err < gate, f"{label} {mode}: vs fp32 {quant_err:.3g} >= "
+                            f"{gate}")
+    # bound: payload, scales, B and C each moved once; the operations at the
+    # payload type's tensor-core rate (and, for comparison, at the fp32
+    # CUDA-core rate the kernel computes at)
+    k, n = b.shape
+    m = sched.grid_m * sched.block_shape[0]
+    nbytes = (plan.lhs_blocks.numel() * plan.lhs_blocks.element_size()
+              + plan.lhs_scales.numel() * 4 + k * n * b.element_size()
+              + m * n * 4)
+    bm, bk = plan.block_shape
+    ops = 2 * int(sched.valid.sum()) * bm * bk * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / QUANT_OPS
+    reps = 20
+    b32 = b.float()
+    rec = dict(case=label, mode="transpose_lhs" if transpose else "forward",
+               quant=mode, n=n, rel_err=rel_plain, max_abs_err=abs_plain,
+               rel_err_deq=rel_deq, quant_err=quant_err,
+               ms=device_ms(kern, reps), plain_ms=device_ms(plain, reps),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               fp32_ops_ms=ops / FP32_FLOPS * 1e3,
+               library_ms=device_ms(lambda: library @ b32, reps))
+    print(f"[qkernel] {label:<22} {mode:<12} n={n:<3} rel_err plain="
+          f"{rel_plain:.2e} deq={rel_deq:.2e} vs_fp32={quant_err:.2e} "
+          f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"bound_us={rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}) "
+          f"fp32_ops_us={rec['fp32_ops_ms'] * 1e3:.2f} library_ms="
+          f"{rec['library_ms']:.4f} (fp32 BSR @ of the dequantized blocks)")
+    return rec
+
+
+def phase_qkernel(model, dev):
+    """The quantized modes on layer 0's up and down projections, frozen by
+    ``SparseLinear.quantize`` as the quantized model freezes them."""
+    from repro_torch.core.formats import QUANT_MODES
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    mlp = model.layers[0].mlp
+    recs = []
+    for mode in QUANT_MODES:
+        for proj in ("up", "down"):
+            layer = getattr(mlp, proj)
+            plan = layer.quantize(mode).plan
+            src = layer.blocks.detach()
+            deq = ref.dequant_blocks_ref(plan.lhs_blocks, plan.lhs_scales)
+            k = plan.grid_k * plan.block_shape[1]
+            m = plan.grid_m * plan.block_shape[0]
+            lib = _bsr_tensor(plan, values=deq)
+            for n in (4, 16, 64):
+                x = torch.randn(n, k, generator=gen, device=dev).bfloat16()
+                # the serve path's layouts, as in phase_kernels
+                b = x.T if proj == "up" else x.T.contiguous()
+                recs.append(qkernel_case(proj, plan, src, b, False, lib))
+            lib = _bsr_tensor(plan, transpose=True, values=deq)
+            for n in (4, 64):
+                dy = torch.randn(n, m, generator=gen, device=dev).bfloat16()
+                recs.append(qkernel_case(f"{proj} dx (transpose_lhs)", plan,
+                                         src, dy.T, True, lib))
+            del plan, deq, lib
     return recs
 
 
@@ -662,22 +791,28 @@ def profile_once(label, fn):
                     reverse=True)[:8]:
         print(f"[profile]   host   {e.self_cpu_time_total / 1e3:8.3f} ms  "
               f"x{e.count:<5} {e.key[:150]}")
+    return 1 - busy / wall_us
 
 
-def phase_profile(model, engine, dev):
-    """One batched decode step under torch.profiler: where its time goes."""
+def phase_profile(model, engine, dev, label="decode step"):
+    """One batched decode step under torch.profiler: where its time goes.
+    Returns the device idle share."""
     tok = torch.randint(0, model.cfg.vocab, (engine.slots, 1), device=dev)
     pos = torch.tensor([30, 41, 52, 63], device=dev)[:engine.slots]
     cache = {k: v.clone() for k, v in engine.cache.items()}
     with torch.inference_mode():
         model.decode_step(cache, tok, pos)
-        profile_once("decode step", lambda: model.decode_step(cache, tok, pos))
+        return profile_once(label,
+                            lambda: model.decode_step(cache, tok, pos))
 
 
-def steady_decode(model, rng, slots=4, steps=32):
+def steady_decode(model, rng, slots=4, steps=32, tag="steady"):
     """Decode with every slot live: ``slots`` equal requests are admitted
     (prefill, not timed), then ``steps`` batched decode steps are timed
-    one by one (each ends in the host's read of the next tokens)."""
+    one by one (each ends in the host's read of the next tokens).  Returns
+    the median ms/step and the kernel launches (all, quantized) per step,
+    which must be the same in every step."""
+    from repro_torch.kernels.segment_spmm import segment_spmm
     from repro_torch.runtime import Engine, Request
 
     engine = Engine(model, slots=slots, max_len=256, prefill_buckets=(64, 16))
@@ -686,37 +821,40 @@ def steady_decode(model, rng, slots=4, steps=32):
                               max_new_tokens=steps + 1))
     engine.admit_pending()
     ms = []
+    segment_spmm.launches = segment_spmm.quantized_launches = 0
     for _ in range(steps):
         t0 = time.perf_counter()
         live = engine.step()
         ms.append((time.perf_counter() - t0) * 1e3)
         check(live == slots, f"steady decode: {live} of {slots} slots live")
+    per_step = (segment_spmm.launches / steps,
+                segment_spmm.quantized_launches / steps)
+    check(per_step[0] == 3 * model.cfg.n_layers,
+          f"{tag}: {per_step[0]} launches per decode step")
     med = float(np.median(ms))
-    print(f"[steady] {steps} decode steps, all {slots} slots live: median "
+    print(f"[{tag}] {steps} decode steps, all {slots} slots live: median "
           f"{med:.2f} ms/step (min {min(ms):.2f}, max {max(ms):.2f}), "
-          f"{slots * 1e3 / med:.1f} tok/s")
+          f"{slots * 1e3 / med:.1f} tok/s; segment_spmm launches per step "
+          f"{per_step[0]:.0f} ({per_step[1]:.0f} quantized)")
+    return med, per_step
 
 
-def phase_serve(model, dev):
-    from repro_torch.api import use_backend
+def serve_mix(engine, prompts, tag):
+    """The smoke's request mix through ``engine``, prefill and decode timed
+    apart; every request must get its 8 tokens and the kernel's launch
+    count must be 3 projections × layers × model calls.  Returns the
+    requests and the launch counts (all, quantized)."""
     from repro_torch.kernels.segment_spmm import segment_spmm
-    from repro_torch.runtime import Engine, Request
+    from repro_torch.runtime import Request
 
-    cfg = model.cfg
-    rng = np.random.default_rng(SEED)
-    # warm-up on its own engine (cuBLAS handles, allocator), not counted
-    Engine(model, slots=4, max_len=256, prefill_buckets=(64, 16)).generate(
-        [Request(prompt=rng.integers(0, cfg.vocab, 20), max_new_tokens=2)])
-
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab, int(rng.integers(5, 61))),
-                    max_new_tokens=8) for _ in range(6)]
-    engine = Engine(model, slots=4, max_len=256, prefill_buckets=(64, 16))
+    cfg = engine.model.cfg
+    reqs = [Request(prompt=p.copy(), max_new_tokens=8) for p in prompts]
     for r in reqs:
         engine.submit(r)
     t_prefill = t_decode = 0.0
     decode_tokens = 0
     torch.cuda.synchronize()
-    segment_spmm.launches = 0
+    segment_spmm.launches = segment_spmm.quantized_launches = 0
     while True:
         t0 = time.perf_counter()
         engine.admit_pending()
@@ -731,27 +869,38 @@ def phase_serve(model, dev):
         t_decode += t2 - t1
         decode_tokens += live
     launches = segment_spmm.launches
+    quantized = segment_spmm.quantized_launches
     calls = engine.decode_calls + engine.prefill_calls
     for r in reqs:
         check(r.out_tokens is not None and r.out_tokens.size == 8,
-              f"request {r.rid} got {r.out_tokens}")
+              f"{tag}: request {r.rid} got {r.out_tokens}")
     want = 3 * cfg.n_layers * calls
-    check(launches == want, f"kernel launches {launches} != 3 x "
+    check(launches == want, f"{tag}: kernel launches {launches} != 3 x "
                             f"{cfg.n_layers} x {calls} model calls")
     prompt_tokens = sum(r.prompt.size for r in reqs)
-    print(f"[serve] {len(reqs)} requests, {prompt_tokens} prompt tokens, "
+    print(f"[{tag}] {len(reqs)} requests, {prompt_tokens} prompt tokens, "
           f"{decode_tokens} decoded; model calls {calls} "
           f"({engine.prefill_calls} prefill chunks, {engine.decode_calls} "
           f"decode steps); segment_spmm launches {launches} == 3 x "
-          f"{cfg.n_layers} x {calls}; step shapes {engine.compiled_shapes}")
-    print(f"[serve] this request mix: prefill {prompt_tokens / t_prefill:.1f}"
-          f" tok/s ({t_prefill:.3f} s); decode {decode_tokens} tokens in "
-          f"{engine.decode_calls} steps "
+          f"{cfg.n_layers} x {calls} ({quantized} quantized); step shapes "
+          f"{engine.compiled_shapes}")
+    print(f"[{tag}] this request mix: prefill "
+          f"{prompt_tokens / t_prefill:.1f} tok/s ({t_prefill:.3f} s); "
+          f"decode {decode_tokens} tokens in {engine.decode_calls} steps "
           f"({decode_tokens / engine.decode_calls:.2f} live slots per step, "
           f"ramp-down included), "
           f"{1e3 * t_decode / engine.decode_calls:.2f} ms/step, "
           f"{decode_tokens / t_decode:.1f} tok/s")
+    return reqs, launches, quantized
 
+
+def decode_logits_check(model, engine, dev, rng, tag):
+    """One decode step from the engine's cache on the ``"cuda"`` and the
+    ``"reference"`` backends: finite, of the right shape, within
+    ``LOGIT_RTOL``."""
+    from repro_torch.api import use_backend
+
+    cfg = model.cfg
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).to(dev)
     pos = torch.tensor([40, 51, 62, 73], device=dev)
     logits = {}
@@ -761,16 +910,149 @@ def phase_serve(model, dev):
             with use_backend(backend):
                 logits[backend], _ = model.decode_step(cache, tok, pos)
     got, want = logits["cuda"].float(), logits["reference"].float()
-    check(got.shape == (4, cfg.padded_vocab), f"logits shape {got.shape}")
-    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    check(got.shape == (4, cfg.padded_vocab),
+          f"{tag}: logits shape {got.shape}")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite logits")
     rel = float((got - want).abs().max() / want.abs().max())
     top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    print(f"[serve] decode logits cuda vs reference: rel_err {rel:.3e} "
+    print(f"[{tag}] decode logits cuda vs reference: rel_err {rel:.3e} "
           f"(tol {LOGIT_RTOL}), top-1 agreement {top1:.2f}")
-    check(rel <= LOGIT_RTOL, f"logits rel err {rel} > {LOGIT_RTOL}")
+    check(rel <= LOGIT_RTOL, f"{tag}: logits rel err {rel} > {LOGIT_RTOL}")
+
+
+def phase_serve(model, dev):
+    """The fp32 engine on the smoke's mix.  Returns the launch count, the
+    prompts and their greedy tokens."""
+    from repro_torch.runtime import Engine, Request
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    # warm-up on its own engine (cuBLAS handles, allocator), not counted
+    Engine(model, slots=4, max_len=256, prefill_buckets=(64, 16)).generate(
+        [Request(prompt=rng.integers(0, cfg.vocab, 20), max_new_tokens=2)])
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(5, 61)))
+               for _ in range(6)]
+    engine = Engine(model, slots=4, max_len=256, prefill_buckets=(64, 16))
+    reqs, launches, _ = serve_mix(engine, prompts, "serve")
+    decode_logits_check(model, engine, dev, rng, "serve")
     phase_profile(model, engine, dev)
     steady_decode(model, rng)
-    return launches
+    return launches, prompts, [r.out_tokens for r in reqs]
+
+
+def phase_qserve(model, dev, prompts, fp32_tokens):
+    """Quantized serving at full width: ``Engine(model, quantize=mode)``
+    for int8 and fp8 on the serve phase's prompts, then an int8 engine over
+    an int8 KV cache.  Returns the quantized launches of the three request
+    mixes and a summary per engine."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Engine
+
+    rng = np.random.default_rng(SEED + 4)
+    total, summary = 0, {}
+    for mode in QSERVE_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = Engine(model, quantize=mode, slots=4, max_len=256,
+                        prefill_buckets=(64, 16))
+        setup_s = time.perf_counter() - t0
+        qmodel = engine.model
+        tag = f"qserve {mode}"
+        reqs, launches, quantized = serve_mix(engine, prompts, tag)
+        check(quantized == launches, f"{tag}: {quantized} of {launches} "
+                                     f"launches quantized")
+        total += quantized
+        got = [r.out_tokens for r in reqs]
+        n_tok = sum(t.size for t in fp32_tokens)
+        drift = sum(int((a != b).sum()) for a, b in zip(got, fp32_tokens))
+        print(f"[{tag}] quantized in {setup_s:.1f} s; greedy drift vs the "
+              f"fp32 engine {drift}/{n_tok} = {drift / n_tok:.3f} (bound "
+              f"{DRIFT_BOUND[mode]})")
+        check(drift / n_tok <= DRIFT_BOUND[mode],
+              f"{tag}: drift {drift}/{n_tok} > {DRIFT_BOUND[mode]}")
+        decode_logits_check(qmodel, engine, dev, rng, tag)
+        idle = phase_profile(qmodel, engine, dev, label=f"{tag} decode step")
+        med, per_step = steady_decode(qmodel, rng, tag=f"{tag} steady")
+        check(per_step[1] == per_step[0],
+              f"{tag}: {per_step[1]} of {per_step[0]} launches per decode "
+              f"step quantized")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[{tag}] summary: steady {med:.2f} ms/step, device idle "
+              f"share {idle:.3f}, {per_step[1]:.0f} quantized launches per "
+              f"decode step, peak {peak:.2f} GiB")
+        summary[mode] = dict(ms_per_step=med, idle=idle, peak_gib=peak,
+                             per_step=per_step[1], drift=drift / n_tok)
+        del engine, qmodel, reqs
+
+    # int8 weights over an int8 KV cache: the same weights (and the same
+    # seeded FFN patterns) in a model built with kv_cache_dtype="int8"
+    model8 = build_model(
+        dataclasses.replace(model.cfg, kv_cache_dtype="int8"), device=dev)
+    model8.load_state_dict(model.state_dict())
+    engine = Engine(model8, quantize="int8", slots=4, max_len=256,
+                    prefill_buckets=(64, 16))
+    tag = "qserve int8 + int8 KV"
+    check(max(engine.prefill_buckets) <= 8,
+          f"{tag}: prefill buckets {engine.prefill_buckets}")
+    reqs, launches, quantized = serve_mix(engine, prompts, tag)
+    check(quantized == launches, f"{tag}: {quantized} of {launches} "
+                                 f"launches quantized")
+    total += quantized
+    decode_logits_check(engine.model, engine, dev, rng, tag)
+    del engine, model8, reqs
+    return total, summary
+
+
+def phase_qgrad(model, dev):
+    """x-gradients through the int8 model: one loss and backward pass on
+    1 x ``QGRAD_SEQ`` tokens, so each quantized layer's dx runs the
+    ``transpose_lhs`` mode on its payload; loss and gradients against the
+    reference backend.  Returns the transposed quantized launches."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels.segment_spmm import segment_spmm
+
+    qmodel = model.quantize("int8")
+    cfg = qmodel.cfg
+    shape = ShapeConfig("qgrad", "train", QGRAD_SEQ, 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(
+        cfg, shape, seed=SEED + 5).batch(0).items()}
+    fwd = 3 * cfg.n_layers * (2 if cfg.remat else 1)
+    picked = ["layers.0.attn.wq.w", f"layers.{cfg.n_layers - 1}.attn.wo.w",
+              "layers.0.norm2.scale"]
+    seen = {}
+    for backend in ("cuda", "reference"):
+        segment_spmm.launches = segment_spmm.transposed_launches = 0
+        segment_spmm.quantized_launches = 0
+        loss, grads = _grads_on(qmodel, batch, backend)
+        if backend == "cuda":
+            launches = (segment_spmm.launches,
+                        segment_spmm.transposed_launches,
+                        segment_spmm.quantized_launches)
+            want = (fwd + 3 * cfg.n_layers, 3 * cfg.n_layers,
+                    fwd + 3 * cfg.n_layers)
+            check(launches == want, f"qgrad launches (all, transposed, "
+                                    f"quantized) {launches} != {want}")
+        check(not any(".mlp." in k for k in grads),
+              "a quantized payload got a gradient")
+        seen[backend] = (loss, {k: grads[k].clone() for k in picked})
+        del grads
+    (l_cuda, g_cuda), (l_ref, g_ref) = seen["cuda"], seen["reference"]
+    loss_err = abs(l_cuda - l_ref) / abs(l_ref)
+    errs = {k: float(torch.linalg.vector_norm(g_cuda[k] - g_ref[k])
+                     / torch.linalg.vector_norm(g_ref[k])) for k in picked}
+    print(f"[qgrad] int8 model, 1 x {QGRAD_SEQ} tokens: loss {l_cuda:.5f} "
+          f"(vs reference {loss_err:.3e}, tol {LOSS_RTOL}); segment_spmm "
+          f"launches {launches[0]} ({launches[1]} transposed, {launches[2]} "
+          f"quantized); gradients (norm-relative, tol {GRAD_RTOL}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(loss_err <= LOSS_RTOL, f"qgrad loss cuda vs reference {loss_err}")
+    for k, v in errs.items():
+        check(v <= GRAD_RTOL, f"qgrad {k} gradient cuda vs reference {v:.3g}")
+    del qmodel, seen
+    return launches[1]
 
 
 def _grads_on(model, batch, backend):
@@ -918,8 +1200,11 @@ def main():
 
     recs = phase_kernels(model, dev)
     phase_edges(dev)
-    launches = phase_serve(model, dev)
+    launches, prompts, fp32_tokens = phase_serve(model, dev)
     print(f"[memory] peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    qrecs = phase_qkernel(model, dev)
+    q_launches, _ = phase_qserve(model, dev, prompts, fp32_tokens)
+    qt_launches = phase_qgrad(model, dev)
     gc.collect()                     # the serving engines and their caches
     torch.cuda.empty_cache()
     train_launches, transposed = phase_train(model, dev)
@@ -949,6 +1234,15 @@ def main():
     # the worst error over the four modes
     g32 = [r for r in spgemm_recs if r["mode"] == "fp32"]
     gq = [r for r in spgemm_recs if r["mode"] != "fp32"]
+    # quantized SpMM: int8 up at decode width (the qserve path), and int8
+    # up's dx at N = 64 (the qgrad path), with the worst error over the four
+    # modes of each direction
+    qf = [r for r in qrecs if r["mode"] == "forward"]
+    qt = [r for r in qrecs if r["mode"] == "transpose_lhs"]
+    qf_rec = next(r for r in qf if r["quant"] == "int8" and r["case"] == "up"
+                  and r["n"] == 4)
+    qt_rec = next(r for r in qt if r["quant"] == "int8"
+                  and r["case"].startswith("up") and r["n"] == QGRAD_SEQ)
     print(smi)
     print(json.dumps({"kernels": [
         entry("segment_spmm", "forward", "serve", launches, fwd_rec,
@@ -962,7 +1256,11 @@ def main():
               kernel="segment_spgemm"),
         entry("segment_spgemm.quantized", "int8/fp8", "spgemm",
               spgemm_quantized, next(r for r in gq if r["mode"] == "int8"),
-              gq, kernel="segment_spgemm")]}))
+              gq, kernel="segment_spgemm"),
+        entry("segment_spmm.quantized", "int8/fp8 forward", "qserve",
+              q_launches, qf_rec, qf),
+        entry("segment_spmm.quantized.transpose_lhs",
+              "int8/fp8 transpose_lhs", "qgrad", qt_launches, qt_rec, qt)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

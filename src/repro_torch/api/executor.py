@@ -6,6 +6,9 @@ for CPU tensors) or the ``"reference"`` backend (the dense oracles).
 ``apply_plan`` is the entry the sparse layers call: a
 ``torch.autograd.Function`` around the SpMM whose backward runs ``dx = Wᵀ @
 dy`` in the kernel's ``transpose_lhs`` mode and the block SDDMM for ``dW``.
+A quantized plan's int8/fp8 payload is frozen inference storage: its dx
+runs through the grad plan on the same payload and scales, and it gets no
+gradient of its own.
 """
 from __future__ import annotations
 
@@ -47,13 +50,15 @@ def _resolve_bn(plan: SegmentPlan, bn: Optional[int]) -> int:
 
 
 def _run_spmm(plan: SegmentPlan, x: torch.Tensor, *, blocks: torch.Tensor,
-              backend: str, bn: int, out_dtype: torch.dtype) -> torch.Tensor:
+              scales: Optional[torch.Tensor], backend: str, bn: int,
+              out_dtype: torch.dtype) -> torch.Tensor:
     """``BSR(blocks) @ x`` under ``plan``'s schedule; ``bn`` caps the
     kernel's N tile (the kernel masks a ragged N edge).
 
-    ``blocks`` are always the stored tiles (BSR storage order); a
-    ``transpose_lhs`` plan (the backward schedule) contracts them along
-    their row axis instead of copying a transposed array."""
+    ``blocks`` are always the stored tiles (BSR storage order), with their
+    ``scales`` when they are a quantized payload; a ``transpose_lhs`` plan
+    (the backward schedule) contracts them along their row axis instead of
+    copying a transposed array."""
     gm, gk = plan.grid
     bm, bk = blocks.shape[1], blocks.shape[2]
     contract_blk = bm if plan.transpose_lhs else bk
@@ -65,16 +70,17 @@ def _run_spmm(plan: SegmentPlan, x: torch.Tensor, *, blocks: torch.Tensor,
             # a_brow/a_bcol describe the forward storage, whose grid is the
             # plan's grid reversed
             out = ref.spmm_ref(blocks, plan.a_brow, plan.a_bcol, gk, gm, x,
-                               transpose_lhs=True)
+                               transpose_lhs=True, scales=scales)
         else:
-            out = ref.spmm_ref(blocks, plan.a_brow, plan.a_bcol, gm, gk, x)
+            out = ref.spmm_ref(blocks, plan.a_brow, plan.a_bcol, gm, gk, x,
+                               scales=scales)
         return out.to(out_dtype)
     out = segment_spmm(
         blocks, plan.slot_idx, plan.m_idx, plan.k_idx,
         plan.seg_start, plan.seg_write, plan.accum_prev, plan.valid, x,
         grid_m=gm, n_lanes=plan.n_lanes, bn=bn, unroll=plan.unroll,
         transpose_lhs=plan.transpose_lhs, out_dtype=out_dtype,
-        prefetch=plan.prefetch, runs=plan.run_offsets)
+        a_scales=scales, prefetch=plan.prefetch, runs=plan.run_offsets)
     if plan.n_runs < gm:
         # block rows no item visits are never written by the kernel
         live = torch.repeat_interleave(plan.row_mask > 0,
@@ -134,7 +140,8 @@ def execute_plan(plan: SegmentPlan, rhs: Optional[torch.Tensor] = None, *,
     if plan.kind == SPMM:
         if rhs is None:
             raise ValueError("spmm plan needs a dense right-hand side")
-        return _run_spmm(plan, rhs, blocks=plan.lhs_blocks, backend=backend,
+        return _run_spmm(plan, rhs, blocks=plan.lhs_blocks,
+                         scales=plan.lhs_scales, backend=backend,
                          bn=_resolve_bn(plan, bn), out_dtype=out_dtype)
     if plan.kind == SPGEMM:
         if rhs is not None:
@@ -157,19 +164,20 @@ def _block_sddmm(plan: SegmentPlan, dy: torch.Tensor,
 
 
 class _Apply(torch.autograd.Function):
-    """``y = W @ x`` with ``W``'s blocks as a differentiable input."""
+    """``y = W @ x`` with ``W``'s blocks as a differentiable input (fp32
+    plans; a quantized payload and its scales get no gradient)."""
 
     @staticmethod
-    def forward(ctx, x, blocks, plan, backend, bn):
-        ctx.save_for_backward(x, blocks)
+    def forward(ctx, x, blocks, scales, plan, backend, bn):
+        ctx.save_for_backward(x, blocks, scales)
         ctx.plan, ctx.backend, ctx.bn = plan, backend, bn
-        out = _run_spmm(plan, x, blocks=blocks, backend=backend, bn=bn,
-                        out_dtype=torch.float32)
+        out = _run_spmm(plan, x, blocks=blocks, scales=scales,
+                        backend=backend, bn=bn, out_dtype=torch.float32)
         return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        x, blocks = ctx.saved_tensors
+        x, blocks, scales = ctx.saved_tensors
         plan = ctx.plan
         g = plan.grad_plan
         if g is None:
@@ -180,33 +188,49 @@ class _Apply(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # the kernel reads dy (a bf16 transposed view in the sparse FFN)
-            # by stride and converts on load, as dy.astype(f32) does in repro
-            dx = _run_spmm(g, dy, blocks=blocks, backend=ctx.backend,
-                           bn=ctx.bn, out_dtype=torch.float32).to(x.dtype)
-        if ctx.needs_input_grad[1]:
+            # by stride and converts on load, as dy.astype(f32) does in
+            # repro; the grad plan addresses the forward payload and scales
+            dx = _run_spmm(g, dy, blocks=blocks, scales=scales,
+                           backend=ctx.backend, bn=ctx.bn,
+                           out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1] and not plan.quantized:
             dw = _block_sddmm(plan, dy, x).to(blocks.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
 def apply_plan(plan: SegmentPlan, x: torch.Tensor, *,
                blocks: Optional[torch.Tensor] = None,
+               scales: Optional[torch.Tensor] = None,
                bn: Optional[int] = None,
                backend: Optional[str] = None) -> torch.Tensor:
     """Differentiable ``y = W @ x`` for an spmm plan (``x``: ``(K, N)``);
     the output has ``x``'s dtype, accumulation is fp32.  ``blocks``
     (default ``plan.lhs_blocks``) are W's values in the plan's storage
-    order, so layers that share a plan pass their own without copying it.
+    order, so layers that share a plan pass their own without copying it;
+    on a quantized plan they are a payload of the plan's dtype and come
+    with their ``scales`` (default ``plan.lhs_scales``, with the plan's own
+    blocks only).
 
-    Gradients flow to ``x`` (in ``x``'s dtype) and to ``blocks`` (in their
-    dtype), never to the plan.  The backward pass needs the plan's
-    ``grad_plan`` (``plan_matmul(..., with_grad=True)``) and raises
-    ``ValueError`` without it; it runs on the backend resolved here."""
+    Gradients flow to ``x`` (in ``x``'s dtype) and, on an fp32 plan, to
+    ``blocks`` (in their dtype), never to the plan or to a quantized
+    payload.  The backward pass needs the plan's ``grad_plan``
+    (``plan_matmul(..., with_grad=True)``) and raises ``ValueError``
+    without it; it runs on the backend resolved here."""
     if plan.kind != SPMM:
         raise ValueError("apply_plan supports spmm plans")
     if blocks is None:
-        blocks = plan.lhs_blocks
-    elif blocks.shape != plan.lhs_blocks.shape:
-        raise ValueError(f"blocks has shape {tuple(blocks.shape)}, expected "
-                         f"{tuple(plan.lhs_blocks.shape)}")
+        if scales is not None:
+            raise ValueError("scales come with the blocks they scale; pass "
+                             "both or neither")
+        blocks, scales = plan.lhs_blocks, plan.lhs_scales
+    else:
+        if blocks.shape != plan.lhs_blocks.shape:
+            raise ValueError(f"blocks has shape {tuple(blocks.shape)}, "
+                             f"expected {tuple(plan.lhs_blocks.shape)}")
+        plan._check_value_dtype("blocks", blocks)
+        if plan.quantized and scales is None:
+            raise ValueError(f"blocks of a {plan.block_dtype} plan need "
+                             f"their scales")
     backend = resolve_backend(backend if backend is not None else plan.backend)
-    return _Apply.apply(x, blocks, plan, backend, _resolve_bn(plan, bn))
+    return _Apply.apply(x, blocks, scales, plan, backend,
+                        _resolve_bn(plan, bn))

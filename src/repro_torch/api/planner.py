@@ -10,13 +10,14 @@ leaves on the requested device.
 ``plan_matmul(A, B_or_shape)`` dispatches on the right-hand side: a ``BSR``
 gives a SpGEMM plan (B frozen into the plan; ``quantize=`` stores both
 operands as int8/fp8 payloads beside fp32 scales), a dense array, shape or
-``N`` an SpMM plan.  The storage dtype is part of the fingerprint, so fp32
-and quantized plans of one pattern are separate cache entries.
+``N`` an SpMM plan (``quantize=`` stores A as an int8/fp8 payload beside
+fp32 scales; its grad plan addresses the same payload and scales).  The
+storage dtype is part of the fingerprint, so fp32 and quantized plans of
+one pattern are separate cache entries.
 
 Not ported yet, and raising ``NotImplementedError`` (see ROADMAP):
-``policy="auto"`` and ``vmem_limit_bytes`` (the tuner and budget checks),
-``verify`` (the plan verifier) and ``quantize`` on SpMM plans (the SpMM
-kernel's payload modes).
+``policy="auto"`` and ``vmem_limit_bytes`` (the tuner and budget checks)
+and ``verify`` (the plan verifier).
 """
 from __future__ import annotations
 
@@ -60,6 +61,21 @@ def _scale_fetch_bytes(block_dtype: str, rows: int) -> int:
     """fp32 scale bytes a quantized tile fetch brings along: one scalar per
     block, or one per block row in a rowwise mode."""
     return (rows if quant_is_rowwise(block_dtype) else 1) * 4
+
+
+def _quantize_a_traffic(basis: dict, block_dtype: str, bm: int,
+                        bk: int) -> dict:
+    """Re-price an SpMM traffic estimate's A bytes for a quantized payload:
+    each A fetch moves ``bm·bk`` payload bytes plus its fp32 scales (one per
+    block, or ``bm`` in a rowwise mode); B and C stay as they are."""
+    if block_dtype == "fp32":
+        return basis
+    itemsize = QUANT_DTYPES[quant_base_dtype(block_dtype)].itemsize
+    out = dict(basis)
+    out["a_bytes"] = basis["a_fetches"] * (
+        bm * bk * itemsize + _scale_fetch_bytes(block_dtype, bm))
+    out["total"] = out["a_bytes"] + out["b_bytes"] + out["c_bytes"]
+    return out
 
 
 def _quantize_spgemm_traffic(traffic: dict, block_dtype: str, bm: int,
@@ -207,16 +223,18 @@ def _schedule_template(sched, layout: LaneLayout, fin, slots: np.ndarray,
                        bm: int, bk: int, policy: str, fingerprint: str,
                        unroll: int, pipeline: bool, bn_hint: Optional[int],
                        prefetch: Optional[str], a: BSR,
-                       transpose_lhs: bool) -> _PlanTemplate:
+                       transpose_lhs: bool, block_dtype: str) -> _PlanTemplate:
     """Lane-major leaves, fetch schedule and traffic basis of one built
-    schedule (the forward plan or its transposed backward twin)."""
+    schedule (the forward plan or its transposed backward twin); the
+    backward twin reads the forward storage, so both carry its dtype."""
     lane_m = lane_select(layout, sched.m).astype(np.int32)
     lane_k = lane_select(layout, sched.k).astype(np.int32)
     lane_slot = lane_select(layout, slots).astype(np.int32)
     flags = _lane_flags(layout, sched, fin, lane_slot, lane_k, unroll)
-    basis = lane_traffic_spmm(
+    basis = _quantize_a_traffic(lane_traffic_spmm(
         lane_m, lane_k, flags["seg_start"], flags["valid"], layout.n_lanes,
-        bm, bk, 1, unroll=unroll, pipeline=pipeline, prefetch=prefetch)
+        bm, bk, 1, unroll=unroll, pipeline=pipeline, prefetch=prefetch),
+        block_dtype, bm, bk)
     basis.update(layout.stats)
     leaves = dict(
         m_idx=lane_m, k_idx=lane_k, slot_idx=lane_slot,
@@ -226,7 +244,7 @@ def _schedule_template(sched, layout: LaneLayout, fin, slots: np.ndarray,
     aux = dict(kind=SPMM, policy=policy, block_shape=(bm, bk),
                grid=(sched.n_m_blocks, sched.n_k_blocks), rhs_grid=None,
                n_out_blocks=sched.n_m_blocks, fingerprint=fingerprint,
-               block_dtype="fp32", n_lanes=layout.n_lanes, unroll=unroll,
+               block_dtype=block_dtype, n_lanes=layout.n_lanes, unroll=unroll,
                transpose_lhs=transpose_lhs, pipeline=pipeline,
                bn_hint=bn_hint, prefetch=prefetch,
                has_pads=bool(not layout.valid.all()))
@@ -235,7 +253,7 @@ def _schedule_template(sched, layout: LaneLayout, fin, slots: np.ndarray,
 
 def _build_spmm_template(a: BSR, policy: str, fold_len: Optional[int],
                          with_grad: bool, n_lanes: int, unroll: int,
-                         fingerprint: str, pipeline: bool,
+                         fingerprint: str, block_dtype: str, pipeline: bool,
                          bn_hint: Optional[int],
                          prefetch: Optional[str]) -> _PlanTemplate:
     def one(mat: BSR, slots_of, fp: str, transpose_lhs: bool):
@@ -249,7 +267,7 @@ def _build_spmm_template(a: BSR, policy: str, fold_len: Optional[int],
         bm, bk = mat.block_shape
         return _schedule_template(
             sched, layout, fin, slots_of(sched), bm, bk, policy, fp, unroll,
-            pipeline, bn_hint, prefetch, a, transpose_lhs)
+            pipeline, bn_hint, prefetch, a, transpose_lhs, block_dtype)
 
     tpl = one(a, lambda s: s.a_idx, fingerprint, False)
     if with_grad:
@@ -349,10 +367,11 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
     ``repro.api.plan_matmul``: ``policy`` (a registered policy),
     ``fold_len`` (temporal-fold cap), ``with_grad`` (also build the
     transposed schedule; SpMM only), ``n_lanes`` and ``unroll`` (lane
-    partitioning), ``n_cols_hint`` (traffic hint), ``quantize`` (SpGEMM:
-    ``"int8"``/``"fp8"`` store both operands as payloads with one fp32
-    scale per block, ``"int8.rowwise"``/``"fp8.rowwise"`` one per block
-    row), ``out_dtype`` (default output dtype), ``cache`` (the fingerprint
+    partitioning), ``n_cols_hint`` (traffic hint), ``quantize``
+    (``"int8"``/``"fp8"`` store A, and for SpGEMM B too, as payloads with
+    one fp32 scale per block, ``"int8.rowwise"``/``"fp8.rowwise"`` one per
+    block row; the SpMM kernel dequantizes at its fp32 accumulator),
+    ``out_dtype`` (default output dtype), ``cache`` (the fingerprint
     cache), ``pipeline``/``bn_hint``/``prefetch`` (recorded on the plan;
     the TPU DMA-timing knobs change no result).  ``device`` places the
     plan's tensors; ``None`` means the card.
@@ -384,11 +403,6 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
         hint = n_cols_hint
     if b is not None and with_grad:
         raise NotImplementedError("with_grad is only supported for SpMM plans")
-    if b is None and quantize is not None:
-        raise NotImplementedError(
-            "plan_matmul(quantize=...) on an SpMM plan: the SpMM kernel's "
-            "int8/fp8 payload modes are not ported yet; see ROADMAP "
-            "'quantized serving'")
     device = resolve_device(device)
     block_dtype = quantize if quantize is not None else "fp32"
     kind = SPGEMM if b is not None else SPMM
@@ -404,8 +418,8 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
     if tpl is None:
         if kind == SPMM:
             tpl = _build_spmm_template(a, policy, fold_len, with_grad,
-                                       n_lanes, unroll, key, pipeline,
-                                       bn_hint, prefetch)
+                                       n_lanes, unroll, key, block_dtype,
+                                       pipeline, bn_hint, prefetch)
         else:
             tpl = _build_spgemm_template(a, b, policy, fold_len, n_lanes,
                                          unroll, key, block_dtype, pipeline,

@@ -1,10 +1,11 @@
 """Carry state of the JAX package over to the port.
 
 :func:`params_from_jax` takes the output of ``repro``'s ``Transformer.init``
-(layer-stacked leaves, converted to numpy by the caller) and returns the
-port's state dict, so that both packages compute the same function.  The
-block-sparse FFN blocks are in the storage order of the JAX model's shared
-patterns; the port's model must be built over the same patterns
+or ``Transformer.quantize`` (layer-stacked leaves, converted to numpy by
+the caller) and returns the port's state dict, so that both packages
+compute the same function.  The block-sparse FFN blocks are in the
+storage order of the JAX model's shared patterns; the port's model must
+be built over the same patterns
 (``build_model(cfg, ffn_patterns=...)``).  :func:`quantized_blocks_from_jax`
 does the same for ``repro``'s quantized block storage.  The port never
 reproduces JAX's random numbers.
@@ -17,8 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.formats import (QUANT_DTYPES, QuantizedBlocks,
-                                      _check_quant_dtype, quant_base_dtype)
+from repro_torch.core.formats import (QUANT_DTYPES, ROWWISE_SUFFIX,
+                                      QuantizedBlocks, _check_quant_dtype,
+                                      quant_base_dtype)
 from repro_torch.models.transformer import FfnPatterns
 
 _PROJS = ("up", "gate", "down")
@@ -35,7 +37,13 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping,
 
     ``ffn_patterns_np``: ``{"up"|"gate"|"down": (brow, bcol)}`` of the JAX
     model's shared FFN plans; required when ``cfg.ffn_block_sparse``, and
-    checked against the block counts of the FFN leaves.
+    checked against the block counts of the FFN leaves.  A quantized tree
+    (``repro``'s ``Transformer.quantize``) has FFN projections
+    ``{"blocks": payload, "scales": scales}`` stacked over layers; they
+    come over bit for bit (:func:`quantized_blocks_from_jax`) as the port's
+    ``blocks`` and ``scales`` buffers, in the mode the leaves carry: an
+    int8 payload is ``"int8"``, any other 1-byte one (fp8, or its ``uint8``
+    view) ``"fp8"``, and ``(layers, n, bm)`` scales are rowwise.
     """
     sd: Dict[str, torch.Tensor] = {
         "embed.table": _t(params_np["embed"]["table"]),
@@ -52,8 +60,16 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping,
             for leaf, arr in lp["attn"][name].items():
                 sd[pre + f"attn.{name}.{leaf}"] = _t(arr[i])
         for proj in _PROJS:
-            for leaf, arr in lp["mlp"][proj].items():
-                sd[pre + f"mlp.{proj}.{leaf}"] = _t(arr[i])
+            leaves = lp["mlp"][proj]
+            if "scales" not in leaves:
+                for leaf, arr in leaves.items():
+                    sd[pre + f"mlp.{proj}.{leaf}"] = _t(arr[i])
+                continue
+            q = quantized_blocks_from_jax(leaves["blocks"][i],
+                                          leaves["scales"][i],
+                                          _mode_of(leaves))
+            sd[pre + f"mlp.{proj}.blocks"] = q.payload
+            sd[pre + f"mlp.{proj}.scales"] = q.scales
     if cfg.ffn_block_sparse:
         if ffn_patterns_np is None:
             raise ValueError("a block-sparse FFN needs ffn_patterns_np")
@@ -64,6 +80,13 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping,
                 raise ValueError(f"mlp.{proj} has {got} blocks per layer but "
                                  f"its pattern has {n}")
     return sd
+
+
+def _mode_of(leaves: Mapping) -> str:
+    """The quantization mode of one layer-stacked projection of a quantized
+    ``repro`` tree."""
+    base = "int8" if leaves["blocks"].dtype == np.int8 else "fp8"
+    return base + (ROWWISE_SUFFIX if leaves["scales"].ndim == 3 else "")
 
 
 def quantized_blocks_from_jax(payload, scales, mode: str) -> QuantizedBlocks:

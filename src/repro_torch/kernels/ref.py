@@ -39,14 +39,17 @@ def dequant_blocks_ref(blocks: torch.Tensor,
 
 def spmm_ref(blocks: torch.Tensor, brow: torch.Tensor, bcol: torch.Tensor,
              grid_m: int, grid_k: int, b_dense: torch.Tensor,
-             transpose_lhs: bool = False) -> torch.Tensor:
+             transpose_lhs: bool = False,
+             scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``C = BSR(A) @ B`` (or ``BSR(A)ᵀ @ B``) computed densely in fp32.
 
     ``brow``/``bcol``/``grid_m``/``grid_k`` always describe the *stored* A;
     ``transpose_lhs`` contracts along its rows instead (the backward pass's
     oracle reads the forward storage, as the kernel's transposed mode does).
+    ``scales`` dequantize a quantized block payload first.
     """
-    a = bsr_to_dense(blocks.float(), brow, bcol, grid_m, grid_k)
+    a = bsr_to_dense(dequant_blocks_ref(blocks, scales), brow, bcol, grid_m,
+                     grid_k)
     if transpose_lhs:
         a = a.T
     return a @ b_dense.float()

@@ -2,7 +2,8 @@
 ``C = BSR(A)ᵀ @ B`` in the ``transpose_lhs`` mode (the backward pass).
 
 Replaces ``src/repro/kernels/segment_spmm.py::segment_spmm`` (forward and
-``transpose_lhs`` modes, fp32 blocks) with a CUDA kernel written for Hopper,
+``transpose_lhs`` modes; fp32 blocks, and int8 / fp8-e4m3 payloads with
+per-block or rowwise fp32 scales) with a CUDA kernel written for Hopper,
 ``src/repro_torch/csrc/segment_spmm.cu``; the design and its bound are noted
 at the top of that source.  :func:`segment_spmm` launches the kernel for
 CUDA tensors and runs :func:`segment_spmm_plain` for CPU tensors.  It takes
@@ -19,9 +20,15 @@ B is read by stride: the sparse FFN passes ``x.T`` (and the backward pass
 ``dy``), transposed views that the kernel reads without a copy.  Layouts
 without a unit stride raise.
 
-Not ported yet (ROADMAP): quantized payloads (``a_scales``) and the TPU's
-``prefetch="cross_pass"`` DMA timing.  They raise ``NotImplementedError``.
-The TPU kernel's fetch flags and ring slots
+A quantized payload (``a_scales`` given) keeps ``repro``'s order of
+operations: rowwise scales dequantize each tile row before the product, a
+per-block scale multiplies each item's fp32 product.  The kernel takes
+scales only beside an int8/fp8 payload and a payload only with its scales;
+other pairings raise ``NotImplementedError`` on every device, so the CPU
+and the card accept the same calls.
+
+Not ported (ROADMAP): the TPU's ``prefetch="cross_pass"`` DMA timing, which
+raises ``NotImplementedError``.  The TPU kernel's fetch flags and ring slots
 (``a_fetch``/``b_fetch``/``a_slot``/``b_slot``) and its ``pipeline`` switch
 describe TPU DMA timing and change no result; this kernel does not read
 them.
@@ -41,14 +48,16 @@ _TILES = (4, 8, 16, 32)
 _BLOCKS = (32, 64)
 _B_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel's payload codes (fp32 blocks, int8, fp8-e4m3)
+_PAYLOADS = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.segment_spmm.argtypes = [p] * 11 + [i, i, i, ll, ll, i, i, i, i,
-                                                p]
+        lib.segment_spmm.argtypes = [p] * 12 + [i, i, i, ll, ll] + [i] * 6 + [
+            p]
         lib.segment_spmm.restype = i
         lib.segment_spmm_error_string.argtypes = [i]
         lib.segment_spmm_error_string.restype = ctypes.c_char_p
@@ -110,14 +119,19 @@ def _tile_n(n: int, bn: int) -> int:
 
 def segment_spmm_plain(a_blocks, slot_idx, m_idx, k_idx, valid, b_dense, *,
                        grid_m: int, transpose_lhs: bool = False,
-                       out_dtype=torch.float32) -> torch.Tensor:
+                       out_dtype=torch.float32,
+                       a_scales=None) -> torch.Tensor:
     """The kernel's plain torch version: gather each item's A tile
-    (transposed in the ``transpose_lhs`` mode) and B row-block, one batched
-    fp32 matmul, zero the pad items, ``index_add_`` into C by block row.
-    For a planned schedule (every owner's segments summed once into its
-    tile) this equals the kernel's result up to fp32 summation order; rows
-    no item visits come out zero."""
-    a = a_blocks[slot_idx.long()].float()
+    (dequantized by its rowwise scales, then transposed in the
+    ``transpose_lhs`` mode) and B row-block, one batched fp32 matmul, each
+    item's product times its per-block scale, zero the pad items,
+    ``index_add_`` into C by block row.  For a planned schedule (every
+    owner's segments summed once into its tile) this equals the kernel's
+    result up to fp32 summation order; rows no item visits come out zero."""
+    slots = slot_idx.long()
+    a = a_blocks[slots].float()
+    if a_scales is not None and a_scales.ndim == 2:
+        a = a * a_scales[slots][:, :, None]
     if transpose_lhs:
         a = a.transpose(1, 2)
     _, out_blk, contract_blk = a.shape
@@ -125,6 +139,8 @@ def segment_spmm_plain(a_blocks, slot_idx, m_idx, k_idx, valid, b_dense, *,
     b = b_dense.float().reshape(k_dim // contract_blk, contract_blk,
                                 n)[k_idx.long()]
     contrib = torch.bmm(a, b)
+    if a_scales is not None and a_scales.ndim == 1:
+        contrib = contrib * a_scales[slots][:, None, None]
     contrib = torch.where(valid.bool()[:, None, None], contrib, 0.0)
     out = torch.zeros((grid_m, out_blk, n), dtype=torch.float32,
                       device=b_dense.device)
@@ -142,8 +158,9 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
     lane-major Segment schedule.
 
     Args:
-      a_blocks: ``(n_blocks, bm, bk)`` fp32 A tiles in BSR storage order
-        (the forward storage in both modes).
+      a_blocks: ``(n_blocks, bm, bk)`` A tiles in BSR storage order (the
+        forward storage in both modes): fp32, or an int8 / fp8-e4m3
+        payload with ``a_scales``.
       slot_idx/m_idx/k_idx: ``(n_items,)`` int32 per-item block slot and
         block coordinates, lane-major.
       seg_start/seg_write/accum_prev/valid: ``(n_items,)`` int32 flags.
@@ -155,6 +172,9 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
       bn: widest N tile to use (the kernel picks 4..32).
       transpose_lhs: contract each stored tile along its row axis.
       out_dtype: fp32 or bf16; accumulation is always fp32.
+      a_scales: the payload's fp32 scales, ``(n_blocks,)`` (one per block,
+        applied to each item's product) or ``(n_blocks, bm)`` (one per
+        stored block row, applied to the tile before the product).
       runs: the plan's owner-run offsets (:func:`run_offsets`, derived
         once per plan by the planner) on the device; required for CUDA
         tensors, unused by the plain version.
@@ -163,17 +183,20 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
     ``transpose_lhs``).  Block rows that no item visits are left unwritten
     by the kernel (the executor zeroes them).
     """
-    if a_scales is not None:
-        raise NotImplementedError(
-            "segment_spmm: quantized payloads are not ported yet; see "
-            "ROADMAP 'quantized serving'")
     if prefetch not in (None, "cross_pass"):
         raise ValueError(f"prefetch={prefetch!r}: expected None or 'cross_pass'")
     if prefetch is not None:
         raise NotImplementedError(
             "segment_spmm: prefetch='cross_pass' is a TPU DMA-timing mode "
             "with identical results; plan without it")
-    _, bm, bk = a_blocks.shape
+    _check_payload(a_blocks, a_scales)
+    n_blocks, bm, bk = a_blocks.shape
+    if a_scales is not None and tuple(a_scales.shape) not in (
+            (n_blocks,), (n_blocks, bm)):
+        raise ValueError(
+            f"a_scales has shape {tuple(a_scales.shape)}, expected one fp32 "
+            f"scale per stored block ({n_blocks},) or per block row "
+            f"({n_blocks}, {bm})")
     contract_blk = bm if transpose_lhs else bk
     k_dim, n = b_dense.shape
     if k_dim % contract_blk:
@@ -187,18 +210,35 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
         return segment_spmm_plain(a_blocks, slot_idx, m_idx, k_idx, valid,
                                   b_dense, grid_m=grid_m,
                                   transpose_lhs=transpose_lhs,
-                                  out_dtype=out_dtype)
+                                  out_dtype=out_dtype, a_scales=a_scales)
     if b_dense.device.type != "cuda":
         raise ValueError(f"segment_spmm runs on cuda or cpu tensors, got "
                          f"{b_dense.device}")
-    return _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
-                   accum_prev, valid, b_dense, grid_m, bn, transpose_lhs,
-                   out_dtype, runs)
+    return _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+                   seg_write, accum_prev, valid, b_dense, grid_m, bn,
+                   transpose_lhs, out_dtype, runs)
 
 
-def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
-            accum_prev, valid, b_dense, grid_m, bn, transpose_lhs, out_dtype,
-            runs) -> torch.Tensor:
+def _check_payload(a_blocks, a_scales) -> None:
+    """The block dtype and the scales must come as the kernel takes them:
+    fp32 blocks alone, or an int8/fp8 payload with its scales."""
+    if a_blocks.dtype not in _PAYLOADS:
+        raise NotImplementedError(
+            f"segment_spmm: blocks must be one of {tuple(_PAYLOADS)}, got "
+            f"{a_blocks.dtype}")
+    if a_blocks.dtype == torch.float32 and a_scales is not None:
+        raise NotImplementedError(
+            "segment_spmm: scales go with int8/fp8 payloads only; fp32 "
+            "blocks carry their values")
+    if a_blocks.dtype != torch.float32 and a_scales is None:
+        raise NotImplementedError(
+            f"segment_spmm: a {a_blocks.dtype} payload needs its scales "
+            f"(a_scales); it is never read as fp32 values")
+
+
+def _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+            seg_write, accum_prev, valid, b_dense, grid_m, bn, transpose_lhs,
+            out_dtype, runs) -> torch.Tensor:
     _, bm, bk = a_blocks.shape
     k_dim, n = b_dense.shape
     device = b_dense.device
@@ -206,10 +246,10 @@ def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
         raise NotImplementedError(
             f"segment_spmm: the CUDA kernel takes square {_BLOCKS} blocks, "
             f"got {(bm, bk)}")
-    if a_blocks.dtype != torch.float32:
-        raise NotImplementedError(
-            f"segment_spmm: the CUDA kernel takes fp32 blocks, got "
-            f"{a_blocks.dtype}")
+    if a_scales is not None and (a_scales.dtype != torch.float32
+                                 or not a_scales.is_contiguous()):
+        raise ValueError(f"segment_spmm: a_scales must be contiguous fp32, "
+                         f"got {a_scales.dtype}")
     if b_dense.dtype not in _B_DTYPES or out_dtype not in _OUT_DTYPES:
         raise NotImplementedError(
             f"segment_spmm: B must be one of {_B_DTYPES} and out_dtype one "
@@ -223,7 +263,8 @@ def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
         raise ValueError("segment_spmm: a_blocks must be contiguous and "
                          "16-byte aligned")
     sched = (slot_idx, m_idx, k_idx, seg_start, seg_write, accum_prev, valid)
-    for t in (a_blocks,) + sched:
+    scales = () if a_scales is None else (a_scales,)
+    for t in (a_blocks,) + scales + sched:
         if t.device != device:
             raise ValueError(f"segment_spmm: all operands must be on "
                              f"{device}, got one on {t.device}")
@@ -243,10 +284,16 @@ def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
         raise ValueError(f"segment_spmm: {n_runs} owner runs exceed the "
                          f"65535 thread-block rows of one launch")
     lib = _lib()
+    # 1-byte payloads cross as raw bytes (an fp8 tensor as its uint8 view);
+    # 0 = no scales, 1 = per block, 2 = per block row
+    scale_mode = 0 if a_scales is None else a_scales.ndim
     rc = lib.segment_spmm(
-        a_blocks.data_ptr(), b_dense.data_ptr(), out.data_ptr(),
+        a_blocks.data_ptr(),
+        a_scales.data_ptr() if a_scales is not None else None,
+        b_dense.data_ptr(), out.data_ptr(),
         *(t.data_ptr() for t in sched), runs.data_ptr(), n_runs, bm, n,
         sbk, sbn, _tile_n(n, bn), int(transpose_lhs),
+        _PAYLOADS[a_blocks.dtype], scale_mode,
         int(b_dense.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(device).cuda_stream)
@@ -256,11 +303,15 @@ def _launch(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
     segment_spmm.launches += 1
     if transpose_lhs:
         segment_spmm.transposed_launches += 1
+    if scale_mode:
+        segment_spmm.quantized_launches += 1
     return out
 
 
 #: Kernel launches since the count was last set to 0, in both modes (only
 #: :func:`segment_spmm` on CUDA tensors adds to it) ...
 segment_spmm.launches = 0
-#: ... and, of those, the launches in the ``transpose_lhs`` mode.
+#: ... and, of those, the launches in the ``transpose_lhs`` mode ...
 segment_spmm.transposed_launches = 0
+#: ... and the launches on int8/fp8 payloads (either mode).
+segment_spmm.quantized_launches = 0

@@ -9,7 +9,10 @@ with fp32 norms, softmax and attention accumulation, as in ``repro``.
 
 Unlike JAX, the KV cache is updated in place: :func:`kv_cache_write` writes
 into the cache tensors it is given, which saves a copy of the whole cache
-per step.  The sharding hints of ``repro`` (``act_constrain``) have no
+per step.  An int8 KV cache (``kv_cache_dtype="int8"``) stores keys and
+values with symmetric per-position, per-head fp32 scales, and attention
+factors the scales out of both products (:func:`_direct_attention_q8`), as
+``repro`` does.  The sharding hints of ``repro`` (``act_constrain``) have no
 meaning on one device and are dropped.
 """
 from __future__ import annotations
@@ -169,6 +172,44 @@ def _direct_attention(q, k, v, *, q_offset: Pos, kv_len: Pos, causal,
     return out.to(q.dtype)
 
 
+def _direct_attention_q8(q, kq, ks, vq, vs, *, q_offset: Pos, kv_len: Pos,
+                         causal, window):
+    """Decode attention over an int8 KV cache with factored scales.
+
+    q: (B, t, H, D); kq/vq: (B, T, Hkv, D) int8; ks/vs: (B, T, Hkv) fp32.
+    ``s = (q·kqᵀ) ⊙ ks`` and ``out = (p ⊙ vs)·vq``: the int8 values feed the
+    products as bf16 (exact) with fp32 sums, as ``repro``'s bf16 einsums
+    with ``preferred_element_type=float32`` do; no dequantized copy of the
+    cache is made."""
+    b, tq, h, d = q.shape
+    tk, hkv = kq.shape[1], kq.shape[2]
+    rep = h // hkv
+    if rep > 1:
+        kq = kq.repeat_interleave(rep, dim=2)
+        vq = vq.repeat_interleave(rep, dim=2)
+        ks = ks.repeat_interleave(rep, dim=2)
+        vs = vs.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.bfloat16().float(),
+                     kq.float()) / math.sqrt(d)
+    s = s * ks.permute(0, 2, 1)[:, :, None, :]       # column-wise dequant
+    mask = _decode_mask(b, tq, tk, q_offset=q_offset, kv_len=kv_len,
+                        causal=causal, window=window, device=q.device)
+    s = torch.where(mask[:, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    p = p * vs.permute(0, 2, 1)[:, :, None, :]        # v scales folded into p
+    out = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), vq.float())
+    return out.to(q.dtype)
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric int8 quantization over the last axis (head_dim): returns
+    the int8 values and the fp32 scales (absmax / 127, at least 1e-8)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def kv_cache_write(buf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
     """Write ``new`` (B, t, …) into ``buf`` (B, T, …) in place at time
     offset ``pos``: a shared scalar or a per-row ``(B,)`` vector."""
@@ -197,10 +238,12 @@ class Attention(nn.Module):
 
     def forward(self, x, *, positions, rope_theta=10000.0, cache=None,
                 cache_pos: Pos = 0, chunk=1024, window=None):
-        """``cache``: optional ``(k, v)`` of (B, T_max, n_kv, hd), written in
-        place at ``cache_pos`` (shared scalar or per-row ``(B,)``); the
-        queries then attend over the whole cache, masked to each row's own
-        valid length.  Without a cache: causal attention over ``x``."""
+        """``cache``: optional dict of ``k``/``v`` (B, T_max, n_kv, hd),
+        written in place at ``cache_pos`` (shared scalar or per-row
+        ``(B,)``); the queries then attend over the whole cache, masked to
+        each row's own valid length.  An int8 cache also holds ``k_s``/
+        ``v_s`` (B, T_max, n_kv) scales and takes at most 8 queries at a
+        time.  Without a cache: causal attention over ``x``."""
         b, t, _ = x.shape
         q = self.wq(x).reshape(b, t, self.n_heads, self.head_dim)
         k = self.wk(x).reshape(b, t, self.n_kv, self.head_dim)
@@ -208,8 +251,24 @@ class Attention(nn.Module):
         if rope_theta:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
-        if cache is not None:
-            ck, cv = cache
+        if cache is not None and "k_s" in cache:
+            if t > 8:
+                # a named error, not an assert (asserts vanish under -O)
+                raise ValueError(
+                    f"int8 KV cache path supports decode-sized queries "
+                    f"(t <= 8), got t={t}; chunk the prefill (Engine does "
+                    f"this via prefill_buckets) or use the bf16 cache for "
+                    f"long queries")
+            for name, val in (("k", k), ("v", v)):
+                qv, scale = _quantize_kv(val)
+                kv_cache_write(cache[name], qv, cache_pos)
+                kv_cache_write(cache[name + "_s"], scale, cache_pos)
+            out = _direct_attention_q8(
+                q, cache["k"], cache["k_s"], cache["v"], cache["v_s"],
+                q_offset=cache_pos, kv_len=cache_pos + t, causal=True,
+                window=window)
+        elif cache is not None:
+            ck, cv = cache["k"], cache["v"]
             kv_cache_write(ck, k.to(ck.dtype), cache_pos)
             kv_cache_write(cv, v.to(cv.dtype), cache_pos)
             kv_len = cache_pos + t

@@ -8,8 +8,14 @@ owns its block values, as in ``repro``.  Parameter names follow the JAX
 param dict (``embed.table``, ``layers.<i>.attn.wq.w``,
 ``layers.<i>.mlp.up.blocks``, ...), see :mod:`repro_torch.convert`.
 
-The KV cache is a dict of two ``(n_layers, B, T_max, n_kv, hd)`` tensors;
-:meth:`Transformer.decode_step` writes into it in place.
+The KV cache is a dict of two ``(n_layers, B, T_max, n_kv, hd)`` tensors
+(int8 with ``kv_cache_dtype="int8"``, beside ``(n_layers, B, T_max,
+n_kv)`` fp32 scales ``k_s``/``v_s``); :meth:`Transformer.decode_step`
+writes into it in place.
+
+Quantized serving: :meth:`Transformer.quantize` returns a model whose FFN
+blocks are int8/fp8 payloads with scales and which shares every other
+tensor with the source.
 
 Training: :meth:`Transformer.loss_fn` is ``repro``'s.  With ``cfg.remat``
 each block of a forward pass that records gradients is rematerialized
@@ -19,6 +25,7 @@ each block's forward again.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -62,6 +69,18 @@ def _shared_sparse_mlp(cfg: ModelConfig, patterns: Optional[FfnPatterns],
     return SparseMLP(lin["up"], lin["gate"], lin["down"])
 
 
+def _sharing_copy(mod: nn.Module, **children: nn.Module) -> nn.Module:
+    """A new module object that shares every parameter, buffer and child of
+    ``mod``, with ``children`` replaced (nothing is copied on the device)."""
+    new = copy.copy(mod)
+    new._parameters = dict(mod._parameters)
+    new._buffers = dict(mod._buffers)
+    new._modules = dict(mod._modules)
+    for name, child in children.items():
+        setattr(new, name, child)
+    return new
+
+
 class Block(nn.Module):
     """Pre-norm attention + FFN block."""
 
@@ -94,9 +113,9 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: only the dense decoder family is ported; see "
                 f"ROADMAP 'remaining model families'")
-        if cfg.kv_cache_dtype != "bfloat16" or cfg.frontend != "none":
+        if cfg.frontend != "none":
             raise NotImplementedError(
-                "int8 KV caches and modality frontends are not ported yet")
+                "modality frontends are not ported yet")
         self.cfg = cfg
         d = cfg.d_model
         self.embed = layers.Embedding(cfg.padded_vocab, d, device=device)
@@ -125,6 +144,31 @@ class Transformer(nn.Module):
                                 layers.Embedding, SparseLinear)):
                 mod.init_(gen)
         return self
+
+    @property
+    def quantized(self) -> bool:
+        """True when the FFN blocks are int8/fp8 payloads."""
+        mlp = self.layers[0].mlp
+        return isinstance(mlp, SparseMLP) and mlp.up.quantized
+
+    def quantize(self, mode: str = "int8") -> "Transformer":
+        """A copy of this model for quantized serving (``repro``'s
+        ``Transformer.quantize``): every layer's FFN blocks become a
+        ``mode`` payload (``"int8"``, ``"fp8"``, ``"int8.rowwise"`` or
+        ``"fp8.rowwise"``) with fp32 scales, under quantized plans that
+        share one cached schedule per projection.  Attention, norm and
+        embedding tensors are shared with this model, not copied."""
+        if not self.cfg.ffn_block_sparse:
+            raise ValueError(
+                "Transformer.quantize requires a block-sparse FFN model "
+                "(ModelConfig.ffn_block_sparse=True); dense SwiGLU weights "
+                "have no Segment plan to quantize")
+        if self.quantized:
+            raise ValueError("the model is already quantized; quantize "
+                             "from the fp32 model")
+        layers = nn.ModuleList(_sharing_copy(blk, mlp=blk.mlp.quantize(mode))
+                               for blk in self.layers)
+        return _sharing_copy(self, layers=layers)
 
     def _head(self) -> torch.Tensor:
         return (self.lm_head or self.embed).table
@@ -159,10 +203,14 @@ class Transformer(nn.Module):
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=act_dtype(cfg),
-                                 device=self.device),
-                "v": torch.zeros(shape, dtype=act_dtype(cfg),
-                                 device=self.device)}
+        dev = self.device
+        if cfg.kv_cache_dtype == "int8":
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_s": torch.zeros(shape[:-1], device=dev),
+                    "v_s": torch.zeros(shape[:-1], device=dev)}
+        return {"k": torch.zeros(shape, dtype=act_dtype(cfg), device=dev),
+                "v": torch.zeros(shape, dtype=act_dtype(cfg), device=dev)}
 
     def decode_step(self, cache: Dict[str, torch.Tensor], token: torch.Tensor,
                     pos, *, logit_idx: Optional[torch.Tensor] = None):
@@ -182,7 +230,7 @@ class Transformer(nn.Module):
             positions = pos.long()[:, None] + steps
         for i, blk in enumerate(self.layers):
             x = blk(x, positions=positions,
-                    cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+                    cache={k: v[i] for k, v in cache.items()}, cache_pos=pos)
         x = self.final_norm(x, self.cfg.norm_eps)
         # gather each row's output position before the head, so the
         # (B, T, vocab) prefill logits never materialize

@@ -12,7 +12,9 @@
   reaches its own ``max_new_tokens``.
 
 Free slots ride along in the batched decode with ``pos=0`` and a dummy
-token; attention masking keeps them invisible.  PyTorch runs eagerly, so
+token; attention masking keeps them invisible.  ``quantize=`` serves a
+quantized copy of the model (``Transformer.quantize``: int8/fp8 FFN
+payloads); with an int8 KV cache prefill chunks are at most 8 tokens.  PyTorch runs eagerly, so
 :attr:`Engine.compiled_shapes` counts the distinct step shapes seen, the
 analogue of ``repro``'s trace counters.
 """
@@ -58,21 +60,25 @@ class Engine:
     parameters live on ``device`` (``None`` means the card; raises when
     there is none).  ``prefill_buckets`` are descending chunk sizes, each a
     multiple of the smallest.  ``backend`` scopes the SpMM backend of every
-    model call.  Quantized serving is not ported yet.
+    model call.  ``quantize`` (``"int8"``, ``"fp8"``, ``"int8.rowwise"``,
+    ``"fp8.rowwise"``) serves ``model.quantize(quantize)``, which shares
+    every tensor but the FFN blocks with ``model``; ``self.model`` is then
+    the quantized model.
     """
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 512,
                  backend: Optional[str] = None,
                  prefill_buckets: Tuple[int, ...] = (64, 16),
                  quantize: Optional[str] = None, device=None):
-        if quantize is not None:
-            raise NotImplementedError(
-                "Engine(quantize=...): quantized serving is not ported yet; "
-                "see ROADMAP 'quantized serving'")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model parameters are on {model.device}, the "
                              f"engine runs on {self.device}")
+        if quantize is not None:
+            # freeze the block-sparse FFN for low-precision decode: every
+            # weight fetch of the Segment kernel moves ~4x fewer bytes
+            model = model.quantize(quantize)
+        self.quantize = quantize
         self.model = model
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -85,6 +91,9 @@ class Engine:
             raise ValueError(
                 f"prefill_buckets {buckets} must all be multiples of the "
                 f"smallest bucket (chunk starts must stay bucket-aligned)")
+        if model.cfg.kv_cache_dtype == "int8":
+            # the factored-scale int8 attention path is decode-sized only
+            buckets = tuple(c for c in buckets if c <= 8) or (8,)
         self.prefill_buckets = buckets
         # rounded up so a final padded chunk never writes past the end
         self._cache_len = _round_up(self.max_len, buckets[-1])

@@ -76,9 +76,10 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
 
 
 def test_engine_rejects_quantize():
+    """Quantized serving needs a block-sparse FFN, as in ``repro``."""
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.models import build_model
     from repro_torch.runtime import Engine
     model = build_model(reduced_config(REGISTRY["granite-3-8b"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized serving"):
+    with pytest.raises(ValueError, match="block-sparse"):
         Engine(model, quantize="int8", device="cpu")

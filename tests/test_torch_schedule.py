@@ -112,8 +112,7 @@ def test_check_lane_accum_flags_read_before_write():
 
 
 @pytest.mark.parametrize("kw", [{"policy": "auto"}, {"verify": True},
-                                {"vmem_limit_bytes": 1 << 20},
-                                {"quantize": "int8"}])
+                                {"vmem_limit_bytes": 1 << 20}])
 def test_unported_planner_knobs_raise(kw):
     with pytest.raises(NotImplementedError):
         api.plan_matmul(_pattern(), 16, device="cpu", **kw)
