@@ -18,7 +18,28 @@
    tensors (cuSPARSE).  Then 50 small plans at the kernel's edges
    (schedules, storage modes, 32 and 64 tiles), bf16 output, an empty
    symbolic C (no launch), a one-item plan, and a tile that must raise.
-3. Kernel vs plain version: the Segment SpMM kernel on the shapes the main
+3. Ops ([ops], before the model exists; its tensors are freed after it):
+   ``repro_torch.kernels.ops``'s three entry points on their kernels at
+   published widths, each call with its exact launch count (1 per
+   ``flash_mha`` and ``rg_lru_scan``, 2 x top_k per ``moe_apply``):
+   ``flash_mha`` (fp32, causal) at granite-3-8b's heads (prefill 1 x
+   4096, decode 4 x 1 over 4096 keys) and RecurrentGemma-9B's local block
+   (1 x 8192, 16 heads, one KV head, D = 256, window 2048);
+   ``rg_lru_scan`` at RecurrentGemma-9B's width (4 x 2048 x 4096 in fp32
+   and bf16, and a decode step with h0); ``moe_apply`` at Llama-4
+   Maverick's expert widths (128 experts, 5120 -> 8192, top-1, capacity
+   1.25, bf16 x and weights) on 4096 and on 4 tokens.  Each kernel is held
+   against its plain version (≤ 1e-5) and each entry point against the
+   port's oracle (``ref.mha_ref``, ``ref.rg_lru_ref``, a token-by-token
+   MoE; ≤ 1e-5 in fp32, ≤ 1e-2 where a bf16 rounding lies between);
+   device times, the plain version's time (CUDA events around host
+   launches), the bound (operations at the peak of the operands' type:
+   fp32 on the CUDA cores, the bf16 tensor-core peak for the MoE's bf16
+   products) and a library yardstick (fp32 SDPA with ``enable_gqa``, a
+   bf16 ``torch.bmm`` over the expert buffer; none for the RG-LRU).  Then
+   an edge sweep (head dims, ragged shapes, masks, bf16 outputs, dropped
+   tokens, strided operands, calls that must raise).
+4. Kernel vs plain version: the Segment SpMM kernel on the shapes the main
    paths give it (granite-3-8b's up/gate and down FFN patterns at N = 4,
    16, 64, B in bf16 and fp32; the training width N = 2048), plus a
    ``fold_len=8`` plan, an ``n_lanes=4, unroll=2`` plan and a pattern with
@@ -31,14 +52,14 @@
    (of W, or of Wᵀ built once), a yardstick the port never calls.  Then a
    sweep of small plans at the kernel's edges, in both modes (block sizes,
    folds, lanes, ragged N, layouts, output dtype, a mode that must raise).
-4. Serve: granite-3-8b at full published width (all 40 layers, random
+5. Serve: granite-3-8b at full published width (all 40 layers, random
    weights from ``SEED``) with the block-sparse FFN, through ``Engine``:
    6 requests, 4 slots.  The kernel's launch count over that run must be
    3 projections × 40 layers × model calls.  One decode step's logits on
    the ``"cuda"`` backend are held against the ``"reference"`` backend,
    and one decode step is profiled (device busy share, top operations).
    Then 32 decode steps with all 4 slots live are timed one by one.
-5. Quantized kernel ([qkernel]): the Segment SpMM kernel's int8 / fp8
+6. Quantized kernel ([qkernel]): the Segment SpMM kernel's int8 / fp8
    payload modes (per-block and rowwise scales) on layer 0's up and down
    blocks as ``SparseLinear.quantize`` freezes them, forward at N = 4, 16,
    64 and ``transpose_lhs`` at N = 4, 64, each held against its plain
@@ -47,7 +68,7 @@
    5e-2, fp8 < 1e-1); device times, the bound (bytes of payload, scales, B
    and C) and, as a yardstick, the library's fp32 BSR product of the
    dequantized blocks.
-6. Quantized serving ([qserve]): ``Engine(model, quantize=mode)`` for int8
+7. Quantized serving ([qserve]): ``Engine(model, quantize=mode)`` for int8
    and fp8 on the serve phase's 6 requests (every launch quantized, 120
    per decode step; decode logits ``"cuda"`` vs ``"reference"`` ≤ 5e-2;
    greedy drift against the fp32 engine's tokens within ``repro``'s
@@ -57,7 +78,7 @@
    backend.  [qgrad]: one loss and backward pass through the int8 model on
    1 × 64 tokens, so dx runs the quantized ``transpose_lhs`` mode (loss and
    gradients against the reference backend).
-7. Train: the same model (40 layers, full width, remat on) on batches of
+8. Train: the same model (40 layers, full width, remat on) on batches of
    8 × 256 tokens with fp32 AdamW.  One step's loss and gradients on the
    ``"cuda"`` backend are held against the ``"reference"`` backend, then
    ``Trainer.run`` takes ``TRAIN_STEPS`` steps (loss, grad norm, ms/step,
@@ -83,6 +104,9 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores, same source
+# bf16 tensor-core peak, dense (same source): the bound of a product whose
+# operands are both bf16, since bf16 x bf16 products are exact in fp32
+BF16_FLOPS = 989e12
 KERNEL_RTOL = 1e-5             # both sides accumulate fp32, in other orders
 # bf16 activations round at 2**-8; a one-ulp flip after the sparse FFN
 # (fp32 kernel vs fp32 dense matmul, other summation order) propagates
@@ -119,6 +143,23 @@ QUANT_GATE = {"int8": 5e-2, "fp8": 1e-1}
 DRIFT_BOUND = {"int8": 0.25, "fp8": 0.5}
 QSERVE_MODES = ("int8", "fp8")
 QGRAD_SEQ = 64                        # [qgrad]: 1 x 64 tokens, so dx's N = 64
+# [ops]: the kernels reached through repro_torch.kernels.ops, at the
+# published widths of the configs that give each its shapes.  Attention
+# cases: (config, batch, Tq, Tk, window: None or the config's local window)
+OPS_ATTN_CASES = {
+    "granite prefill": ("granite-3-8b", 1, 4096, 4096, None),
+    "granite decode": ("granite-3-8b", 4, 1, 4096, None),
+    "recurrentgemma local": ("recurrentgemma-9b", 1, 8192, 8192, "local"),
+}
+OPS_MOE_TOKENS = (4096, 4)           # Llama-4 Maverick experts, top-1
+OPS_RG_LRU_CASES = {                 # (batch, T, dtype) at d_model 4096
+    "rg_lru fp32": (4, 2048, torch.float32),
+    "rg_lru bf16": (4, 2048, torch.bfloat16),
+    "rg_lru decode": (4, 1, torch.float32),
+}
+# bf16 outputs against fp32 oracles: one bf16 rounding (2**-8 relative)
+# of each output, or of the MoE's activation between its two GEMMs
+BF16_RTOL = 1e-2
 
 
 def check(cond, msg):
@@ -743,6 +784,461 @@ def phase_spgemm_edges(dev):
           f"NotImplementedError")
 
 
+def event_ms(fn, n=3):
+    """Time of one ``fn()`` between CUDA events around ``n`` host-launched
+    calls, after one warm-up call: for the plain versions, which a CUDA
+    graph cannot always capture (``moe_gemm_plain`` reads ``chunk_expert``
+    on the host), so their number includes the host's launch path."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def scaled_device_ms(fn):
+    """``device_ms`` with fewer captured calls for a long call: 20 under 1
+    ms, 4 under 10 ms, else 1 (and 3 replays), so the phase stays short."""
+    t = event_ms(fn, 1)
+    if t < 1:
+        return device_ms(fn, 20)
+    if t < 10:
+        return device_ms(fn, 4)
+    return device_ms(fn, 1, replays=3)
+
+
+def ops_call(kernel, want, fn, label):
+    """The ops path: ``fn()`` (a call of an ``ops`` entry point) with
+    ``kernel``'s launch count set to 0 just before and read just after; it
+    must be ``want``.  Returns the result and the count."""
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = kernel.launches
+    check(got == want, f"[ops] {label}: {kernel.__name__} launched {got} "
+                       f"times, expected {want}")
+    return out, got
+
+
+def _bound(nbytes, ops, peak=FP32_FLOPS):
+    """The least time for ``nbytes`` moved once and ``ops`` operations at
+    the peak rate of the operands' type, in ms, and which of the two binds."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ops_attention(label, cfg_name, b, tq, tk, window, dev, gen):
+    """One attention case through ``ops.flash_mha`` (fp32 q/k/v at the
+    config's head layout, causal): the launch count, the kernel against
+    its plain version on the stacked heads, the entry point against
+    ``ref.mha_ref``, times, the bound and the library's SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cfg = get_config(cfg_name)
+    h, hkv, d = cfg.n_heads, cfg.n_kv, cfg.hd
+    win = cfg.local_window if window == "local" else None
+    q = torch.randn(b, tq, h, d, generator=gen, device=dev) * 0.5
+    k = torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5
+    v = torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5
+    out, launches = ops_call(
+        flash_attention, 1,
+        lambda: ops.flash_mha(q, k, v, causal=True, window=win), label)
+    check(out.shape == q.shape and out.dtype == q.dtype
+          and bool(torch.isfinite(out).all()), f"[ops] {label}: output")
+    qh, kh, vh, kw = ops.stack_heads(q, k, v)
+
+    def kern():
+        return flash_attention(qh, kh, vh, causal=True, window=win, **kw)
+
+    def plain():
+        return flash_attention_plain(qh, kh, vh, causal=True, window=win,
+                                     out_dtype=torch.float32, **kw)
+
+    rel_plain, abs_plain = _rel(kern(), plain())
+    rel_ref, _ = _rel(out, ref.mha_ref(q, k, v, causal=True, window=win))
+    check(rel_plain <= KERNEL_RTOL and rel_ref <= KERNEL_RTOL,
+          f"[ops] {label}: kernel vs plain {rel_plain:.3g}, flash_mha vs "
+          f"mha_ref {rel_ref:.3g} > {KERNEL_RTOL}")
+    # live (query, key) pairs: query i sits at position tk - tq + i and sees
+    # keys max(0, p - window + 1) .. p
+    pos = torch.arange(tk - tq, tk, device=dev)
+    lo = (pos - win + 1).clamp(min=0) if win is not None else 0
+    pairs = int((pos + 1 - lo).sum()) * b * h
+    bound_ms, bound_by = _bound(_nbytes(q, k, v, out), 4 * d * pairs)
+    # the library's fused attention on the same fp32 tensors, (B, H, T, D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qpos, kpos = pos[:, None], torch.arange(tk, device=dev)[None, :]
+    mask = kpos <= qpos
+    if win is not None:
+        mask &= kpos > qpos - win
+    kw_lib = (dict(is_causal=True) if win is None and tq == tk
+              else dict(attn_mask=None if bool(mask.all()) else mask))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **kw_lib)
+
+    rec = dict(case=label, kernel="flash_attention", launches=launches,
+               rel_err=rel_plain, max_abs_err=abs_plain, rel_err_ref=rel_ref,
+               ms=scaled_device_ms(kern), plain_ms=event_ms(plain, 1),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=scaled_device_ms(library),
+               library="fp32 scaled_dot_product_attention(enable_gqa=True)")
+    print(f"[ops] {label:<21} B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv} D={d} "
+          f"window={win}: rel_err plain={rel_plain:.2e} ref={rel_ref:.2e} "
+          f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
+          f"{rec['library_ms']:.4f} (fp32 SDPA); launches {launches}")
+    return rec
+
+
+def _moe_oracle(x, w_up, w_down, logits, top_k):
+    """The MoE FFN token by token in fp32 (no capacity: the caller checks
+    that no token was dropped), the activation cast to x's dtype between
+    the two products as ``moe_apply`` does."""
+    import torch.nn.functional as F
+    vals, idx = torch.topk(logits, top_k)
+    gates = torch.softmax(vals, dim=-1)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(top_k):
+        for e in idx[:, j].unique().tolist():
+            rows = (idx[:, j] == e).nonzero().flatten()
+            mid = F.silu(x[rows].float() @ w_up[e].float()).to(x.dtype)
+            out[rows] += gates[rows, j, None] * (mid.float()
+                                                 @ w_down[e].float())
+    return out
+
+
+def ops_moe(dev, gen):
+    """``ops.moe_apply`` at Llama-4 Maverick's expert widths (bf16 x and
+    weights, top-1, 128 experts, chunk_rows 128, capacity 1.25) for each
+    token count of ``OPS_MOE_TOKENS``: 2 x top_k launches, the result
+    against a token-by-token oracle, the up GEMM's kernel against its plain
+    version on moe_apply's own chunk buffer, times, the bound and the
+    library's batched bf16 product."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import (build_moe_chunks, moe_gemm,
+                                              moe_gemm_plain)
+    cfg = get_config("llama4-maverick-400b-a17b")
+    n_exp, dm, dff, top_k = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k
+    cf, rows = cfg.moe_capacity_factor, 128
+    bf16 = torch.bfloat16
+    w_up = torch.randn(n_exp, dm, dff, generator=gen, device=dev,
+                       dtype=bf16).mul_(dm ** -0.5)
+    w_down = torch.randn(n_exp, dff, dm, generator=gen, device=dev,
+                         dtype=bf16).mul_(dff ** -0.5)
+    recs = []
+    for t in OPS_MOE_TOKENS:
+        label = f"maverick moe T={t}"
+        x = torch.randn(t, dm, generator=gen, device=dev, dtype=bf16)
+        logits = torch.randn(t, n_exp, generator=gen, device=dev)
+        out, launches = ops_call(
+            moe_gemm, 2 * top_k,
+            lambda: ops.moe_apply(x, w_up, w_down, logits, top_k=top_k,
+                                  chunk_rows=rows, capacity_factor=cf),
+            label)
+        check(out.shape == x.shape and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()), f"[ops] {label}: output")
+        # moe_apply's first chunk buffer, built as it builds it
+        order, slot, chunk_expert, keep, n_chunks, cap_rows = \
+            build_moe_chunks(torch.topk(logits, top_k)[1][:, 0], n_exp,
+                             rows, cf)
+        check(bool(keep.all()), f"[ops] {label}: tokens dropped")
+        buf = torch.zeros((n_exp * cap_rows + 1, dm), dtype=bf16, device=dev)
+        buf[slot] = x[order]
+        buf = buf[:-1]
+        rel_ref, _ = _rel(out, _moe_oracle(x, w_up, w_down, logits, top_k))
+        check(rel_ref <= BF16_RTOL, f"[ops] {label}: moe_apply vs oracle "
+                                    f"{rel_ref:.3g} > {BF16_RTOL}")
+
+        def kern():
+            return moe_gemm(buf, w_up, chunk_expert, chunk_rows=rows)
+
+        def plain():
+            return moe_gemm_plain(buf, w_up, chunk_expert, chunk_rows=rows)
+
+        up = kern()
+        rel_plain, abs_plain = _rel(up, plain())
+        mid = F.silu(up).to(bf16)
+        rel_down, abs_down = _rel(
+            moe_gemm(mid, w_down, chunk_expert, chunk_rows=rows),
+            moe_gemm_plain(mid, w_down, chunk_expert, chunk_rows=rows))
+        del up, mid
+        check(max(rel_plain, rel_down) <= KERNEL_RTOL,
+              f"[ops] {label}: kernel vs plain up {rel_plain:.3g}, down "
+              f"{rel_down:.3g} > {KERNEL_RTOL}")
+        # bf16 x and weights: the bf16 tensor-core peak bounds the products
+        bound_ms, bound_by = _bound(
+            _nbytes(buf, w_up) + buf.shape[0] * dff * 4,
+            2 * buf.shape[0] * dm * dff, BF16_FLOPS)
+        view = buf.view(n_exp, cap_rows, dm)
+        rec = dict(case=label, kernel="moe_gemm", launches=launches,
+                   rel_err=max(rel_plain, rel_down),
+                   max_abs_err=max(abs_plain, abs_down), rel_err_ref=rel_ref,
+                   rows=buf.shape[0], real_rows=t * top_k,
+                   ms=scaled_device_ms(kern), plain_ms=event_ms(plain, 1),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=scaled_device_ms(lambda: torch.bmm(view, w_up)),
+                   library="bf16 torch.bmm of the (E, cap_rows, d_in) buffer")
+        print(f"[ops] {label:<21} {n_chunks} chunks x {rows} rows "
+              f"({t * top_k} real), d {dm} -> {dff}: rel_err plain up="
+              f"{rel_plain:.2e} down={rel_down:.2e} moe_apply vs oracle="
+              f"{rel_ref:.2e}; up GEMM kernel_ms={rec['ms']:.4f} plain_ms="
+              f"{rec['plain_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"library_ms={rec['library_ms']:.4f} (bf16 bmm); launches "
+              f"{launches}")
+        recs.append(rec)
+        del x, logits, out, buf, view
+    return recs
+
+
+def ops_rg_lru(dev, gen):
+    """``ops.rg_lru_scan`` at RecurrentGemma-9B's width (D = d_model) for
+    each case of ``OPS_RG_LRU_CASES``: one launch each, the kernel against
+    its plain version, the entry point against ``ref.rg_lru_ref`` on the
+    same values in fp32, times and the bound (no single library call
+    computes it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rg_lru import rg_lru, rg_lru_plain
+    d = get_config("recurrentgemma-9b").d_model
+    recs = []
+    for label, (b, t, dt) in OPS_RG_LRU_CASES.items():
+        x, a_gate, x_gate = (torch.randn(b, t, d, generator=gen,
+                                         device=dev).to(dt) for _ in range(3))
+        a_param = torch.randn(d, generator=gen, device=dev)
+        h0 = torch.randn(b, d, generator=gen, device=dev) if t == 1 else None
+        (out, h_t), launches = ops_call(
+            rg_lru, 1, lambda: ops.rg_lru_scan(x, a_gate, x_gate, a_param,
+                                               h0, ct=128), label)
+        check(out.dtype == dt and h_t.dtype == torch.float32
+              and bool(torch.isfinite(out).all()), f"[ops] {label}: output")
+        h0z = h0 if h0 is not None else torch.zeros(b, d, device=dev)
+
+        def kern():
+            return rg_lru(x, a_gate, x_gate, a_param, h0z, ct=min(128, t))
+
+        def plain():
+            return rg_lru_plain(x, a_gate, x_gate, a_param, h0z)
+
+        (ko, kh), (po, ph) = kern(), plain()
+        rel_plain = max(_rel(ko, po)[0], _rel(kh, ph)[0])
+        abs_plain = max(_rel(ko, po)[1], _rel(kh, ph)[1])
+        wo, wh = ref.rg_lru_ref(x.float(), a_gate.float(), x_gate.float(),
+                                a_param, h0)
+        rel_ref = max(_rel(out, wo)[0], _rel(h_t, wh)[0])
+        # a bf16 output rounds once (2**-8); h_T and fp32 outputs are fp32
+        tol = KERNEL_RTOL if dt == torch.float32 else BF16_RTOL
+        check(rel_plain <= tol and rel_ref <= tol and _rel(kh, ph)[0]
+              <= KERNEL_RTOL, f"[ops] {label}: kernel vs plain "
+                              f"{rel_plain:.3g}, vs rg_lru_ref {rel_ref:.3g}")
+        # ~20 fp32 operations an element (two sigmoids, exp, sqrt, the step)
+        bound_ms, bound_by = _bound(
+            _nbytes(x, a_gate, x_gate, ko, a_param, h0z, kh), 20 * x.numel())
+        rec = dict(case=label, kernel="rg_lru", launches=launches,
+                   rel_err=rel_plain, max_abs_err=abs_plain,
+                   rel_err_ref=rel_ref, ms=scaled_device_ms(kern),
+                   plain_ms=event_ms(plain, 1), bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None,
+                   library="no single call computes it")
+        print(f"[ops] {label:<21} B={b} T={t} D={d} {str(dt)[6:]}: rel_err "
+              f"plain={rel_plain:.2e} ref={rel_ref:.2e} kernel_ms="
+              f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms="
+              f"{bound_ms:.4f} ({bound_by}); launches {launches}")
+        recs.append(rec)
+        del x, a_gate, x_gate, out, ko, po
+    return recs
+
+
+def phase_ops(dev):
+    """[ops]: ``repro_torch.kernels.ops``'s three entry points on their
+    Hopper kernels at published widths (before the model exists; every
+    tensor is freed on return), then the edge sweep.  Returns the
+    records."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    recs = [ops_attention(label, *case, dev, gen)
+            for label, case in OPS_ATTN_CASES.items()]
+    recs += ops_rg_lru(dev, gen)
+    recs += ops_moe(dev, gen)
+    phase_ops_edges(dev, gen)
+    print(f"[ops] phase: {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def phase_ops_edges(dev, gen):
+    """Small ``ops`` calls at the kernels' edges, each with its exact
+    launch count and against its plain version (≤ 1e-5): attention at
+    every head dim of the CPU tests and 40 and 256, ragged Tq/Tk,
+    bidirectional, GQA x window, decode with rep 4, ``kv_len < Tk`` with
+    an explicit offset and q_period (rows with no live key), bf16 outputs,
+    strided and misaligned q; ``moe_gemm`` with d_out not a multiple of its
+    128-wide CUDA tile (but of bn), ragged rows, bf16 output, transposed
+    weights and int64 expert ids; ``moe_apply`` with top-2 and dropped
+    tokens against the same call on the CPU; the RG-LRU with T not a
+    multiple of its 16-step chunk and in bf16; and the calls that must
+    raise on the card (D = 12, T % ct, d_out % bn)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    from repro_torch.kernels.rg_lru import rg_lru, rg_lru_plain
+
+    def rnd(*shape, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(dt)
+
+    worst, count = 0.0, 0
+
+    def held(label, got, want, tol=KERNEL_RTOL):
+        nonlocal worst, count
+        err = _rel(got, want)[0]
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"[ops-edges] {label}: {err:.3g} > {tol}")
+        if tol == KERNEL_RTOL:
+            worst = max(worst, err)
+        count += 1
+
+    attn = [(2, 128, 128, 4, 2, 64, True, None),
+            (1, 64, 256, 4, 1, 64, True, None),
+            (2, 128, 128, 4, 4, 64, True, 64),
+            (2, 128, 128, 4, 2, 64, True, 64),      # GQA x window
+            (1, 1, 96, 8, 2, 64, True, None),       # decode
+            (2, 48, 48, 2, 2, 32, False, None),     # bidirectional, ragged
+            (1, 32, 512, 2, 2, 128, True, 128),     # long kv + window
+            (2, 1, 200, 8, 2, 128, True, None),     # decode, rep 4, ragged Tk
+            (1, 40, 200, 4, 2, 256, True, 64),      # D 256, ragged
+            (1, 24, 72, 2, 1, 40, False, None)]     # D 40
+    for b, tq, tk, h, hkv, d, causal, win in attn:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = rnd(b, tq, h, d, dt=dt), rnd(b, tk, hkv, d, dt=dt), \
+                rnd(b, tk, hkv, d, dt=dt)
+            label = f"flash_mha {(b, tq, tk, h, hkv, d, causal, win)} {dt}"
+            out, _ = ops_call(flash_attention, 1, lambda: ops.flash_mha(
+                q, k, v, causal=causal, window=win), label)
+            check(out.dtype == dt, f"{label}: output dtype {out.dtype}")
+            held(label + " vs mha_ref", out, ref.mha_ref(
+                q, k, v, causal=causal, window=win),
+                KERNEL_RTOL if dt == torch.float32 else BF16_RTOL)
+            qh, kh, vh, kw = ops.stack_heads(q, k, v)
+            held(label + " vs plain", flash_attention(
+                qh, kh, vh, causal=causal, window=win,
+                out_dtype=torch.float32, **kw), flash_attention_plain(
+                qh, kh, vh, causal=causal, window=win,
+                out_dtype=torch.float32, **kw))
+    q, k, v = rnd(2, 64, 64), rnd(2, 256, 64), rnd(2, 256, 64)
+    for kw in (dict(offset=-40, kv_len=200, bq=32, bkv=64),
+               dict(offset=10, kv_len=100, bq=16, bkv=32, q_period=32,
+                    window=20),
+               dict(offset=0, kv_len=0, bq=64, bkv=128),
+               dict(offset=5, kv_len=150, bq=8, bkv=16, q_period=16)):
+        full = dict(dict(window=None, q_period=None), **kw)
+        label = f"flash_attention {kw}"
+        got, _ = ops_call(flash_attention, 1, lambda: flash_attention(
+            q, k, v, causal=True, **kw), label)
+        held(label, got, flash_attention_plain(
+            q, k, v, causal=True, out_dtype=torch.float32, **full))
+    # a strided view and a contiguous one off the 16-byte grid: the wrapper
+    # copies both, as the CPU takes any layout
+    wide = rnd(2, 64, 66)
+    for label, qs in (("strided q", wide[:, :, 1:65]),
+                      ("misaligned q", rnd(2 * 64 * 64 + 1)[1:].view(
+                          2, 64, 64))):
+        got, _ = ops_call(flash_attention, 1, lambda: flash_attention(
+            qs, k, v, causal=True), f"flash_attention {label}")
+        held(f"flash_attention {label}", got, flash_attention_plain(
+            qs, k, v, causal=True, window=None, offset=192, kv_len=256,
+            bq=64, bkv=128, q_period=None, out_dtype=torch.float32))
+    if dev.type == "cuda":     # the plain version takes any head dim
+        try:
+            flash_attention(rnd(1, 8, 12), rnd(1, 8, 12), rnd(1, 8, 12))
+        except NotImplementedError:
+            pass
+        else:
+            raise RuntimeError("flash_attention ran D = 12 on the card")
+
+    for nc, rows, din, dout, n_exp, dt, odt in (
+            (6, 128, 96, 192, 3, torch.bfloat16, torch.float32),
+            (6, 128, 96, 192, 3, torch.bfloat16, torch.bfloat16),
+            (5, 40, 36, 60, 2, torch.float32, torch.float32),
+            (8, 16, 32, 64, 4, torch.float32, torch.float32),
+            (3, 200, 520, 320, 2, torch.float32, torch.float32)):
+        x, w = rnd(nc * rows, din, dt=dt), rnd(n_exp, din, dout, dt=dt)
+        ce = torch.sort(torch.randint(0, n_exp, (nc,), generator=gen,
+                                      device=dev))[0].int()
+        label = f"moe_gemm {(nc, rows, din, dout)} {dt} -> {odt}"
+        got, _ = ops_call(moe_gemm, 1, lambda: moe_gemm(
+            x, w, ce, chunk_rows=rows, out_dtype=odt), label)
+        check(got.dtype == odt, f"{label}: dtype {got.dtype}")
+        held(label, got, moe_gemm_plain(x, w, ce, chunk_rows=rows),
+             KERNEL_RTOL if odt == torch.float32 else BF16_RTOL)
+    # transposed expert weights and int64 expert ids: copied by the wrapper
+    x, w_t = rnd(4 * 32, 48), rnd(3, 80, 48).transpose(1, 2)
+    ce = torch.tensor([0, 2, 2, 1], device=dev)
+    label = "moe_gemm transposed w, int64 ids"
+    got, _ = ops_call(moe_gemm, 1, lambda: moe_gemm(x, w_t, ce, chunk_rows=32),
+                      label)
+    held(label, got, moe_gemm_plain(x, w_t, ce, chunk_rows=32))
+    x, wu, wd = rnd(128, 32), rnd(4, 32, 64), rnd(4, 64, 32)
+    logits = torch.randn(128, 4, generator=gen, device=dev)
+    for top_k, cf in ((2, 8.0), (2, 0.5), (1, 0.5)):
+        label = f"moe_apply top_k={top_k} capacity={cf}"
+        got, _ = ops_call(moe_gemm, 2 * top_k, lambda: ops.moe_apply(
+            x, wu, wd, logits, top_k=top_k, chunk_rows=16,
+            capacity_factor=cf), label)
+        held(label + " vs the CPU", got.cpu(), ops.moe_apply(
+            x.cpu(), wu.cpu(), wd.cpu(), logits.cpu(), top_k=top_k,
+            chunk_rows=16, capacity_factor=cf))
+    try:
+        moe_gemm(rnd(128, 32), rnd(2, 32, 768), torch.zeros(
+            1, dtype=torch.int32, device=dev), chunk_rows=128)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("moe_gemm took d_out=768 with bn=512 on the card")
+
+    for b, t, d, dt, ct in ((2, 37, 48, torch.float32, 128),
+                            (2, 7, 40, torch.bfloat16, 128),
+                            (3, 96, 32, torch.float32, 16),
+                            (1, 40, 4096, torch.bfloat16, 8)):
+        x, ag, xg = rnd(b, t, d, dt=dt), rnd(b, t, d, dt=dt), \
+            rnd(b, t, d, dt=dt)
+        ap, h0 = rnd(d), rnd(b, d)
+        label = f"rg_lru_scan {(b, t, d)} {dt} ct={ct}"
+        (out, h_t), _ = ops_call(rg_lru, 1, lambda: ops.rg_lru_scan(
+            x, ag, xg, ap, h0, ct=ct), label)
+        po, ph = rg_lru_plain(x, ag, xg, ap, h0)
+        held(label + " h_T", h_t, ph)
+        held(label + " out", out, po,
+             KERNEL_RTOL if dt == torch.float32 else BF16_RTOL)
+    try:
+        ops.rg_lru_scan(rnd(1, 200, 8), rnd(1, 200, 8), rnd(1, 200, 8),
+                        rnd(8), ct=128)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("rg_lru took T=200 with ct=128 on the card")
+    print(f"[ops-edges] {count} calls, each with its exact launch count, "
+          f"fp32 results within {KERNEL_RTOL} of the plain version or the "
+          f"oracle (worst {worst:.2e}), bf16 outputs within {BF16_RTOL}; "
+          f"D=12, T % ct and d_out % bn raise")
+
+
 def device_busy_us(prof):
     """Time in which the card ran anything (kernels, copies): the union of
     the device-side intervals of the trace.  Summing ``key_averages()``
@@ -1183,6 +1679,10 @@ def main():
     spgemm_recs, spgemm_launches, spgemm_quantized = phase_spgemm(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    ops_recs = phase_ops(dev)
+    gc.collect()                     # Maverick's 21.5 GB of expert weights
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()   # [memory] reads the model's peak
 
     cfg = dataclasses.replace(get_config("granite-3-8b"),
                               ffn_block_sparse=True, ffn_block=64,
@@ -1213,10 +1713,12 @@ def main():
               kernel="segment_spmm"):
         return {"name": name, "route": "cuda", "mode": mode, "path": path,
                 "source": f"src/repro_torch/csrc/{kernel}.cu",
-                "replaces": {"segment_spmm": "src/repro/kernels/"
-                                             "segment_spmm.py:335",
-                             "segment_spgemm": "src/repro/kernels/"
-                                               "segment_spgemm.py:227"}[kernel],
+                "replaces": "src/repro/kernels/" + {
+                    "segment_spmm": "segment_spmm.py:335",
+                    "segment_spgemm": "segment_spgemm.py:227",
+                    "flash_attention": "flash_attention.py:93",
+                    "moe_gemm": "moe_gemm.py:39",
+                    "rg_lru": "rg_lru.py:56"}[kernel],
                 "launches": n_launches,
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
@@ -1260,7 +1762,15 @@ def main():
         entry("segment_spmm.quantized", "int8/fp8 forward", "qserve",
               q_launches, qf_rec, qf),
         entry("segment_spmm.quantized.transpose_lhs",
-              "int8/fp8 transpose_lhs", "qgrad", qt_launches, qt_rec, qt)]}))
+              "int8/fp8 transpose_lhs", "qgrad", qt_launches, qt_rec, qt)]
+        + [entry(kernel, mode, "ops", sum(r["launches"] for r in mine),
+                 next(r for r in mine if r["case"] == case), mine,
+                 kernel=kernel)
+           for kernel, mode, case in (
+               ("flash_attention", "fp32, causal, GQA", "granite prefill"),
+               ("moe_gemm", "bf16 x and w, fp32 out", "maverick moe T=4096"),
+               ("rg_lru", "bf16", "rg_lru bf16"))
+           for mine in ([r for r in ops_recs if r["kernel"] == kernel],)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

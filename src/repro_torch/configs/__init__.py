@@ -1,10 +1,14 @@
-"""Architecture registry of the port (the architectures it serves so far)."""
+"""Architecture registry of the port.  granite-3-8b is the model it serves
+and trains; recurrentgemma-9b and llama4-maverick give the widths of the
+``kernels.ops`` entry points (their model families are not ported yet:
+``build_model`` raises ``NotImplementedError`` on them)."""
 import dataclasses
 
-from . import granite_3_8b
+from . import granite_3_8b, llama4_maverick_400b_a17b, recurrentgemma_9b
 from .base import ModelConfig, ShapeConfig
 
-REGISTRY = {m.CONFIG.name: m.CONFIG for m in (granite_3_8b,)}
+REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
+    granite_3_8b, recurrentgemma_9b, llama4_maverick_400b_a17b)}
 
 
 def get_config(name: str) -> ModelConfig:

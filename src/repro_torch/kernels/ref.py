@@ -1,11 +1,15 @@
-"""Dense oracles in torch (the port of ``repro.kernels.ref``'s block-sparse
-matmul part: SpMM, SpGEMM and the dequantization they share).
+"""Dense oracles in torch (the port of ``repro.kernels.ref``: SpMM, SpGEMM
+and the dequantization they share, the grouped MoE GEMM, attention and the
+RG-LRU recurrence).
 
-These are the ground truth of the ``"reference"`` backend: no schedule, no
-kernel, just the dense matrix and one fp32 matmul.
+The matmul oracles are the ground truth of the ``"reference"`` backend: no
+schedule, no kernel, just the dense matrix and one fp32 matmul.  The other
+three are what :mod:`repro_torch.kernels.ops`'s entry points are held
+against.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -75,3 +79,75 @@ def spgemm_ref(a_blocks: torch.Tensor, a_brow: torch.Tensor,
                      gk2, gn)
     c = (a @ b).reshape(gm, bm, gn, bn)
     return c[c_brow.long(), :, c_bcol.long(), :]
+
+
+def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor, chunk_expert: torch.Tensor,
+                 chunk_rows: int) -> torch.Tensor:
+    """Grouped GEMM: rows of x are chunked; chunk c uses expert weight
+    ``w[chunk_expert[c]]``.  x: (C*rows, d_in), w: (E, d_in, d_out)."""
+    out = torch.empty((x.shape[0], w.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    # one chunk at a time: only one expert's weights are ever cast to fp32
+    for c, e in enumerate(chunk_expert.tolist()):
+        rows = slice(c * chunk_rows, (c + 1) * chunk_rows)
+        out[rows] = x[rows].float() @ w[e].float()
+    return out
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: Optional[int] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention oracle, fp32 out.
+
+    q: (B, Tq, H, D); k/v: (B, Tk, Hkv, D) with H % Hkv == 0 (GQA).
+    ``window`` masks keys further than `window` positions behind the query
+    (local attention).  Query positions are the last Tq positions of the
+    Tk-long context.
+    """
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    k_pos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = torch.where(mask[None, None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``log(1 + e^x)`` as ``logaddexp(x, 0)``, with no
+    cut-off where it turns into x (torch's ``softplus`` has one at 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def rg_lru_ref(x: torch.Tensor, a_gate: torch.Tensor, x_gate: torch.Tensor,
+               a_param: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU oracle:  h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
+
+    a_t = exp(-c · softplus(a_param) ⊙ σ(a_gate_t)),  i_t = σ(x_gate_t).
+    x, a_gate, x_gate: (B, T, D); a_param: (D,).  Returns (out, h_T), both
+    fp32 (the gate math runs in the inputs' dtype, as ``repro``'s does).
+    """
+    log_a = -c * softplus(a_param)[None, None, :] * torch.sigmoid(a_gate)
+    a = torch.exp(log_a.float())
+    gated_x = (torch.sigmoid(x_gate) * x).float()
+    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    xb = beta * gated_x
+    h = (torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    hs = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + xb[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

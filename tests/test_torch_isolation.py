@@ -38,7 +38,7 @@ def test_no_jax_or_repro_import(path):
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.models, "
             "repro_torch.runtime, repro_torch.convert, repro_torch.core, "
-            "repro_torch.kernels, "
+            "repro_torch.kernels, repro_torch.kernels.ops, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
