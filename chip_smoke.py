@@ -28,7 +28,12 @@
    ``rg_lru_scan`` at RecurrentGemma-9B's width (4 x 2048 x 4096 in fp32
    and bf16, and a decode step with h0); ``moe_apply`` at Llama-4
    Maverick's expert widths (128 experts, 5120 -> 8192, top-1, capacity
-   1.25, bf16 x and weights) on 4096 and on 4 tokens.  Each kernel is held
+   1.25, bf16 x and weights) on 4096 and on 4 tokens: every launch on the
+   grouped GEMM's tensor-core kernel (its own count), no host sync (one
+   call under ``torch.cuda.set_sync_debug_mode("error")``), the whole
+   call timed (CUDA events) and profiled once, and its up and down GEMMs
+   timed with and without the live-row counts moe_apply passes, beside
+   the live and the padded bound.  Each kernel is held
    against its plain version (≤ 1e-5) and each entry point against the
    port's oracle (``ref.mha_ref``, ``ref.rg_lru_ref``, a token-by-token
    MoE; ≤ 1e-5 in fp32, ≤ 1e-2 where a bf16 rounding lies between);
@@ -38,7 +43,9 @@
    products) and a library yardstick (fp32 SDPA with ``enable_gqa``, a
    bf16 ``torch.bmm`` over the expert buffer; none for the RG-LRU).  Then
    an edge sweep (head dims, ragged shapes, masks, bf16 outputs, dropped
-   tokens, strided operands, calls that must raise).
+   tokens, strided operands, the grouped GEMM's tensor-core path at chunk,
+   d_in and d_out edges with live-row counts and unsorted experts, calls
+   that must raise).
 4. Kernel vs plain version: the Segment SpMM kernel on the shapes the main
    paths give it (granite-3-8b's up/gate and down FFN patterns at N = 4,
    16, 64, B in bf16 and fp32; the training width N = 2048), plus a
@@ -51,7 +58,9 @@
    sheet); ``library_ms`` times one ``torch.sparse_bsr_tensor @ B`` call
    (of W, or of Wᵀ built once), a yardstick the port never calls.  Then a
    sweep of small plans at the kernel's edges, in both modes (block sizes,
-   folds, lanes, ragged N, layouts, output dtype, a mode that must raise).
+   folds, lanes, ragged N, layouts, output dtype, and ``prefetch=
+   "cross_pass"`` plans, forward and dx in fp32, int8 and fp8, equal to
+   the drained plans bit for bit).
 5. Serve: granite-3-8b at full published width (all 40 layers, random
    weights from ``SEED``) with the block-sparse FFN, through ``Engine``:
    6 requests, 4 slots.  The kernel's launch count over that run must be
@@ -463,14 +472,17 @@ def phase_edges(dev):
     5 and 100 (ragged tiles), B as a bf16 transposed view or contiguous
     fp32; each through ``execute_plan`` against the plain version and the
     dense oracle, in the forward mode and in the ``transpose_lhs`` mode on
-    the plan's grad plan.  Also the bf16-output folded reload, and the mode
-    that must raise on the card."""
+    the plan's grad plan.  Also the bf16-output folded reload, and
+    ``prefetch="cross_pass"`` plans (fp32, int8, fp8; forward and dx)
+    against the drained plans, bit for bit."""
     from repro_torch import api
     from repro_torch.core.formats import BSR
-    from repro_torch.kernels.segment_spmm import segment_spmm_plain
+    from repro_torch.kernels.segment_spmm import (segment_spmm,
+                                                  segment_spmm_plain)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     worst, count = {False: 0.0, True: 0.0}, {False: 0, True: 0}
+    cross = 0
     for block in (32, 64):
         a = BSR.random(np.random.default_rng(block), (12 * block, 9 * block),
                        (block, block), 0.35)
@@ -515,17 +527,35 @@ def phase_edges(dev):
         err = float((got.float() - want).abs().max() / want.abs().max())
         check(got.dtype == torch.bfloat16 and err <= 1e-2,
               f"bf16 folded reload: {err:.3g}")
-        try:
-            api.plan_matmul(a, 4, device=dev, prefetch="cross_pass")(b)
-        except NotImplementedError:
-            pass
-        else:
-            raise RuntimeError("cross_pass ran on the card instead of raising")
+        # prefetch="cross_pass" (a TPU DMA timing) runs the drained kernel:
+        # forward and dx through the grad plan, fp32 and int8/fp8 payloads,
+        # equal to the drained plan bit for bit, two launches each
+        xin = torch.randn(16, a.shape[1], generator=gen, device=dev)
+        ct = torch.randn(a.shape[0], 16, generator=gen, device=dev)
+        for quant in (None, "int8", "fp8"):
+            outs = []
+            for pf in (None, "cross_pass"):
+                plan = api.plan_matmul(a, 16, device=dev, with_grad=True,
+                                       quantize=quant, prefetch=pf)
+                xx = xin.clone().requires_grad_(True)
+                segment_spmm.launches = 0
+                y = api.apply_plan(plan, xx.T, blocks=plan.lhs_blocks,
+                                   scales=plan.lhs_scales)
+                y.backward(ct)
+                torch.cuda.synchronize()
+                check(segment_spmm.launches == 2,
+                      f"cross_pass {quant} prefetch={pf}: "
+                      f"{segment_spmm.launches} launches, expected 2")
+                outs.append((y.detach(), xx.grad))
+            check(all(torch.equal(g, w) for g, w in zip(*outs)),
+                  f"block={block} {quant}: cross_pass differs from drained")
+            cross += 1
     print(f"[edges] forward: {count[False]} plans x layouts, transpose_lhs "
           f"(grad plans): {count[True]}, all within {KERNEL_RTOL} of the "
           f"plain version and the oracle (worst {worst[False]:.2e} / "
-          f"{worst[True]:.2e}); bf16 folded reload ok; cross_pass raises "
-          f"NotImplementedError")
+          f"{worst[True]:.2e}); bf16 folded reload ok; {cross} "
+          f"prefetch='cross_pass' plans (fp32, int8, fp8; forward and dx) "
+          f"equal to the drained plans bit for bit")
 
 
 def _rel(got, want):
@@ -923,13 +953,36 @@ def _moe_oracle(x, w_up, w_down, logits, top_k):
     return out
 
 
+def _moe_bounds(x_rows, live, experts, w):
+    """(padded, live) bounds of one grouped GEMM, each (ms, by): the padded
+    work reads every weight and row of the buffer; the live work reads the
+    weights of the experts that hold a live row and the live rows only.
+    Both write the whole output (fp32)."""
+    n_exp, d_in, d_out = w.shape
+    rows = x_rows.shape[0]
+    live_rows = int(live.sum())
+    live_exp = int(torch.unique(experts[live > 0]).numel())
+    out_bytes = rows * d_out * 4
+    padded = _bound(_nbytes(x_rows, w) + out_bytes, 2 * rows * d_in * d_out,
+                    BF16_FLOPS)
+    alive = _bound(live_exp * d_in * d_out * w.element_size()
+                   + live_rows * d_in * x_rows.element_size() + out_bytes,
+                   2 * live_rows * d_in * d_out, BF16_FLOPS)
+    return padded, alive
+
+
 def ops_moe(dev, gen):
     """``ops.moe_apply`` at Llama-4 Maverick's expert widths (bf16 x and
     weights, top-1, 128 experts, chunk_rows 128, capacity 1.25) for each
-    token count of ``OPS_MOE_TOKENS``: 2 x top_k launches, the result
-    against a token-by-token oracle, the up GEMM's kernel against its plain
-    version on moe_apply's own chunk buffer, times, the bound and the
-    library's batched bf16 product."""
+    token count of ``OPS_MOE_TOKENS``: 2 x top_k launches, all of them on
+    the tensor-core kernel, with no host sync (one call under
+    ``torch.cuda.set_sync_debug_mode("error")``); the result against a
+    token-by-token oracle and the whole call's time; then the up and the
+    down GEMM on moe_apply's own chunk buffers, with and without the
+    per-chunk live-row counts moe_apply passes, each against its plain
+    version, timed, beside the padded and the live bound and the library's
+    batched bf16 product.  One call at each T is profiled (the device time
+    of each operation of the call)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -948,63 +1001,100 @@ def ops_moe(dev, gen):
         label = f"maverick moe T={t}"
         x = torch.randn(t, dm, generator=gen, device=dev, dtype=bf16)
         logits = torch.randn(t, n_exp, generator=gen, device=dev)
-        out, launches = ops_call(
-            moe_gemm, 2 * top_k,
-            lambda: ops.moe_apply(x, w_up, w_down, logits, top_k=top_k,
-                                  chunk_rows=rows, capacity_factor=cf),
-            label)
+
+        def call():
+            return ops.moe_apply(x, w_up, w_down, logits, top_k=top_k,
+                                 chunk_rows=rows, capacity_factor=cf)
+
+        moe_gemm.tensor_core_launches = 0
+        out, launches = ops_call(moe_gemm, 2 * top_k, call, label)
+        check(moe_gemm.tensor_core_launches == launches,
+              f"[ops] {label}: {moe_gemm.tensor_core_launches} of "
+              f"{launches} launches on the tensor-core kernel")
         check(out.shape == x.shape and out.dtype == torch.float32
               and bool(torch.isfinite(out).all()), f"[ops] {label}: output")
-        # moe_apply's first chunk buffer, built as it builds it
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(torch.equal(again, out), f"[ops] {label}: a second call "
+                                       f"differs")
+        del again
+        rel_ref, _ = _rel(out, _moe_oracle(x, w_up, w_down, logits, top_k))
+        check(rel_ref <= BF16_RTOL, f"[ops] {label}: moe_apply vs oracle "
+                                    f"{rel_ref:.3g} > {BF16_RTOL}")
+        apply_ms = event_ms(call, 3)
+        profile_once(f"moe_apply T={t}", call)
+        del out
+        # moe_apply's first chunk buffer and live-row counts, built as it
+        # builds them
+        idx = torch.topk(logits, top_k)[1][:, 0]
         order, slot, chunk_expert, keep, n_chunks, cap_rows = \
-            build_moe_chunks(torch.topk(logits, top_k)[1][:, 0], n_exp,
-                             rows, cf)
+            build_moe_chunks(idx, n_exp, rows, cf)
         check(bool(keep.all()), f"[ops] {label}: tokens dropped")
         buf = torch.zeros((n_exp * cap_rows + 1, dm), dtype=bf16, device=dev)
         buf[slot] = x[order]
         buf = buf[:-1]
-        rel_ref, _ = _rel(out, _moe_oracle(x, w_up, w_down, logits, top_k))
-        check(rel_ref <= BF16_RTOL, f"[ops] {label}: moe_apply vs oracle "
-                                    f"{rel_ref:.3g} > {BF16_RTOL}")
+        counts = torch.bincount(idx, minlength=n_exp).clamp(max=cap_rows)
+        live = (counts[:, None] - torch.arange(0, cap_rows, rows,
+                                               device=dev)).clamp(
+            0, rows).reshape(-1).int()
+        mid = F.silu(moe_gemm(buf, w_up, chunk_expert, chunk_rows=rows,
+                              live_rows=live)).to(bf16)
+        gemm, bounds, bmm = {}, {}, {}
+        for name, xs, w in (("up", buf, w_up), ("down", mid, w_down)):
+            for lv in (live, None):
+                def kern(xs=xs, w=w, lv=lv):
+                    return moe_gemm(xs, w, chunk_expert, chunk_rows=rows,
+                                    live_rows=lv)
 
-        def kern():
-            return moe_gemm(buf, w_up, chunk_expert, chunk_rows=rows)
+                def plain(xs=xs, w=w, lv=lv):
+                    return moe_gemm_plain(xs, w, chunk_expert,
+                                          chunk_rows=rows, live_rows=lv)
 
-        def plain():
-            return moe_gemm_plain(buf, w_up, chunk_expert, chunk_rows=rows)
-
-        up = kern()
-        rel_plain, abs_plain = _rel(up, plain())
-        mid = F.silu(up).to(bf16)
-        rel_down, abs_down = _rel(
-            moe_gemm(mid, w_down, chunk_expert, chunk_rows=rows),
-            moe_gemm_plain(mid, w_down, chunk_expert, chunk_rows=rows))
-        del up, mid
-        check(max(rel_plain, rel_down) <= KERNEL_RTOL,
-              f"[ops] {label}: kernel vs plain up {rel_plain:.3g}, down "
-              f"{rel_down:.3g} > {KERNEL_RTOL}")
-        # bf16 x and weights: the bf16 tensor-core peak bounds the products
-        bound_ms, bound_by = _bound(
-            _nbytes(buf, w_up) + buf.shape[0] * dff * 4,
-            2 * buf.shape[0] * dm * dff, BF16_FLOPS)
-        view = buf.view(n_exp, cap_rows, dm)
+                moe_gemm.launches = moe_gemm.tensor_core_launches = 0
+                got = kern()
+                torch.cuda.synchronize()
+                check(moe_gemm.tensor_core_launches == 1,
+                      f"[ops] {label} {name}: not on the tensor-core kernel")
+                rel, err = _rel(got, plain())
+                del got
+                check(rel <= KERNEL_RTOL, f"[ops] {label}: {name} GEMM "
+                      f"(live_rows={lv is not None}) vs plain {rel:.3g} > "
+                      f"{KERNEL_RTOL}")
+                gemm[name, lv is not None] = dict(
+                    rel=rel, err=err, ms=scaled_device_ms(kern),
+                    plain_ms=event_ms(plain, 1))
+            bounds[name] = _moe_bounds(xs, live, chunk_expert, w)
+            view = xs.view(n_exp, cap_rows, w.shape[1])
+            bmm[name] = scaled_device_ms(lambda: torch.bmm(view, w))
+        # the main path's call: the up GEMM with moe_apply's live rows
+        up, (bound_ms, bound_by) = gemm["up", True], bounds["up"][1]
         rec = dict(case=label, kernel="moe_gemm", launches=launches,
-                   rel_err=max(rel_plain, rel_down),
-                   max_abs_err=max(abs_plain, abs_down), rel_err_ref=rel_ref,
-                   rows=buf.shape[0], real_rows=t * top_k,
-                   ms=scaled_device_ms(kern), plain_ms=event_ms(plain, 1),
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=scaled_device_ms(lambda: torch.bmm(view, w_up)),
+                   rel_err=max(g["rel"] for g in gemm.values()),
+                   max_abs_err=max(g["err"] for g in gemm.values()),
+                   rel_err_ref=rel_ref, ms=up["ms"],
+                   plain_ms=up["plain_ms"], bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=bmm["up"],
                    library="bf16 torch.bmm of the (E, cap_rows, d_in) buffer")
         print(f"[ops] {label:<21} {n_chunks} chunks x {rows} rows "
-              f"({t * top_k} real), d {dm} -> {dff}: rel_err plain up="
-              f"{rel_plain:.2e} down={rel_down:.2e} moe_apply vs oracle="
-              f"{rel_ref:.2e}; up GEMM kernel_ms={rec['ms']:.4f} plain_ms="
-              f"{rec['plain_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-              f"library_ms={rec['library_ms']:.4f} (bf16 bmm); launches "
-              f"{launches}")
+              f"({t * top_k} real, {int(live.sum())} live), d {dm} -> "
+              f"{dff} -> {dm}: moe_apply {apply_ms:.4f} ms (CUDA events, "
+              f"{launches} launches, all tensor-core, no host sync), vs "
+              f"oracle {rel_ref:.2e}")
+        for name in ("up", "down"):
+            (pb, pby), (lb, lby) = bounds[name]
+            for lv in (True, False):
+                g = gemm[name, lv]
+                print(f"[ops]   {name:<4} GEMM live_rows={'yes' if lv else 'no '}"
+                      f": kernel_ms={g['ms']:.4f} plain_ms="
+                      f"{g['plain_ms']:.4f} rel_err plain={g['rel']:.2e}")
+            print(f"[ops]   {name:<4} GEMM bound_ms live={lb:.4f} ({lby}) "
+                  f"padded={pb:.4f} ({pby}) library_ms={bmm[name]:.4f} "
+                  f"(bf16 bmm)")
         recs.append(rec)
-        del x, logits, out, buf, view
+        del x, logits, buf, mid
     return recs
 
 
@@ -1088,10 +1178,16 @@ def phase_ops_edges(dev, gen):
     every head dim of the CPU tests and 40 and 256, ragged Tq/Tk,
     bidirectional, GQA x window, decode with rep 4, ``kv_len < Tk`` with
     an explicit offset and q_period (rows with no live key), bf16 outputs,
-    strided and misaligned q; ``moe_gemm`` with d_out not a multiple of its
-    128-wide CUDA tile (but of bn), ragged rows, bf16 output, transposed
-    weights and int64 expert ids; ``moe_apply`` with top-2 and dropped
-    tokens against the same call on the CPU; the RG-LRU with T not a
+    strided and misaligned q; ``moe_gemm`` on both kernels (each call's
+    tensor-core count checked): chunks of 16, 40, 128 and 200 rows (tiles
+    that would straddle a chunk), d_in 72 / d_out 200 and d_out 136
+    (ragged against the tiles), d_out not a multiple of the SIMT kernel's
+    128-wide tile (but of bn), bf16 output, live-row counts of 0, partial,
+    full and mixed (against the plain version with and without them),
+    unsorted expert ids, a misaligned bf16 x (the SIMT kernel), transposed
+    weights and int64 expert ids; ``moe_apply`` in fp32 and bf16 with
+    top-2 and dropped tokens against the same call on the CPU; the RG-LRU
+    with T not a
     multiple of its 16-step chunk and in bf16; and the calls that must
     raise on the card (D = 12, T % ct, d_out % bn)."""
     from repro_torch.kernels import ops, ref
@@ -1172,38 +1268,99 @@ def phase_ops_edges(dev, gen):
         else:
             raise RuntimeError("flash_attention ran D = 12 on the card")
 
-    for nc, rows, din, dout, n_exp, dt, odt in (
-            (6, 128, 96, 192, 3, torch.bfloat16, torch.float32),
-            (6, 128, 96, 192, 3, torch.bfloat16, torch.bfloat16),
-            (5, 40, 36, 60, 2, torch.float32, torch.float32),
-            (8, 16, 32, 64, 4, torch.float32, torch.float32),
-            (3, 200, 520, 320, 2, torch.float32, torch.float32)):
+    def moe_call(label, want_tc, fn, launches=1):
+        """``fn()`` with moe_gemm's counts at 0: ``launches`` launches, of
+        them ``want_tc`` on the tensor-core kernel."""
+        moe_gemm.tensor_core_launches = 0
+        got, _ = ops_call(moe_gemm, launches, fn, label)
+        check(moe_gemm.tensor_core_launches == want_tc,
+              f"[ops-edges] {label}: {moe_gemm.tensor_core_launches} "
+              f"tensor-core launches, expected {want_tc}")
+        return got
+
+    def live_of(kind, nc, rows):
+        return {"zero": torch.zeros(nc, dtype=torch.int32, device=dev),
+                "full": torch.full((nc,), rows, dtype=torch.int32,
+                                   device=dev),
+                "partial": torch.randint(1, rows, (nc,), generator=gen,
+                                         device=dev).int(),
+                "mixed": torch.tensor([0, 1, rows // 2, rows - 1, rows] * nc,
+                                      dtype=torch.int32, device=dev)[:nc],
+                None: None}[kind]
+
+    bf = torch.bfloat16
+    tc_calls = 0
+    # bf16 x and w take the tensor-core kernel: chunks of 40 and 200 rows
+    # (tiles that would straddle a chunk), d_in 72 / d_out 200 (ragged
+    # against the 64 x 128 tiles, % 8 == 0), bf16 out, live_rows of 0,
+    # partial, full and mixed, unsorted expert ids; fp32 or mixed operands
+    # and d % 8 != 0 the SIMT kernel
+    for nc, rows, din, dout, n_exp, dt, odt, kind, srt in (
+            (6, 128, 96, 192, 3, bf, torch.float32, None, True),
+            (6, 128, 96, 192, 3, bf, bf, None, True),
+            (5, 40, 72, 200, 3, bf, torch.float32, None, True),
+            (3, 200, 520, 320, 2, bf, torch.float32, None, True),
+            (3, 200, 520, 320, 2, bf, bf, "mixed", True),
+            (5, 40, 72, 200, 3, bf, torch.float32, "zero", True),
+            (5, 40, 72, 200, 3, bf, torch.float32, "partial", False),
+            (6, 128, 96, 192, 3, bf, torch.float32, "full", False),
+            (7, 200, 64, 136, 4, bf, torch.float32, "mixed", False),
+            (8, 16, 32, 64, 4, bf, bf, "partial", False),
+            (6, 128, 96, 192, 3, bf, torch.float32, "mixed", True),
+            (5, 40, 36, 60, 2, torch.float32, torch.float32, None, True),
+            (8, 16, 32, 64, 4, torch.float32, torch.float32, None, True),
+            (3, 200, 520, 320, 2, torch.float32, torch.float32, None, True),
+            (5, 40, 72, 200, 3, torch.float32, torch.float32, "mixed",
+             False),
+            (4, 64, 36, 60, 2, bf, torch.float32, "partial", True)):
         x, w = rnd(nc * rows, din, dt=dt), rnd(n_exp, din, dout, dt=dt)
-        ce = torch.sort(torch.randint(0, n_exp, (nc,), generator=gen,
-                                      device=dev))[0].int()
-        label = f"moe_gemm {(nc, rows, din, dout)} {dt} -> {odt}"
-        got, _ = ops_call(moe_gemm, 1, lambda: moe_gemm(
-            x, w, ce, chunk_rows=rows, out_dtype=odt), label)
+        ce = torch.randint(0, n_exp, (nc,), generator=gen, device=dev)
+        ce = (torch.sort(ce)[0] if srt else ce).int()
+        live = live_of(kind, nc, rows)
+        if live is not None:   # the rows past each count are zero
+            dead = torch.arange(rows, device=dev)[None, :] >= live[:, None]
+            x = x.masked_fill(dead.reshape(-1, 1), 0)
+        tc = dt == bf and din % 8 == 0 and dout % 8 == 0
+        tc_calls += tc
+        label = (f"moe_gemm {(nc, rows, din, dout)} {dt} -> {odt} "
+                 f"live_rows={kind} sorted={srt}")
+        got = moe_call(label, int(tc), lambda: moe_gemm(
+            x, w, ce, chunk_rows=rows, out_dtype=odt, live_rows=live))
         check(got.dtype == odt, f"{label}: dtype {got.dtype}")
-        held(label, got, moe_gemm_plain(x, w, ce, chunk_rows=rows),
-             KERNEL_RTOL if odt == torch.float32 else BF16_RTOL)
+        tol = KERNEL_RTOL if odt == torch.float32 else BF16_RTOL
+        held(label, got, moe_gemm_plain(x, w, ce, chunk_rows=rows,
+                                        live_rows=live), tol)
+        if live is not None:   # live_rows changes no result here
+            held(label + " vs no live_rows", got,
+                 moe_gemm_plain(x, w, ce, chunk_rows=rows), tol)
+    # a bf16 x off the 16-byte grid takes the SIMT kernel (TMA cannot)
+    x, w = rnd(6 * 128 * 96 + 1, dt=bf)[1:].view(6 * 128, 96), \
+        rnd(3, 96, 192, dt=bf)
+    ce = torch.tensor([0, 0, 1, 1, 2, 2], dtype=torch.int32, device=dev)
+    label = "moe_gemm misaligned bf16 x"
+    got = moe_call(label, 0, lambda: moe_gemm(x, w, ce, chunk_rows=128))
+    held(label, got, moe_gemm_plain(x, w, ce, chunk_rows=128))
     # transposed expert weights and int64 expert ids: copied by the wrapper
     x, w_t = rnd(4 * 32, 48), rnd(3, 80, 48).transpose(1, 2)
     ce = torch.tensor([0, 2, 2, 1], device=dev)
     label = "moe_gemm transposed w, int64 ids"
-    got, _ = ops_call(moe_gemm, 1, lambda: moe_gemm(x, w_t, ce, chunk_rows=32),
-                      label)
+    got = moe_call(label, 0, lambda: moe_gemm(x, w_t, ce, chunk_rows=32))
     held(label, got, moe_gemm_plain(x, w_t, ce, chunk_rows=32))
-    x, wu, wd = rnd(128, 32), rnd(4, 32, 64), rnd(4, 64, 32)
     logits = torch.randn(128, 4, generator=gen, device=dev)
-    for top_k, cf in ((2, 8.0), (2, 0.5), (1, 0.5)):
-        label = f"moe_apply top_k={top_k} capacity={cf}"
-        got, _ = ops_call(moe_gemm, 2 * top_k, lambda: ops.moe_apply(
-            x, wu, wd, logits, top_k=top_k, chunk_rows=16,
-            capacity_factor=cf), label)
-        held(label + " vs the CPU", got.cpu(), ops.moe_apply(
-            x.cpu(), wu.cpu(), wd.cpu(), logits.cpu(), top_k=top_k,
-            chunk_rows=16, capacity_factor=cf))
+    for dt in (torch.float32, bf):
+        x, wu, wd = rnd(128, 32, dt=dt), rnd(4, 32, 64, dt=dt), \
+            rnd(4, 64, 32, dt=dt)
+        for top_k, cf in ((2, 8.0), (2, 0.5), (1, 0.5)):
+            label = f"moe_apply {dt} top_k={top_k} capacity={cf}"
+            tc = 2 * top_k if dt == bf else 0
+            tc_calls += tc
+            got = moe_call(label, tc, lambda: ops.moe_apply(
+                x, wu, wd, logits, top_k=top_k, chunk_rows=16,
+                capacity_factor=cf), 2 * top_k)
+            held(label + " vs the CPU", got.cpu(), ops.moe_apply(
+                x.cpu(), wu.cpu(), wd.cpu(), logits.cpu(), top_k=top_k,
+                chunk_rows=16, capacity_factor=cf),
+                KERNEL_RTOL if dt == torch.float32 else BF16_RTOL)
     try:
         moe_gemm(rnd(128, 32), rnd(2, 32, 768), torch.zeros(
             1, dtype=torch.int32, device=dev), chunk_rows=128)
@@ -1233,10 +1390,12 @@ def phase_ops_edges(dev, gen):
         pass
     else:
         raise RuntimeError("rg_lru took T=200 with ct=128 on the card")
-    print(f"[ops-edges] {count} calls, each with its exact launch count, "
-          f"fp32 results within {KERNEL_RTOL} of the plain version or the "
-          f"oracle (worst {worst:.2e}), bf16 outputs within {BF16_RTOL}; "
-          f"D=12, T % ct and d_out % bn raise")
+    print(f"[ops-edges] {count} checks, each call with its exact launch "
+          f"count ({tc_calls} moe_gemm launches on the tensor-core kernel, "
+          f"the misaligned bf16 x on the SIMT one), fp32 results within "
+          f"{KERNEL_RTOL} of the plain version or the oracle (worst "
+          f"{worst:.2e}), bf16 outputs within {BF16_RTOL}; D=12, T % ct and "
+          f"d_out % bn raise")
 
 
 def device_busy_us(prof):
@@ -1768,7 +1927,8 @@ def main():
                  kernel=kernel)
            for kernel, mode, case in (
                ("flash_attention", "fp32, causal, GQA", "granite prefill"),
-               ("moe_gemm", "bf16 x and w, fp32 out", "maverick moe T=4096"),
+               ("moe_gemm", "tensor cores (TMA + wgmma): bf16 x and w, "
+                "live_rows, fp32 out", "maverick moe T=4096"),
                ("rg_lru", "bf16", "rg_lru bf16"))
            for mine in ([r for r in ops_recs if r["kernel"] == kernel],)]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """Segment-scheduled grouped expert GEMM (MoE): chunk ``c`` of
 ``chunk_rows`` expert-sorted token rows times ``w[chunk_expert[c]]``.
 
-Replaces ``src/repro/kernels/moe_gemm.py::moe_gemm`` with a CUDA kernel
-written for Hopper, ``src/repro_torch/csrc/moe_gemm.cu``; the design and
-its bound are noted at the top of that source.  :func:`moe_gemm` launches
-the kernel for CUDA tensors and runs :func:`moe_gemm_plain` for CPU
-tensors.  :func:`build_moe_chunks` is ``repro``'s in-graph SELECTA for
-MoE (sort tokens by expert, pad each expert's group to whole chunks), in
-torch on the tokens' device.
+Replaces ``src/repro/kernels/moe_gemm.py::moe_gemm`` with two CUDA kernels
+written for Hopper in ``src/repro_torch/csrc/moe_gemm.cu``; the designs and
+the bound are noted at the top of that source.  :func:`moe_gemm` picks one
+before the launch, by type and shape: bf16 ``x`` and ``w`` with ``d_in``
+and ``d_out`` multiples of 8 and 16-byte-aligned bases take the
+tensor-core kernel (TMA and ``wgmma``), every other call the SIMT kernel.
+It runs :func:`moe_gemm_plain` for CPU tensors.  :func:`build_moe_chunks`
+is ``repro``'s in-graph SELECTA for MoE (sort tokens by expert, pad each
+expert's group to whole chunks), in torch on the tokens' device.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.moe_gemm.argtypes = [p] * 4 + [i] * 8 + [p]
+        lib.moe_gemm.argtypes = [p] * 5 + [i] * 9 + [p]
         lib.moe_gemm.restype = i
         lib.moe_gemm_error_string.argtypes = [i]
         lib.moe_gemm_error_string.restype = ctypes.c_char_p
@@ -35,10 +37,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def moe_gemm_plain(x_sorted, w, chunk_expert, *, chunk_rows: int = 128,
-                   out_dtype=torch.float32) -> torch.Tensor:
+                   out_dtype=torch.float32, live_rows=None) -> torch.Tensor:
     """The kernel's plain torch version: one fp32 matmul per run of
     consecutive chunks of one expert, with only that expert's weights cast
-    to fp32 (never the whole ``w``)."""
+    to fp32 (never the whole ``w``); with ``live_rows``, the rows of each
+    chunk from its count on are zeroed."""
     out = torch.empty((x_sorted.shape[0], w.shape[2]), dtype=out_dtype,
                       device=x_sorted.device)
     experts = chunk_expert.tolist()
@@ -50,11 +53,39 @@ def moe_gemm_plain(x_sorted, w, chunk_expert, *, chunk_rows: int = 128,
         rows = slice(lo * chunk_rows, hi * chunk_rows)
         out[rows] = x_sorted[rows].float() @ w[experts[lo]].float()
         lo = hi
+    if live_rows is not None:
+        live = torch.arange(chunk_rows, device=out.device)[None, :] \
+            < live_rows.to(out.device)[:, None]
+        out = torch.where(live.reshape(-1, 1), out, 0)
     return out
 
 
+def _check_live_rows(live_rows, n_chunks: int, chunk_rows: int,
+                     device) -> None:
+    """``live_rows`` is an ``(n_chunks,)`` int32 tensor on the tokens'
+    device; on the CPU its counts must lie in ``[0, chunk_rows]`` (on the
+    card that check would sync with the host, so the kernel clamps them)."""
+    if not isinstance(live_rows, torch.Tensor) \
+            or live_rows.dtype != torch.int32:
+        got = live_rows.dtype if isinstance(live_rows, torch.Tensor) \
+            else type(live_rows).__name__
+        raise ValueError(f"live_rows must be an int32 tensor, got {got}")
+    if tuple(live_rows.shape) != (n_chunks,):
+        raise ValueError(f"live_rows has shape {tuple(live_rows.shape)}, "
+                         f"expected one count per chunk ({n_chunks},)")
+    if live_rows.device != device:
+        raise ValueError(f"live_rows is on {live_rows.device}, the tokens "
+                         f"on {device}")
+    if device.type == "cpu" and n_chunks and (
+            int(live_rows.min()) < 0 or int(live_rows.max()) > chunk_rows):
+        raise ValueError(f"live_rows must lie in [0, chunk_rows="
+                         f"{chunk_rows}], got [{int(live_rows.min())}, "
+                         f"{int(live_rows.max())}]")
+
+
 def moe_gemm(x_sorted, w, chunk_expert, *, chunk_rows: int = 128,
-             bn: int = 512, out_dtype=torch.float32) -> torch.Tensor:
+             bn: int = 512, out_dtype=torch.float32,
+             live_rows=None) -> torch.Tensor:
     """Grouped GEMM over expert-sorted tokens.
 
     Args:
@@ -64,6 +95,12 @@ def moe_gemm(x_sorted, w, chunk_expert, *, chunk_rows: int = 128,
       chunk_expert: (n_chunks,) int32 expert id per chunk.
       bn: the TPU kernel's N tile; validated as ``repro`` does (``d_out``
         must be a multiple of ``min(bn, d_out)``), it changes no result.
+      live_rows: ``None`` (every row is computed), or an (n_chunks,) int32
+        tensor on the tokens' device: the live rows at the head of each
+        chunk.  The rows of a chunk from its count on are written as zeros
+        and never multiplied (a tile or 64-row half with no live row reads
+        no weight bytes), which is the full product when those rows of
+        ``x_sorted`` are zero, as the docstring above asks.
     Returns:
       (n_chunks * chunk_rows, d_out) in ``out_dtype``, in the sorted order.
     """
@@ -83,16 +120,20 @@ def moe_gemm(x_sorted, w, chunk_expert, *, chunk_rows: int = 128,
         raise ValueError(f"d_out={d_out} must be a multiple of the N tile "
                          f"bn={bn}")
     device = x_sorted.device
+    if live_rows is not None:
+        _check_live_rows(live_rows, n_chunks, chunk_rows, device)
     if device.type == "cpu":
         return moe_gemm_plain(x_sorted, w, chunk_expert,
-                              chunk_rows=chunk_rows, out_dtype=out_dtype)
+                              chunk_rows=chunk_rows, out_dtype=out_dtype,
+                              live_rows=live_rows)
     if device.type != "cuda":
         raise ValueError(f"moe_gemm runs on cuda or cpu tensors, got "
                          f"{device}")
-    return _launch(x_sorted, w, chunk_expert, chunk_rows, out_dtype)
+    return _launch(x_sorted, w, chunk_expert, chunk_rows, out_dtype,
+                   live_rows)
 
 
-def _launch(x, w, chunk_expert, chunk_rows, out_dtype):
+def _launch(x, w, chunk_expert, chunk_rows, out_dtype, live_rows):
     device = x.device
     n_chunks = chunk_expert.shape[0]
     d_in, d_out = w.shape[1], w.shape[2]
@@ -105,33 +146,46 @@ def _launch(x, w, chunk_expert, chunk_rows, out_dtype):
                                   f"{_DTYPES}, got {out_dtype}")
     if w.device != device or chunk_expert.device != device:
         raise ValueError(f"moe_gemm: all operands must be on {device}")
-    # the kernel reads row-major operands and int32 expert ids: a strided
+    # the kernels read row-major operands and int32 expert ids: a strided
     # view (a transposed weight, say) or int64 ids are copied, as on the
-    # CPU any layout is taken; alignment only picks the vector loads
+    # CPU any layout is taken; alignment only picks the kernel and its loads
     x, w = x.contiguous(), w.contiguous()
     chunk_expert = chunk_expert.to(torch.int32).contiguous()
+    if live_rows is not None:
+        live_rows = live_rows.contiguous()
     out = torch.empty((x.shape[0], d_out), dtype=out_dtype, device=device)
     if n_chunks == 0:
         return out
-    vec = int(d_in % 4 == 0 and d_out % 4 == 0 and all(
-        ten.data_ptr() % 16 == 0 for ten in (x, w, out)))
+    aligned = all(ten.data_ptr() % 16 == 0 for ten in (x, w, out))
+    bf16 = torch.bfloat16
+    # path 2: the tensor-core kernel (bf16 operands; TMA's 16-byte stride
+    # and base rule); 1 / 0: the SIMT kernel with or without vector loads
+    if x.dtype == bf16 and w.dtype == bf16 and d_in % 8 == 0 \
+            and d_out % 8 == 0 and aligned:
+        path = 2
+    else:
+        path = int(d_in % 4 == 0 and d_out % 4 == 0 and aligned)
     lib = _lib()
     rc = lib.moe_gemm(x.data_ptr(), w.data_ptr(), chunk_expert.data_ptr(),
+                      None if live_rows is None else live_rows.data_ptr(),
                       out.data_ptr(), n_chunks, chunk_rows, d_in, d_out,
-                      int(x.dtype == torch.bfloat16),
-                      int(w.dtype == torch.bfloat16),
-                      int(out_dtype == torch.bfloat16), vec,
+                      w.shape[0], int(x.dtype == bf16), int(w.dtype == bf16),
+                      int(out_dtype == bf16), path,
                       torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"moe_gemm launch failed: "
                            f"{lib.moe_gemm_error_string(rc).decode()}")
     moe_gemm.launches += 1
+    if path == 2:
+        moe_gemm.tensor_core_launches += 1
     return out
 
 
 #: Kernel launches since the count was last set to 0 (only :func:`moe_gemm`
-#: on CUDA tensors adds to it).
+#: on CUDA tensors adds to it), either kernel ...
 moe_gemm.launches = 0
+#: ... and, of those, the launches of the tensor-core kernel.
+moe_gemm.tensor_core_launches = 0
 
 
 def build_moe_chunks(expert_of_token: torch.Tensor, n_experts: int,

@@ -126,6 +126,13 @@ def moe_apply(x, w_up, w_down, router_logits, *, top_k: int = 1,
     Returns (T, d_model) in fp32.  Each expert takes at most ``cap_rows``
     tokens per routing slot (:func:`build_moe_chunks`); the rest are
     dropped for that slot.
+
+    Both grouped GEMMs get each chunk's count of kept tokens as
+    ``live_rows``, counted on the device (``scatter_add_``, clamped to
+    ``cap_rows``: no host sync), so chunks and halves of chunks that hold
+    no token read no weights.  The up GEMM's rows past the counts are zero
+    either way; the down GEMM's come out zero instead of ``activation(0) @
+    w_down``, and they are never gathered back, so the result is the same.
     """
     t, d_model = x.shape
     n_exp = w_up.shape[0]
@@ -136,15 +143,26 @@ def moe_apply(x, w_up, w_down, router_logits, *, top_k: int = 1,
         order, slot, chunk_expert, keep, _, cap_rows = build_moe_chunks(
             top_idx[:, j], n_exp, chunk_rows, capacity_factor)
         cap_total = n_exp * cap_rows
+        # kept tokens per expert, then per chunk: expert e's chunks hold
+        # rows p * chunk_rows .. of its min(count, cap_rows) tokens
+        counts = torch.zeros(n_exp, dtype=torch.int32, device=x.device)
+        counts.scatter_add_(0, top_idx[:, j], torch.ones(
+            t, dtype=torch.int32, device=x.device))
+        start = torch.arange(0, cap_rows, chunk_rows, dtype=torch.int32,
+                             device=x.device)
+        live = (counts.clamp(max=cap_rows)[:, None] - start).clamp(
+            0, chunk_rows).reshape(-1)
         # scatter tokens (sorted by expert) into the padded chunk buffer;
         # dropped tokens land on the trash row which is cut before the GEMM
         buf = torch.zeros((cap_total + 1, d_model), dtype=x.dtype,
                           device=x.device)
         buf[slot] = torch.where(keep[:, None], x[order], 0)
         buf = buf[:-1]
-        h = moe_gemm(buf, w_up, chunk_expert, chunk_rows=chunk_rows)
+        h = moe_gemm(buf, w_up, chunk_expert, chunk_rows=chunk_rows,
+                     live_rows=live)
         h = activation(h).to(x.dtype)
-        y = moe_gemm(h, w_down, chunk_expert, chunk_rows=chunk_rows)
+        y = moe_gemm(h, w_down, chunk_expert, chunk_rows=chunk_rows,
+                     live_rows=live)
         # gather back: sorted position s ↔ original token order[s]
         vals = torch.where(keep[:, None],
                            y[torch.clamp(slot, max=cap_total - 1)], 0.0)

@@ -27,11 +27,13 @@ scales only beside an int8/fp8 payload and a payload only with its scales;
 other pairings raise ``NotImplementedError`` on every device, so the CPU
 and the card accept the same calls.
 
-Not ported (ROADMAP): the TPU's ``prefetch="cross_pass"`` DMA timing, which
-raises ``NotImplementedError``.  The TPU kernel's fetch flags and ring slots
-(``a_fetch``/``b_fetch``/``a_slot``/``b_slot``) and its ``pipeline`` switch
-describe TPU DMA timing and change no result; this kernel does not read
-them.
+``prefetch="cross_pass"`` is read and changes no result: on the TPU it
+only issues the next N-tile pass's first DMA early, and ``repro``'s results
+match the drained schedule bit for bit, so this kernel runs such a plan as
+the drained one, in every mode (forward, ``transpose_lhs``, quantized).
+The TPU kernel's fetch flags and ring slots (``a_fetch``/``b_fetch``/
+``a_slot``/``b_slot``) and its ``pipeline`` switch describe TPU DMA timing
+and change no result; this kernel does not read them.
 """
 from __future__ import annotations
 
@@ -175,6 +177,8 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
       a_scales: the payload's fp32 scales, ``(n_blocks,)`` (one per block,
         applied to each item's product) or ``(n_blocks, bm)`` (one per
         stored block row, applied to the tile before the product).
+      prefetch: ``None`` or ``"cross_pass"`` (a TPU DMA timing: runs as
+        the drained schedule).
       runs: the plan's owner-run offsets (:func:`run_offsets`, derived
         once per plan by the planner) on the device; required for CUDA
         tensors, unused by the plain version.
@@ -185,10 +189,6 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
     """
     if prefetch not in (None, "cross_pass"):
         raise ValueError(f"prefetch={prefetch!r}: expected None or 'cross_pass'")
-    if prefetch is not None:
-        raise NotImplementedError(
-            "segment_spmm: prefetch='cross_pass' is a TPU DMA-timing mode "
-            "with identical results; plan without it")
     _check_payload(a_blocks, a_scales)
     n_blocks, bm, bk = a_blocks.shape
     if a_scales is not None and tuple(a_scales.shape) not in (

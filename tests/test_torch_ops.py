@@ -307,6 +307,119 @@ def test_moe_gemm_value_errors_match_repro(x_rows, w_shape, n_chunks, kw):
     assert str(terr.value) == str(jerr.value)
 
 
+def _live_counts(kind, n_chunks, rows, rng):
+    return {"zero": np.zeros(n_chunks, np.int32),
+            "full": np.full(n_chunks, rows, np.int32),
+            "partial": rng.integers(1, rows, n_chunks).astype(np.int32),
+            "mixed": rng.permutation(np.resize(
+                [0, 1, rows // 2, rows - 1, rows], n_chunks)).astype(np.int32),
+            }[kind]
+
+
+@pytest.mark.parametrize("kind", ["zero", "partial", "full", "mixed"])
+@pytest.mark.parametrize("rows", [16, 40])
+def test_moe_gemm_live_rows_match_repro(rows, kind):
+    """With the rows past each chunk's count zeroed, ``live_rows`` changes
+    no result: against ``repro``'s interpret kernel on the same rows, and
+    against the call without it; fp32 and bf16 out."""
+    n_chunks, d_in, d_out, n_exp = 6, 24, 64, 3
+    rng = np.random.default_rng(rows + len(kind))
+    live = _live_counts(kind, n_chunks, rows, rng)
+    x = rng.standard_normal((n_chunks, rows, d_in)).astype(np.float32)
+    x[np.arange(rows)[None, :] >= live[:, None]] = 0.0
+    x = x.reshape(n_chunks * rows, d_in)
+    w = (rng.standard_normal((n_exp, d_in, d_out)) / np.sqrt(d_in)).astype(
+        np.float32)
+    ce = np.sort(rng.integers(0, n_exp, n_chunks)).astype(np.int32)
+    tx, tw, tce = map(torch.from_numpy, (x, w, ce))
+    tlive = torch.from_numpy(live)
+    want = {}
+    for out_dtype, jdt, tol in ((torch.float32, jnp.float32, GEMM_TOL),
+                                (torch.bfloat16, jnp.bfloat16, BF16_TOL)):
+        want[out_dtype] = _np(jax_moe_gemm(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(ce), chunk_rows=rows,
+            interpret=True, out_dtype=jdt))
+        got = moe_gemm(tx, tw, tce, chunk_rows=rows, out_dtype=out_dtype,
+                       live_rows=tlive)
+        assert got.dtype == out_dtype
+        np.testing.assert_allclose(_np(got), want[out_dtype], **tol)
+        np.testing.assert_array_equal(
+            _np(got), _np(moe_gemm(tx, tw, tce, chunk_rows=rows,
+                                   out_dtype=out_dtype)))
+    # rows past the counts come out zero even where x is not zero there
+    noisy = tx + torch.from_numpy(rng.standard_normal(x.shape).astype(
+        np.float32)) * (tx == 0)
+    got = moe_gemm(noisy, tw, tce, chunk_rows=rows, live_rows=tlive)
+    dead = torch.arange(rows)[None, :] >= tlive[:, None]
+    assert (got[dead.reshape(-1)] == 0).all()
+    np.testing.assert_allclose(_np(got[~dead.reshape(-1)]),
+                               want[torch.float32][~dead.reshape(-1).numpy()],
+                               **GEMM_TOL)
+
+
+@pytest.mark.parametrize("live,match", [
+    (torch.zeros(3, dtype=torch.int32), "shape"),
+    (torch.zeros(4, 1, dtype=torch.int32), "shape"),
+    (torch.zeros(4, dtype=torch.int64), "int32"),
+    (torch.zeros(4), "int32"),
+    ([16, 16, 16, 16], "int32"),
+    (torch.tensor([0, 3, -1, 16], dtype=torch.int32), r"\[0, chunk_rows"),
+    (torch.tensor([0, 17, 2, 16], dtype=torch.int32), r"\[0, chunk_rows"),
+])
+def test_moe_gemm_live_rows_value_errors(live, match):
+    x, w = torch.zeros(64, 8), torch.zeros(2, 8, 16)
+    ce = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        moe_gemm(x, w, ce, chunk_rows=16, live_rows=live)
+
+
+@pytest.mark.parametrize("top_k,cf,rows,drops", [
+    (1, 8.0, 16, False), (1, 0.5, 16, True), (2, 0.6, 16, True),
+    (2, 0.5, 40, True)])
+def test_moe_apply_passes_kept_token_counts(monkeypatch, top_k, cf, rows,
+                                            drops):
+    """``moe_apply`` hands both GEMMs each chunk's count of kept tokens
+    (the rows ``build_moe_chunks`` fills), the up GEMM's rows past them
+    are zero, and the result is still ``repro``'s, dropped tokens
+    included."""
+    rng = np.random.default_rng(20 + top_k + rows)
+    t, dm, dff, n_exp = 128, 32, 64, 4
+    x = rng.standard_normal((t, dm)).astype(np.float32) * 0.3
+    wu = rng.standard_normal((n_exp, dm, dff)).astype(np.float32) * 0.1
+    wd = rng.standard_normal((n_exp, dff, dm)).astype(np.float32) * 0.1
+    logits = rng.standard_normal((t, n_exp)).astype(np.float32)
+    calls = []
+
+    def spy(xs, w, ce, **kw):
+        calls.append((xs, kw["live_rows"]))
+        return moe_gemm(xs, w, ce, **kw)
+
+    monkeypatch.setattr(ops, "moe_gemm", spy)
+    got = ops.moe_apply(*map(torch.from_numpy, (x, wu, wd, logits)),
+                        top_k=top_k, chunk_rows=rows, capacity_factor=cf)
+    want = jops.moe_apply(*map(jnp.asarray, (x, wu, wd, logits)),
+                          top_k=top_k, chunk_rows=rows, capacity_factor=cf,
+                          interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **MOE_TOL)
+    assert len(calls) == 2 * top_k
+    idx = torch.topk(torch.from_numpy(logits), top_k)[1]
+    dropped = False
+    for j in range(top_k):
+        _, slot, _, keep, n_chunks, cap = build_moe_chunks(
+            idx[:, j], n_exp, rows, cf)
+        filled = np.zeros(n_exp * cap + 1, bool)
+        filled[slot.numpy()] = True
+        want_live = filled[:-1].reshape(n_chunks, rows).sum(1)
+        (buf, live_up), (_, live_down) = calls[2 * j], calls[2 * j + 1]
+        assert live_up.dtype == torch.int32
+        np.testing.assert_array_equal(live_up.numpy(), want_live)
+        assert live_down is live_up
+        dead = np.arange(rows)[None, :] >= want_live[:, None]
+        assert (buf[torch.from_numpy(dead.reshape(-1))] == 0).all()
+        dropped |= not bool(keep.all())
+    assert dropped == drops
+
+
 @pytest.mark.parametrize("top_k,cf,dtype", [
     (1, 8.0, "float32"), (2, 8.0, "float32"), (1, 0.5, "float32"),
     (2, 0.6, "float32"), (2, 8.0, "bfloat16")])
@@ -358,6 +471,7 @@ def test_launch_counters_stay_zero_on_cpu():
     """On CPU tensors every wrapper runs its plain version: no launch."""
     for kernel in (flash_attention, moe_gemm, rg_lru):
         kernel.launches = 0
+    moe_gemm.tensor_core_launches = 0
     q, k, v = map(torch.from_numpy, _attn_inputs(13, 1, 16, 32, 4, 2, 16))
     ops.flash_mha(q, k, v)
     x, ag, xg, ap, _ = map(torch.from_numpy, _lru_inputs(13, 1, 16, 8))
@@ -365,8 +479,8 @@ def test_launch_counters_stay_zero_on_cpu():
     xs = torch.randn(64, 8)
     ops.moe_apply(xs, torch.randn(2, 8, 16), torch.randn(2, 16, 8),
                   torch.randn(64, 2), top_k=2, chunk_rows=16)
-    assert (flash_attention.launches, moe_gemm.launches, rg_lru.launches) \
-        == (0, 0, 0)
+    assert (flash_attention.launches, moe_gemm.launches, rg_lru.launches,
+            moe_gemm.tensor_core_launches) == (0, 0, 0, 0)
 
 
 def _leaves_equal(got, want):

@@ -132,8 +132,7 @@ def test_jax_kernel_direct_call_matches():
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("kw", [{"a_scales": torch.ones(1)},
-                                {"prefetch": "cross_pass"}])
+@pytest.mark.parametrize("kw", [{"a_scales": torch.ones(1)}])
 def test_unported_kernel_modes_raise(kw):
     a, _ = _bsr("random")
     plan = api.plan_matmul(a, 4, device="cpu")
@@ -142,6 +141,50 @@ def test_unported_kernel_modes_raise(kw):
                      plan.seg_start, plan.seg_write, plan.accum_prev,
                      plan.valid, torch.zeros(a.shape[1], 4),
                      grid_m=plan.grid_m, **kw)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8", "fp8"])
+@pytest.mark.parametrize("direction", ["forward", "grad"])
+def test_cross_pass_plans_run_as_drained(direction, quantize):
+    """``prefetch="cross_pass"`` only times the TPU's DMAs: such a plan
+    gives the drained plan's result bit for bit, forward and for dx
+    through ``apply_plan``'s grad plan, and matches ``repro``'s
+    ``execute_plan`` / ``jax.grad`` of ``apply_plan`` with the same
+    prefetch on the interpret backend (N = 16 over bn = 8: two passes, so
+    the next pass's early fetch happens there)."""
+    a, _ = _bsr("random")
+    n = 16
+    knobs = dict(with_grad=True, quantize=quantize, n_lanes=2)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((n, a.shape[1])).astype(np.float32)   # (N, K)
+    ct = rng.standard_normal((a.shape[0], n)).astype(np.float32)
+    ja = JaxBSR(a.shape, a.block_shape, a.brow, a.bcol, a.blocks)
+    jplan = japi.plan_matmul(ja, n, prefetch="cross_pass", **knobs)
+
+    def run(plan):
+        tx = torch.from_numpy(x).requires_grad_(direction == "grad")
+        y = api.apply_plan(plan, tx.T, blocks=plan.lhs_blocks,
+                           scales=plan.lhs_scales)
+        if direction == "forward":
+            return y.detach()
+        (y * torch.from_numpy(ct)).sum().backward()
+        return tx.grad
+
+    drained = api.plan_matmul(a, n, device="cpu", **knobs)
+    cross = api.plan_matmul(a, n, device="cpu", prefetch="cross_pass",
+                            **knobs)
+    assert cross.prefetch == cross.grad_plan.prefetch == "cross_pass"
+    got = run(cross)
+    assert torch.equal(got, run(drained))
+    if direction == "forward":
+        want = np.asarray(japi.execute_plan(jplan, jnp.asarray(x).T,
+                                            backend="interpret", bn=8))
+    else:
+        def loss(xx):
+            y = japi.apply_plan(jplan, xx.T, backend="interpret", bn=8)
+            return jnp.sum(y * jnp.asarray(ct))
+        want = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 _GRAD_LEAVES = ("slot_idx", "m_idx", "k_idx", "seg_start", "seg_write",
