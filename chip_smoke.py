@@ -46,37 +46,52 @@
    tokens, strided operands, the grouped GEMM's tensor-core path at chunk,
    d_in and d_out edges with live-row counts and unsorted experts, calls
    that must raise).
-4. Kernel vs plain version: the Segment SpMM kernel on the shapes the main
-   paths give it (granite-3-8b's up/gate and down FFN patterns at N = 4,
-   16, 64, B in bf16 and fp32; the training width N = 2048), plus a
-   ``fold_len=8`` plan, an ``n_lanes=4, unroll=2`` plan and a pattern with
-   empty block rows, and its ``transpose_lhs`` mode on the up and down grad
-   plans (dx = Wᵀ @ dy at N = 4, 64, 2048), each held against the plain
-   torch version on the same inputs.  Times are device times (CUDA-graph
+4. Kernel vs plain version: the Segment SpMM kernels on the shapes the
+   main paths give them (granite-3-8b's up/gate and down FFN patterns at
+   N = 4, 16, 64, B in bf16 and fp32; the training width N = 2048; a
+   ragged N = ``RAGGED_N`` on the tensor-core path), plus a ``fold_len=8``
+   plan, an ``n_lanes=4, unroll=2`` plan and a pattern with empty block
+   rows, and the ``transpose_lhs`` mode on the up and down grad plans (dx
+   = Wᵀ @ dy at N = 4, 64, ``RAGGED_N``, 2048), each on the path the
+   wrapper picks (``choose_path``: the folded "split" kernel, the
+   tensor-core "tc" kernel, or the one-block-per-run "simt" kernel for
+   fp32 B), launched exactly once there, held against the plain torch
+   version on the same inputs.  Times are device times (CUDA-graph
    replays between CUDA events); the bound is the larger of the bytes over
-   3.35 TB/s and the fp32 operations over 67 TFLOP/s (H100 SXM data
-   sheet); ``library_ms`` times one ``torch.sparse_bsr_tensor @ B`` call
-   (of W, or of Wᵀ built once), a yardstick the port never calls.  Then a
-   sweep of small plans at the kernel's edges, in both modes (block sizes,
-   folds, lanes, ragged N, layouts, output dtype, and ``prefetch=
-   "cross_pass"`` plans, forward and dx in fp32, int8 and fp8, equal to
-   the drained plans bit for bit).
+   3.35 TB/s and the operations over the peak of the path that ran: 67
+   TFLOP/s fp32 on the CUDA cores, or three bf16 passes at 989 TFLOP/s on
+   the tensor cores (H100 SXM data sheet); ``library_ms`` times one
+   ``torch.sparse_bsr_tensor @ B`` call (of W, or of Wᵀ built once), a
+   yardstick the port never calls.  A forward and a dx call on each new
+   path run under ``torch.cuda.set_sync_debug_mode("error")``.
+   [crossover]: both new paths on the same up, down and up-dx calls at
+   N = 4, 16, 32, 64, ``RAGGED_N`` and 2048, which sets ``TC_MIN_N``.  Then a
+   sweep of small plans at the kernels' edges, in both modes (block sizes,
+   folds, lanes, ragged N, layouts, output dtype, each new path forced on
+   every schedule with fp32 and bf16 output, the bf16 folded reload on
+   every path, and ``prefetch="cross_pass"`` plans, forward and dx in
+   fp32, int8 and fp8, equal to the drained plans bit for bit on every
+   path).
 5. Serve: granite-3-8b at full published width (all 40 layers, random
    weights from ``SEED``) with the block-sparse FFN, through ``Engine``:
    6 requests, 4 slots.  The kernel's launch count over that run must be
    3 projections × 40 layers × model calls.  One decode step's logits on
    the ``"cuda"`` backend are held against the ``"reference"`` backend,
    and one decode step is profiled (device busy share, top operations).
-   Then 32 decode steps with all 4 slots live are timed one by one.
+   Then 32 decode steps with all 4 slots live are timed one by one; every
+   decode launch must take the split path.
 6. Quantized kernel ([qkernel]): the Segment SpMM kernel's int8 / fp8
    payload modes (per-block and rowwise scales) on layer 0's up and down
    blocks as ``SparseLinear.quantize`` freezes them, forward at N = 4, 16,
-   64 and ``transpose_lhs`` at N = 4, 64, each held against its plain
+   64, ``RAGGED_N`` and ``transpose_lhs`` at N = 4, 64 (on the path the
+   wrapper picks, and on the up projection also on the other new path),
+   each held against its plain
    version (≤ 1e-5), against the fp32 kernel on the dequantized blocks
    (≤ 1e-5) and against the fp32 kernel on the source blocks (int8 <
-   5e-2, fp8 < 1e-1); device times, the bound (bytes of payload, scales, B
-   and C) and, as a yardstick, the library's fp32 BSR product of the
-   dequantized blocks.
+   5e-2, fp8 < 1e-1); device times, the bound of the path that ran (bytes
+   of payload, scales, B and C; operations at the fp32 peak on the split
+   path, as one or three bf16 passes on the tensor cores) and, as a
+   yardstick, the library's fp32 BSR product of the dequantized blocks.
 7. Quantized serving ([qserve]): ``Engine(model, quantize=mode)`` for int8
    and fp8 on the serve phase's 6 requests (every launch quantized, 120
    per decode step; decode logits ``"cuda"`` vs ``"reference"`` ≤ 5e-2;
@@ -92,15 +107,18 @@
    ``"cuda"`` backend are held against the ``"reference"`` backend, then
    ``Trainer.run`` takes ``TRAIN_STEPS`` steps (loss, grad norm, ms/step,
    tokens/s; the kernel's launch count must be 3 projections × 40 layers ×
-   (2 forward with remat + 1 transposed) per step), and one step is
-   profiled.
+   (2 forward with remat + 1 transposed) per step, all on the tensor-core
+   path), and one step is profiled.
 
 Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
+``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
+the build, and prints neither line.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
 import dataclasses
 import gc
+import importlib
 import json
 import subprocess
 import sys
@@ -169,6 +187,14 @@ OPS_RG_LRU_CASES = {                 # (batch, T, dtype) at d_model 4096
 # bf16 outputs against fp32 oracles: one bf16 rounding (2**-8 relative)
 # of each output, or of the MoE's activation between its two GEMMs
 BF16_RTOL = 1e-2
+# a ragged N on the SpMM's tensor-core path (not a multiple of its
+# 256-column tile, nor of 128)
+RAGGED_N = 200
+# the edge sweep's N for the new paths: ragged for the tensor-core
+# kernel's 256- and 128-column tiles (one and two consumer warpgroups) and
+# multiples of 8, so an N-contiguous bf16 B suits TMA
+EDGE_N = 136
+EDGE_N_NARROW = 40
 
 
 def check(cond, msg):
@@ -257,13 +283,59 @@ def _bsr_tensor(plan, transpose=False, values=None):
     return torch.sparse_bsr_tensor(crow, cols, vals, size=shape)
 
 
-def kernel_case(label, plan, b, transpose=False, library=None):
+def _path_counts():
+    """The SpMM wrapper's counts: all launches, tensor-core, split."""
+    from repro_torch.kernels.segment_spmm import segment_spmm
+    return (segment_spmm.launches, segment_spmm.tensor_core_launches,
+            segment_spmm.split_launches)
+
+
+def _check_path(label, before, path, launches=1):
+    """The calls since ``before`` (from :func:`_path_counts`) launched
+    ``launches`` kernels, all on ``path``."""
+    got = [a - b for a, b in zip(_path_counts(), before)]
+    want = [launches, launches * (path == "tc"), launches * (path == "split")]
+    check(got == want, f"{label}: launches (all, tensor-core, split) {got} "
+                       f"!= {want} for path {path!r}")
+
+
+def spmm_bounds(sched, plan, b, out_bytes=4, a_bytes=None, parts=3):
+    """The least time (ms) one SpMM call could take, and what binds it,
+    per path: every stored tile (``a_bytes``, default the plan's blocks),
+    B and C moved once; 2 bm bk N operations per valid item, at the fp32
+    CUDA-core peak (``"fp32"``) and, for the tensor-core path, ``parts``
+    bf16 passes at the bf16 tensor-core peak (``"tc"``)."""
+    bm, bk = plan.block_shape
+    k, n = b.shape
+    m = sched.grid_m * sched.block_shape[0]
+    if a_bytes is None:
+        a_bytes = plan.lhs_blocks.numel() * plan.lhs_blocks.element_size()
+    nbytes = a_bytes + k * n * b.element_size() + m * n * out_bytes
+    ops = 2 * int(sched.valid.sum()) * bm * bk * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = {}
+    for key, t_ops in (("fp32", ops / FP32_FLOPS),
+                       ("tc", parts * ops / BF16_FLOPS)):
+        out[key] = (max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def kernel_case(label, plan, b, transpose=False, library=None, path=None,
+                tag="kernel"):
     """Kernel vs plain version on one forward plan and one B; with
     ``transpose`` the kernel runs the plan's grad plan in ``transpose_lhs``
-    mode against the forward blocks (dx = Wᵀ @ B).  Returns a record."""
-    from repro_torch.kernels.segment_spmm import (segment_spmm,
+    mode against the forward blocks (dx = Wᵀ @ B).  ``path`` forces one of
+    the wrapper's paths (default: the one ``choose_path`` picks); the call
+    must launch exactly once, on that path.  ``library`` is the library's
+    BSR tensor to time beside it, or False for none.  Returns a record."""
+    from repro_torch.kernels.segment_spmm import (choose_path, segment_spmm,
                                                   segment_spmm_plain)
     sched = plan.grad_plan if transpose else plan
+    bm, bk = plan.block_shape
+    k, n = b.shape
+    picked = choose_path(n, b.dtype, bm, bk, b.stride(), b.data_ptr())
+    path = path or picked
 
     def kern():
         return segment_spmm(
@@ -271,7 +343,7 @@ def kernel_case(label, plan, b, transpose=False, library=None):
             sched.seg_start, sched.seg_write, sched.accum_prev, sched.valid,
             b, grid_m=sched.grid_m, n_lanes=sched.n_lanes,
             unroll=sched.unroll, transpose_lhs=transpose,
-            runs=sched.run_offsets)
+            runs=sched.run_offsets, chunks=sched.chunk_offsets, path=path)
 
     def plain():
         return segment_spmm_plain(plan.lhs_blocks, sched.slot_idx,
@@ -280,41 +352,51 @@ def kernel_case(label, plan, b, transpose=False, library=None):
                                   transpose_lhs=transpose)
 
     live = torch.repeat_interleave(sched.row_mask > 0, sched.block_shape[0])
-    got, want = kern()[live], plain()[live]
+    before = _path_counts()
+    got = kern()
+    _check_path(label, before, path)
+    got, want = got[live], plain()[live]
     torch.cuda.synchronize()
     abs_err = float((got - want).abs().max())
     rel_err = abs_err / max(float(want.abs().max()), 1e-30)
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
-    check(rel_err <= KERNEL_RTOL, f"{label}: kernel vs plain {rel_err:.3g} "
-                                  f"> {KERNEL_RTOL}")
-    nb = plan.n_blocks
-    bm, bk = plan.block_shape
-    k, n = b.shape
-    m = sched.grid_m * sched.block_shape[0]
-    nbytes = nb * bm * bk * 4 + k * n * b.element_size() + m * n * 4
-    ops = 2 * int(sched.valid.sum()) * bm * bk * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    check(rel_err <= KERNEL_RTOL, f"{label} ({path}): kernel vs plain "
+                                  f"{rel_err:.3g} > {KERNEL_RTOL}")
+    bounds = spmm_bounds(sched, plan, b)
     # wide cases run for milliseconds: fewer captured calls suffice
     reps = 20 if n <= 64 else 4
     rec = dict(case=label, mode="transpose_lhs" if transpose else "forward",
-               n=n, b_dtype=str(b.dtype).removeprefix("torch."),
+               path=path, picked=picked, n=n,
+               b_dtype=str(b.dtype).removeprefix("torch."),
                rel_err=rel_err, max_abs_err=abs_err,
                ms=device_ms(kern, reps), plain_ms=device_ms(plain, reps),
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_ms=bounds["tc" if path == "tc" else "fp32"][0],
+               bound_by=bounds["tc" if path == "tc" else "fp32"][1],
+               fp32_bound_ms=bounds["fp32"][0], tc_bound_ms=bounds["tc"][0],
+               library_ms=None)
     # the library's BSR x dense product, timed on fp32 B; the lane count
     # changes only the schedule, so every case has the same library call
-    a_bsr = library if library is not None else _bsr_tensor(plan, transpose)
-    b32 = b.float()
-    rec["library_ms"] = device_ms(lambda: a_bsr @ b32, reps)
-    print(f"[kernel] {label:<28} n={n:<4} B={rec['b_dtype']:<8} "
-          f"rel_err={rel_err:.2e} kernel_ms={rec['ms']:.4f} "
+    if library is not False:
+        a_bsr = (library if library is not None
+                 else _bsr_tensor(plan, transpose))
+        b32 = b.float()
+        rec["library_ms"] = device_ms(lambda: a_bsr @ b32, reps)
+    lib = (f" library_ms={rec['library_ms']:.4f}"
+           if rec["library_ms"] is not None else "")
+    print(f"[{tag}] {label:<28} n={n:<4} B={rec['b_dtype']:<8} "
+          f"path={path:<5} rel_err={rel_err:.2e} kernel_ms={rec['ms']:.4f} "
           f"plain_ms={rec['plain_ms']:.4f} bound_us={rec['bound_ms'] * 1e3:.2f}"
-          f" ({rec['bound_by']}) library_ms={rec['library_ms']:.4f}")
+          f" ({rec['bound_by']}; fp32 {rec['fp32_bound_ms'] * 1e3:.2f}, "
+          f"3xbf16 tc {rec['tc_bound_ms'] * 1e3:.2f}){lib}")
     return rec
 
 
 def phase_kernels(model, dev):
+    """The Segment SpMM kernel on layer 0's up and down plans at the main
+    paths' widths and layouts, each on the path the wrapper picks, plus a
+    ragged N of 200 on the tensor-core path (forward, both B layouts, and
+    dx), three schedules of other shapes, and a forward and dx call under
+    ``set_sync_debug_mode("error")``.  Returns the records and the plans."""
     from repro_torch import api
     from repro_torch.core.formats import BSR
 
@@ -329,6 +411,7 @@ def phase_kernels(model, dev):
         for n, dts in ((4, (torch.bfloat16, torch.float32)),
                        (16, (torch.bfloat16, torch.float32)),
                        (64, (torch.bfloat16, torch.float32)),
+                       (RAGGED_N, (torch.bfloat16,)),
                        (2048, (torch.bfloat16,))):
             for dt in dts:
                 x = torch.randn(n, k, generator=gen, device=dev).to(dt)
@@ -339,12 +422,16 @@ def phase_kernels(model, dev):
     for proj, plan in plans.items():
         m = plan.grid_m * plan.block_shape[0]
         lib = _bsr_tensor(plan, transpose=True)
-        for n in (4, 64, 2048):
+        for n in (4, 64, RAGGED_N, 2048):
             # the backward pass hands dx's kernel dy as a bf16 transposed
             # view (the gradient of the layer's y.T)
             dy = torch.randn(n, m, generator=gen, device=dev).bfloat16()
             recs.append(kernel_case(f"{proj} dx (transpose_lhs)", plan, dy.T,
                                     transpose=True, library=lib))
+    ragged = [r for r in recs if r["n"] == RAGGED_N]
+    check(all(r["path"] == "tc" for r in ragged),
+          f"ragged N = {RAGGED_N} cases off the tensor-core path: "
+          f"{[(r['case'], r['path']) for r in ragged]}")
     up = plans["up"]
     bm, bk = up.block_shape
     w = BSR((up.grid_m * bm, up.grid_k * bk), up.block_shape,
@@ -360,24 +447,95 @@ def phase_kernels(model, dev):
         plan = api.plan_matmul(mat, 16, device=dev, **kw)
         x = torch.randn(16, mat.shape[1], generator=gen, device=dev)
         recs.append(kernel_case(label, plan, x.T.to(torch.bfloat16)))
+    sync_free_calls(plans["up"], gen, dev)
+    return recs, plans
+
+
+def sync_free_calls(plan, gen, dev):
+    """A forward and a dx call through the plan and its grad plan, at the
+    decode width (split path) and the training width (tensor-core path),
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync raises."""
+    k = plan.grid_k * plan.block_shape[1]
+    m = plan.grid_m * plan.block_shape[0]
+    grad = plan.grad_plan.with_values(plan.lhs_blocks)
+    ins = {n: (torch.randn(n, k, generator=gen, device=dev).bfloat16(),
+               torch.randn(n, m, generator=gen, device=dev).bfloat16())
+           for n in (4, 2048)}
+    torch.cuda.synchronize()
+    before = _path_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [(plan(x.T), grad(dy.T)) for x, dy in ins.values()]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = [a - b for a, b in zip(_path_counts(), before)]
+    check(got == [4, 2, 2], f"sync-free calls: launches (all, tensor-core, "
+                            f"split) {got} != [4, 2, 2]")
+    check(all(bool(torch.isfinite(t).all()) for pair in outs for t in pair),
+          "sync-free calls: non-finite output")
+    print("[kernel] forward and dx at N = 4 (split) and 2048 (tensor cores) "
+          "under set_sync_debug_mode('error'): no host sync")
+
+
+def phase_crossover(plans, dev):
+    """Both new paths on the same calls (up and down forward, up dx; bf16
+    B in the main path's layouts) at N = 4, 16, 32, 64, 2048 and a ragged
+    ``RAGGED_N``, each held against the plain version: where the
+    tensor-core path starts to win, which sets ``TC_MIN_N``.  Returns the
+    records."""
+    # the module (the package exports its function under the same name)
+    spmm = importlib.import_module("repro_torch.kernels.segment_spmm")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    recs = []
+    for label, proj, transpose in (("up", "up", False),
+                                   ("down", "down", False),
+                                   ("up dx (transpose_lhs)", "up", True)):
+        plan = plans[proj]
+        k = (plan.grid_m * plan.block_shape[0] if transpose
+             else plan.grid_k * plan.block_shape[1])
+        for n in (4, 16, 32, 64, RAGGED_N, 2048):
+            x = torch.randn(n, k, generator=gen, device=dev).bfloat16()
+            b = x.T.contiguous() if proj == "down" and not transpose else x.T
+            # an N-contiguous B needs N % 8 == 0 for TMA: N = 4 has no
+            # tensor-core run in the down projection's layout
+            able = spmm.paths_for(b.dtype, *plan.block_shape, b.stride(),
+                                  b.data_ptr())
+            pair = {p: kernel_case(label, plan, b, transpose=transpose,
+                                   library=False, path=p, tag="crossover")
+                    for p in ("split", "tc") if p in able}
+            fast = min(pair, key=lambda p: pair[p]["ms"])
+            print(f"[crossover] {label:<22} n={n:<4} "
+                  + ", ".join(f"{p} {r['ms']:.4f} ms"
+                              for p, r in pair.items())
+                  + f": {fast} is faster; the wrapper picks "
+                  f"{pair['split']['picked']} (TC_MIN_N = {spmm.TC_MIN_N})")
+            recs.extend(pair.values())
     return recs
 
 
-def qkernel_case(label, plan, src_blocks, b, transpose, library):
+def qkernel_case(label, plan, src_blocks, b, transpose, library,
+                 path=None):
     """One quantized kernel call against its plain version, against the
     fp32 kernel on the dequantized blocks and against the fp32 kernel on
     the source blocks ``src_blocks`` (the quantization gate); with
     ``transpose`` the plan's grad plan in the ``transpose_lhs`` mode.
-    Returns a record."""
+    ``path`` forces one of the wrapper's paths (default: the one it
+    picks), for the quantized call and the two fp32 calls alike.  Returns
+    a record."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_spmm import (segment_spmm,
+    from repro_torch.kernels.segment_spmm import (choose_path, segment_spmm,
                                                   segment_spmm_plain)
     sched = plan.grad_plan if transpose else plan
+    bm, bk = plan.block_shape
+    k, n = b.shape
+    path = path or choose_path(n, b.dtype, bm, bk, b.stride(), b.data_ptr())
     args = (sched.slot_idx, sched.m_idx, sched.k_idx, sched.seg_start,
             sched.seg_write, sched.accum_prev, sched.valid, b)
     kw = dict(grid_m=sched.grid_m, n_lanes=sched.n_lanes,
               unroll=sched.unroll, transpose_lhs=transpose,
-              runs=sched.run_offsets)
+              runs=sched.run_offsets, chunks=sched.chunk_offsets, path=path)
     deq = ref.dequant_blocks_ref(plan.lhs_blocks, plan.lhs_scales)
 
     def kern():
@@ -391,52 +549,64 @@ def qkernel_case(label, plan, src_blocks, b, transpose, library):
                                   a_scales=plan.lhs_scales)
 
     live = torch.repeat_interleave(sched.row_mask > 0, sched.block_shape[0])
+    before = _path_counts()
     got = kern()[live]
     rel_plain, abs_plain = _rel(got, plain()[live])
     rel_deq, _ = _rel(got, segment_spmm(deq, *args, **kw)[live])
     quant_err, _ = _rel(got, segment_spmm(src_blocks, *args, **kw)[live])
     torch.cuda.synchronize()
+    _check_path(f"{label} quantized", before, path, launches=3)
     mode = plan.block_dtype
     gate = QUANT_GATE[mode.split(".")[0]]
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
     check(rel_plain <= KERNEL_RTOL and rel_deq <= KERNEL_RTOL,
-          f"{label} {mode}: vs plain {rel_plain:.3g}, vs the fp32 kernel on "
-          f"the dequantized blocks {rel_deq:.3g} > {KERNEL_RTOL}")
+          f"{label} {mode} ({path}): vs plain {rel_plain:.3g}, vs the fp32 "
+          f"kernel on the dequantized blocks {rel_deq:.3g} > {KERNEL_RTOL}")
     check(quant_err < gate, f"{label} {mode}: vs fp32 {quant_err:.3g} >= "
                             f"{gate}")
-    # bound: payload, scales, B and C each moved once; the operations at the
-    # payload type's tensor-core rate (and, for comparison, at the fp32
-    # CUDA-core rate the kernel computes at)
-    k, n = b.shape
-    m = sched.grid_m * sched.block_shape[0]
+    # bound of the path that ran: payload, scales, B and C each moved once;
+    # the operations at the fp32 CUDA-core peak (split path) or as bf16
+    # passes at the bf16 tensor-core peak (one for a per-block payload,
+    # three for a rowwise one); and, as a yardstick, at the payload type's
+    # tensor-core peak
     nbytes = (plan.lhs_blocks.numel() * plan.lhs_blocks.element_size()
               + plan.lhs_scales.numel() * 4 + k * n * b.element_size()
-              + m * n * 4)
-    bm, bk = plan.block_shape
+              + sched.grid_m * sched.block_shape[0] * n * 4)
     ops = 2 * int(sched.valid.sum()) * bm * bk * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / QUANT_OPS
-    reps = 20
+    parts = 3 if plan.lhs_scales.ndim == 2 else 1
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = parts * ops / BF16_FLOPS if path == "tc" else ops / FP32_FLOPS
+    reps = 20 if n <= 64 else 4
     b32 = b.float()
     rec = dict(case=label, mode="transpose_lhs" if transpose else "forward",
-               quant=mode, n=n, rel_err=rel_plain, max_abs_err=abs_plain,
-               rel_err_deq=rel_deq, quant_err=quant_err,
-               ms=device_ms(kern, reps), plain_ms=device_ms(plain, reps),
+               quant=mode, path=path, n=n, rel_err=rel_plain,
+               max_abs_err=abs_plain, rel_err_deq=rel_deq,
+               quant_err=quant_err, ms=device_ms(kern, reps),
+               plain_ms=device_ms(plain, reps),
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               fp32_ops_ms=ops / FP32_FLOPS * 1e3,
+               bytes_ms=t_bytes * 1e3, fp32_ops_ms=ops / FP32_FLOPS * 1e3,
+               tc_ops_ms=parts * ops / BF16_FLOPS * 1e3,
+               quant_ops_ms=ops / QUANT_OPS * 1e3,
                library_ms=device_ms(lambda: library @ b32, reps))
-    print(f"[qkernel] {label:<22} {mode:<12} n={n:<3} rel_err plain="
-          f"{rel_plain:.2e} deq={rel_deq:.2e} vs_fp32={quant_err:.2e} "
+    print(f"[qkernel] {label:<22} {mode:<12} n={n:<4} path={path:<5} rel_err "
+          f"plain={rel_plain:.2e} deq={rel_deq:.2e} vs_fp32={quant_err:.2e} "
           f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-          f"bound_us={rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}) "
-          f"fp32_ops_us={rec['fp32_ops_ms'] * 1e3:.2f} library_ms="
+          f"bound_us={rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}; bytes "
+          f"{rec['bytes_ms'] * 1e3:.2f}, fp32 ops "
+          f"{rec['fp32_ops_ms'] * 1e3:.2f}, {parts} x bf16 tc ops "
+          f"{rec['tc_ops_ms'] * 1e3:.2f}, payload-type tc ops "
+          f"{rec['quant_ops_ms'] * 1e3:.2f}) library_ms="
           f"{rec['library_ms']:.4f} (fp32 BSR @ of the dequantized blocks)")
     return rec
 
 
 def phase_qkernel(model, dev):
     """The quantized modes on layer 0's up and down projections, frozen by
-    ``SparseLinear.quantize`` as the quantized model freezes them."""
+    ``SparseLinear.quantize`` as the quantized model freezes them, each on
+    the path the wrapper picks, and on the up projection also on the other
+    new path (forward at N = 16 and ``RAGGED_N``, dx at N = 64: the split
+    path where the wrapper picks the tensor cores, and the other way)."""
     from repro_torch.core.formats import QUANT_MODES
     from repro_torch.kernels import ref
 
@@ -452,29 +622,51 @@ def phase_qkernel(model, dev):
             k = plan.grid_k * plan.block_shape[1]
             m = plan.grid_m * plan.block_shape[0]
             lib = _bsr_tensor(plan, values=deq)
-            for n in (4, 16, 64):
+            for n in (4, 16, 64, RAGGED_N):
                 x = torch.randn(n, k, generator=gen, device=dev).bfloat16()
                 # the serve path's layouts, as in phase_kernels
                 b = x.T if proj == "up" else x.T.contiguous()
                 recs.append(qkernel_case(proj, plan, src, b, False, lib))
+                if proj == "up" and n in (16, RAGGED_N):
+                    other = "split" if recs[-1]["path"] == "tc" else "tc"
+                    recs.append(qkernel_case(proj, plan, src, b, False, lib,
+                                             path=other))
             lib = _bsr_tensor(plan, transpose=True, values=deq)
             for n in (4, 64):
                 dy = torch.randn(n, m, generator=gen, device=dev).bfloat16()
                 recs.append(qkernel_case(f"{proj} dx (transpose_lhs)", plan,
                                          src, dy.T, True, lib))
+                if proj == "up" and n == 64:
+                    other = "split" if recs[-1]["path"] == "tc" else "tc"
+                    recs.append(qkernel_case(f"{proj} dx (transpose_lhs)",
+                                             plan, src, dy.T, True, lib,
+                                             path=other))
             del plan, deq, lib
+    paths = {(r["quant"], r["mode"], r["path"]) for r in recs}
+    for mode in QUANT_MODES:
+        for direction in ("forward", "transpose_lhs"):
+            for path in ("split", "tc"):
+                check((mode, direction, path) in paths,
+                      f"[qkernel] {mode} {direction} never ran on {path}")
     return recs
 
 
 def phase_edges(dev):
-    """Small plans at the edges of what the kernel takes: 32 and 64 blocks,
+    """Small plans at the edges of what the kernels take: 32 and 64 blocks,
     folded, multi-lane, unrolled, static-order and holed schedules, N of 1,
     5 and 100 (ragged tiles), B as a bf16 transposed view or contiguous
-    fp32; each through ``execute_plan`` against the plain version and the
-    dense oracle, in the forward mode and in the ``transpose_lhs`` mode on
-    the plan's grad plan.  Also the bf16-output folded reload, and
-    ``prefetch="cross_pass"`` plans (fp32, int8, fp8; forward and dx)
-    against the drained plans, bit for bit."""
+    fp32; each through ``execute_plan`` (on the path the wrapper picks)
+    against the plain version and the dense oracle, in the forward mode and
+    in the ``transpose_lhs`` mode on the plan's grad plan.  Then, on 64
+    blocks, every schedule through each new path (split and tensor cores)
+    in both modes, with fp32 and bf16 output and B k-contiguous or
+    N-contiguous, at two ragged N (``EDGE_N_NARROW`` and ``EDGE_N``: one
+    and two consumer warpgroups on the tensor cores).  Also the
+    bf16-output folded reload on each path, and ``prefetch="cross_pass"``
+    plans (fp32, int8, fp8; forward and dx) against the drained plans, bit
+    for bit, on each path.
+    Returns the one-block-per-run ("simt") kernel's launches (the main
+    paths do not run it)."""
     from repro_torch import api
     from repro_torch.core.formats import BSR
     from repro_torch.kernels.segment_spmm import (segment_spmm,
@@ -482,7 +674,17 @@ def phase_edges(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     worst, count = {False: 0.0, True: 0.0}, {False: 0, True: 0}
-    cross = 0
+    simt_launches = 0
+    on_path = {"tc": 0, "split": 0, "simt": 0}
+    cross = []
+
+    def held(label, got, plain, want, tol=KERNEL_RTOL):
+        scale = float(want.float().abs().max())
+        err = max(float((got.float() - plain.float()).abs().max()),
+                  float((got.float() - want.float()).abs().max())) / scale
+        check(err <= tol, f"edge {label}: {err:.3g} > {tol}")
+        return err
+
     for block in (32, 64):
         a = BSR.random(np.random.default_rng(block), (12 * block, 9 * block),
                        (block, block), 0.35)
@@ -493,69 +695,149 @@ def phase_edges(dev):
                     (a, {"n_lanes": 4, "unroll": 2}),
                     (a, {"policy": "outer", "n_lanes": 2}), (holes, {})]
         for mat, kw in variants:
-            for n in (1, 5, 100):
+            for n in (1, 5, 100, EDGE_N_NARROW, EDGE_N):
                 fwd = api.plan_matmul(mat, n, device=dev, with_grad=True,
                                       **kw)
                 for transpose in (False, True):
                     plan = (fwd.grad_plan.with_values(fwd.lhs_blocks)
                             if transpose else fwd)
                     k = mat.shape[0] if transpose else mat.shape[1]
-                    for dt, transposed in ((torch.bfloat16, True),
-                                           (torch.float32, False)):
-                        x = torch.randn((n, k) if transposed else (k, n),
-                                        generator=gen, device=dev).to(dt)
-                        b = x.T if transposed else x
-                        got = plan(b)
-                        plain = segment_spmm_plain(
+
+                    def plain_of(b, plan=plan, transpose=transpose):
+                        return segment_spmm_plain(
                             plan.lhs_blocks, plan.slot_idx, plan.m_idx,
                             plan.k_idx, plan.valid, b, grid_m=plan.grid_m,
                             transpose_lhs=transpose)
+
+                    if n not in (EDGE_N_NARROW, EDGE_N):
+                        # the path the wrapper picks
+                        for dt, transposed in ((torch.bfloat16, True),
+                                               (torch.float32, False)):
+                            x = torch.randn((n, k) if transposed else (k, n),
+                                            generator=gen, device=dev).to(dt)
+                            b = x.T if transposed else x
+                            before = _path_counts()
+                            got = plan(b)
+                            d = [u - v for u, v in zip(_path_counts(),
+                                                       before)]
+                            path = ("tc" if d[1] else "split" if d[2]
+                                    else "simt")
+                            on_path[path] += 1
+                            err = held(f"block={block} {kw} n={n} {dt} "
+                                       f"transpose_lhs={transpose} ({path})",
+                                       got, plain_of(b),
+                                       plan(b, backend="reference"))
+                            worst[transpose] = max(worst[transpose], err)
+                            count[transpose] += 1
+                            simt_launches += path == "simt"
+                        continue
+                    if block != 64:
+                        continue
+                    # each new path, forced, on both B layouts and out dtypes
+                    for layout in ("k", "n"):
+                        x = torch.randn((n, k) if layout == "k" else (k, n),
+                                        generator=gen,
+                                        device=dev).bfloat16()
+                        b = x.T if layout == "k" else x
                         want = plan(b, backend="reference")
-                        scale = float(want.abs().max())
-                        err = max(float((got - plain).abs().max()),
-                                  float((got - want).abs().max())) / scale
-                        check(err <= KERNEL_RTOL,
-                              f"edge block={block} {kw} n={n} {dt} "
-                              f"transpose_lhs={transpose}: {err:.3g}")
-                        worst[transpose] = max(worst[transpose], err)
-                        count[transpose] += 1
-        plan = api.plan_matmul(a, 16, fold_len=1, device=dev, with_grad=True)
-        b = torch.randn(a.shape[1], 16, generator=gen, device=dev)
-        got = plan(b, out_dtype=torch.bfloat16)
-        want = plan(b, backend="reference")
-        # each folded segment is stored and reloaded in bf16 (2**-8 each)
-        err = float((got.float() - want).abs().max() / want.abs().max())
-        check(got.dtype == torch.bfloat16 and err <= 1e-2,
-              f"bf16 folded reload: {err:.3g}")
+                        plain = plain_of(b)
+                        for path in ("split", "tc"):
+                            for out in (torch.float32, torch.bfloat16):
+                                before = _path_counts()
+                                got = segment_spmm(
+                                    plan.lhs_blocks, plan.slot_idx,
+                                    plan.m_idx, plan.k_idx, plan.seg_start,
+                                    plan.seg_write, plan.accum_prev,
+                                    plan.valid, b, grid_m=plan.grid_m,
+                                    n_lanes=plan.n_lanes, unroll=plan.unroll,
+                                    transpose_lhs=transpose, out_dtype=out,
+                                    runs=plan.run_offsets,
+                                    chunks=plan.chunk_offsets, path=path)
+                                _check_path(f"edge {kw} {path}", before, path)
+                                live = torch.repeat_interleave(
+                                    plan.row_mask > 0, block)
+                                check(got.dtype == out, f"edge dtype {out}")
+                                err = held(
+                                    f"block=64 {kw} n={n} B {layout}-"
+                                    f"contiguous {path} out={out} "
+                                    f"transpose_lhs={transpose}",
+                                    got[live], plain[live], want[live],
+                                    KERNEL_RTOL if out == torch.float32
+                                    else BF16_RTOL)
+                                if out == torch.float32:
+                                    worst[transpose] = max(worst[transpose],
+                                                           err)
+                                count[transpose] += 1
+                                on_path[path] += 1
+        # bf16 output, every item its own folded segment: on the simt and
+        # tensor-core paths each segment is stored and reloaded in bf16
+        # (2**-8 each), on the split path the run's sum is rounded once
+        plan = api.plan_matmul(a, EDGE_N, fold_len=1, device=dev,
+                               with_grad=True)
+        for dt, path in ((torch.float32, "simt"), (torch.bfloat16, "split"),
+                         (torch.bfloat16, "tc")):
+            if block != 64 and path != "simt":
+                continue
+            x = torch.randn(EDGE_N, a.shape[1], generator=gen,
+                            device=dev).to(dt)
+            before = _path_counts()
+            got = segment_spmm(
+                plan.lhs_blocks, plan.slot_idx, plan.m_idx, plan.k_idx,
+                plan.seg_start, plan.seg_write, plan.accum_prev, plan.valid,
+                x.T, grid_m=plan.grid_m, n_lanes=plan.n_lanes,
+                unroll=plan.unroll, out_dtype=torch.bfloat16,
+                runs=plan.run_offsets, chunks=plan.chunk_offsets, path=path)
+            _check_path(f"bf16 folded reload {path}", before, path)
+            if path == "simt":
+                simt_launches += 1
+            # rows no item visits are left unwritten by the kernels
+            live = torch.repeat_interleave(plan.row_mask > 0, block)
+            want = plan(x.T, backend="reference")[live]
+            got = got[live]
+            err = float((got.float() - want).abs().max() / want.abs().max())
+            check(got.dtype == torch.bfloat16 and err <= BF16_RTOL,
+                  f"bf16 folded reload ({path}): {err:.3g}")
         # prefetch="cross_pass" (a TPU DMA timing) runs the drained kernel:
         # forward and dx through the grad plan, fp32 and int8/fp8 payloads,
-        # equal to the drained plan bit for bit, two launches each
-        xin = torch.randn(16, a.shape[1], generator=gen, device=dev)
-        ct = torch.randn(a.shape[0], 16, generator=gen, device=dev)
-        for quant in (None, "int8", "fp8"):
-            outs = []
-            for pf in (None, "cross_pass"):
-                plan = api.plan_matmul(a, 16, device=dev, with_grad=True,
-                                       quantize=quant, prefetch=pf)
-                xx = xin.clone().requires_grad_(True)
-                segment_spmm.launches = 0
-                y = api.apply_plan(plan, xx.T, blocks=plan.lhs_blocks,
-                                   scales=plan.lhs_scales)
-                y.backward(ct)
-                torch.cuda.synchronize()
-                check(segment_spmm.launches == 2,
-                      f"cross_pass {quant} prefetch={pf}: "
-                      f"{segment_spmm.launches} launches, expected 2")
-                outs.append((y.detach(), xx.grad))
-            check(all(torch.equal(g, w) for g, w in zip(*outs)),
-                  f"block={block} {quant}: cross_pass differs from drained")
-            cross += 1
-    print(f"[edges] forward: {count[False]} plans x layouts, transpose_lhs "
-          f"(grad plans): {count[True]}, all within {KERNEL_RTOL} of the "
-          f"plain version and the oracle (worst {worst[False]:.2e} / "
-          f"{worst[True]:.2e}); bf16 folded reload ok; {cross} "
-          f"prefetch='cross_pass' plans (fp32, int8, fp8; forward and dx) "
-          f"equal to the drained plans bit for bit")
+        # equal to the drained plan bit for bit, two launches each, on every
+        # path: fp32 x (simt), bf16 x at N = 16 (split) and at EDGE_N
+        # (tensor cores; 64 blocks only)
+        cases = [(torch.float32, 16, "simt")]
+        if block == 64:
+            cases += [(torch.bfloat16, 16, "split"),
+                      (torch.bfloat16, EDGE_N, "tc")]
+        for dt, n, path in cases:
+            xin = torch.randn(n, a.shape[1], generator=gen, device=dev).to(dt)
+            ct = torch.randn(a.shape[0], n, generator=gen, device=dev).to(dt)
+            for quant in (None, "int8", "fp8"):
+                outs = []
+                for pf in (None, "cross_pass"):
+                    plan = api.plan_matmul(a, n, device=dev, with_grad=True,
+                                           quantize=quant, prefetch=pf)
+                    xx = xin.clone().requires_grad_(True)
+                    before = _path_counts()
+                    y = api.apply_plan(plan, xx.T, blocks=plan.lhs_blocks,
+                                       scales=plan.lhs_scales)
+                    y.backward(ct)
+                    torch.cuda.synchronize()
+                    _check_path(f"cross_pass {quant} prefetch={pf}", before,
+                                path, launches=2)
+                    if path == "simt":
+                        simt_launches += 2
+                    outs.append((y.detach(), xx.grad))
+                check(all(torch.equal(g, w) for g, w in zip(*outs)),
+                      f"block={block} {quant} ({path}): cross_pass differs "
+                      f"from drained")
+                cross.append(path)
+    print(f"[edges] forward: {count[False]} plans x layouts x paths, "
+          f"transpose_lhs (grad plans): {count[True]}, within {KERNEL_RTOL} "
+          f"of the plain version and the oracle (bf16 out within "
+          f"{BF16_RTOL}; worst fp32 {worst[False]:.2e} / {worst[True]:.2e}); "
+          f"calls per path {on_path}; bf16 folded reload ok on every path; "
+          f"{len(cross)} prefetch='cross_pass' plans (fp32, int8, fp8; "
+          f"forward and dx; paths {sorted(set(cross))}) equal to the drained "
+          f"plans bit for bit")
+    return simt_launches
 
 
 def _rel(got, want):
@@ -1436,9 +1718,12 @@ def profile_once(label, fn):
             e, "self_cuda_time_total", 0.0)
 
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    spmm = [e for e in kernels if "segment_spmm" in e.key]
     print(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, device idle share "
-          f"{1 - busy / wall_us:.3f}, {sum(e.count for e in events)} ops")
+          f"{1 - busy / wall_us:.3f}, {sum(e.count for e in events)} ops; "
+          f"Segment SpMM kernels {sum(dev_us(e) for e in spmm) / 1e3:.3f} ms "
+          f"over {sum(e.count for e in spmm)} launches")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         print(f"[profile]   device {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5} "
               f"{e.key[:150]}")
@@ -1477,20 +1762,26 @@ def steady_decode(model, rng, slots=4, steps=32, tag="steady"):
     engine.admit_pending()
     ms = []
     segment_spmm.launches = segment_spmm.quantized_launches = 0
+    segment_spmm.split_launches = 0
     for _ in range(steps):
         t0 = time.perf_counter()
         live = engine.step()
         ms.append((time.perf_counter() - t0) * 1e3)
         check(live == slots, f"steady decode: {live} of {slots} slots live")
     per_step = (segment_spmm.launches / steps,
-                segment_spmm.quantized_launches / steps)
+                segment_spmm.quantized_launches / steps,
+                segment_spmm.split_launches / steps)
     check(per_step[0] == 3 * model.cfg.n_layers,
           f"{tag}: {per_step[0]} launches per decode step")
+    check(per_step[2] == per_step[0],
+          f"{tag}: {per_step[2]} of {per_step[0]} launches per decode step "
+          f"on the split path")
     med = float(np.median(ms))
     print(f"[{tag}] {steps} decode steps, all {slots} slots live: median "
           f"{med:.2f} ms/step (min {min(ms):.2f}, max {max(ms):.2f}), "
           f"{slots * 1e3 / med:.1f} tok/s; segment_spmm launches per step "
-          f"{per_step[0]:.0f} ({per_step[1]:.0f} quantized)")
+          f"{per_step[0]:.0f} ({per_step[1]:.0f} quantized, "
+          f"{per_step[2]:.0f} on the split path)")
     return med, per_step
 
 
@@ -1510,14 +1801,19 @@ def serve_mix(engine, prompts, tag):
     decode_tokens = 0
     torch.cuda.synchronize()
     segment_spmm.launches = segment_spmm.quantized_launches = 0
+    segment_spmm.split_launches = segment_spmm.tensor_core_launches = 0
+    decode_launches = decode_split = 0
     while True:
         t0 = time.perf_counter()
         engine.admit_pending()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        counts = (segment_spmm.launches, segment_spmm.split_launches)
         live = engine.step()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        decode_launches += segment_spmm.launches - counts[0]
+        decode_split += segment_spmm.split_launches - counts[1]
         if not live:
             break
         t_prefill += t1 - t0
@@ -1525,6 +1821,8 @@ def serve_mix(engine, prompts, tag):
         decode_tokens += live
     launches = segment_spmm.launches
     quantized = segment_spmm.quantized_launches
+    split = segment_spmm.split_launches
+    tc = segment_spmm.tensor_core_launches
     calls = engine.decode_calls + engine.prefill_calls
     for r in reqs:
         check(r.out_tokens is not None and r.out_tokens.size == 8,
@@ -1532,13 +1830,19 @@ def serve_mix(engine, prompts, tag):
     want = 3 * cfg.n_layers * calls
     check(launches == want, f"{tag}: kernel launches {launches} != 3 x "
                             f"{cfg.n_layers} x {calls} model calls")
+    check(decode_split == decode_launches == 3 * cfg.n_layers
+          * engine.decode_calls, f"{tag}: {decode_split} of "
+                                 f"{decode_launches} decode launches on the "
+                                 f"split path")
     prompt_tokens = sum(r.prompt.size for r in reqs)
     print(f"[{tag}] {len(reqs)} requests, {prompt_tokens} prompt tokens, "
           f"{decode_tokens} decoded; model calls {calls} "
           f"({engine.prefill_calls} prefill chunks, {engine.decode_calls} "
           f"decode steps); segment_spmm launches {launches} == 3 x "
-          f"{cfg.n_layers} x {calls} ({quantized} quantized); step shapes "
-          f"{engine.compiled_shapes}")
+          f"{cfg.n_layers} x {calls} ({quantized} quantized; paths: "
+          f"{split} split, all {decode_launches} of the decode steps among "
+          f"them, {tc} tensor cores, {launches - split - tc} simt); step "
+          f"shapes {engine.compiled_shapes}")
     print(f"[{tag}] this request mix: prefill "
           f"{prompt_tokens / t_prefill:.1f} tok/s ({t_prefill:.3f} s); "
           f"decode {decode_tokens} tokens in {engine.decode_calls} steps "
@@ -1546,7 +1850,7 @@ def serve_mix(engine, prompts, tag):
           f"ramp-down included), "
           f"{1e3 * t_decode / engine.decode_calls:.2f} ms/step, "
           f"{decode_tokens / t_decode:.1f} tok/s")
-    return reqs, launches, quantized
+    return reqs, launches, quantized, split
 
 
 def decode_logits_check(model, engine, dev, rng, tag):
@@ -1588,23 +1892,23 @@ def phase_serve(model, dev):
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(5, 61)))
                for _ in range(6)]
     engine = Engine(model, slots=4, max_len=256, prefill_buckets=(64, 16))
-    reqs, launches, _ = serve_mix(engine, prompts, "serve")
+    reqs, launches, _, split = serve_mix(engine, prompts, "serve")
     decode_logits_check(model, engine, dev, rng, "serve")
     phase_profile(model, engine, dev)
     steady_decode(model, rng)
-    return launches, prompts, [r.out_tokens for r in reqs]
+    return launches, split, prompts, [r.out_tokens for r in reqs]
 
 
 def phase_qserve(model, dev, prompts, fp32_tokens):
     """Quantized serving at full width: ``Engine(model, quantize=mode)``
     for int8 and fp8 on the serve phase's prompts, then an int8 engine over
     an int8 KV cache.  Returns the quantized launches of the three request
-    mixes and a summary per engine."""
+    mixes, those of them on the split path, and a summary per engine."""
     from repro_torch.models import build_model
     from repro_torch.runtime import Engine
 
     rng = np.random.default_rng(SEED + 4)
-    total, summary = 0, {}
+    total, total_split, summary = 0, 0, {}
     for mode in QSERVE_MODES:
         gc.collect()
         torch.cuda.empty_cache()
@@ -1615,10 +1919,11 @@ def phase_qserve(model, dev, prompts, fp32_tokens):
         setup_s = time.perf_counter() - t0
         qmodel = engine.model
         tag = f"qserve {mode}"
-        reqs, launches, quantized = serve_mix(engine, prompts, tag)
+        reqs, launches, quantized, split = serve_mix(engine, prompts, tag)
         check(quantized == launches, f"{tag}: {quantized} of {launches} "
                                      f"launches quantized")
         total += quantized
+        total_split += split
         got = [r.out_tokens for r in reqs]
         n_tok = sum(t.size for t in fp32_tokens)
         drift = sum(int((a != b).sum()) for a, b in zip(got, fp32_tokens))
@@ -1651,13 +1956,14 @@ def phase_qserve(model, dev, prompts, fp32_tokens):
     tag = "qserve int8 + int8 KV"
     check(max(engine.prefill_buckets) <= 8,
           f"{tag}: prefill buckets {engine.prefill_buckets}")
-    reqs, launches, quantized = serve_mix(engine, prompts, tag)
+    reqs, launches, quantized, split = serve_mix(engine, prompts, tag)
     check(quantized == launches, f"{tag}: {quantized} of {launches} "
                                  f"launches quantized")
     total += quantized
+    total_split += split
     decode_logits_check(engine.model, engine, dev, rng, tag)
     del engine, model8, reqs
-    return total, summary
+    return total, total_split, summary
 
 
 def phase_qgrad(model, dev):
@@ -1680,9 +1986,12 @@ def phase_qgrad(model, dev):
     seen = {}
     for backend in ("cuda", "reference"):
         segment_spmm.launches = segment_spmm.transposed_launches = 0
-        segment_spmm.quantized_launches = 0
+        segment_spmm.quantized_launches = segment_spmm.split_launches = 0
+        segment_spmm.tensor_core_launches = 0
         loss, grads = _grads_on(qmodel, batch, backend)
         if backend == "cuda":
+            paths = (segment_spmm.tensor_core_launches,
+                     segment_spmm.split_launches)
             launches = (segment_spmm.launches,
                         segment_spmm.transposed_launches,
                         segment_spmm.quantized_launches)
@@ -1701,7 +2010,8 @@ def phase_qgrad(model, dev):
     print(f"[qgrad] int8 model, 1 x {QGRAD_SEQ} tokens: loss {l_cuda:.5f} "
           f"(vs reference {loss_err:.3e}, tol {LOSS_RTOL}); segment_spmm "
           f"launches {launches[0]} ({launches[1]} transposed, {launches[2]} "
-          f"quantized); gradients (norm-relative, tol {GRAD_RTOL}): "
+          f"quantized; {paths[0]} on the tensor cores, {paths[1]} on the "
+          f"split path); gradients (norm-relative, tol {GRAD_RTOL}): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     check(loss_err <= LOSS_RTOL, f"qgrad loss cuda vs reference {loss_err}")
     for k, v in errs.items():
@@ -1745,16 +2055,19 @@ def phase_train(model, dev):
     seen = {}
     for backend in ("cuda", "reference"):
         segment_spmm.launches = segment_spmm.transposed_launches = 0
+        segment_spmm.tensor_core_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, grads = _grads_on(model, batch, backend)
         ms = (time.perf_counter() - t0) * 1e3
         if backend == "cuda":
             check(segment_spmm.launches == per_step
-                  and segment_spmm.transposed_launches == per_step // 3,
+                  and segment_spmm.transposed_launches == per_step // 3
+                  and segment_spmm.tensor_core_launches == per_step,
                   f"gradient step launches {segment_spmm.launches} "
-                  f"({segment_spmm.transposed_launches} transposed) != "
-                  f"{per_step} ({per_step // 3})")
+                  f"({segment_spmm.transposed_launches} transposed, "
+                  f"{segment_spmm.tensor_core_launches} on the tensor "
+                  f"cores) != {per_step} ({per_step // 3}, {per_step})")
         norm = float(torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g) for g in grads.values()])))
         check(np.isfinite(loss) and np.isfinite(norm),
@@ -1788,9 +2101,11 @@ def phase_train(model, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     segment_spmm.launches = segment_spmm.transposed_launches = 0
+    segment_spmm.tensor_core_launches = 0
     out = trainer.run()
     launches = segment_spmm.launches
     transposed = segment_spmm.transposed_launches
+    tc = segment_spmm.tensor_core_launches
     peak = torch.cuda.max_memory_allocated()
     for h in out["history"]:
         print(f"[train] step {h['step']}: loss {h['loss']:.5f}, grad norm "
@@ -1804,16 +2119,19 @@ def phase_train(model, dev):
     check(len(moved) == len(probe), f"parameters that did not move: "
                                     f"{sorted(set(probe) - set(moved))}")
     check(launches == per_step * TRAIN_STEPS
-          and transposed == per_step // 3 * TRAIN_STEPS,
-          f"training launches {launches} ({transposed} transposed) != "
-          f"{per_step} x {TRAIN_STEPS} ({per_step // 3} x {TRAIN_STEPS})")
+          and transposed == per_step // 3 * TRAIN_STEPS
+          and tc == launches,
+          f"training launches {launches} ({transposed} transposed, {tc} on "
+          f"the tensor cores) != {per_step} x {TRAIN_STEPS} ({per_step // 3}"
+          f" x {TRAIN_STEPS}, all)")
     steady = float(np.median([h["ms"] for h in out["history"][1:]]))
     print(f"[train] {cfg.name} full width, {cfg.n_layers} layers, remat "
           f"{cfg.remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: {TRAIN_STEPS} "
           f"steps, median of steps 1..{TRAIN_STEPS - 1} {steady:.1f} ms/step "
           f"({tokens * 1e3 / steady:.0f} tokens/s); segment_spmm launches "
           f"{launches} == {per_step} x {TRAIN_STEPS} ({transposed} "
-          f"transposed); peak {peak / 2**30:.2f} GiB")
+          f"transposed), all {tc} on the tensor cores; peak "
+          f"{peak / 2**30:.2f} GiB")
 
     # (c) one more step under the profiler
     step_fn = make_train_step(model, trainer.opt, 1)
@@ -1823,7 +2141,22 @@ def phase_train(model, dev):
     return launches, transposed
 
 
+PHASES = ("spgemm", "ops", "kernel", "crossover", "edges", "serve",
+          "qkernel", "qserve", "qgrad", "train")
+
+
 def main():
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--only", default=",".join(PHASES),
+        help="comma-separated phases to run (default: all; the kernel JSON "
+             "line and the ok line are printed only when all run)")
+    only = parser.parse_args().only.split(",")
+    bad = sorted(set(only) - set(PHASES))
+    if bad:
+        parser.error(f"unknown phases {bad}; choose from {PHASES}")
+    full = set(only) == set(PHASES)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -1835,12 +2168,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = phase_card()
-    spgemm_recs, spgemm_launches, spgemm_quantized = phase_spgemm(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    ops_recs = phase_ops(dev)
-    gc.collect()                     # Maverick's 21.5 GB of expert weights
-    torch.cuda.empty_cache()
+    if "spgemm" in only:
+        spgemm_recs, spgemm_launches, spgemm_quantized = phase_spgemm(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "ops" in only:
+        ops_recs = phase_ops(dev)
+        gc.collect()                 # Maverick's 21.5 GB of expert weights
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()   # [memory] reads the model's peak
 
     cfg = dataclasses.replace(get_config("granite-3-8b"),
@@ -1857,23 +2192,41 @@ def main():
           f"and planned in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
-    recs = phase_kernels(model, dev)
-    phase_edges(dev)
-    launches, prompts, fp32_tokens = phase_serve(model, dev)
-    print(f"[memory] peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    qrecs = phase_qkernel(model, dev)
-    q_launches, _ = phase_qserve(model, dev, prompts, fp32_tokens)
-    qt_launches = phase_qgrad(model, dev)
+    if "kernel" in only or "crossover" in only:
+        recs, plans = phase_kernels(model, dev)
+        if "crossover" in only:
+            phase_crossover(plans, dev)
+        del plans
+    if "edges" in only:
+        simt_launches = phase_edges(dev)
+    if "serve" in only:
+        launches, split, prompts, fp32_tokens = phase_serve(model, dev)
+        print(f"[memory] peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB")
+    if "qkernel" in only:
+        qrecs = phase_qkernel(model, dev)
+    if "qserve" in only and "serve" in only:
+        q_launches, q_split, _ = phase_qserve(model, dev, prompts,
+                                              fp32_tokens)
+    if "qgrad" in only:
+        qt_launches = phase_qgrad(model, dev)
     gc.collect()                     # the serving engines and their caches
     torch.cuda.empty_cache()
-    train_launches, transposed = phase_train(model, dev)
+    if "train" in only:
+        train_launches, transposed = phase_train(model, dev)
+    if not full:
+        print(f"chip_smoke: phases {only} passed")
+        return
 
     def entry(name, mode, path, n_launches, main_rec, mine,
               kernel="segment_spmm"):
+        if kernel == "segment_spmm" and main_rec.get("path") == "tc":
+            kernel = "segment_spmm_tc"
         return {"name": name, "route": "cuda", "mode": mode, "path": path,
                 "source": f"src/repro_torch/csrc/{kernel}.cu",
                 "replaces": "src/repro/kernels/" + {
                     "segment_spmm": "segment_spmm.py:335",
+                    "segment_spmm_tc": "segment_spmm.py:335",
                     "segment_spgemm": "segment_spgemm.py:227",
                     "flash_attention": "flash_attention.py:93",
                     "moe_gemm": "moe_gemm.py:39",
@@ -1886,31 +2239,45 @@ def main():
                 "library_ms": main_rec["library_ms"],
                 "case": main_rec["case"], "n": main_rec.get("n")}
 
-    # forward: up projection at decode width, bf16 x.T view (the serve
-    # path); transpose_lhs: up's dx at the training width (the train path)
-    fwd_rec = recs[0]
-    t_rec = next(r for r in recs if r["mode"] == "transpose_lhs"
-                 and r["case"].startswith("up") and r["n"] == 2048)
+    def one(rs, **kw):
+        return next(r for r in rs if all(r[k] == v for k, v in kw.items()))
+
+    def on(rs, path, mode):
+        return [r for r in rs if r["path"] == path and r["mode"] == mode]
+
+    # split: up at decode width, bf16 x.T view (the serve path's decode
+    # steps); tensor cores: up and up's dx at the training width (the train
+    # path); simt: up at decode width with fp32 B (the edge sweep's fp32
+    # calls; no main path runs it)
+    fwd_split = on(recs, "split", "forward")
+    fwd_tc = on(recs, "tc", "forward")
+    t_tc = on(recs, "tc", "transpose_lhs")
+    simt = [r for r in recs if r["path"] == "simt"]
     # spgemm: fp32 timed on down_up; quantized on up_down in int8, with
     # the worst error over the four modes
     g32 = [r for r in spgemm_recs if r["mode"] == "fp32"]
     gq = [r for r in spgemm_recs if r["mode"] != "fp32"]
-    # quantized SpMM: int8 up at decode width (the qserve path), and int8
-    # up's dx at N = 64 (the qgrad path), with the worst error over the four
-    # modes of each direction
-    qf = [r for r in qrecs if r["mode"] == "forward"]
-    qt = [r for r in qrecs if r["mode"] == "transpose_lhs"]
-    qf_rec = next(r for r in qf if r["quant"] == "int8" and r["case"] == "up"
-                  and r["n"] == 4)
-    qt_rec = next(r for r in qt if r["quant"] == "int8"
-                  and r["case"].startswith("up") and r["n"] == QGRAD_SEQ)
+    # quantized SpMM: int8 up at decode width (the qserve path's decode
+    # steps), and int8 up's dx at N = 64 (the qgrad path), with the worst
+    # error over the four modes of each direction on that path
+    qf_rec = one(qrecs, quant="int8", case="up", n=4, mode="forward")
+    qt_rec = next(r for r in qrecs if r["quant"] == "int8"
+                  and r["case"].startswith("up") and r["n"] == QGRAD_SEQ
+                  and r["mode"] == "transpose_lhs")
     print(smi)
     print(json.dumps({"kernels": [
-        entry("segment_spmm", "forward", "serve", launches, fwd_rec,
-              [r for r in recs if r["mode"] == "forward"]),
-        entry("segment_spmm.transpose_lhs", "transpose_lhs", "train",
-              transposed, t_rec,
-              [r for r in recs if r["mode"] == "transpose_lhs"]),
+        entry("segment_spmm", "split (folded owner runs, CUDA cores): "
+              "forward", "serve", split, one(fwd_split, case="up", n=4),
+              fwd_split),
+        entry("segment_spmm.tensor_core", "tc (3 x bf16 wgmma): forward",
+              "train", train_launches - transposed,
+              one(fwd_tc, case="up", n=2048), fwd_tc),
+        entry("segment_spmm.transpose_lhs", "tc (3 x bf16 wgmma): "
+              "transpose_lhs", "train", transposed,
+              one(t_tc, case="up dx (transpose_lhs)", n=2048), t_tc),
+        entry("segment_spmm.simt", "simt (one block per owner run): fp32 "
+              "B", "edges", simt_launches,
+              one(simt, case="up", n=4, mode="forward"), simt),
         entry("segment_spgemm", "fp32", "spgemm",
               spgemm_launches - spgemm_quantized,
               next(r for r in g32 if r["case"] == "spgemm_down_up"), g32,
@@ -1918,10 +2285,12 @@ def main():
         entry("segment_spgemm.quantized", "int8/fp8", "spgemm",
               spgemm_quantized, next(r for r in gq if r["mode"] == "int8"),
               gq, kernel="segment_spgemm"),
-        entry("segment_spmm.quantized", "int8/fp8 forward", "qserve",
-              q_launches, qf_rec, qf),
+        entry("segment_spmm.quantized", "split: int8/fp8 forward", "qserve",
+              q_split, qf_rec, on(qrecs, "split", "forward")),
         entry("segment_spmm.quantized.transpose_lhs",
-              "int8/fp8 transpose_lhs", "qgrad", qt_launches, qt_rec, qt)]
+              f"{qt_rec['path']}: int8/fp8 transpose_lhs", "qgrad",
+              qt_launches, qt_rec, on(qrecs, qt_rec["path"],
+                                      "transpose_lhs"))]
         + [entry(kernel, mode, "ops", sum(r["launches"] for r in mine),
                  next(r for r in mine if r["case"] == case), mine,
                  kernel=kernel)

@@ -80,7 +80,8 @@ def _run_spmm(plan: SegmentPlan, x: torch.Tensor, *, blocks: torch.Tensor,
         plan.seg_start, plan.seg_write, plan.accum_prev, plan.valid, x,
         grid_m=gm, n_lanes=plan.n_lanes, bn=bn, unroll=plan.unroll,
         transpose_lhs=plan.transpose_lhs, out_dtype=out_dtype,
-        a_scales=scales, prefetch=plan.prefetch, runs=plan.run_offsets)
+        a_scales=scales, prefetch=plan.prefetch, runs=plan.run_offsets,
+        chunks=plan.chunk_offsets)
     if plan.n_runs < gm:
         # block rows no item visits are never written by the kernel
         live = torch.repeat_interleave(plan.row_mask > 0,

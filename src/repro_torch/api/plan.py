@@ -2,10 +2,12 @@
 
 The torch counterpart of ``repro.api.plan.SegmentPlan``: the same static
 (aux) fields and the same tensor (leaf) fields, so a plan of this package
-can be compared leaf by leaf with the JAX one.  One field is added:
+can be compared leaf by leaf with the JAX one.  Two fields are added:
 ``run_offsets``, the owner-run offsets the CUDA kernels launch one thread
 block per run from (derived once per plan by the planner: over ``m_idx``
-for SpMM plans, over ``c_idx`` for SpGEMM plans).
+for SpMM plans, over ``c_idx`` for SpGEMM plans), and, for SpMM plans,
+``chunk_offsets``, those runs cut into the chunks the folded SpMM kernel
+launches one thread block per chunk from.
 """
 from __future__ import annotations
 
@@ -84,8 +86,11 @@ class SegmentPlan:
     c_brow_arr: Optional[torch.Tensor] = None
     c_bcol_arr: Optional[torch.Tensor] = None
     grad_plan: Optional["SegmentPlan"] = None
-    # added by the port: (n_runs + 1,) int32 owner-run offsets
+    # added by the port: (n_runs + 1,) int32 owner-run offsets, and (SpMM)
+    # the (n_chunks, 4) int32 chunk table of kernels.segment_spmm.
+    # chunk_offsets
     run_offsets: Optional[torch.Tensor] = None
+    chunk_offsets: Optional[torch.Tensor] = None
 
     @property
     def n_items(self) -> int:

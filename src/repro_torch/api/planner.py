@@ -38,7 +38,7 @@ from repro_torch.core.schedule import (PREFETCH_MODES, LaneLayout,
                                        finalize_schedule, lane_select,
                                        lane_traffic_spgemm, lane_traffic_spmm,
                                        partition_lanes)
-from repro_torch.kernels.segment_spmm import run_offsets
+from repro_torch.kernels.segment_spmm import chunk_offsets, run_offsets
 
 from .backends import resolve_backend, resolve_device
 from .plan import SPGEMM, SPMM, SegmentPlan
@@ -236,11 +236,12 @@ def _schedule_template(sched, layout: LaneLayout, fin, slots: np.ndarray,
         bm, bk, 1, unroll=unroll, pipeline=pipeline, prefetch=prefetch),
         block_dtype, bm, bk)
     basis.update(layout.stats)
+    runs = run_offsets(lane_m, layout.n_lanes)
     leaves = dict(
         m_idx=lane_m, k_idx=lane_k, slot_idx=lane_slot,
         row_mask=fin.row_mask, a_brow=a.brow.astype(np.int32),
-        a_bcol=a.bcol.astype(np.int32),
-        run_offsets=run_offsets(lane_m, layout.n_lanes), **flags)
+        a_bcol=a.bcol.astype(np.int32), run_offsets=runs,
+        chunk_offsets=chunk_offsets(runs), **flags)
     aux = dict(kind=SPMM, policy=policy, block_shape=(bm, bk),
                grid=(sched.n_m_blocks, sched.n_k_blocks), rhs_grid=None,
                n_out_blocks=sched.n_m_blocks, fingerprint=fingerprint,

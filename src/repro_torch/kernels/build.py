@@ -22,8 +22,8 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("segment_spmm.cu", "segment_spgemm.cu", "flash_attention.cu",
-           "moe_gemm.cu", "rg_lru.cu")
+SOURCES = ("segment_spmm.cu", "segment_spmm_tc.cu", "segment_spgemm.cu",
+           "flash_attention.cu", "moe_gemm.cu", "rg_lru.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
