@@ -22,9 +22,17 @@
    ``repro_torch.kernels.ops``'s three entry points on their kernels at
    published widths, each call with its exact launch count (1 per
    ``flash_mha`` and ``rg_lru_scan``, 2 x top_k per ``moe_apply``):
-   ``flash_mha`` (fp32, causal) at granite-3-8b's heads (prefill 1 x
-   4096, decode 4 x 1 over 4096 keys) and RecurrentGemma-9B's local block
-   (1 x 8192, 16 heads, one KV head, D = 256, window 2048);
+   ``flash_mha`` (fp32, causal; granite's also in bf16 beside a bf16
+   SDPA) at granite-3-8b's heads (prefill 1 x 4096 and decode 4 x 1 over
+   4096 keys, each once more under ``set_sync_debug_mode("error")``) and
+   RecurrentGemma-9B's local block (1 x 8192, 16 heads, one KV head, D =
+   256, window 2048), each on the attention path named in
+   ``OPS_ATTN_CASES`` by that path's own count (decode on ``splitkv``,
+   prefill and the local block on ``tc``), and every path that can take
+   the stacked call held against the plain version and timed; the
+   [attn-crossover] sweep (every path at decode over 512 .. 32768 keys,
+   a wider batch, a prefill chunk and prefill over T = 256 .. 8192) that
+   sets ``choose_path``'s rule;
    ``rg_lru_scan`` at RecurrentGemma-9B's width (4 x 2048 x 4096 in fp32
    and bf16, and a decode step with h0); ``moe_apply`` at Llama-4
    Maverick's expert widths (128 experts, 5120 -> 8192, top-1, capacity
@@ -42,10 +50,11 @@
    fp32 on the CUDA cores, the bf16 tensor-core peak for the MoE's bf16
    products) and a library yardstick (fp32 SDPA with ``enable_gqa``, a
    bf16 ``torch.bmm`` over the expert buffer; none for the RG-LRU).  Then
-   an edge sweep (head dims, ragged shapes, masks, bf16 outputs, dropped
-   tokens, strided operands, the grouped GEMM's tensor-core path at chunk,
-   d_in and d_out edges with live-row counts and unsorted experts, calls
-   that must raise).
+   an edge sweep (head dims, ragged shapes, masks, bf16 outputs, every
+   attention edge on each path that takes it, q/k/v of mixed dtypes and
+   70,000 (batch, head) rows, dropped tokens, strided operands, the
+   grouped GEMM's tensor-core path at chunk, d_in and d_out edges with
+   live-row counts and unsorted experts, calls that must raise).
 4. Kernel vs plain version: the Segment SpMM kernels on the shapes the
    main paths give them (granite-3-8b's up/gate and down FFN patterns at
    N = 4, 16, 64, B in bf16 and fp32; the training width N = 2048; a
@@ -112,7 +121,8 @@
 
 Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
-the build, and prints neither line.
+the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``)
+builds no model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -173,11 +183,25 @@ QGRAD_SEQ = 64                        # [qgrad]: 1 x 64 tokens, so dx's N = 64
 # [ops]: the kernels reached through repro_torch.kernels.ops, at the
 # published widths of the configs that give each its shapes.  Attention
 # cases: (config, batch, Tq, Tk, window: None or the config's local window)
+# cases: (config, batch, Tq, Tk, window: None or the config's local window,
+# the flash_attention path choose_path must give it)
 OPS_ATTN_CASES = {
-    "granite prefill": ("granite-3-8b", 1, 4096, 4096, None),
-    "granite decode": ("granite-3-8b", 4, 1, 4096, None),
-    "recurrentgemma local": ("recurrentgemma-9b", 1, 8192, 8192, "local"),
+    "granite prefill": ("granite-3-8b", 1, 4096, 4096, None, "tc"),
+    "granite decode": ("granite-3-8b", 4, 1, 4096, None, "splitkv"),
+    "recurrentgemma local": ("recurrentgemma-9b", 1, 8192, 8192, "local",
+                             "tc"),
 }
+# the cases also run with bf16 q, k and v (beside a bf16 SDPA), and the
+# ones run once more under set_sync_debug_mode("error")
+OPS_ATTN_BF16 = ("granite prefill", "granite decode")
+OPS_ATTN_SYNC_FREE = ("granite prefill", "granite decode")
+# [attn-crossover]: granite-3-8b's heads, fp32, every path that can take
+# the call, causal: (label, batch, Tq, Tk): decode over 512 .. 32768 keys,
+# a wider decode batch, a 64-token prefill chunk over a 4096-key context,
+# and prefill over T = 256 .. 8192
+ATTN_CROSSOVER = [("decode", 4, 1, n) for n in (512, 2048, 8192, 32768)] \
+    + [("decode", 16, 1, 4096), ("chunk", 1, 64, 4096)] \
+    + [("prefill", 1, n, n) for n in (256, 1024, 4096, 8192)]
 OPS_MOE_TOKENS = (4096, 4)           # Llama-4 Maverick experts, top-1
 OPS_RG_LRU_CASES = {                 # (batch, T, dtype) at d_model 4096
     "rg_lru fp32": (4, 2048, torch.float32),
@@ -1150,48 +1174,111 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def ops_attention(label, cfg_name, b, tq, tk, window, dev, gen):
-    """One attention case through ``ops.flash_mha`` (fp32 q/k/v at the
-    config's head layout, causal): the launch count, the kernel against
-    its plain version on the stacked heads, the entry point against
-    ``ref.mha_ref``, times, the bound and the library's SDPA."""
+def attn_call(want_path, fn, label, tag="[ops]"):
+    """``fn()`` (one flash_attention or flash_mha call) with every
+    flash_attention count set to 0 just before and read just after: one
+    launch, on ``want_path``.  Returns the result."""
+    from repro_torch.kernels.flash_attention import PATHS, flash_attention
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    for p in PATHS:
+        setattr(flash_attention, f"{p}_launches", 0)
+    out = fn()
+    torch.cuda.synchronize()
+    want = [1] + [int(p == want_path) for p in PATHS]
+    got = [flash_attention.launches] + [
+        getattr(flash_attention, f"{p}_launches") for p in PATHS]
+    check(got == want, f"{tag} {label}: flash_attention launches (all, "
+                       f"{', '.join(PATHS)}) {got}, expected {want}")
+    return out
+
+
+def attn_bound(path, nbytes, pairs, d, q_dtype, k_dtype, v_dtype):
+    """The least time of one attention call on ``path``: the bytes moved
+    once, and the 4 D operations of each live (query, key) pair at the
+    peak of the path's arithmetic: fp32 on the CUDA cores (``simt``,
+    ``splitkv``), or on ``tc`` as bf16 ``wgmma`` passes at 989 TFLOP/s
+    (Q·Kᵀ's passes on half, P·V's on the other half)."""
+    from repro_torch.kernels.flash_attention import tc_passes
+    if path != "tc":
+        return _bound(nbytes, 4 * d * pairs)
+    parts = {torch.float32: 3, torch.bfloat16: 1}
+    passes = (len(tc_passes(parts[q_dtype], parts[k_dtype]))
+              + len(tc_passes(3, parts[v_dtype])))
+    return _bound(nbytes, 2 * d * pairs * passes, BF16_FLOPS)
+
+
+def ops_attention(label, cfg_name, b, tq, tk, window, want_path, dev, gen,
+                  dtype=torch.float32):
+    """One attention case through ``ops.flash_mha`` (q/k/v of ``dtype`` at
+    the config's head layout, causal): one launch, on ``want_path`` (by
+    that path's own count), and for the fp32 cases of
+    ``OPS_ATTN_SYNC_FREE`` one more under ``set_sync_debug_mode("error")``;
+    every path that can take the stacked call against the plain version
+    (fp32 output) and timed (output in ``dtype``, as ``flash_mha`` runs
+    it); the entry point against ``ref.mha_ref``; the bound of each path,
+    the plain version's time and the library's SDPA in ``dtype``."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     paths_for)
     cfg = get_config(cfg_name)
     h, hkv, d = cfg.n_heads, cfg.n_kv, cfg.hd
     win = cfg.local_window if window == "local" else None
-    q = torch.randn(b, tq, h, d, generator=gen, device=dev) * 0.5
-    k = torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5
-    v = torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5
-    out, launches = ops_call(
-        flash_attention, 1,
-        lambda: ops.flash_mha(q, k, v, causal=True, window=win), label)
+    q = (torch.randn(b, tq, h, d, generator=gen, device=dev) * 0.5).to(dtype)
+    k = (torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5).to(dtype)
+    v = (torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5).to(dtype)
+    tag = f"{label} {str(dtype).replace('torch.', '')}"
+    out = attn_call(want_path, lambda: ops.flash_mha(
+        q, k, v, causal=True, window=win), tag)
+    launches = 1
+    if dtype == torch.float32 and label in OPS_ATTN_SYNC_FREE:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            attn_call(want_path, lambda: ops.flash_mha(
+                q, k, v, causal=True, window=win), tag + " (sync-free)")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches += 1
     check(out.shape == q.shape and out.dtype == q.dtype
-          and bool(torch.isfinite(out).all()), f"[ops] {label}: output")
+          and bool(torch.isfinite(out).all()), f"[ops] {tag}: output")
+    rel_ref, _ = _rel(out, ref.mha_ref(q, k, v, causal=True, window=win))
+    ref_tol = KERNEL_RTOL if dtype == torch.float32 else BF16_RTOL
+    check(rel_ref <= ref_tol, f"[ops] {tag}: flash_mha vs mha_ref "
+                              f"{rel_ref:.3g} > {ref_tol}")
     qh, kh, vh, kw = ops.stack_heads(q, k, v)
-
-    def kern():
-        return flash_attention(qh, kh, vh, causal=True, window=win, **kw)
 
     def plain():
         return flash_attention_plain(qh, kh, vh, causal=True, window=win,
                                      out_dtype=torch.float32, **kw)
 
-    rel_plain, abs_plain = _rel(kern(), plain())
-    rel_ref, _ = _rel(out, ref.mha_ref(q, k, v, causal=True, window=win))
-    check(rel_plain <= KERNEL_RTOL and rel_ref <= KERNEL_RTOL,
-          f"[ops] {label}: kernel vs plain {rel_plain:.3g}, flash_mha vs "
-          f"mha_ref {rel_ref:.3g} > {KERNEL_RTOL}")
+    want = plain()
     # live (query, key) pairs: query i sits at position tk - tq + i and sees
     # keys max(0, p - window + 1) .. p
     pos = torch.arange(tk - tq, tk, device=dev)
     lo = (pos - win + 1).clamp(min=0) if win is not None else 0
     pairs = int((pos + 1 - lo).sum()) * b * h
-    bound_ms, bound_by = _bound(_nbytes(q, k, v, out), 4 * d * pairs)
-    # the library's fused attention on the same fp32 tensors, (B, H, T, D)
+    by_path = {}
+    for path in paths_for(*qh.shape[:2], kh.shape[1], d, (dtype,) * 3):
+        def kern(path=path, out_dtype=None):
+            return flash_attention(qh, kh, vh, causal=True, window=win,
+                                   out_dtype=out_dtype, path=path, **kw)
+        got = attn_call(path, lambda: kern(out_dtype=torch.float32),
+                        f"{tag} on {path}")
+        rel, diff = _rel(got, want)
+        del got
+        check(rel <= KERNEL_RTOL, f"[ops] {tag} on {path}: kernel vs plain "
+                                  f"{rel:.3g} > {KERNEL_RTOL}")
+        bound_ms, bound_by = attn_bound(path, _nbytes(q, k, v, out), pairs, d,
+                                        dtype, dtype, dtype)
+        by_path[path] = dict(ms=scaled_device_ms(kern), rel_err=rel,
+                             max_abs_err=diff, bound_ms=bound_ms,
+                             bound_by=bound_by)
+    del want
+    # the library's fused attention on the same tensors, (B, H, T, D)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     qpos, kpos = pos[:, None], torch.arange(tk, device=dev)[None, :]
     mask = kpos <= qpos
@@ -1204,18 +1291,64 @@ def ops_attention(label, cfg_name, b, tq, tk, window, dev, gen):
         return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
                                               **kw_lib)
 
-    rec = dict(case=label, kernel="flash_attention", launches=launches,
-               rel_err=rel_plain, max_abs_err=abs_plain, rel_err_ref=rel_ref,
-               ms=scaled_device_ms(kern), plain_ms=event_ms(plain, 1),
-               bound_ms=bound_ms, bound_by=bound_by,
+    mine = by_path[want_path]
+    rec = dict(case=label, dtype=str(dtype).replace("torch.", ""),
+               kernel="flash_attention", path=want_path, launches=launches,
+               rel_err=mine["rel_err"], max_abs_err=mine["max_abs_err"],
+               rel_err_ref=rel_ref, ms=mine["ms"],
+               plain_ms=event_ms(plain, 1), bound_ms=mine["bound_ms"],
+               bound_by=mine["bound_by"],
                library_ms=scaled_device_ms(library),
-               library="fp32 scaled_dot_product_attention(enable_gqa=True)")
-    print(f"[ops] {label:<21} B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv} D={d} "
-          f"window={win}: rel_err plain={rel_plain:.2e} ref={rel_ref:.2e} "
-          f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
-          f"{rec['library_ms']:.4f} (fp32 SDPA); launches {launches}")
+               library=f"{'fp32' if dtype == torch.float32 else 'bf16'} "
+                       f"scaled_dot_product_attention(enable_gqa=True)",
+               by_path=by_path)
+    times = ", ".join(f"{p} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+                      f"{r['bound_by']}; err {r['rel_err']:.2e})"
+                      for p, r in by_path.items())
+    print(f"[ops] {tag:<26} B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv} D={d} "
+          f"window={win}: path {want_path}, launches {launches}; {times}; "
+          f"flash_mha vs mha_ref {rel_ref:.2e}; plain_ms="
+          f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+          f"({rec['library']})")
     return rec
+
+
+def attn_crossover(dev, gen):
+    """[attn-crossover]: every path that can take the call, device times,
+    on granite-3-8b's heads in fp32, at the shapes of ``ATTN_CROSSOVER``,
+    beside what ``choose_path`` picks.  Sets ``choose_path``'s rule for
+    ``"splitkv"`` (where it stops winning)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (choose_path,
+                                                     flash_attention,
+                                                     paths_for)
+    cfg = get_config("granite-3-8b")
+    h, hkv, d = cfg.n_heads, cfg.n_kv, cfg.hd
+    t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worse = 0
+    for kind, b, tq, tk in ATTN_CROSSOVER:
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev) * 0.5
+        k = torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5
+        v = torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5
+        qh, kh, vh, kw = ops.stack_heads(q, k, v)
+        shape = (*qh.shape[:2], kh.shape[1], d)
+        picked = choose_path(*shape, sms=sms)
+        ms = {}
+        for path in paths_for(*shape):
+            ms[path] = scaled_device_ms(lambda path=path: flash_attention(
+                qh, kh, vh, causal=True, path=path, **kw))
+        best = min(ms, key=ms.get)
+        worse += ms[picked] > 1.03 * ms[best]
+        print(f"[attn-crossover] {kind:<7} B={b:<2} Tq={tq:<5} Tk={tk:<5} (bh "
+              f"{shape[0]}, stacked rows {shape[1]}): " + ", ".join(
+                  f"{p} {t:.4f} ms" for p, t in ms.items())
+              + f"; choose_path -> {picked}, fastest {best}")
+        del q, k, v, qh, kh, vh
+    print(f"[attn-crossover] {worse} cases where choose_path's pick is more "
+          f"than 3 % slower than the fastest path; "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _moe_oracle(x, w_up, w_down, logits, top_k):
@@ -1441,17 +1574,21 @@ def ops_rg_lru(dev, gen):
 def phase_ops(dev):
     """[ops]: ``repro_torch.kernels.ops``'s three entry points on their
     Hopper kernels at published widths (before the model exists; every
-    tensor is freed on return), then the edge sweep.  Returns the
-    records."""
+    tensor is freed on return), the attention crossover sweep, then the
+    edge sweep.  Returns the records and the edge sweep's count of
+    attention calls that ``choose_path`` sent to ``"simt"``."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     recs = [ops_attention(label, *case, dev, gen)
             for label, case in OPS_ATTN_CASES.items()]
+    recs += [ops_attention(label, *OPS_ATTN_CASES[label], dev, gen,
+                           dtype=torch.bfloat16) for label in OPS_ATTN_BF16]
+    attn_crossover(dev, gen)
     recs += ops_rg_lru(dev, gen)
     recs += ops_moe(dev, gen)
-    phase_ops_edges(dev, gen)
+    simt = phase_ops_edges(dev, gen)
     print(f"[ops] phase: {time.perf_counter() - t0:.1f} s")
-    return recs
+    return recs, simt
 
 
 def phase_ops_edges(dev, gen):
@@ -1473,8 +1610,10 @@ def phase_ops_edges(dev, gen):
     multiple of its 16-step chunk and in bf16; and the calls that must
     raise on the card (D = 12, T % ct, d_out % bn)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (PATHS, choose_path,
+                                                     flash_attention,
+                                                     flash_attention_plain,
+                                                     paths_for)
     from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
     from repro_torch.kernels.rg_lru import rg_lru, rg_lru_plain
 
@@ -1501,47 +1640,87 @@ def phase_ops_edges(dev, gen):
             (1, 32, 512, 2, 2, 128, True, 128),     # long kv + window
             (2, 1, 200, 8, 2, 128, True, None),     # decode, rep 4, ragged Tk
             (1, 40, 200, 4, 2, 256, True, 64),      # D 256, ragged
-            (1, 24, 72, 2, 1, 40, False, None)]     # D 40
+            (1, 24, 72, 2, 1, 40, False, None),     # D 40
+            (4, 512, 512, 8, 8, 40, True, None),    # D 40, fills the card
+            (2, 320, 320, 4, 2, 80, True, 96)]      # D 80: tc, ragged chunk
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 132
+    per_path = dict.fromkeys(PATHS, 0)
+    picked = dict.fromkeys(PATHS, 0)
+
+    def on_each_path(label, q, k, v, **kw):
+        """The raw kernel on every path that takes the call, each with its
+        one launch on that path, against the plain version (fp32 out)."""
+        full = dict(dict(window=None, q_period=None, offset=None,
+                         kv_len=None), **kw)
+        bq = min(full.pop("bq", 128), q.shape[1])
+        bkv = min(full.pop("bkv", 128), k.shape[1])
+        full["offset"] = (k.shape[1] - (q.shape[1] if full["q_period"] is None
+                                        else full["q_period"])) \
+            if full["offset"] is None else full["offset"]
+        full["kv_len"] = k.shape[1] if full["kv_len"] is None \
+            else full["kv_len"]
+        want = flash_attention_plain(q, k, v, causal=True, bq=bq, bkv=bkv,
+                                     out_dtype=torch.float32, **full)
+        able = paths_for(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                         (q.dtype, k.dtype, v.dtype))
+        for path in able:
+            got = attn_call(path, lambda: flash_attention(
+                q, k, v, causal=True, out_dtype=torch.float32, path=path,
+                **kw), f"{label} on {path}", tag="[ops-edges]")
+            held(f"{label} on {path}", got, want)
+            per_path[path] += 1
+        return able
+
     for b, tq, tk, h, hkv, d, causal, win in attn:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = rnd(b, tq, h, d, dt=dt), rnd(b, tk, hkv, d, dt=dt), \
                 rnd(b, tk, hkv, d, dt=dt)
             label = f"flash_mha {(b, tq, tk, h, hkv, d, causal, win)} {dt}"
-            out, _ = ops_call(flash_attention, 1, lambda: ops.flash_mha(
-                q, k, v, causal=causal, window=win), label)
+            qh, kh, vh, kw = ops.stack_heads(q, k, v)
+            path = choose_path(*qh.shape[:2], kh.shape[1], d, dt, dt, dt,
+                               sms=sms)
+            out = attn_call(path, lambda: ops.flash_mha(
+                q, k, v, causal=causal, window=win), label,
+                tag="[ops-edges]")
+            picked[path] += 1
             check(out.dtype == dt, f"{label}: output dtype {out.dtype}")
             held(label + " vs mha_ref", out, ref.mha_ref(
                 q, k, v, causal=causal, window=win),
                 KERNEL_RTOL if dt == torch.float32 else BF16_RTOL)
-            qh, kh, vh, kw = ops.stack_heads(q, k, v)
-            held(label + " vs plain", flash_attention(
-                qh, kh, vh, causal=causal, window=win,
-                out_dtype=torch.float32, **kw), flash_attention_plain(
-                qh, kh, vh, causal=causal, window=win,
-                out_dtype=torch.float32, **kw))
+            for p_ in paths_for(*qh.shape[:2], kh.shape[1], d, (dt,) * 3):
+                got = attn_call(p_, lambda: flash_attention(
+                    qh, kh, vh, causal=causal, window=win,
+                    out_dtype=torch.float32, path=p_, **kw),
+                    f"{label} on {p_}", tag="[ops-edges]")
+                held(f"{label} on {p_} vs plain", got, flash_attention_plain(
+                    qh, kh, vh, causal=causal, window=win,
+                    out_dtype=torch.float32, **kw))
+                per_path[p_] += 1
     q, k, v = rnd(2, 64, 64), rnd(2, 256, 64), rnd(2, 256, 64)
     for kw in (dict(offset=-40, kv_len=200, bq=32, bkv=64),
                dict(offset=10, kv_len=100, bq=16, bkv=32, q_period=32,
                     window=20),
                dict(offset=0, kv_len=0, bq=64, bkv=128),
                dict(offset=5, kv_len=150, bq=8, bkv=16, q_period=16)):
-        full = dict(dict(window=None, q_period=None), **kw)
-        label = f"flash_attention {kw}"
-        got, _ = ops_call(flash_attention, 1, lambda: flash_attention(
-            q, k, v, causal=True, **kw), label)
-        held(label, got, flash_attention_plain(
-            q, k, v, causal=True, out_dtype=torch.float32, **full))
+        on_each_path(f"flash_attention {kw}", q, k, v, **kw)
+    # q, k and v of mixed dtypes (each converted on load, as repro casts
+    # each to fp32), and more (batch, head) rows than a grid's y axis takes
+    f32, bf = torch.float32, torch.bfloat16
+    for dts in ((f32, bf, bf), (bf, f32, f32), (f32, f32, bf), (bf, bf, f32)):
+        qm, km, vm = (rnd(2, 128, 64, dt=dt) if i == 0 else
+                      rnd(2, 256, 64, dt=dt) for i, dt in enumerate(dts))
+        on_each_path(f"flash_attention mixed {dts}", qm, km, vm, bq=64,
+                     bkv=64, q_period=64)
+    on_each_path("flash_attention bh=70000", rnd(70000, 8, 16),
+                 rnd(70000, 128, 16), rnd(70000, 128, 16), bq=8, bkv=64)
     # a strided view and a contiguous one off the 16-byte grid: the wrapper
     # copies both, as the CPU takes any layout
     wide = rnd(2, 64, 66)
     for label, qs in (("strided q", wide[:, :, 1:65]),
                       ("misaligned q", rnd(2 * 64 * 64 + 1)[1:].view(
                           2, 64, 64))):
-        got, _ = ops_call(flash_attention, 1, lambda: flash_attention(
-            qs, k, v, causal=True), f"flash_attention {label}")
-        held(f"flash_attention {label}", got, flash_attention_plain(
-            qs, k, v, causal=True, window=None, offset=192, kv_len=256,
-            bq=64, bkv=128, q_period=None, out_dtype=torch.float32))
+        on_each_path(f"flash_attention {label}", qs, k, v)
     if dev.type == "cuda":     # the plain version takes any head dim
         try:
             flash_attention(rnd(1, 8, 12), rnd(1, 8, 12), rnd(1, 8, 12))
@@ -1549,6 +1728,8 @@ def phase_ops_edges(dev, gen):
             pass
         else:
             raise RuntimeError("flash_attention ran D = 12 on the card")
+    print(f"[ops-edges] attention: choose_path's picks {picked}; calls "
+          f"forced on each path {per_path}")
 
     def moe_call(label, want_tc, fn, launches=1):
         """``fn()`` with moe_gemm's counts at 0: ``launches`` launches, of
@@ -1678,6 +1859,7 @@ def phase_ops_edges(dev, gen):
           f"{KERNEL_RTOL} of the plain version or the oracle (worst "
           f"{worst:.2e}), bf16 outputs within {BF16_RTOL}; D=12, T % ct and "
           f"d_out % bn raise")
+    return picked["simt"]
 
 
 def device_busy_us(prof):
@@ -2143,6 +2325,8 @@ def phase_train(model, dev):
 
 PHASES = ("spgemm", "ops", "kernel", "crossover", "edges", "serve",
           "qkernel", "qserve", "qgrad", "train")
+# the phases that need granite-3-8b built (``--only spgemm,ops`` skips it)
+MODEL_PHASES = PHASES[2:]
 
 
 def main():
@@ -2173,11 +2357,14 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     if "ops" in only:
-        ops_recs = phase_ops(dev)
+        ops_recs, attn_simt = phase_ops(dev)
         gc.collect()                 # Maverick's 21.5 GB of expert weights
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()   # [memory] reads the model's peak
 
+    if not set(only) & set(MODEL_PHASES):
+        print(f"chip_smoke: phases {only} passed")
+        return
     cfg = dataclasses.replace(get_config("granite-3-8b"),
                               ffn_block_sparse=True, ffn_block=64,
                               ffn_density=0.25, dtype="bfloat16")
@@ -2264,6 +2451,13 @@ def main():
     qt_rec = next(r for r in qrecs if r["quant"] == "int8"
                   and r["case"].startswith("up") and r["n"] == QGRAD_SEQ
                   and r["mode"] == "transpose_lhs")
+    # simt: no published-width case picks it (the edge sweep's D = 40 calls
+    # that fill the card do); its times are those of granite prefill forced
+    # onto it
+    prefill = next(r for r in ops_recs if r["kernel"] == "flash_attention"
+                   and r["case"] == "granite prefill"
+                   and r["dtype"] == "float32")
+    simt_rec = dict(prefill, **prefill["by_path"]["simt"], path="simt")
     print(smi)
     print(json.dumps({"kernels": [
         entry("segment_spmm", "split (folded owner runs, CUDA cores): "
@@ -2291,15 +2485,25 @@ def main():
               f"{qt_rec['path']}: int8/fp8 transpose_lhs", "qgrad",
               qt_launches, qt_rec, on(qrecs, qt_rec["path"],
                                       "transpose_lhs"))]
-        + [entry(kernel, mode, "ops", sum(r["launches"] for r in mine),
+        + [entry(name, mode, "ops", sum(r["launches"] for r in mine),
                  next(r for r in mine if r["case"] == case), mine,
                  kernel=kernel)
-           for kernel, mode, case in (
-               ("flash_attention", "fp32, causal, GQA", "granite prefill"),
-               ("moe_gemm", "tensor cores (TMA + wgmma): bf16 x and w, "
-                "live_rows, fp32 out", "maverick moe T=4096"),
-               ("rg_lru", "bf16", "rg_lru bf16"))
-           for mine in ([r for r in ops_recs if r["kernel"] == kernel],)]}))
+           for name, kernel, mode, case in (
+               ("flash_attention.splitkv", "flash_attention",
+                "splitkv (KV axis split over blocks, CUDA cores): fp32, "
+                "causal, GQA", "granite decode"),
+               ("flash_attention.tc", "flash_attention",
+                "tc (6 x bf16 wgmma passes): fp32, causal, GQA",
+                "granite prefill"),
+               ("moe_gemm", "moe_gemm", "tensor cores (TMA + wgmma): bf16 x "
+                "and w, live_rows, fp32 out", "maverick moe T=4096"),
+               ("rg_lru", "rg_lru", "bf16", "rg_lru bf16"))
+           for mine in ([r for r in ops_recs if r["kernel"] == kernel
+                         and r.get("path", kernel) in name],)]
+        + [entry("flash_attention.simt", "simt (one block walks all of Tk, "
+                 "CUDA cores): fp32, causal, GQA, timed forced at granite "
+                 "prefill", "ops-edges", attn_simt, simt_rec, [simt_rec],
+                 kernel="flash_attention")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
