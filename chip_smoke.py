@@ -10,14 +10,22 @@
    shapes (W_down @ W_up and W_up @ W_down, 64×64 blocks at 25 % density,
    from ``SEED``), in fp32 and, on W_up @ W_down, in the four quantized
    modes (int8/fp8, per block or rowwise); exactly one Segment SpGEMM
-   launch per ``plan()``.  Each result is held against the kernel's plain
+   launch per ``plan()``, all six on the tensor-core path (``"tc"``, by
+   its own count).  Each result is held against the kernel's plain
    version and the ``"reference"`` backend (≤ 1e-5), and a quantized one
-   against the fp32 result (int8 < 5e-2, fp8 < 1e-1); device times of the
-   kernel and the plain version, the bound, and the library's dense fp32
-   product (cuBLAS, TF32 off) beside one ``torch.sparse.mm`` of CSR
-   tensors (cuSPARSE).  Then 50 small plans at the kernel's edges
-   (schedules, storage modes, 32 and 64 tiles), bf16 output, an empty
-   symbolic C (no launch), a one-item plan, and a tile that must raise.
+   against the fp32 result (int8 < 5e-2, fp8 < 1e-1).  Each case runs on
+   every path that takes it (``"tc"`` and the CUDA-core ``"simt"``), each
+   held against the plain version and timed beside that path's bound
+   (bytes, or operations × bf16 passes at the tensor-core peak on
+   ``"tc"`` and at the fp32 CUDA-core peak on ``"simt"``) and the bytes
+   it moves into the SMs; the
+   plain version's time and the library's dense fp32 product (cuBLAS,
+   TF32 off) beside one ``torch.sparse.mm`` of CSR tensors (cuSPARSE).
+   Then 99 small plans at the kernels' edges (5 schedules × 5 storage
+   modes × 32 and 64 tiles, each on every path that takes it; the eight
+   tile shapes of 32 and 64, non-square ones included, on ``"simt"``),
+   bf16 output, an empty symbolic C (no launch), a one-item plan, and
+   tiles of 16 and 128 that must raise.
 3. Ops ([ops], before the model exists; its tensors are freed after it):
    ``repro_torch.kernels.ops``'s three entry points on their kernels at
    published widths, each call with its exact launch count (1 per
@@ -129,6 +137,7 @@ package is not beside this script, or when any check fails.
 import dataclasses
 import gc
 import importlib
+import itertools
 import json
 import subprocess
 import sys
@@ -887,30 +896,77 @@ def _dense_of(plan, side):
                             cols, *grid)
 
 
+def _spgemm_counts():
+    """The SpGEMM wrapper's counts: all, quantized, tensor-core, simt."""
+    from repro_torch.kernels.segment_spgemm import segment_spgemm
+    return (segment_spgemm.launches, segment_spgemm.quantized_launches,
+            segment_spgemm.tc_launches, segment_spgemm.simt_launches)
+
+
+def _zero_spgemm_counts():
+    from repro_torch.kernels.segment_spgemm import segment_spgemm
+    segment_spgemm.launches = segment_spgemm.quantized_launches = 0
+    segment_spgemm.tc_launches = segment_spgemm.simt_launches = 0
+
+
+def _spgemm_call(plan, path=None, out_dtype=torch.float32):
+    """One ``segment_spgemm`` launch on the plan's leaves, on ``path``
+    (default: the wrapper's choice)."""
+    from repro_torch.kernels.segment_spgemm import segment_spgemm
+    return segment_spgemm(
+        plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx, plan.c_idx,
+        plan.seg_start, plan.seg_write, plan.accum_prev, plan.valid,
+        n_c_blocks=plan.n_out_blocks, n_lanes=plan.n_lanes,
+        unroll=plan.unroll, out_dtype=out_dtype, a_scales=plan.lhs_scales,
+        b_scales=plan.rhs_scales, runs=plan.run_offsets,
+        work=(plan.tc_runs, plan.tc_steps), path=path)
+
+
+def _spgemm_plain(plan):
+    from repro_torch.kernels.segment_spgemm import segment_spgemm_plain
+    return segment_spgemm_plain(
+        plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx,
+        plan.c_idx, plan.valid, n_c_blocks=plan.n_out_blocks,
+        a_scales=plan.lhs_scales, b_scales=plan.rhs_scales)
+
+
+def _spgemm_passes(plan):
+    """bf16 passes of the tensor-core path: six for fp32 tiles, one for a
+    per-block-scaled payload, three for a rowwise one."""
+    if not plan.quantized:
+        return 6
+    return 3 if plan.lhs_scales.ndim == 2 else 1
+
+
+def spgemm_sm_bytes(plan, path):
+    """Bytes one call of ``path`` moves from L2 into the SMs, counted from
+    the plan's schedule: both tiles of each valid item and their rowwise
+    scale rows, C blocks written at each seg_write and read at each
+    accum_prev, and for ``"tc"`` the work table's rows."""
+    tile_a = plan.lhs_blocks[0].numel() * plan.lhs_blocks.element_size()
+    tile_b = plan.rhs_blocks[0].numel() * plan.rhs_blocks.element_size()
+    rowwise = plan.quantized and plan.lhs_scales.ndim == 2
+    bm, bk = plan.block_shape
+    c_block = bm * plan.rhs_blocks.shape[2] * 4
+    valid = int(plan.valid.sum())
+    c = c_block * (int(plan.seg_write.sum()) + int(plan.accum_prev.sum()))
+    table = (plan.tc_steps.numel() * 4 + plan.tc_runs.numel() * 4
+             if path == "tc" else 0)
+    return valid * (tile_a + tile_b + rowwise * 4 * (bm + bk)) + c + table
+
+
 def spgemm_case(label, plan, out, fp32_out=None, library_ms=None):
     """One main-path SpGEMM output ``out`` (from ``plan()``) against the
     plain version and the ``"reference"`` backend, and (for a quantized
-    plan) against the fp32 result; times of the kernel, the plain version
-    and the library's dense product.  Returns a record."""
-    from repro_torch.kernels.segment_spgemm import (segment_spgemm,
-                                                    segment_spgemm_plain)
-
-    def kern():
-        return segment_spgemm(
-            plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx,
-            plan.c_idx, plan.seg_start, plan.seg_write, plan.accum_prev,
-            plan.valid, n_c_blocks=plan.n_out_blocks, n_lanes=plan.n_lanes,
-            unroll=plan.unroll, a_scales=plan.lhs_scales,
-            b_scales=plan.rhs_scales, runs=plan.run_offsets)
-
-    def plain():
-        return segment_spgemm_plain(
-            plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx,
-            plan.c_idx, plan.valid, n_c_blocks=plan.n_out_blocks,
-            a_scales=plan.lhs_scales, b_scales=plan.rhs_scales)
+    plan) against the fp32 result; then every path that takes the call,
+    each held against the plain version and timed beside its bound and the
+    bytes it moves into the SMs; the plain version's and the library's
+    dense product's times.  Returns a record."""
+    sg = importlib.import_module("repro_torch.kernels.segment_spgemm")
 
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
-    rel_plain, abs_plain = _rel(out, plain())
+    plain_out = _spgemm_plain(plan)
+    rel_plain, abs_plain = _rel(out, plain_out)
     rel_ref, _ = _rel(out, plan(backend="reference"))
     check(rel_plain <= KERNEL_RTOL and rel_ref <= KERNEL_RTOL,
           f"{label}: kernel vs plain {rel_plain:.3g}, vs reference "
@@ -923,10 +979,10 @@ def spgemm_case(label, plan, out, fp32_out=None, library_ms=None):
         rec["quant_err"], _ = _rel(out, fp32_out)
         check(rec["quant_err"] < gate, f"{label}: vs fp32 "
                                        f"{rec['quant_err']:.3g} >= {gate}")
-    # bound: each stored tile (payload and scales) read once, C written
-    # once; 2 * bm * bk * bn operations per valid triple, at the fp32
-    # CUDA-core peak for fp32 tiles and the tensor-core peak of the
-    # payload type for int8/fp8 tiles
+    # bound of each path: each stored tile (payload and scales) read once,
+    # C written once; 2 * bm * bk * bn operations per valid triple, at the
+    # fp32 CUDA-core peak on simt and as bf16 passes at the tensor-core
+    # peak on tc
     bm, bk = plan.block_shape
     bn = plan.rhs_blocks.shape[2]
     nbytes = sum(t.numel() * t.element_size() for t in (
@@ -934,11 +990,34 @@ def spgemm_case(label, plan, out, fp32_out=None, library_ms=None):
         if t is not None) + out.numel() * out.element_size()
     ops = 2 * rec["items"] * bm * bk * bn
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / (QUANT_OPS if plan.quantized else FP32_FLOPS)
-    rec.update(ms=device_ms(kern, 4), plain_ms=device_ms(plain, 2),
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               fp32_bound_ms=ops / FP32_FLOPS * 1e3)
+    peaks = {"tc": (BF16_FLOPS, _spgemm_passes(plan)), "simt": (FP32_FLOPS, 1)}
+    mode = sg.storage_mode(plan.lhs_blocks.dtype, plan.rhs_blocks.dtype,
+                           None if plan.lhs_scales is None
+                           else plan.lhs_scales.ndim,
+                           None if plan.rhs_scales is None
+                           else plan.rhs_scales.ndim)
+    by_path = {}
+    for path in sg.paths_for(bm, bk, bn, mode, out.dtype):
+        peak, passes = peaks[path]
+        t_ops = ops * passes / peak
+        got = _spgemm_call(plan, path)
+        err, abs_err = _rel(got, plain_out)
+        check(err <= KERNEL_RTOL, f"{label} on {path}: vs plain {err:.3g} > "
+                                  f"{KERNEL_RTOL}")
+        del got
+        by_path[path] = dict(
+            ms=device_ms(lambda: _spgemm_call(plan, path), 4),
+            sm_bytes=spgemm_sm_bytes(plan, path), rel_err=err,
+            max_abs_err=abs_err,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            passes=passes)
+    main = by_path[sg.choose_path(bm, bk, bn, mode, out.dtype)]
+    rec.update(path=sg.choose_path(bm, bk, bn, mode, out.dtype),
+               ms=main["ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], sm_bytes=main["sm_bytes"],
+               plain_ms=device_ms(lambda: _spgemm_plain(plan), 2),
+               by_path=by_path)
     if library_ms is None:
         # the library's dense fp32 product of the (dequantized) operands
         a, b = _dense_of(plan, "a"), _dense_of(plan, "b")
@@ -950,9 +1029,13 @@ def spgemm_case(label, plan, out, fp32_out=None, library_ms=None):
           f"ref={rel_ref:.2e}"
           + (f" vs_fp32={rec['quant_err']:.2e}" if fp32_out is not None
              else "")
-          + f" kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
-          f"library_ms={library_ms:.4f} (dense fp32 cuBLAS)")
+          + f" plain_ms={rec['plain_ms']:.4f} library_ms={library_ms:.4f} "
+          f"(dense fp32 cuBLAS)")
+    for path, r in by_path.items():
+        print(f"[spgemm]   {path:<4} kernel_ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, "
+              f"{r['passes']} pass{'es' if r['passes'] > 1 else ''}) "
+              f"sm_bytes={r['sm_bytes'] / 1e9:.3f} GB")
     return rec
 
 
@@ -981,11 +1064,10 @@ def phase_spgemm(dev):
     """SpGEMM through ``plan_matmul(A, B)`` → ``plan()`` at granite-3-8b's
     FFN shapes (both cases in fp32, the four quantized modes on up_down),
     each held against the plain version and the reference backend, then
-    the edge sweep.  Returns the records and the main path's launch
-    counts (all, quantized)."""
+    the edge sweep.  Returns the records, the main path's launch counts
+    (all, quantized) and the edge sweep's launches on ``"simt"``."""
     from repro_torch import api
     from repro_torch.core.formats import BSR, QUANT_MODES
-    from repro_torch.kernels.segment_spgemm import segment_spgemm
 
     runs = []
     for case, (a_shape, b_shape, policy) in SPGEMM_CASES.items():
@@ -1005,17 +1087,18 @@ def phase_spgemm(dev):
         del a, b
     # the main path: every plan once through plan(), counts set just before
     torch.cuda.synchronize()
-    segment_spgemm.launches = segment_spgemm.quantized_launches = 0
+    _zero_spgemm_counts()
     outs = [plan() for _, plan in runs]
     torch.cuda.synchronize()
-    launches = segment_spgemm.launches
-    quantized = segment_spgemm.quantized_launches
+    launches, quantized, tc, simt = _spgemm_counts()
     n_quant = sum(plan.quantized for _, plan in runs)
-    check(launches == len(runs) and quantized == n_quant,
-          f"spgemm main path: {launches} launches ({quantized} quantized) "
-          f"!= {len(runs)} ({n_quant})")
+    check(launches == len(runs) and quantized == n_quant
+          and tc == len(runs) and simt == 0,
+          f"spgemm main path: {launches} launches ({quantized} quantized, "
+          f"{tc} tc, {simt} simt) != {len(runs)} ({n_quant}, all tc)")
     print(f"[spgemm] main path: {len(runs)} plan() calls, segment_spgemm "
-          f"launches {launches} ({quantized} quantized)")
+          f"launches {launches} ({quantized} quantized), per path: tc {tc}, "
+          f"simt {simt}")
 
     recs, fp32_out, library = [], {}, {}
     for (case, plan), out in zip(runs, outs):
@@ -1032,34 +1115,60 @@ def phase_spgemm(dev):
                   f"call: " + (f"{ms:.2f} ms, " if ms is not None else "")
                   + note)
     del runs, outs, fp32_out
-    phase_spgemm_edges(dev)
-    return recs, launches, quantized
+    simt_launches = phase_spgemm_edges(dev)
+    return recs, launches, quantized, simt_launches
 
 
 def phase_spgemm_edges(dev):
-    """Small SpGEMM plans at the kernel's edges: 32 and 64 tiles; segment,
+    """Small SpGEMM plans at the kernels' edges: 32 and 64 tiles; segment,
     folded (``fold_len=2``), four-lane, gustavson with ``n_lanes=2,
     unroll=2`` and k-major outer plans; fp32 and every quantized mode; each
-    through ``plan()`` against the plain version and the oracle, one launch
-    each.  Also bf16 output with every item folded, an empty symbolic C (no
-    launch), a one-item plan, and a tile the kernel does not take (must
-    raise on the card)."""
+    through ``plan()`` (one launch, on the path ``choose_path`` gives it)
+    and forced onto every other path that takes it, each held against the
+    plain version and the oracle.  Also bf16 output with every item folded
+    (each path), an empty symbolic C (no launch), a one-item plan, the
+    eight tile shapes of 32 and 64 on the CUDA-core path, and tiles of 16
+    and 128 that must raise on the card.  Returns the launches on
+    ``"simt"``."""
     from repro_torch import api
     from repro_torch.core.formats import BSR, QUANT_MODES
-    from repro_torch.kernels.segment_spgemm import (segment_spgemm,
-                                                    segment_spgemm_plain)
+    sg = importlib.import_module("repro_torch.kernels.segment_spgemm")
 
-    def run(plan, want_launches=1):
-        segment_spgemm.launches = segment_spgemm.quantized_launches = 0
-        got = plan()
-        check(segment_spgemm.launches == want_launches
-              and segment_spgemm.quantized_launches
-              == want_launches * plan.quantized,
-              f"edge {plan.policy} {plan.block_dtype}: "
-              f"{segment_spgemm.launches} launches")
+    simt = 0
+
+    def run(plan, path=None, want_launches=1, out_dtype=torch.float32):
+        nonlocal simt
+        _zero_spgemm_counts()
+        got = plan() if path is None else _spgemm_call(plan, path,
+                                                       out_dtype=out_dtype)
+        launches, quantized, tc, on_simt = _spgemm_counts()
+        want = path or (plan.n_out_blocks and sg.choose_path(
+            *plan.block_shape, plan.rhs_blocks.shape[2],
+            sg.storage_mode(plan.lhs_blocks.dtype, plan.rhs_blocks.dtype,
+                            None if plan.lhs_scales is None
+                            else plan.lhs_scales.ndim,
+                            None if plan.rhs_scales is None
+                            else plan.rhs_scales.ndim),
+            got.dtype))
+        check([launches, quantized, tc, on_simt] == [
+            want_launches, want_launches * plan.quantized,
+            want_launches * (want == "tc"), want_launches * (want == "simt")],
+              f"edge {plan.policy} {plan.block_dtype} {plan.block_shape} on "
+              f"{want}: launches (all, quantized, tc, simt) "
+              f"{[launches, quantized, tc, on_simt]}")
+        simt += on_simt
         return got
 
-    worst, count = 0.0, 0
+    def paths(plan, out_dtype=torch.float32):
+        return sg.paths_for(
+            *plan.block_shape, plan.rhs_blocks.shape[2],
+            sg.storage_mode(plan.lhs_blocks.dtype, plan.rhs_blocks.dtype,
+                            None if plan.lhs_scales is None
+                            else plan.lhs_scales.ndim,
+                            None if plan.rhs_scales is None
+                            else plan.rhs_scales.ndim), out_dtype)
+
+    worst, count, on_path = 0.0, 0, {}
     variants = [{}, {"fold_len": 2}, {"n_lanes": 4},
                 {"policy": "gustavson", "n_lanes": 2, "unroll": 2},
                 {"policy": "outer", "n_lanes": 2}]
@@ -1070,32 +1179,35 @@ def phase_spgemm_edges(dev):
         for kw in variants:
             for q in (None,) + QUANT_MODES:
                 plan = api.plan_matmul(a, b, quantize=q, device=dev, **kw)
-                got = run(plan)
-                plain = segment_spgemm_plain(
-                    plan.lhs_blocks, plan.rhs_blocks, plan.a_idx,
-                    plan.b_idx, plan.c_idx, plan.valid,
-                    n_c_blocks=plan.n_out_blocks, a_scales=plan.lhs_scales,
-                    b_scales=plan.rhs_scales)
+                plain = _spgemm_plain(plan)
                 want = plan(backend="reference")
-                err = max(_rel(got, plain)[0], _rel(got, want)[0])
-                check(err <= KERNEL_RTOL, f"spgemm edge block={block} {kw} "
-                                          f"{q}: {err:.3g}")
-                worst, count = max(worst, err), count + 1
+                for path in (None,) + paths(plan)[1:]:
+                    got = run(plan, path)
+                    err = max(_rel(got, plain)[0], _rel(got, want)[0])
+                    label = path or paths(plan)[0]
+                    check(err <= KERNEL_RTOL, f"spgemm edge block={block} "
+                                              f"{kw} {q} on {label}: "
+                                              f"{err:.3g}")
+                    worst, count = max(worst, err), count + 1
+                    on_path[label] = on_path.get(label, 0) + 1
         # bf16 output: every item its own folded segment, so each partial
         # sum is stored and reloaded in bf16 (2**-8 each time)
         plan = api.plan_matmul(a, b, fold_len=1, device=dev,
                                out_dtype=torch.bfloat16)
-        got = run(plan)
-        err = _rel(got, plan(backend="reference", out_dtype=torch.float32))[0]
-        check(got.dtype == torch.bfloat16 and err <= 1e-2,
-              f"spgemm bf16 folded reload: {err:.3g}")
+        want = plan(backend="reference", out_dtype=torch.float32)
+        for path in (None,) + paths(plan, torch.bfloat16)[1:]:
+            got = run(plan, path, out_dtype=torch.bfloat16)
+            err = _rel(got, want)[0]
+            check(got.dtype == torch.bfloat16 and err <= 1e-2,
+                  f"spgemm bf16 folded reload on {path}: {err:.3g}")
         one = BSR((block, block), (block, block), np.zeros(1, np.int32),
                   np.zeros(1, np.int32), rng.standard_normal(
                       (1, block, block)).astype(np.float32))
         plan = api.plan_matmul(one, one, device=dev)
         check(plan.n_items == 1, "one-item plan")
-        err = _rel(run(plan), plan(backend="reference"))[0]
-        check(err <= KERNEL_RTOL, f"spgemm one-item plan: {err:.3g}")
+        for path in (None,) + paths(plan)[1:]:
+            err = _rel(run(plan, path), plan(backend="reference"))[0]
+            check(err <= KERNEL_RTOL, f"spgemm one-item plan: {err:.3g}")
     ones = np.ones((2, 32, 32), np.float32)
     a = BSR((64, 64), (32, 32), np.array([0, 1], np.int32),
             np.array([0, 0], np.int32), ones)
@@ -1105,19 +1217,43 @@ def phase_spgemm_edges(dev):
         plan = api.plan_matmul(a, b, quantize=q, device=dev)
         got = run(plan, want_launches=0)
         check(tuple(got.shape) == (0, 32, 32), f"empty C: {got.shape}")
-    wide = BSR.random(np.random.default_rng(3), (64, 128), (32, 64), 0.5)
-    tall = BSR.random(np.random.default_rng(4), (128, 64), (64, 32), 0.5)
-    try:
-        api.plan_matmul(wide, tall, device=dev)()
-    except NotImplementedError:
-        pass
-    else:
-        raise RuntimeError("a non-square tile ran on the card")
-    print(f"[spgemm-edges] {count} plans (5 schedules x 5 storage modes x 2 "
-          f"tiles) within {KERNEL_RTOL} of the plain version and the oracle "
-          f"(worst {worst:.2e}), one launch each; bf16 folded reload and "
-          f"one-item plans ok; empty C: no launch; non-square tiles raise "
+    # every tile shape of 32 and 64 on the CUDA-core path, in fp32 and in a
+    # per-block and a rowwise mode
+    shapes = 0
+    for bm, bk, bn in itertools.product((32, 64), repeat=3):
+        rng = np.random.default_rng(bm + 2 * bk + 3 * bn)
+        a = BSR.random(rng, (4 * bm, 3 * bk), (bm, bk), 0.5)
+        b = BSR.random(rng, (3 * bk, 4 * bn), (bk, bn), 0.5)
+        for q in (None, "int8", "fp8.rowwise"):
+            plan = api.plan_matmul(a, b, quantize=q, device=dev)
+            got = run(plan, "simt" if bm == bk == bn == 64 else None)
+            err = max(_rel(got, _spgemm_plain(plan))[0],
+                      _rel(got, plan(backend="reference"))[0])
+            check(err <= KERNEL_RTOL, f"spgemm tile ({bm}, {bk}, {bn}) {q} on "
+                                      f"simt: {err:.3g}")
+            worst, shapes = max(worst, err), shapes + 1
+    raised = 0
+    for bm, bk, bn in ((16, 16, 16), (128, 128, 128), (64, 128, 64),
+                       (32, 16, 32)):
+        a = BSR.random(np.random.default_rng(3), (2 * bm, 2 * bk), (bm, bk),
+                       0.5)
+        b = BSR.random(np.random.default_rng(4), (2 * bk, 2 * bn), (bk, bn),
+                       0.5)
+        try:
+            api.plan_matmul(a, b, device=dev)()
+        except NotImplementedError:
+            raised += 1
+        else:
+            raise RuntimeError(f"a ({bm}, {bk}, {bn}) tile ran on the card")
+    print(f"[spgemm-edges] {count} calls (5 schedules x 5 storage modes x 2 "
+          f"tiles, each on every path that takes it: {on_path}) within "
+          f"{KERNEL_RTOL} of the plain version and the oracle; {shapes} "
+          f"calls over the 8 tile shapes of 32 and 64 (fp32, int8, "
+          f"fp8.rowwise) on simt; worst {worst:.2e}; one launch each on its "
+          f"path; bf16 folded reload and one-item plans ok on each path; "
+          f"empty C: no launch; tiles of 16 and 128: {raised} raise "
           f"NotImplementedError")
+    return simt
 
 
 def event_ms(fn, n=3):
@@ -2353,7 +2489,8 @@ def main():
     dev = torch.device("cuda", 0)
     smi = phase_card()
     if "spgemm" in only:
-        spgemm_recs, spgemm_launches, spgemm_quantized = phase_spgemm(dev)
+        (spgemm_recs, spgemm_launches, spgemm_quantized,
+         spgemm_simt) = phase_spgemm(dev)
         gc.collect()
         torch.cuda.empty_cache()
     if "ops" in only:
@@ -2415,6 +2552,7 @@ def main():
                     "segment_spmm": "segment_spmm.py:335",
                     "segment_spmm_tc": "segment_spmm.py:335",
                     "segment_spgemm": "segment_spgemm.py:227",
+                    "segment_spgemm_tc": "segment_spgemm.py:227",
                     "flash_attention": "flash_attention.py:93",
                     "moe_gemm": "moe_gemm.py:39",
                     "rg_lru": "rg_lru.py:56"}[kernel],
@@ -2440,10 +2578,13 @@ def main():
     fwd_tc = on(recs, "tc", "forward")
     t_tc = on(recs, "tc", "transpose_lhs")
     simt = [r for r in recs if r["path"] == "simt"]
-    # spgemm: fp32 timed on down_up; quantized on up_down in int8, with
-    # the worst error over the four modes
+    # spgemm: every main-path launch on tc; fp32 timed on down_up,
+    # quantized on up_down in int8, with the worst error over the four
+    # modes; simt (the edge sweep's 32-wide and non-square tiles, no main
+    # path) timed on down_up fp32 forced onto it
     g32 = [r for r in spgemm_recs if r["mode"] == "fp32"]
     gq = [r for r in spgemm_recs if r["mode"] != "fp32"]
+    g_simt = dict(g32[0], **g32[0]["by_path"]["simt"], path="simt")
     # quantized SpMM: int8 up at decode width (the qserve path's decode
     # steps), and int8 up's dx at N = 64 (the qgrad path), with the worst
     # error over the four modes of each direction on that path
@@ -2472,13 +2613,17 @@ def main():
         entry("segment_spmm.simt", "simt (one block per owner run): fp32 "
               "B", "edges", simt_launches,
               one(simt, case="up", n=4, mode="forward"), simt),
-        entry("segment_spgemm", "fp32", "spgemm",
-              spgemm_launches - spgemm_quantized,
+        entry("segment_spgemm.tc", "tc (6 x bf16 wgmma passes, runs in "
+              "Z-order): fp32", "spgemm", spgemm_launches - spgemm_quantized,
               next(r for r in g32 if r["case"] == "spgemm_down_up"), g32,
-              kernel="segment_spgemm"),
-        entry("segment_spgemm.quantized", "int8/fp8", "spgemm",
-              spgemm_quantized, next(r for r in gq if r["mode"] == "int8"),
-              gq, kernel="segment_spgemm"),
+              kernel="segment_spgemm_tc"),
+        entry("segment_spgemm.tc.quantized", "tc (1 bf16 pass per block, 3 "
+              "rowwise): int8/fp8", "spgemm", spgemm_quantized,
+              next(r for r in gq if r["mode"] == "int8"), gq,
+              kernel="segment_spgemm_tc"),
+        entry("segment_spgemm.simt", "simt (one block per owner run, CUDA "
+              "cores): timed forced at down_up fp32", "spgemm-edges",
+              spgemm_simt, g_simt, [g_simt], kernel="segment_spgemm"),
         entry("segment_spmm.quantized", "split: int8/fp8 forward", "qserve",
               q_split, qf_rec, on(qrecs, "split", "forward")),
         entry("segment_spmm.quantized.transpose_lhs",

@@ -113,7 +113,7 @@ def _run_spgemm(plan: SegmentPlan, *, backend: str,
         n_c_blocks=plan.n_out_blocks, n_lanes=plan.n_lanes,
         unroll=plan.unroll, out_dtype=out_dtype, a_scales=plan.lhs_scales,
         b_scales=plan.rhs_scales, prefetch=plan.prefetch,
-        runs=plan.run_offsets)
+        runs=plan.run_offsets, work=(plan.tc_runs, plan.tc_steps))
 
 
 def _out_dtype(plan: SegmentPlan, out_dtype) -> torch.dtype:

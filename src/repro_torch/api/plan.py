@@ -2,12 +2,14 @@
 
 The torch counterpart of ``repro.api.plan.SegmentPlan``: the same static
 (aux) fields and the same tensor (leaf) fields, so a plan of this package
-can be compared leaf by leaf with the JAX one.  Two fields are added:
-``run_offsets``, the owner-run offsets the CUDA kernels launch one thread
-block per run from (derived once per plan by the planner: over ``m_idx``
-for SpMM plans, over ``c_idx`` for SpGEMM plans), and, for SpMM plans,
+can be compared leaf by leaf with the JAX one.  Fields are added, each
+derived once per plan by the planner: ``run_offsets``, the owner-run
+offsets the one-block-per-run CUDA kernels launch from (over ``m_idx`` for
+SpMM plans, over ``c_idx`` for SpGEMM plans); for SpMM plans,
 ``chunk_offsets``, those runs cut into the chunks the folded SpMM kernel
-launches one thread block per chunk from.
+launches one thread block per chunk from; for SpGEMM plans, ``tc_runs``
+and ``tc_steps``, the work table the tensor-core SpGEMM kernel walks
+(``kernels.segment_spgemm.work_table``).
 """
 from __future__ import annotations
 
@@ -86,11 +88,14 @@ class SegmentPlan:
     c_brow_arr: Optional[torch.Tensor] = None
     c_bcol_arr: Optional[torch.Tensor] = None
     grad_plan: Optional["SegmentPlan"] = None
-    # added by the port: (n_runs + 1,) int32 owner-run offsets, and (SpMM)
+    # added by the port: (n_runs + 1,) int32 owner-run offsets; (SpMM)
     # the (n_chunks, 4) int32 chunk table of kernels.segment_spmm.
-    # chunk_offsets
+    # chunk_offsets; (SpGEMM) the (n_runs + 1,) run offsets and (n_steps, 5)
+    # steps of kernels.segment_spgemm.work_table
     run_offsets: Optional[torch.Tensor] = None
     chunk_offsets: Optional[torch.Tensor] = None
+    tc_runs: Optional[torch.Tensor] = None
+    tc_steps: Optional[torch.Tensor] = None
 
     @property
     def n_items(self) -> int:

@@ -38,6 +38,7 @@ from repro_torch.core.schedule import (PREFETCH_MODES, LaneLayout,
                                        finalize_schedule, lane_select,
                                        lane_traffic_spgemm, lane_traffic_spmm,
                                        partition_lanes)
+from repro_torch.kernels.segment_spgemm import work_table
 from repro_torch.kernels.segment_spmm import chunk_offsets, run_offsets
 
 from .backends import resolve_backend, resolve_device
@@ -307,12 +308,17 @@ def _build_spgemm_template(a: BSR, b: BSR, policy: str,
         layout.n_lanes, bm, bk, bn, unroll=unroll, pipeline=pipeline,
         prefetch=prefetch), block_dtype, bm, bk, bn)
     traffic.update(layout.stats)
+    runs = run_offsets(lane_c, layout.n_lanes)
+    tc_runs, tc_steps = work_table(
+        lane_a, lane_b, lane_c, flags["valid"], flags["seg_start"],
+        flags["seg_write"], flags["accum_prev"], runs, sched.c_brow,
+        sched.c_bcol)
     leaves = dict(
         a_idx=lane_a, b_idx=lane_b, c_idx=lane_c,
         a_brow=a.brow.astype(np.int32), a_bcol=a.bcol.astype(np.int32),
         b_brow=b.brow.astype(np.int32), b_bcol=b.bcol.astype(np.int32),
         c_brow_arr=sched.c_brow, c_bcol_arr=sched.c_bcol,
-        run_offsets=run_offsets(lane_c, layout.n_lanes), **flags)
+        run_offsets=runs, tc_runs=tc_runs, tc_steps=tc_steps, **flags)
     aux = dict(kind=SPGEMM, policy=policy, block_shape=(bm, bk),
                grid=a.grid, rhs_grid=b.grid, n_out_blocks=sched.n_c_blocks,
                fingerprint=fingerprint, block_dtype=block_dtype,

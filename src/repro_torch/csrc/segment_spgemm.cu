@@ -1,6 +1,10 @@
 // Segment-scheduled block-sparse x block-sparse matmul (the numeric SpGEMM
-// phase): the C blocks of BSR(A) @ BSR(B) at the symbolic pattern, under the
-// plan's lane-major list of (a_idx, b_idx, c_idx) block triples.
+// phase) on the CUDA cores: the C blocks of BSR(A) @ BSR(B) at the
+// symbolic pattern, under the plan's lane-major list of (a_idx, b_idx,
+// c_idx) block triples.  The "simt" path of the wrapper
+// (src/repro_torch/kernels/segment_spgemm.py): 32-wide and non-square
+// tiles, and, when asked, 64 x 64 ones, which take the tensor-core kernel
+// of segment_spgemm_tc.cu by default.
 //
 // Replaces the TPU kernel src/repro/kernels/segment_spgemm.py::segment_spgemm
 // (fp32 blocks, and int8 / fp8-e4m3 payloads with per-block or rowwise fp32
@@ -22,7 +26,8 @@
 // earlier seg_write), add A[a_idx] @ B[b_idx] when valid, store at
 // seg_write.  Pad items (valid == 0) carry no flags and move no data.
 //
-// Data movement.  Square T x T tiles, T = 32 or 64.  The A and B tiles of
+// Data movement.  A tiles bm x bk and B tiles bk x bn, each of bm, bk, bn
+// 32 or 64 (eight shapes).  The A and B tiles of
 // the next two items are in flight in a 3-stage shared-memory ring filled
 // with cp.async while one item is multiplied.  Payload bytes move as they
 // are (4 bytes an element for fp32, 1 for int8 and fp8): that is what makes
@@ -31,8 +36,8 @@
 // shared memory (1/64 of the item's arithmetic), so one fp32 inner loop
 // serves every mode.
 //
-// Arithmetic.  T*T/16 threads; a thread owns a 4 x 4 block of C: rows
-// ty + (T/4) i (interleaved, so the two or four rows a warp reads from the
+// Arithmetic.  bm*bn/16 threads; a thread owns a 4 x 4 block of C: rows
+// ty + (bm/4) i (interleaved, so the two or four rows a warp reads from the
 // padded A tile fall in different banks) and columns 4 tx .. 4 tx + 3 (one
 // float4 of each B row, shared by the threads of a row group).  Each step
 // of 4 along k reads 4 float4s of A and 4 of B and does 64 FMAs into the
@@ -99,105 +104,118 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Shared memory, in bytes: fp32 tiles are A [T][T + 4] (padded rows) and
-// B [T][T].  fp32 payloads: the ring holds those tiles.  1-byte payloads:
-// the ring holds the raw T x T bytes of both, and one fp32 A and B tile
-// follow it.
-template <int T, int PAY>
+// Shared memory, in bytes: fp32 tiles are A [BM][BK + 4] (padded rows)
+// and B [BK][BN].  fp32 payloads: the ring holds those tiles.  1-byte
+// payloads: the ring holds the raw bytes of both, and one fp32 A and B
+// tile follow it.
+template <int BM, int BK, int BN, int PAY>
 constexpr size_t smem_bytes() {
-  constexpr size_t f32_tiles = sizeof(float) * (size_t(T) * (T + 4) + T * T);
+  constexpr size_t f32_tiles =
+      sizeof(float) * (size_t(BM) * (BK + 4) + size_t(BK) * BN);
   if constexpr (PAY == kF32) return kStages * f32_tiles;
-  return kStages * size_t(2) * T * T + f32_tiles;
+  return kStages * (size_t(BM) * BK + size_t(BK) * BN) + f32_tiles;
 }
 
-// One thread block per owner run; T*T/16 threads.
-template <int T, int PAY, int SCALE, typename TO>
-__global__ void __launch_bounds__(T * T / 16) segment_spgemm_kernel(
+// One thread block per owner run; BM*BN/16 threads.
+template <int BM, int BK, int BN, int PAY, int SCALE, typename TO>
+__global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
     const void* __restrict__ a, const void* __restrict__ b, TO* c,
     const float* __restrict__ a_scales, const float* __restrict__ b_scales,
     const int* __restrict__ a_idx, const int* __restrict__ b_idx,
     const int* __restrict__ c_idx, const int* __restrict__ seg_start,
     const int* __restrict__ seg_write, const int* __restrict__ accum_prev,
     const int* __restrict__ valid, const int* __restrict__ run_off) {
-  constexpr int THREADS = T * T / 16;
-  constexpr int AP = T + 4;            // padded fp32 A row, 16-byte aligned
-  constexpr int Q = T / 4;             // row groups = threads per C row
+  constexpr int THREADS = BM * BN / 16;
+  constexpr int AP = BK + 4;           // padded fp32 A row, 16-byte aligned
+  constexpr int QM = BM / 4;           // row groups
+  constexpr int QN = BN / 4;           // threads per C row group
   constexpr int ESZ = PAY == kF32 ? 4 : 1;   // payload bytes an element
-  constexpr int TILE_BYTES = T * T * ESZ;
-  constexpr int CHUNKS = TILE_BYTES / 16 / THREADS;  // 16-byte copies each
-  static_assert(THREADS == Q * Q && CHUNKS >= 1, "bad tile");
+  constexpr int A_BYTES = BM * BK * ESZ;
+  constexpr int B_BYTES = BK * BN * ESZ;
+  static_assert(THREADS == QM * QN, "bad tile");
   static_assert(PAY != kF32 || SCALE == kNone, "fp32 tiles take no scales");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  // fp32 payloads: stage s holds A at [s][0] and B after it.  1-byte
+  // fp32 payloads: stage s holds A (padded rows) and B after it.  1-byte
   // payloads: stage s holds A's and B's bytes; the fp32 tiles follow.
   constexpr int STAGE = PAY == kF32
-                            ? int(sizeof(float)) * (T * AP + T * T)
-                            : 2 * TILE_BYTES;
+                            ? int(sizeof(float)) * (BM * AP + BK * BN)
+                            : A_BYTES + B_BYTES;
   float* a32 = reinterpret_cast<float*>(smem + kStages * STAGE);
-  float* b32 = a32 + T * AP;
+  float* b32 = a32 + BM * AP;
 
   const int t = threadIdx.x;
-  const int tx = t % Q;
-  const int ty = t / Q;
+  const int tx = t % QN;
+  const int ty = t / QN;
   const int lo = run_off[blockIdx.x];
   const int hi = run_off[blockIdx.x + 1];
-  TO* ct = c + static_cast<long long>(c_idx[lo]) * (T * T);
-  auto c_at = [&](int i, int j) { return ct + (ty + Q * i) * T + 4 * tx + j; };
+  TO* ct = c + static_cast<long long>(c_idx[lo]) * (BM * BN);
+  auto c_at = [&](int i, int j) {
+    return ct + (ty + QM * i) * BN + 4 * tx + j;
+  };
 
   auto issue = [&](int it) {
     if (it < hi && valid[it]) {
       unsigned char* st = smem + ((it - lo) % kStages) * STAGE;
       const unsigned char* sa = static_cast<const unsigned char*>(a) +
-                                static_cast<long long>(a_idx[it]) * TILE_BYTES;
+                                static_cast<long long>(a_idx[it]) * A_BYTES;
       const unsigned char* sb = static_cast<const unsigned char*>(b) +
-                                static_cast<long long>(b_idx[it]) * TILE_BYTES;
-#pragma unroll
-      for (int q = 0; q < CHUNKS; ++q) {
-        const int idx = t + q * THREADS;   // 16-byte chunk of the tile
+                                static_cast<long long>(b_idx[it]) * B_BYTES;
+      for (int idx = t; idx < A_BYTES / 16; idx += THREADS) {
         if constexpr (PAY == kF32) {
-          const int r = idx / (T / 4);
-          const int c4 = (idx % (T / 4)) * 4;
-          float* as = reinterpret_cast<float*>(st);
-          cp_async16(as + r * AP + c4, sa + idx * 16);
-          cp_async16(as + T * AP + idx * 4, sb + idx * 16);
+          const int r = idx / (BK / 4);
+          const int c4 = (idx % (BK / 4)) * 4;
+          cp_async16(reinterpret_cast<float*>(st) + r * AP + c4, sa + idx * 16);
         } else {
           cp_async16(st + idx * 16, sa + idx * 16);
-          cp_async16(st + TILE_BYTES + idx * 16, sb + idx * 16);
         }
       }
+      unsigned char* sbt = PAY == kF32 ? st + sizeof(float) * BM * AP
+                                       : st + A_BYTES;
+      for (int idx = t; idx < B_BYTES / 16; idx += THREADS)
+        cp_async16(sbt + idx * 16, sb + idx * 16);
     }
     cp_async_commit();  // empty groups keep the wait count uniform
   };
 
-  // 1-byte payloads: the 16 elements this thread copied, to fp32 (times
-  // their row's scale in the rowwise mode)
+  // 1-byte payloads: the 16-element chunks this thread copied, to fp32
+  // (times their row's scale in the rowwise mode)
   auto dequant = [&](int it) {
     const unsigned char* st = smem + ((it - lo) % kStages) * STAGE;
-    const int e0 = t * 16;                 // CHUNKS == 1 here
-    const int r = e0 / T;
-    const int k0 = e0 % T;
-    float sa = 1.f, sb = 1.f;
-    if constexpr (SCALE == kRow) {
-      sa = a_scales[static_cast<long long>(a_idx[it]) * T + r];
-      sb = b_scales[static_cast<long long>(b_idx[it]) * T + r];
-    }
-    float va[16], vb[16];
+    for (int idx = t; idx < A_BYTES / 16; idx += THREADS) {
+      const int e0 = idx * 16;
+      const int r = e0 / BK;
+      const int k0 = e0 % BK;
+      float s = 1.f;
+      if constexpr (SCALE == kRow)
+        s = a_scales[static_cast<long long>(a_idx[it]) * BM + r];
+      float v[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      va[j] = byte_to_f32<PAY>(st[e0 + j]);
-      vb[j] = byte_to_f32<PAY>(st[TILE_BYTES + e0 + j]);
-      if constexpr (SCALE == kRow) {
-        va[j] *= sa;
-        vb[j] *= sb;
+      for (int j = 0; j < 16; ++j) {
+        v[j] = byte_to_f32<PAY>(st[e0 + j]);
+        if constexpr (SCALE == kRow) v[j] *= s;
       }
-    }
 #pragma unroll
-    for (int j = 0; j < 16; j += 4) {
-      *reinterpret_cast<float4*>(a32 + r * AP + k0 + j) =
-          make_float4(va[j], va[j + 1], va[j + 2], va[j + 3]);
-      *reinterpret_cast<float4*>(b32 + r * T + k0 + j) =
-          make_float4(vb[j], vb[j + 1], vb[j + 2], vb[j + 3]);
+      for (int j = 0; j < 16; j += 4)
+        *reinterpret_cast<float4*>(a32 + r * AP + k0 + j) =
+            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    }
+    for (int idx = t; idx < B_BYTES / 16; idx += THREADS) {
+      const int e0 = idx * 16;
+      const int r = e0 / BN;
+      float s = 1.f;
+      if constexpr (SCALE == kRow)
+        s = b_scales[static_cast<long long>(b_idx[it]) * BK + r];
+      float v[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        v[j] = byte_to_f32<PAY>(st[A_BYTES + e0 + j]);
+        if constexpr (SCALE == kRow) v[j] *= s;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; j += 4)
+        *reinterpret_cast<float4*>(b32 + e0 + j) =
+            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
     }
   };
 
@@ -219,7 +237,7 @@ __global__ void __launch_bounds__(T * T / 16) segment_spgemm_kernel(
     const float* bt;
     if constexpr (PAY == kF32) {
       at = reinterpret_cast<const float*>(smem + ((it - lo) % kStages) * STAGE);
-      bt = at + T * AP;
+      bt = at + BM * AP;
     } else {
       if (live) dequant(it);
       __syncthreads();
@@ -241,12 +259,12 @@ __global__ void __launch_bounds__(T * T / 16) segment_spgemm_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
 #pragma unroll 4
-      for (int k = 0; k < T; k += 4) {
+      for (int k = 0; k < BK; k += 4) {
         float av[4][4], bv[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float4 q =
-              *reinterpret_cast<const float4*>(at + (ty + Q * i) * AP + k);
+              *reinterpret_cast<const float4*>(at + (ty + QM * i) * AP + k);
           av[i][0] = q.x;
           av[i][1] = q.y;
           av[i][2] = q.z;
@@ -255,7 +273,7 @@ __global__ void __launch_bounds__(T * T / 16) segment_spgemm_kernel(
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const float4 q =
-              *reinterpret_cast<const float4*>(bt + (k + kk) * T + 4 * tx);
+              *reinterpret_cast<const float4*>(bt + (k + kk) * BN + 4 * tx);
           bv[kk][0] = q.x;
           bv[kk][1] = q.y;
           bv[kk][2] = q.z;
@@ -317,10 +335,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int T, int PAY, int SCALE, typename TO>
+template <int BM, int BK, int BN, int PAY, int SCALE, typename TO>
 int launch(const Args& x) {
-  constexpr size_t smem = smem_bytes<T, PAY>();
-  auto kernel = segment_spgemm_kernel<T, PAY, SCALE, TO>;
+  constexpr size_t smem = smem_bytes<BM, BK, BN, PAY>();
+  auto kernel = segment_spgemm_kernel<BM, BK, BN, PAY, SCALE, TO>;
   // the opt-in to > 48 KB of dynamic shared memory is per device; set it
   // once (a repeated set is harmless, so the unlocked flag is enough)
   static bool smem_set[kMaxDevices] = {};
@@ -335,56 +353,75 @@ int launch(const Args& x) {
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set[dev] = true;
   }
-  kernel<<<x.n_runs, T * T / 16, smem, x.stream>>>(
+  kernel<<<x.n_runs, BM * BN / 16, smem, x.stream>>>(
       x.a, x.b, static_cast<TO*>(x.c), x.a_scales, x.b_scales, x.a_idx,
       x.b_idx, x.c_idx, x.seg_start, x.seg_write, x.accum_prev, x.valid,
       x.run_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int T, typename TO>
+template <int BM, int BK, int BN, typename TO>
 int by_mode(int payload, int scale_mode, const Args& x) {
   if (payload == kF32 && scale_mode == kNone)
-    return launch<T, kF32, kNone, TO>(x);
+    return launch<BM, BK, BN, kF32, kNone, TO>(x);
   if (payload == kI8 && scale_mode == kBlock)
-    return launch<T, kI8, kBlock, TO>(x);
-  if (payload == kI8 && scale_mode == kRow) return launch<T, kI8, kRow, TO>(x);
+    return launch<BM, BK, BN, kI8, kBlock, TO>(x);
+  if (payload == kI8 && scale_mode == kRow)
+    return launch<BM, BK, BN, kI8, kRow, TO>(x);
   if (payload == kF8 && scale_mode == kBlock)
-    return launch<T, kF8, kBlock, TO>(x);
-  if (payload == kF8 && scale_mode == kRow) return launch<T, kF8, kRow, TO>(x);
+    return launch<BM, BK, BN, kF8, kBlock, TO>(x);
+  if (payload == kF8 && scale_mode == kRow)
+    return launch<BM, BK, BN, kF8, kRow, TO>(x);
   return -1;
 }
 
-template <int T>
+template <int BM, int BK, int BN>
 int by_out(int payload, int scale_mode, int c_bf16, const Args& x) {
-  return c_bf16 ? by_mode<T, __nv_bfloat16>(payload, scale_mode, x)
-                : by_mode<T, float>(payload, scale_mode, x);
+  return c_bf16 ? by_mode<BM, BK, BN, __nv_bfloat16>(payload, scale_mode, x)
+                : by_mode<BM, BK, BN, float>(payload, scale_mode, x);
+}
+
+// each of bm, bk, bn is 32 or 64
+template <int BM, int BK>
+int by_bn(int bn, int payload, int scale_mode, int c_bf16, const Args& x) {
+  if (bn == 32) return by_out<BM, BK, 32>(payload, scale_mode, c_bf16, x);
+  if (bn == 64) return by_out<BM, BK, 64>(payload, scale_mode, c_bf16, x);
+  return -1;
+}
+
+template <int BM>
+int by_bk(int bk, int bn, int payload, int scale_mode, int c_bf16,
+          const Args& x) {
+  if (bk == 32) return by_bn<BM, 32>(bn, payload, scale_mode, c_bf16, x);
+  if (bk == 64) return by_bn<BM, 64>(bn, payload, scale_mode, c_bf16, x);
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// C (n_c_blocks, tile, tile), row-major, fp32 or bf16 = the C blocks of
-// BSR(A) @ BSR(B) under the plan's lane-major triple schedule.  A and B:
-// (n, tile, tile) contiguous, 16-byte aligned; payload 0 = fp32, 1 = int8,
-// 2 = fp8-e4m3; scale_mode 0 = none (fp32 only), 1 = one fp32 scale per
-// block, 2 = one per block row (a_scales (na, tile), b_scales (nb, tile)).
-// run_off: n_runs + 1 offsets into the schedule arrays, one run per C
-// block.  Returns 0, a cudaError_t value, or -1 for an unsupported tile,
-// payload/scale combination or device index.
+// C (n_c_blocks, bm, bn), row-major, fp32 or bf16 = the C blocks of
+// BSR(A) @ BSR(B) under the plan's lane-major triple schedule.  A (na, bm,
+// bk) and B (nb, bk, bn), each of bm, bk, bn 32 or 64: contiguous, 16-byte
+// aligned; payload 0 = fp32, 1 = int8, 2 = fp8-e4m3; scale_mode 0 = none
+// (fp32 only), 1 = one fp32 scale per block, 2 = one per block row
+// (a_scales (na, bm), b_scales (nb, bk)).  run_off: n_runs + 1 offsets into
+// the schedule arrays, one run per C block.  Returns 0, a cudaError_t
+// value, or -1 for an unsupported tile, payload/scale combination or
+// device index.
 int segment_spgemm(const void* a, const void* b, void* c,
                    const float* a_scales, const float* b_scales,
                    const int* a_idx, const int* b_idx, const int* c_idx,
                    const int* seg_start, const int* seg_write,
                    const int* accum_prev, const int* valid,
-                   const int* run_off, int n_runs, int tile, int payload,
-                   int scale_mode, int c_bf16, void* stream) {
+                   const int* run_off, int n_runs, int bm, int bk, int bn,
+                   int payload, int scale_mode, int c_bf16, void* stream) {
   const Args x{a, b, c, a_scales, b_scales, a_idx, b_idx, c_idx, seg_start,
                seg_write, accum_prev, valid, run_off, n_runs,
                static_cast<cudaStream_t>(stream)};
-  if (tile == 64) return by_out<64>(payload, scale_mode, c_bf16, x);
-  if (tile == 32) return by_out<32>(payload, scale_mode, c_bf16, x);
+  if (bm == 64) return by_bk<64>(bk, bn, payload, scale_mode, c_bf16, x);
+  if (bm == 32) return by_bk<32>(bk, bn, payload, scale_mode, c_bf16, x);
   return -1;
 }
 

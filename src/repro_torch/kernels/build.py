@@ -23,7 +23,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("segment_spmm.cu", "segment_spmm_tc.cu", "segment_spgemm.cu",
-           "flash_attention.cu", "moe_gemm.cu", "rg_lru.cu")
+           "segment_spgemm_tc.cu", "flash_attention.cu", "moe_gemm.cu",
+           "rg_lru.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
