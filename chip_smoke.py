@@ -42,7 +42,13 @@
    a wider batch, a prefill chunk and prefill over T = 256 .. 8192) that
    sets ``choose_path``'s rule;
    ``rg_lru_scan`` at RecurrentGemma-9B's width (4 x 2048 x 4096 in fp32
-   and bf16, and a decode step with h0); ``moe_apply`` at Llama-4
+   and bf16, one request's prefill 1 x 8192 x 4096, all three on the
+   ``"tile"`` path, and a decode step with h0 on ``"simt"``, each by its
+   path's own count; each case also on the other path, bit for bit equal;
+   the bound the larger of bytes, fp32 operations and the SFU operations
+   counted in the SASS), and the [rg_lru-crossover] sweep (both paths at T
+   = 1 .. 2048, B = 4, and 1 x 8192) that sets ``TILE_MIN_T``;
+   ``moe_apply`` at Llama-4
    Maverick's expert widths (128 experts, 5120 -> 8192, top-1, capacity
    1.25, bf16 x and weights) on 4096 and on 4 tokens: every launch on the
    grouped GEMM's tensor-core kernel (its own count), no host sync (one
@@ -62,7 +68,9 @@
    attention edge on each path that takes it, q/k/v of mixed dtypes and
    70,000 (batch, head) rows, dropped tokens, strided operands, the
    grouped GEMM's tensor-core path at chunk, d_in and d_out edges with
-   live-row counts and unsorted experts, calls that must raise).
+   live-row counts and unsorted experts, the RG-LRU on both paths at T, D
+   and dtype edges (fp16, mixed x/gate dtypes, D = 37, T = 37, B = T = 1),
+   calls that must raise).
 4. Kernel vs plain version: the Segment SpMM kernels on the shapes the
    main paths give them (granite-3-8b's up/gate and down FFN patterns at
    N = 4, 16, 64, B in bf16 and fp32; the training width N = 2048; a
@@ -212,11 +220,20 @@ ATTN_CROSSOVER = [("decode", 4, 1, n) for n in (512, 2048, 8192, 32768)] \
     + [("decode", 16, 1, 4096), ("chunk", 1, 64, 4096)] \
     + [("prefill", 1, n, n) for n in (256, 1024, 4096, 8192)]
 OPS_MOE_TOKENS = (4096, 4)           # Llama-4 Maverick experts, top-1
-OPS_RG_LRU_CASES = {                 # (batch, T, dtype) at d_model 4096
-    "rg_lru fp32": (4, 2048, torch.float32),
-    "rg_lru bf16": (4, 2048, torch.bfloat16),
-    "rg_lru decode": (4, 1, torch.float32),
+# RG-LRU cases at RecurrentGemma-9B's d_model 4096: (batch, T, dtype, the
+# rg_lru path choose_path must give it); the prefill of one request at the
+# local-block case's length has the bytes of the 4 x 2048 case
+OPS_RG_LRU_CASES = {
+    "rg_lru fp32": (4, 2048, torch.float32, "tile"),
+    "rg_lru bf16": (4, 2048, torch.bfloat16, "tile"),
+    "rg_lru prefill 1x8192": (1, 8192, torch.float32, "tile"),
+    "rg_lru decode": (4, 1, torch.float32, "simt"),
 }
+# [rg_lru-crossover]: every rg_lru path at these (batch, T), fp32, D = 4096
+RG_LRU_CROSSOVER = [(4, t) for t in (1, 16, 64, 256, 2048)] + [(1, 8192)]
+# the SFU's rate (H100 SXM: 16 operations a clock an SM, 132 SMs, the
+# 1.98 GHz boost clock of the fp32 peak above)
+SFU_OPS = 132 * 16 * 1.98e9
 # bf16 outputs against fp32 oracles: one bf16 rounding (2**-8 relative)
 # of each output, or of the MoE's activation between its two GEMMs
 BF16_RTOL = 1e-2
@@ -1649,62 +1666,159 @@ def ops_moe(dev, gen):
     return recs
 
 
+def lru_call(want_path, fn, label, tag="[ops]"):
+    """``fn()`` (one rg_lru or rg_lru_scan call) with every rg_lru count set
+    to 0 just before and read just after: one launch, on ``want_path``.
+    Returns the result."""
+    from repro_torch.kernels.rg_lru import PATHS, rg_lru
+    torch.cuda.synchronize()
+    rg_lru.launches = 0
+    for p in PATHS:
+        setattr(rg_lru, f"{p}_launches", 0)
+    out = fn()
+    torch.cuda.synchronize()
+    want = [1] + [int(p == want_path) for p in PATHS]
+    got = [rg_lru.launches] + [getattr(rg_lru, f"{p}_launches")
+                               for p in PATHS]
+    check(got == want, f"{tag} {label}: rg_lru launches (all, "
+                       f"{', '.join(PATHS)}) {got}, expected {want}")
+    return out
+
+
+def rg_lru_sfu_per_element():
+    """The SFU operations of one gate evaluation: the MUFU instructions of
+    ``rg_lru_gate_probe``'s SASS (cuobjdump of the built library) up to its
+    EXIT; the slow paths past it run only on special operands."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", "-fun", "rg_lru_gate_probe",
+         str(build.library_path("rg_lru.cu"))], capture_output=True,
+        text=True, check=True).stdout
+    body = sass.split("EXIT")[0]
+    n = body.count("MUFU")
+    check(n > 0 and "rg_lru_gate_probe" in sass,
+          f"no MUFU in rg_lru_gate_probe's SASS:\n{sass[:2000]}")
+    return n
+
+
+def rg_lru_bound(nbytes, elems, sfu_per_elem):
+    """The least time of one RG-LRU call: the larger of the bytes moved
+    once at 3.35 TB/s, ~20 fp32 operations an element at the fp32 peak and
+    the SFU operations at the SFU's rate.  Returns (ms, by, the three terms
+    in ms)."""
+    terms = (nbytes / HBM_BYTES_PER_S * 1e3, 20 * elems / FP32_FLOPS * 1e3,
+             sfu_per_elem * elems / SFU_OPS * 1e3)
+    return (max(terms), "bytes" if terms[0] >= max(terms[1:])
+            else "operations", terms)
+
+
 def ops_rg_lru(dev, gen):
     """``ops.rg_lru_scan`` at RecurrentGemma-9B's width (D = d_model) for
-    each case of ``OPS_RG_LRU_CASES``: one launch each, the kernel against
-    its plain version, the entry point against ``ref.rg_lru_ref`` on the
-    same values in fp32, times and the bound (no single library call
-    computes it)."""
+    each case of ``OPS_RG_LRU_CASES``: one launch each on the case's path
+    (by that path's own count), the kernel against its plain version, the
+    chosen path against the other one forced on the same inputs (bit for
+    bit: both run one gate function and the same fused step), the entry
+    point against ``ref.rg_lru_ref`` on the same values in fp32, each path's
+    time and the bound (bytes, fp32 operations and SFU operations; no
+    single library call computes it)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.rg_lru import rg_lru, rg_lru_plain
+    from repro_torch.kernels.rg_lru import (choose_path, paths_for, rg_lru,
+                                            rg_lru_plain)
     d = get_config("recurrentgemma-9b").d_model
+    sfu = rg_lru_sfu_per_element()
+    print(f"[ops] rg_lru: {sfu} SFU operations an element "
+          f"(rg_lru_gate_probe's SASS)")
     recs = []
-    for label, (b, t, dt) in OPS_RG_LRU_CASES.items():
+    for label, (b, t, dt, want_path) in OPS_RG_LRU_CASES.items():
         x, a_gate, x_gate = (torch.randn(b, t, d, generator=gen,
                                          device=dev).to(dt) for _ in range(3))
         a_param = torch.randn(d, generator=gen, device=dev)
         h0 = torch.randn(b, d, generator=gen, device=dev) if t == 1 else None
-        (out, h_t), launches = ops_call(
-            rg_lru, 1, lambda: ops.rg_lru_scan(x, a_gate, x_gate, a_param,
-                                               h0, ct=128), label)
+        check(choose_path(b, t, d, dt, dt, dt) == want_path,
+              f"[ops] {label}: choose_path gives "
+              f"{choose_path(b, t, d, dt, dt, dt)}, expected {want_path}")
+        out, h_t = lru_call(want_path, lambda: ops.rg_lru_scan(
+            x, a_gate, x_gate, a_param, h0, ct=128), label)
         check(out.dtype == dt and h_t.dtype == torch.float32
               and bool(torch.isfinite(out).all()), f"[ops] {label}: output")
         h0z = h0 if h0 is not None else torch.zeros(b, d, device=dev)
 
-        def kern():
-            return rg_lru(x, a_gate, x_gate, a_param, h0z, ct=min(128, t))
-
         def plain():
             return rg_lru_plain(x, a_gate, x_gate, a_param, h0z)
 
-        (ko, kh), (po, ph) = kern(), plain()
-        rel_plain = max(_rel(ko, po)[0], _rel(kh, ph)[0])
-        abs_plain = max(_rel(ko, po)[1], _rel(kh, ph)[1])
+        po, ph = plain()
         wo, wh = ref.rg_lru_ref(x.float(), a_gate.float(), x_gate.float(),
                                 a_param, h0)
         rel_ref = max(_rel(out, wo)[0], _rel(h_t, wh)[0])
         # a bf16 output rounds once (2**-8); h_T and fp32 outputs are fp32
         tol = KERNEL_RTOL if dt == torch.float32 else BF16_RTOL
-        check(rel_plain <= tol and rel_ref <= tol and _rel(kh, ph)[0]
-              <= KERNEL_RTOL, f"[ops] {label}: kernel vs plain "
-                              f"{rel_plain:.3g}, vs rg_lru_ref {rel_ref:.3g}")
-        # ~20 fp32 operations an element (two sigmoids, exp, sqrt, the step)
-        bound_ms, bound_by = _bound(
-            _nbytes(x, a_gate, x_gate, ko, a_param, h0z, kh), 20 * x.numel())
-        rec = dict(case=label, kernel="rg_lru", launches=launches,
-                   rel_err=rel_plain, max_abs_err=abs_plain,
-                   rel_err_ref=rel_ref, ms=scaled_device_ms(kern),
+        by_path, results = {}, {}
+        for path in paths_for(d, (dt,) * 3):
+            def kern(path=path):
+                return rg_lru(x, a_gate, x_gate, a_param, h0z,
+                              ct=min(128, t), path=path)
+
+            ko, kh = results[path] = lru_call(path, kern, f"{label} on {path}")
+            rel_o, abs_o = _rel(ko, po)
+            rel_h, abs_h = _rel(kh, ph)
+            check(rel_o <= tol and rel_h <= KERNEL_RTOL,
+                  f"[ops] {label} on {path}: kernel vs plain out {rel_o:.3g},"
+                  f" h_T {rel_h:.3g}")
+            by_path[path] = dict(ms=scaled_device_ms(kern),
+                                 rel=max(rel_o, rel_h), err=max(abs_o, abs_h))
+        (to, th), (so, sh) = results["tile"], results["simt"]
+        check(torch.equal(to, so) and torch.equal(th, sh),
+              f"[ops] {label}: tile and simt differ (out "
+              f"{_rel(to, so)[1]:.3g}, h_T {_rel(th, sh)[1]:.3g})")
+        check(rel_ref <= tol, f"[ops] {label}: rg_lru_scan vs rg_lru_ref "
+                              f"{rel_ref:.3g}")
+        bound_ms, bound_by, terms = rg_lru_bound(
+            _nbytes(x, a_gate, x_gate, po, a_param, h0z, ph), x.numel(), sfu)
+        main = by_path[want_path]
+        rec = dict(case=label, kernel="rg_lru", path=want_path,
+                   dtype=str(dt)[6:], launches=1, rel_err=main["rel"],
+                   max_abs_err=max(r["err"] for r in by_path.values()),
+                   rel_err_ref=rel_ref, ms=main["ms"],
                    plain_ms=event_ms(plain, 1), bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None,
-                   library="no single call computes it")
-        print(f"[ops] {label:<21} B={b} T={t} D={d} {str(dt)[6:]}: rel_err "
-              f"plain={rel_plain:.2e} ref={rel_ref:.2e} kernel_ms="
-              f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms="
-              f"{bound_ms:.4f} ({bound_by}); launches {launches}")
+                   library="no single call computes it", by_path=by_path)
+        times = ", ".join(f"{p} {r['ms']:.4f} ms" for p, r in by_path.items())
+        print(f"[ops] {label:<21} B={b} T={t} D={d} {str(dt)[6:]}: path "
+              f"{want_path}, launches 1; {times}; tile == simt bit for bit; "
+              f"rel_err plain={main['rel']:.2e} ref={rel_ref:.2e} plain_ms="
+              f"{rec['plain_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+              f"bytes {terms[0]:.4f}, fp32 ops {terms[1]:.4f}, SFU "
+              f"{terms[2]:.4f})")
         recs.append(rec)
-        del x, a_gate, x_gate, out, ko, po
+        del x, a_gate, x_gate, out, po, results
     return recs
+
+
+def rg_lru_crossover(dev, gen):
+    """[rg_lru-crossover]: every rg_lru path forced at the (B, T) of
+    ``RG_LRU_CROSSOVER`` (fp32, D = 4096, device times) beside what
+    ``choose_path`` picks; sets ``TILE_MIN_T``."""
+    from repro_torch.kernels.rg_lru import choose_path, paths_for, rg_lru
+    d = 4096
+    worse = 0
+    for b, t in RG_LRU_CROSSOVER:
+        x, a_gate, x_gate = (torch.randn(b, t, d, generator=gen, device=dev)
+                             for _ in range(3))
+        a_param = torch.randn(d, generator=gen, device=dev)
+        h0 = torch.randn(b, d, generator=gen, device=dev)
+        ms = {p: scaled_device_ms(lambda p=p: rg_lru(
+            x, a_gate, x_gate, a_param, h0, ct=t, path=p))
+            for p in paths_for(d)}
+        picked, best = choose_path(b, t, d), min(ms, key=ms.get)
+        worse += ms[picked] > 1.03 * ms[best]
+        print(f"[rg_lru-crossover] B={b} T={t:<5} D={d}: " + ", ".join(
+            f"{p} {v:.4f} ms" for p, v in ms.items())
+            + f"; choose_path -> {picked}, fastest {best}")
+        del x, a_gate, x_gate
+    print(f"[rg_lru-crossover] {worse} cases where choose_path's pick is "
+          f"more than 3 % slower than the fastest path")
 
 
 def phase_ops(dev):
@@ -1721,6 +1835,7 @@ def phase_ops(dev):
                            dtype=torch.bfloat16) for label in OPS_ATTN_BF16]
     attn_crossover(dev, gen)
     recs += ops_rg_lru(dev, gen)
+    rg_lru_crossover(dev, gen)
     recs += ops_moe(dev, gen)
     simt = phase_ops_edges(dev, gen)
     print(f"[ops] phase: {time.perf_counter() - t0:.1f} s")
@@ -1743,14 +1858,20 @@ def phase_ops_edges(dev, gen):
     weights and int64 expert ids; ``moe_apply`` in fp32 and bf16 with
     top-2 and dropped tokens against the same call on the CPU; the RG-LRU
     with T not a
-    multiple of its 16-step chunk and in bf16; and the calls that must
-    raise on the card (D = 12, T % ct, d_out % bn)."""
+    multiple of its tiles, in bf16, fp16 and mixed dtypes, at D = 37 and
+    B = T = 1, each on ``choose_path``'s path by its count and on every
+    path that takes it, ``"tile"`` equal to ``"simt"`` bit for bit; and
+    the calls that must raise on the card (D = 12, T % ct, d_out % bn,
+    fp64 RG-LRU operands)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (PATHS, choose_path,
                                                      flash_attention,
                                                      flash_attention_plain,
                                                      paths_for)
     from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    from repro_torch.kernels.rg_lru import PATHS as lru_paths
+    from repro_torch.kernels.rg_lru import choose_path as lru_choose
+    from repro_torch.kernels.rg_lru import paths_for as lru_paths_for
     from repro_torch.kernels.rg_lru import rg_lru, rg_lru_plain
 
     def rnd(*shape, dt=torch.float32):
@@ -1968,20 +2089,47 @@ def phase_ops_edges(dev, gen):
     else:
         raise RuntimeError("moe_gemm took d_out=768 with bn=512 on the card")
 
-    for b, t, d, dt, ct in ((2, 37, 48, torch.float32, 128),
-                            (2, 7, 40, torch.bfloat16, 128),
-                            (3, 96, 32, torch.float32, 16),
-                            (1, 40, 4096, torch.bfloat16, 8)):
-        x, ag, xg = rnd(b, t, d, dt=dt), rnd(b, t, d, dt=dt), \
-            rnd(b, t, d, dt=dt)
+    # the RG-LRU: each call on choose_path's path by that path's count, then
+    # on every path that takes it, each against the plain version and the
+    # two paths against each other bit for bit: T not a multiple of the
+    # tile's steps, bf16, D = 37 (simt only: 148-byte rows), T = 37 at D =
+    # 4096, fp16, mixed dtypes (bf16 x, fp32 a_gate, fp16 x_gate), B = 1
+    # with T = 1, a D that is not a multiple of the tile's channels
+    f16 = torch.float16
+    lru_picked = dict.fromkeys(lru_paths, 0)
+    for b, t, d, dts, ct in ((2, 37, 48, (f32,) * 3, 128),
+                             (2, 7, 40, (bf,) * 3, 128),
+                             (3, 96, 32, (f32,) * 3, 16),
+                             (1, 40, 4096, (bf,) * 3, 8),
+                             (2, 200, 37, (f32,) * 3, 8),
+                             (2, 37, 4096, (f32,) * 3, 37),
+                             (2, 300, 4096, (f16,) * 3, 100),
+                             (2, 300, 4096, (bf, f32, f16), 100),
+                             (1, 1, 4096, (f32,) * 3, 128),
+                             (3, 129, 36, (f32,) * 3, 43)):
+        x, ag, xg = (rnd(b, t, d, dt=dt) for dt in dts)
         ap, h0 = rnd(d), rnd(b, d)
-        label = f"rg_lru_scan {(b, t, d)} {dt} ct={ct}"
-        (out, h_t), _ = ops_call(rg_lru, 1, lambda: ops.rg_lru_scan(
-            x, ag, xg, ap, h0, ct=ct), label)
+        label = f"rg_lru_scan {(b, t, d)} {dts} ct={ct}"
+        path = lru_choose(b, t, d, *dts)
+        lru_picked[path] += 1
+        out, h_t = lru_call(path, lambda: ops.rg_lru_scan(
+            x, ag, xg, ap, h0, ct=ct), label, tag="[ops-edges]")
+        check(out.dtype == dts[0], f"[ops-edges] {label}: out {out.dtype}")
         po, ph = rg_lru_plain(x, ag, xg, ap, h0)
+        tol = KERNEL_RTOL if dts[0] == f32 else BF16_RTOL
         held(label + " h_T", h_t, ph)
-        held(label + " out", out, po,
-             KERNEL_RTOL if dt == torch.float32 else BF16_RTOL)
+        held(label + " out", out, po, tol)
+        forced = {}
+        for p_ in lru_paths_for(d, dts):
+            forced[p_] = lru_call(p_, lambda: rg_lru(
+                x, ag, xg, ap, h0, ct=ct, path=p_), f"{label} on {p_}",
+                tag="[ops-edges]")
+            held(f"{label} on {p_} h_T", forced[p_][1], ph)
+            held(f"{label} on {p_} out", forced[p_][0], po, tol)
+        if len(forced) == 2:
+            (to, th), (so, sh) = forced["tile"], forced["simt"]
+            check(torch.equal(to, so) and torch.equal(th, sh),
+                  f"[ops-edges] {label}: tile and simt differ")
     try:
         ops.rg_lru_scan(rnd(1, 200, 8), rnd(1, 200, 8), rnd(1, 200, 8),
                         rnd(8), ct=128)
@@ -1989,12 +2137,23 @@ def phase_ops_edges(dev, gen):
         pass
     else:
         raise RuntimeError("rg_lru took T=200 with ct=128 on the card")
+    if dev.type == "cuda":     # the plain version takes fp64
+        x64 = rnd(1, 8, 8).double()
+        try:
+            rg_lru(x64, x64, x64, rnd(8), rnd(1, 8))
+        except NotImplementedError:
+            pass
+        else:
+            raise RuntimeError("rg_lru took fp64 operands on the card")
+    print(f"[ops-edges] rg_lru: choose_path's picks {lru_picked}, every call "
+          f"also forced on each path that takes it, tile == simt bit for "
+          f"bit")
     print(f"[ops-edges] {count} checks, each call with its exact launch "
           f"count ({tc_calls} moe_gemm launches on the tensor-core kernel, "
           f"the misaligned bf16 x on the SIMT one), fp32 results within "
           f"{KERNEL_RTOL} of the plain version or the oracle (worst "
-          f"{worst:.2e}), bf16 outputs within {BF16_RTOL}; D=12, T % ct and "
-          f"d_out % bn raise")
+          f"{worst:.2e}), bf16 and fp16 outputs within {BF16_RTOL}; D=12, "
+          f"T % ct, d_out % bn and fp64 RG-LRU operands raise")
     return picked["simt"]
 
 
@@ -2642,7 +2801,11 @@ def main():
                 "granite prefill"),
                ("moe_gemm", "moe_gemm", "tensor cores (TMA + wgmma): bf16 x "
                 "and w, live_rows, fp32 out", "maverick moe T=4096"),
-               ("rg_lru", "rg_lru", "bf16", "rg_lru bf16"))
+               ("rg_lru.tile", "rg_lru", "tile (TMA-fed tiles of time steps, "
+                "gates by two warpgroups, one scan warp): fp32",
+                "rg_lru fp32"),
+               ("rg_lru.simt", "rg_lru", "simt (one thread a channel): "
+                "decode", "rg_lru decode"))
            for mine in ([r for r in ops_recs if r["kernel"] == kernel
                          and r.get("path", kernel) in name],)]
         + [entry("flash_attention.simt", "simt (one block walks all of Tk, "

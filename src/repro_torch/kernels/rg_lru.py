@@ -1,32 +1,64 @@
 """RG-LRU linear recurrence (Griffin / RecurrentGemma): fused gates and
 scan, ``h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (σ(x_gate_t) ⊙ x_t)``.
 
-Replaces ``src/repro/kernels/rg_lru.py::rg_lru`` with a CUDA kernel written
-for Hopper, ``src/repro_torch/csrc/rg_lru.cu``; the design and its bound
-are noted at the top of that source.  :func:`rg_lru` launches the kernel
-for CUDA tensors and runs :func:`rg_lru_plain` for CPU tensors.  ``ct``
-(the TPU kernel's time chunk) changes no result: it is validated as
-``repro`` validates it, so the CPU and the card accept the same calls.
+Replaces ``src/repro/kernels/rg_lru.py::rg_lru`` with CUDA kernels written
+for Hopper, ``src/repro_torch/csrc/rg_lru.cu`` (the design and its bound are
+noted at the top of that source), on two paths that :func:`choose_path`
+picks per call from the shapes:
+
+- ``"tile"``: T of :data:`TILE_MIN_T` steps or more, and a D whose rows are
+  a multiple of 16 bytes in every operand's dtype (TMA).  One block a
+  (batch row, tile of :func:`tile_channels` channels) walks T in tiles of
+  ``TILE_ELEMS // Dt`` steps: TMA loads, the gates computed by two
+  warpgroups, one scan warp that walks the steps in order.
+- ``"simt"``: the rest (decode, short T, other D): one thread a (batch
+  row, channel) carries h over all of T.
+
+Both run one gate function and the fused step ``fma(a, h, xb)`` in the
+same order, so they agree bit for bit.  :func:`rg_lru` launches the chosen
+kernel for CUDA tensors and runs :func:`rg_lru_plain` for CPU tensors.
+x, a_gate and x_gate may each be fp32, bf16 or fp16 (each is read in its
+own dtype and converted to fp32, as ``repro`` casts each); out is in x's
+dtype, h_T in fp32.  ``ct`` (the TPU kernel's time chunk) changes no
+result: it is validated as ``repro`` validates it, so the CPU and the
+card accept the same calls.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
+from .flash_attention import _aligned, _sms
 from .ref import softplus
 
 _SOURCE = "rg_lru.cu"
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PATH_CODE = {"simt": 0, "tile": 1}
+
+#: the CUDA paths, in the order :func:`choose_path` prefers them
+PATHS = ("tile", "simt")
+#: the card's streaming multiprocessors (H100 SXM), the default of the
+#: dispatch functions; the wrapper passes the device's own count
+SMS = 132
+#: elements of one ``"tile"`` tile: L time steps x Dt channels
+TILE_ELEMS = 1024
+#: ``"tile"`` takes calls of at least this many steps (set by chip_smoke.py's
+#: [rg_lru-crossover] sweep: at B = 4, D = 4096 ``"simt"`` won at T = 1,
+#: 0.0024 against 0.0051 ms, and ``"tile"`` from T = 16, 0.0052 against
+#: 0.0054 ms)
+TILE_MIN_T = 16
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rg_lru.argtypes = [p] * 7 + [i] * 3 + [ctypes.c_float, i, p]
+        lib.rg_lru.argtypes = [p] * 7 + [i] * 3 + [ctypes.c_float] + \
+            [i] * 5 + [p]
         lib.rg_lru.restype = i
         lib.rg_lru_error_string.argtypes = [i]
         lib.rg_lru_error_string.restype = ctypes.c_char_p
@@ -34,15 +66,53 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def tile_channels(b: int, d: int, sms: int = SMS) -> int:
+    """Dt, the channels of one ``"tile"`` block: 32 where the grid of (batch
+    row, channel tile) blocks still holds twice as many blocks as SMs, else
+    16 (a single request at D = 4096: 256 blocks)."""
+    return 32 if b * -(-d // 32) >= 2 * sms else 16
+
+
+def paths_for(d: int, dtypes=()) -> tuple:
+    """The CUDA paths that can take a call, in :data:`PATHS` order; empty
+    when an operand dtype is not fp32, bf16 or fp16.  ``"tile"`` needs rows
+    of D elements that are a multiple of 16 bytes in each of ``dtypes``
+    (x, a_gate, x_gate; out takes x's): TMA's row stride."""
+    if any(dt not in _DTYPES for dt in dtypes):
+        return ()
+    tile = all(d * dt.itemsize % 16 == 0 for dt in dtypes)
+    return ("tile", "simt") if tile else ("simt",)
+
+
+def choose_path(b: int, t: int, d: int, x_dtype=torch.float32,
+                a_dtype=torch.float32, g_dtype=torch.float32
+                ) -> Optional[str]:
+    """The kernel a CUDA call runs on (``None`` when no path takes it):
+    ``"tile"`` from :data:`TILE_MIN_T` steps where TMA can read the rows,
+    else ``"simt"``.  A plain function of the shapes (the dtypes decide
+    only whether a path can take the call)."""
+    able = paths_for(d, (x_dtype, a_dtype, g_dtype))
+    if not able:
+        return None
+    return "tile" if "tile" in able and t >= TILE_MIN_T else "simt"
+
+
+def rg_lru_gates(x, a_gate, x_gate, neg_c_sp):
+    """The gate function on fp32 values: ``(a, xb)`` with ``a = exp(neg_c_sp
+    * σ(a_gate))`` and ``xb = sqrt(max(1 - a², 1e-12)) * (σ(x_gate) * x)``;
+    ``neg_c_sp`` is ``-c * softplus(a_param)`` per channel."""
+    a = torch.exp(neg_c_sp * torch.sigmoid(a_gate))
+    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    return a, beta * (torch.sigmoid(x_gate) * x)
+
+
 def rg_lru_plain(x, a_gate, x_gate, a_param, h0, *, c: float = 8.0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain torch version, in its order of operations: every
+    """The kernels' plain torch version, in their order of operations: every
     input to fp32 first, the gates for all steps at once, then one step of
     the recurrence per time step.  Returns ``(out in x's dtype, h_T fp32)``."""
     neg_c_sp = -c * softplus(a_param.float())
-    a = torch.exp(neg_c_sp * torch.sigmoid(a_gate.float()))
-    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
-    xb = beta * (torch.sigmoid(x_gate.float()) * x.float())
+    a, xb = rg_lru_gates(x.float(), a_gate.float(), x_gate.float(), neg_c_sp)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     h = h0.float()
     for t in range(x.shape[1]):
@@ -51,35 +121,37 @@ def rg_lru_plain(x, a_gate, x_gate, a_param, h0, *, c: float = 8.0
     return out, h
 
 
-def rg_lru(x, a_gate, x_gate, a_param, h0, *, ct: int = 128, c: float = 8.0
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def rg_lru(x, a_gate, x_gate, a_param, h0, *, ct: int = 128, c: float = 8.0,
+           path: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x/a_gate/x_gate: (B, T, D); a_param: (D,); h0: (B, D).
 
     Returns ``(out (B, T, D) in x's dtype, h_T (B, D) fp32)``.  Raises
     ``repro``'s ``ValueError`` when T is not a multiple of ``min(ct, T)``.
+    ``path`` forces one of :func:`paths_for`'s paths on the card (checked on
+    every device; the CPU runs the plain version whatever the path);
+    ``None`` takes :func:`choose_path`'s.
     """
     b, t, d = x.shape
     ct = min(ct, t)
     if t % ct:
         raise ValueError(f"sequence length T={t} must be a multiple of the "
                          f"chunk length ct={ct}")
+    if path is not None:
+        able = paths_for(d, (x.dtype, a_gate.dtype, x_gate.dtype))
+        if path not in able:
+            raise ValueError(f"rg_lru: path={path!r} cannot take this call; "
+                             f"paths that can: {able}")
     device = x.device
     if device.type == "cpu":
         return rg_lru_plain(x, a_gate, x_gate, a_param, h0, c=c)
     if device.type != "cuda":
         raise ValueError(f"rg_lru runs on cuda or cpu tensors, got {device}")
-    return _launch(x, a_gate, x_gate, a_param, h0, c)
+    return _launch(x, a_gate, x_gate, a_param, h0, c, path)
 
 
-def _launch(x, a_gate, x_gate, a_param, h0, c):
+def _launch(x, a_gate, x_gate, a_param, h0, c, path):
     b, t, d = x.shape
     device = x.device
-    if x.dtype not in _DTYPES or a_gate.dtype != x.dtype \
-            or x_gate.dtype != x.dtype:
-        raise NotImplementedError(
-            f"rg_lru: the CUDA kernel takes x, a_gate and x_gate of one "
-            f"dtype out of {_DTYPES}, got {x.dtype}, {a_gate.dtype}, "
-            f"{x_gate.dtype}")
     for name, ten, shape in (("a_gate", a_gate, (b, t, d)),
                              ("x_gate", x_gate, (b, t, d)),
                              ("a_param", a_param, (d,)), ("h0", h0, (b, d))):
@@ -89,25 +161,39 @@ def _launch(x, a_gate, x_gate, a_param, h0, c):
         if ten.device != device:
             raise ValueError(f"rg_lru: all operands must be on {device}, "
                              f"got {name} on {ten.device}")
-    # the small per-channel and per-row operands in fp32 (B*D + D values)
+    if path is None:
+        path = choose_path(b, t, d, x.dtype, a_gate.dtype, x_gate.dtype)
+    if path is None:
+        raise NotImplementedError(
+            f"rg_lru: the CUDA kernels take x, a_gate and x_gate each in one "
+            f"of {_DTYPES}, got {x.dtype}, {a_gate.dtype}, {x_gate.dtype}")
+    # the small per-channel and per-row operands in fp32 (B*D + D values);
+    # the (B, T, D) operands contiguous, and 16-byte aligned for TMA (an
+    # offset view is copied, as on the CPU any layout is taken)
     a_param = a_param.float().contiguous()
     h0 = h0.float().contiguous()
-    x, a_gate, x_gate = (v.contiguous() for v in (x, a_gate, x_gate))
+    x, a_gate, x_gate = (_aligned(v) for v in (x, a_gate, x_gate))
     out = torch.empty_like(x)
     h_t = torch.empty((b, d), dtype=torch.float32, device=device)
+    dt = tile_channels(b, d, _sms(device)) if path == "tile" else 0
     lib = _lib()
     rc = lib.rg_lru(x.data_ptr(), a_gate.data_ptr(), x_gate.data_ptr(),
                     a_param.data_ptr(), h0.data_ptr(), out.data_ptr(),
-                    h_t.data_ptr(), b, t, d, float(c),
-                    int(x.dtype == torch.bfloat16),
+                    h_t.data_ptr(), b, t, d, float(c), _DTYPE_CODE[x.dtype],
+                    _DTYPE_CODE[a_gate.dtype], _DTYPE_CODE[x_gate.dtype],
+                    _PATH_CODE[path], dt,
                     torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"rg_lru launch failed: "
+        raise RuntimeError(f"rg_lru launch failed on {path}: "
                            f"{lib.rg_lru_error_string(rc).decode()}")
     rg_lru.launches += 1
+    setattr(rg_lru, f"{path}_launches",
+            getattr(rg_lru, f"{path}_launches") + 1)
     return out, h_t
 
 
-#: Kernel launches since the count was last set to 0 (only :func:`rg_lru`
-#: on CUDA tensors adds to it).
+#: Kernel launches since the count was last set to 0, all and per path
+#: (only :func:`rg_lru` on CUDA tensors adds to them).
 rg_lru.launches = 0
+rg_lru.tile_launches = 0
+rg_lru.simt_launches = 0
