@@ -134,11 +134,31 @@
    tokens/s; the kernel's launch count must be 3 projections × 40 layers ×
    (2 forward with remat + 1 transposed) per step, all on the tensor-core
    path), and one step is profiled.
+9. Hybrid ([hybrid], after granite-3-8b, its engines and its optimizer
+   state are freed): RecurrentGemma-9B at full published width (38
+   layers: 26 RG-LRU blocks with a dense SwiGLU, 12 local-attention blocks,
+   window 2048, with the block-sparse FFN; bf16 activations, random
+   weights from ``SEED``).  ``Engine(slots=4, max_len=256)`` on the serve
+   phase's request mix, prefilled one token at a time (``prefill_buckets
+   == (1,)``): per model call exactly 26 ``rg_lru`` launches, all on
+   ``simt``, 3 x 12 SpMM launches, all on the split path, and no
+   ``flash_attention`` (the ring cache's attention is torch); a decode
+   step's logits on ``"cuda"`` vs ``"reference"`` (≤ ``LOGIT_RTOL``), a
+   profiled decode step, 32 steady 4-slot steps.  ``rg_lru`` at the
+   model's (4, 1, 4096) and (1, 4096, 4096) bf16 calls on both paths and
+   ``flash_attention`` at its local blocks' 1 x 4096 bf16 forward call
+   on every path, against their plain versions and timed.  ``forward`` on
+   1 x 4096 tokens (twice the window): exactly 26 ``rg_lru`` on ``tile``,
+   12 ``flash_attention`` on ``tc``, 36 SpMM on the tensor cores; its time
+   and peak memory.  Last, the logits of ``forward`` over 64 tokens
+   against 64 ``decode_step`` calls over the same tokens (≤
+   ``LOGIT_RTOL``): the forward kernels against the decode ones and the
+   ring cache.
 
 Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
-the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``)
-builds no model.
+the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``, or
+``hybrid``) builds no granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -228,6 +248,18 @@ OPS_RG_LRU_CASES = {
     "rg_lru bf16": (4, 2048, torch.bfloat16, "tile"),
     "rg_lru prefill 1x8192": (1, 8192, torch.float32, "tile"),
     "rg_lru decode": (4, 1, torch.float32, "simt"),
+}
+# [hybrid]: RecurrentGemma-9B at full width, served and scored.  The rg_lru
+# calls its model makes (bf16 operands at D = 4096): a 4-slot decode step on
+# "simt" and the 1 x HYBRID_FORWARD_T forward on "tile"; flash_attention at
+# its local blocks' forward call; the forward over twice the window, so the
+# window mask bites, and the forward-vs-stepwise cache check over
+# HYBRID_CACHE_T tokens
+HYBRID_FORWARD_T = 4096
+HYBRID_CACHE_T = 64
+HYBRID_RG_LRU_CASES = {
+    "rg_lru decode": (4, 1, torch.bfloat16, "simt"),
+    "rg_lru forward": (1, HYBRID_FORWARD_T, torch.bfloat16, "tile"),
 }
 # [rg_lru-crossover]: every rg_lru path at these (batch, T), fp32, D = 4096
 RG_LRU_CROSSOVER = [(4, t) for t in (1, 16, 64, 256, 2048)] + [(1, 8192)]
@@ -1362,7 +1394,7 @@ def attn_bound(path, nbytes, pairs, d, q_dtype, k_dtype, v_dtype):
 
 
 def ops_attention(label, cfg_name, b, tq, tk, window, want_path, dev, gen,
-                  dtype=torch.float32):
+                  dtype=torch.float32, prefix="[ops]"):
     """One attention case through ``ops.flash_mha`` (q/k/v of ``dtype`` at
     the config's head layout, causal): one launch, on ``want_path`` (by
     that path's own count), and for the fp32 cases of
@@ -1385,22 +1417,23 @@ def ops_attention(label, cfg_name, b, tq, tk, window, want_path, dev, gen,
     v = (torch.randn(b, tk, hkv, d, generator=gen, device=dev) * 0.5).to(dtype)
     tag = f"{label} {str(dtype).replace('torch.', '')}"
     out = attn_call(want_path, lambda: ops.flash_mha(
-        q, k, v, causal=True, window=win), tag)
+        q, k, v, causal=True, window=win), tag, prefix)
     launches = 1
     if dtype == torch.float32 and label in OPS_ATTN_SYNC_FREE:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             attn_call(want_path, lambda: ops.flash_mha(
-                q, k, v, causal=True, window=win), tag + " (sync-free)")
+                q, k, v, causal=True, window=win), tag + " (sync-free)",
+                prefix)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         launches += 1
     check(out.shape == q.shape and out.dtype == q.dtype
-          and bool(torch.isfinite(out).all()), f"[ops] {tag}: output")
+          and bool(torch.isfinite(out).all()), f"{prefix} {tag}: output")
     rel_ref, _ = _rel(out, ref.mha_ref(q, k, v, causal=True, window=win))
     ref_tol = KERNEL_RTOL if dtype == torch.float32 else BF16_RTOL
-    check(rel_ref <= ref_tol, f"[ops] {tag}: flash_mha vs mha_ref "
+    check(rel_ref <= ref_tol, f"{prefix} {tag}: flash_mha vs mha_ref "
                               f"{rel_ref:.3g} > {ref_tol}")
     qh, kh, vh, kw = ops.stack_heads(q, k, v)
 
@@ -1420,10 +1453,10 @@ def ops_attention(label, cfg_name, b, tq, tk, window, want_path, dev, gen,
             return flash_attention(qh, kh, vh, causal=True, window=win,
                                    out_dtype=out_dtype, path=path, **kw)
         got = attn_call(path, lambda: kern(out_dtype=torch.float32),
-                        f"{tag} on {path}")
+                        f"{tag} on {path}", prefix)
         rel, diff = _rel(got, want)
         del got
-        check(rel <= KERNEL_RTOL, f"[ops] {tag} on {path}: kernel vs plain "
+        check(rel <= KERNEL_RTOL, f"{prefix} {tag} on {path}: kernel vs plain "
                                   f"{rel:.3g} > {KERNEL_RTOL}")
         bound_ms, bound_by = attn_bound(path, _nbytes(q, k, v, out), pairs, d,
                                         dtype, dtype, dtype)
@@ -1458,7 +1491,7 @@ def ops_attention(label, cfg_name, b, tq, tk, window, want_path, dev, gen,
     times = ", ".join(f"{p} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
                       f"{r['bound_by']}; err {r['rel_err']:.2e})"
                       for p, r in by_path.items())
-    print(f"[ops] {tag:<26} B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv} D={d} "
+    print(f"{prefix} {tag:<26} B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv} D={d} "
           f"window={win}: path {want_path}, launches {launches}; {times}; "
           f"flash_mha vs mha_ref {rel_ref:.2e}; plain_ms="
           f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
@@ -1713,9 +1746,9 @@ def rg_lru_bound(nbytes, elems, sfu_per_elem):
             else "operations", terms)
 
 
-def ops_rg_lru(dev, gen):
+def ops_rg_lru(dev, gen, cases=OPS_RG_LRU_CASES, tag="[ops]"):
     """``ops.rg_lru_scan`` at RecurrentGemma-9B's width (D = d_model) for
-    each case of ``OPS_RG_LRU_CASES``: one launch each on the case's path
+    each case of ``cases``: one launch each on the case's path
     (by that path's own count), the kernel against its plain version, the
     chosen path against the other one forced on the same inputs (bit for
     bit: both run one gate function and the same fused step), the entry
@@ -1728,21 +1761,21 @@ def ops_rg_lru(dev, gen):
                                             rg_lru_plain)
     d = get_config("recurrentgemma-9b").d_model
     sfu = rg_lru_sfu_per_element()
-    print(f"[ops] rg_lru: {sfu} SFU operations an element "
+    print(f"{tag} rg_lru: {sfu} SFU operations an element "
           f"(rg_lru_gate_probe's SASS)")
     recs = []
-    for label, (b, t, dt, want_path) in OPS_RG_LRU_CASES.items():
+    for label, (b, t, dt, want_path) in cases.items():
         x, a_gate, x_gate = (torch.randn(b, t, d, generator=gen,
                                          device=dev).to(dt) for _ in range(3))
         a_param = torch.randn(d, generator=gen, device=dev)
         h0 = torch.randn(b, d, generator=gen, device=dev) if t == 1 else None
         check(choose_path(b, t, d, dt, dt, dt) == want_path,
-              f"[ops] {label}: choose_path gives "
+              f"{tag} {label}: choose_path gives "
               f"{choose_path(b, t, d, dt, dt, dt)}, expected {want_path}")
         out, h_t = lru_call(want_path, lambda: ops.rg_lru_scan(
-            x, a_gate, x_gate, a_param, h0, ct=128), label)
+            x, a_gate, x_gate, a_param, h0, ct=128), label, tag)
         check(out.dtype == dt and h_t.dtype == torch.float32
-              and bool(torch.isfinite(out).all()), f"[ops] {label}: output")
+              and bool(torch.isfinite(out).all()), f"{tag} {label}: output")
         h0z = h0 if h0 is not None else torch.zeros(b, d, device=dev)
 
         def plain():
@@ -1760,19 +1793,20 @@ def ops_rg_lru(dev, gen):
                 return rg_lru(x, a_gate, x_gate, a_param, h0z,
                               ct=min(128, t), path=path)
 
-            ko, kh = results[path] = lru_call(path, kern, f"{label} on {path}")
+            ko, kh = results[path] = lru_call(path, kern, f"{label} on {path}",
+                                              tag)
             rel_o, abs_o = _rel(ko, po)
             rel_h, abs_h = _rel(kh, ph)
             check(rel_o <= tol and rel_h <= KERNEL_RTOL,
-                  f"[ops] {label} on {path}: kernel vs plain out {rel_o:.3g},"
+                  f"{tag} {label} on {path}: kernel vs plain out {rel_o:.3g},"
                   f" h_T {rel_h:.3g}")
             by_path[path] = dict(ms=scaled_device_ms(kern),
                                  rel=max(rel_o, rel_h), err=max(abs_o, abs_h))
         (to, th), (so, sh) = results["tile"], results["simt"]
         check(torch.equal(to, so) and torch.equal(th, sh),
-              f"[ops] {label}: tile and simt differ (out "
+              f"{tag} {label}: tile and simt differ (out "
               f"{_rel(to, so)[1]:.3g}, h_T {_rel(th, sh)[1]:.3g})")
-        check(rel_ref <= tol, f"[ops] {label}: rg_lru_scan vs rg_lru_ref "
+        check(rel_ref <= tol, f"{tag} {label}: rg_lru_scan vs rg_lru_ref "
                               f"{rel_ref:.3g}")
         bound_ms, bound_by, terms = rg_lru_bound(
             _nbytes(x, a_gate, x_gate, po, a_param, h0z, ph), x.numel(), sfu)
@@ -1785,7 +1819,7 @@ def ops_rg_lru(dev, gen):
                    bound_by=bound_by, library_ms=None,
                    library="no single call computes it", by_path=by_path)
         times = ", ".join(f"{p} {r['ms']:.4f} ms" for p, r in by_path.items())
-        print(f"[ops] {label:<21} B={b} T={t} D={d} {str(dt)[6:]}: path "
+        print(f"{tag} {label:<21} B={b} T={t} D={d} {str(dt)[6:]}: path "
               f"{want_path}, launches 1; {times}; tile == simt bit for bit; "
               f"rel_err plain={main['rel']:.2e} ref={rel_ref:.2e} plain_ms="
               f"{rec['plain_ms']:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
@@ -2223,6 +2257,13 @@ def phase_profile(model, engine, dev, label="decode step"):
                             lambda: model.decode_step(cache, tok, pos))
 
 
+def sparse_layers(model):
+    """The layers whose FFN is block-sparse (each runs 3 SpMM launches a
+    model call): all of granite's, the local ones of the hybrid."""
+    from repro_torch.models import SparseMLP
+    return sum(isinstance(blk.mlp, SparseMLP) for blk in model.layers)
+
+
 def steady_decode(model, rng, slots=4, steps=32, tag="steady"):
     """Decode with every slot live: ``slots`` equal requests are admitted
     (prefill, not timed), then ``steps`` batched decode steps are timed
@@ -2231,6 +2272,7 @@ def steady_decode(model, rng, slots=4, steps=32, tag="steady"):
     which must be the same in every step."""
     from repro_torch.kernels.segment_spmm import segment_spmm
     from repro_torch.runtime import Engine, Request
+    n_sparse = sparse_layers(model)
 
     engine = Engine(model, slots=slots, max_len=256, prefill_buckets=(64, 16))
     for _ in range(slots):
@@ -2248,8 +2290,9 @@ def steady_decode(model, rng, slots=4, steps=32, tag="steady"):
     per_step = (segment_spmm.launches / steps,
                 segment_spmm.quantized_launches / steps,
                 segment_spmm.split_launches / steps)
-    check(per_step[0] == 3 * model.cfg.n_layers,
-          f"{tag}: {per_step[0]} launches per decode step")
+    check(per_step[0] == 3 * n_sparse,
+          f"{tag}: {per_step[0]} launches per decode step, expected 3 x "
+          f"{n_sparse}")
     check(per_step[2] == per_step[0],
           f"{tag}: {per_step[2]} of {per_step[0]} launches per decode step "
           f"on the split path")
@@ -2265,12 +2308,12 @@ def steady_decode(model, rng, slots=4, steps=32, tag="steady"):
 def serve_mix(engine, prompts, tag):
     """The smoke's request mix through ``engine``, prefill and decode timed
     apart; every request must get its 8 tokens and the kernel's launch
-    count must be 3 projections × layers × model calls.  Returns the
-    requests and the launch counts (all, quantized)."""
+    count must be 3 projections × sparse-FFN layers × model calls.
+    Returns the requests and the launch counts (all, quantized, split)."""
     from repro_torch.kernels.segment_spmm import segment_spmm
     from repro_torch.runtime import Request
 
-    cfg = engine.model.cfg
+    n_sparse = sparse_layers(engine.model)
     reqs = [Request(prompt=p.copy(), max_new_tokens=8) for p in prompts]
     for r in reqs:
         engine.submit(r)
@@ -2304,10 +2347,10 @@ def serve_mix(engine, prompts, tag):
     for r in reqs:
         check(r.out_tokens is not None and r.out_tokens.size == 8,
               f"{tag}: request {r.rid} got {r.out_tokens}")
-    want = 3 * cfg.n_layers * calls
+    want = 3 * n_sparse * calls
     check(launches == want, f"{tag}: kernel launches {launches} != 3 x "
-                            f"{cfg.n_layers} x {calls} model calls")
-    check(decode_split == decode_launches == 3 * cfg.n_layers
+                            f"{n_sparse} x {calls} model calls")
+    check(decode_split == decode_launches == 3 * n_sparse
           * engine.decode_calls, f"{tag}: {decode_split} of "
                                  f"{decode_launches} decode launches on the "
                                  f"split path")
@@ -2316,7 +2359,7 @@ def serve_mix(engine, prompts, tag):
           f"{decode_tokens} decoded; model calls {calls} "
           f"({engine.prefill_calls} prefill chunks, {engine.decode_calls} "
           f"decode steps); segment_spmm launches {launches} == 3 x "
-          f"{cfg.n_layers} x {calls} ({quantized} quantized; paths: "
+          f"{n_sparse} x {calls} ({quantized} quantized; paths: "
           f"{split} split, all {decode_launches} of the decode steps among "
           f"them, {tc} tensor cores, {launches - split - tc} simt); step "
           f"shapes {engine.compiled_shapes}")
@@ -2618,10 +2661,164 @@ def phase_train(model, dev):
     return launches, transposed
 
 
+def _zero_counts():
+    """Every launch count of the hybrid's three kernels set to 0."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rg_lru import rg_lru
+    from repro_torch.kernels.segment_spmm import segment_spmm
+    torch.cuda.synchronize()
+    for kernel, names in ((rg_lru, ("launches", "tile_launches",
+                                    "simt_launches")),
+                          (flash_attention, ("launches", "splitkv_launches",
+                                             "tc_launches", "simt_launches")),
+                          (segment_spmm, ("launches", "split_launches",
+                                          "tensor_core_launches",
+                                          "quantized_launches"))):
+        for n in names:
+            setattr(kernel, n, 0)
+
+
+def _counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rg_lru import rg_lru
+    from repro_torch.kernels.segment_spmm import segment_spmm
+    torch.cuda.synchronize()
+    return dict(rg_lru=rg_lru.launches, rg_lru_tile=rg_lru.tile_launches,
+                rg_lru_simt=rg_lru.simt_launches,
+                flash=flash_attention.launches,
+                flash_tc=flash_attention.tc_launches,
+                spmm=segment_spmm.launches,
+                spmm_split=segment_spmm.split_launches,
+                spmm_tc=segment_spmm.tensor_core_launches)
+
+
+def phase_hybrid(dev):
+    """[hybrid]: RecurrentGemma-9B at full published width (38 layers: 26
+    RG-LRU blocks with dense SwiGLU, 12 local-attention blocks with the
+    block-sparse FFN; bf16 activations, random weights from ``SEED``).
+    Serves the smoke's request mix (every RG-LRU launch on ``simt``, every
+    SpMM launch on the split path, no flash_attention), holds a decode
+    step's logits against the reference backend, profiles one, times 32
+    steady 4-slot steps; holds rg_lru and flash_attention against their
+    plain versions at the shapes the model gives them; runs ``forward`` on
+    1 x ``HYBRID_FORWARD_T`` tokens (``tile``, ``tc``, tensor-core SpMM);
+    checks forward against stepwise decode over ``HYBRID_CACHE_T`` tokens.
+    Returns the launch counts and the kernel records."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Engine, Request
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              ffn_block_sparse=True, ffn_block=64,
+                              ffn_density=0.25, dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    kinds = model.layer_kinds
+    n_rec, n_local = kinds.count("rec"), kinds.count("local")
+    n_sparse = sparse_layers(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[hybrid] {cfg.name} full width: {cfg.n_layers} layers ({n_rec} "
+          f"rec, {n_local} local, window {cfg.local_window}), d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads / {cfg.n_kv} "
+          f"KV, head_dim {cfg.hd}, vocab {cfg.vocab}; {n_sparse} sparse "
+          f"FFNs; {n_params / 1e9:.3f} B fp32 params; built and planned in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(n_sparse == n_local, f"[hybrid] {n_sparse} sparse FFNs")
+
+    # 1. serving: one token a prefill call (recurrent state), the ring cache
+    rng = np.random.default_rng(SEED)
+    Engine(model, slots=4, max_len=256).generate(
+        [Request(prompt=rng.integers(0, cfg.vocab, 4), max_new_tokens=2)])
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(5, 61)))
+               for _ in range(6)]
+    engine = Engine(model, slots=4, max_len=256)
+    check(engine.prefill_buckets == (1,),
+          f"[hybrid] prefill buckets {engine.prefill_buckets}")
+    _zero_counts()
+    _, spmm, _, split = serve_mix(engine, prompts, "hybrid serve")
+    got = _counts()
+    calls = engine.decode_calls + engine.prefill_calls
+    check(got["rg_lru"] == got["rg_lru_simt"] == n_rec * calls
+          and got["flash"] == 0 and split == spmm == 3 * n_sparse * calls,
+          f"[hybrid serve] launches {got}, expected rg_lru {n_rec} x {calls} "
+          f"all on simt, segment_spmm 3 x {n_sparse} x {calls} all split, "
+          f"no flash_attention")
+    serve_lru = got["rg_lru"]
+    print(f"[hybrid serve] rg_lru launches {serve_lru} == {n_rec} x {calls} "
+          f"model calls, all on simt; flash_attention none (the ring cache's "
+          f"attention is torch)")
+    decode_logits_check(model, engine, dev, rng, "hybrid serve")
+    idle = phase_profile(model, engine, dev, label="hybrid decode step")
+    del engine
+    med, _ = steady_decode(model, rng, tag="hybrid steady")
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # 2. the kernels against their plain versions at the model's shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    recs = ops_rg_lru(dev, gen, HYBRID_RG_LRU_CASES, tag="[hybrid]")
+    recs.append(ops_attention(
+        "local forward", "recurrentgemma-9b", 1, HYBRID_FORWARD_T,
+        HYBRID_FORWARD_T, "local", "tc", dev, gen, dtype=torch.bfloat16,
+        prefix="[hybrid]"))
+
+    # 3. forward over twice the window
+    tokens = torch.randint(0, cfg.vocab, (1, HYBRID_FORWARD_T),
+                           generator=gen, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with torch.inference_mode():
+        logits = model(tokens)
+        fwd = _counts()
+        check(fwd["rg_lru"] == fwd["rg_lru_tile"] == n_rec
+              and fwd["flash"] == fwd["flash_tc"] == n_local
+              and fwd["spmm"] == fwd["spmm_tc"] == 3 * n_sparse,
+              f"[hybrid forward] launches {fwd}, expected rg_lru {n_rec} on "
+              f"tile, flash_attention {n_local} on tc, segment_spmm "
+              f"{3 * n_sparse} on tc")
+        check(logits.shape == (1, HYBRID_FORWARD_T, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"[hybrid forward] logits {tuple(logits.shape)}")
+        del logits
+        fwd_ms = event_ms(lambda: model(tokens), n=2)
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[hybrid forward] 1 x {HYBRID_FORWARD_T} tokens: launches rg_lru "
+          f"{fwd['rg_lru']} (tile), flash_attention {fwd['flash']} (tc), "
+          f"segment_spmm {fwd['spmm']} (tc); {fwd_ms:.2f} ms a forward (CUDA "
+          f"events, {HYBRID_FORWARD_T * 1e3 / fwd_ms:.0f} tokens/s); peak "
+          f"{fwd_peak:.2f} GiB")
+
+    # 4. the caches: forward's last logits vs stepwise decode
+    prompt = tokens[:, :HYBRID_CACHE_T]
+    with torch.inference_mode():
+        want = model(prompt)[0, -1].float()
+        cache = model.init_cache(1, HYBRID_CACHE_T)
+        for i in range(HYBRID_CACHE_T):
+            step, _ = model.decode_step(cache, prompt[:, i:i + 1], i)
+    got_l = step[0].float()
+    rel = float((got_l - want).abs().max() / want.abs().max())
+    top1 = int(got_l.argmax()) == int(want.argmax())
+    print(f"[hybrid cache] forward (tile, flash_attention) vs "
+          f"{HYBRID_CACHE_T} decode steps (simt, ring attention) at the last "
+          f"position: rel_err {rel:.3e} (tol {LOGIT_RTOL}), same top-1 "
+          f"{top1}")
+    check(rel <= LOGIT_RTOL, f"[hybrid cache] rel err {rel} > {LOGIT_RTOL}")
+    print(f"[hybrid] summary: steady {med:.2f} ms/step, device idle share "
+          f"{idle:.3f}, serving peak {serve_peak:.2f} GiB; forward "
+          f"{fwd_ms:.2f} ms, peak {fwd_peak:.2f} GiB")
+    return serve_lru, fwd, recs
+
+
 PHASES = ("spgemm", "ops", "kernel", "crossover", "edges", "serve",
-          "qkernel", "qserve", "qgrad", "train")
-# the phases that need granite-3-8b built (``--only spgemm,ops`` skips it)
-MODEL_PHASES = PHASES[2:]
+          "qkernel", "qserve", "qgrad", "train", "hybrid")
+# the phases that need granite-3-8b built (``--only spgemm,ops`` or
+# ``--only hybrid`` skips it)
+GRANITE_PHASES = PHASES[2:-1]
 
 
 def main():
@@ -2640,6 +2837,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.api import clear_plan_cache
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -2658,45 +2856,51 @@ def main():
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()   # [memory] reads the model's peak
 
-    if not set(only) & set(MODEL_PHASES):
-        print(f"chip_smoke: phases {only} passed")
-        return
-    cfg = dataclasses.replace(get_config("granite-3-8b"),
-                              ffn_block_sparse=True, ffn_block=64,
-                              ffn_density=0.25, dtype="bfloat16")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=dev)
-    model.init(torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[model] {cfg.name} full width: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded "
-          f"{cfg.padded_vocab}); {n_params / 1e9:.3f} B fp32 params; built "
-          f"and planned in {time.perf_counter() - t0:.1f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if set(only) & set(GRANITE_PHASES):
+        cfg = dataclasses.replace(get_config("granite-3-8b"),
+                                  ffn_block_sparse=True, ffn_block=64,
+                                  ffn_density=0.25, dtype="bfloat16")
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[model] {cfg.name} full width: {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+              f"(padded {cfg.padded_vocab}); {n_params / 1e9:.3f} B fp32 "
+              f"params; built and planned in {time.perf_counter() - t0:.1f} "
+              f"s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
-    if "kernel" in only or "crossover" in only:
-        recs, plans = phase_kernels(model, dev)
-        if "crossover" in only:
-            phase_crossover(plans, dev)
-        del plans
-    if "edges" in only:
-        simt_launches = phase_edges(dev)
-    if "serve" in only:
-        launches, split, prompts, fp32_tokens = phase_serve(model, dev)
-        print(f"[memory] peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-              f" GiB")
-    if "qkernel" in only:
-        qrecs = phase_qkernel(model, dev)
-    if "qserve" in only and "serve" in only:
-        q_launches, q_split, _ = phase_qserve(model, dev, prompts,
-                                              fp32_tokens)
-    if "qgrad" in only:
-        qt_launches = phase_qgrad(model, dev)
-    gc.collect()                     # the serving engines and their caches
-    torch.cuda.empty_cache()
-    if "train" in only:
-        train_launches, transposed = phase_train(model, dev)
+        if "kernel" in only or "crossover" in only:
+            recs, plans = phase_kernels(model, dev)
+            if "crossover" in only:
+                phase_crossover(plans, dev)
+            del plans
+        if "edges" in only:
+            simt_launches = phase_edges(dev)
+        if "serve" in only:
+            launches, split, prompts, fp32_tokens = phase_serve(model, dev)
+            print(f"[memory] peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if "qkernel" in only:
+            qrecs = phase_qkernel(model, dev)
+        if "qserve" in only and "serve" in only:
+            q_launches, q_split, _ = phase_qserve(model, dev, prompts,
+                                                  fp32_tokens)
+        if "qgrad" in only:
+            qt_launches = phase_qgrad(model, dev)
+        gc.collect()                 # the serving engines and their caches
+        torch.cuda.empty_cache()
+        if "train" in only:
+            train_launches, transposed = phase_train(model, dev)
+        # granite's weights, its plans and the trainer's state before the
+        # hybrid's 32 GB of parameters
+        del model
+        clear_plan_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "hybrid" in only:
+        hybrid_lru, hybrid_fwd, hybrid_recs = phase_hybrid(dev)
     if not full:
         print(f"chip_smoke: phases {only} passed")
         return
@@ -2811,7 +3015,21 @@ def main():
         + [entry("flash_attention.simt", "simt (one block walks all of Tk, "
                  "CUDA cores): fp32, causal, GQA, timed forced at granite "
                  "prefill", "ops-edges", attn_simt, simt_rec, [simt_rec],
-                 kernel="flash_attention")]}))
+                 kernel="flash_attention")]
+        # the hybrid's own launches: every serving call's RG-LRU on simt,
+        # the forward's RG-LRU on tile and its local attention on tc, each
+        # timed at the shape the model gives it (bf16 operands)
+        + [entry(name, mode, path, n, one(hybrid_recs, case=case),
+                 [one(hybrid_recs, case=case)], kernel=kernel)
+           for name, kernel, mode, path, n, case in (
+               ("rg_lru.simt", "rg_lru", "simt (one thread a channel): "
+                "bf16, 4-slot decode and token-wise prefill", "hybrid-serve",
+                hybrid_lru, "rg_lru decode"),
+               ("rg_lru.tile", "rg_lru", "tile: bf16, 1 x 4096 forward",
+                "hybrid-forward", hybrid_fwd["rg_lru"], "rg_lru forward"),
+               ("flash_attention.tc", "flash_attention", "tc: bf16, 16 heads "
+                "/ 1 KV, D = 256, window 2048, 1 x 4096 forward",
+                "hybrid-forward", hybrid_fwd["flash"], "local forward"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

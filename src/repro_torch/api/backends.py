@@ -7,7 +7,8 @@ Two backends:
 * ``"reference"`` — the dense torch oracles of :mod:`repro_torch.kernels.ref`,
   run only when asked for by name.
 
-The default is ``"cuda"``; :func:`use_backend` scopes another one lexically.
+The default is ``"cuda"``; :func:`set_default_backend` sets another one for
+the process and :func:`use_backend` scopes one lexically.
 Devices resolve in one place too: entry points run on the card unless the
 caller passes ``device="cpu"``, and with no card they raise instead of
 quietly running on the CPU.
@@ -24,9 +25,21 @@ BACKENDS: Tuple[str, ...] = ("cuda", "reference")
 _default_backend: Optional[str] = None
 
 
+def available_backends() -> Tuple[str, ...]:
+    return BACKENDS
+
+
 def default_backend() -> str:
     """The backend used when none is passed explicitly."""
     return _default_backend if _default_backend is not None else "cuda"
+
+
+def set_default_backend(name: Optional[str]) -> None:
+    """Set the process-wide default backend (``None`` restores ``"cuda"``)."""
+    global _default_backend
+    if name is not None:
+        resolve_backend(name)
+    _default_backend = name
 
 
 def resolve_backend(name: Optional[str]) -> str:

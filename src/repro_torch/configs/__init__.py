@@ -1,14 +1,25 @@
-"""Architecture registry of the port.  granite-3-8b is the model it serves
-and trains; recurrentgemma-9b and llama4-maverick give the widths of the
-``kernels.ops`` entry points (their model families are not ported yet:
-``build_model`` raises ``NotImplementedError`` on them)."""
+"""Architecture registry of the port: a copy of ``repro.configs``, one
+module per architecture, in ``repro``'s order.  ``build_model`` builds the
+dense and hybrid families and raises ``NotImplementedError`` on the others
+(moe, ssm, vlm, enc_dec), which are not ported yet."""
 import dataclasses
 
-from . import granite_3_8b, llama4_maverick_400b_a17b, recurrentgemma_9b
-from .base import ModelConfig, ShapeConfig
+from . import (command_r_plus_104b, granite_3_8b, internvl2_2b,
+               llama4_maverick_400b_a17b, phi3_5_moe_42b_a6_6b,
+               phi3_mini_3_8b, qwen1_5_4b, recurrentgemma_9b, rwkv6_1_6b,
+               whisper_tiny)
+from .base import SHAPES, ModelConfig, ShapeConfig
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
-    granite_3_8b, recurrentgemma_9b, llama4_maverick_400b_a17b)}
+    internvl2_2b, whisper_tiny, phi3_mini_3_8b, qwen1_5_4b, granite_3_8b,
+    command_r_plus_104b, recurrentgemma_9b, llama4_maverick_400b_a17b,
+    phi3_5_moe_42b_a6_6b, rwkv6_1_6b)}
+
+ARCH_IDS = list(REGISTRY)
+
+# long_500k needs sub-quadratic context handling: only the constant-state
+# and windowed architectures run it
+LONG_CONTEXT_ARCHS = ("recurrentgemma-9b", "rwkv6-1.6b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -37,5 +48,13 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         remat=False)
 
 
-__all__ = ["REGISTRY", "ModelConfig", "ShapeConfig", "get_config",
+def cell_is_live(arch: str, shape: str) -> bool:
+    """Which (arch × shape) cells run (40 total, 32 live)."""
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True
+
+
+__all__ = ["ARCH_IDS", "LONG_CONTEXT_ARCHS", "REGISTRY", "SHAPES",
+           "ModelConfig", "ShapeConfig", "cell_is_live", "get_config",
            "reduced_config"]

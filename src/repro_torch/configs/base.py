@@ -1,5 +1,5 @@
 """Model and shape configuration dataclasses (a copy of
-``repro.configs.base``, trimmed to what the port reads)."""
+``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -84,10 +84,23 @@ class ModelConfig:
                 per_layer += 4 * d * d + 3 * d * ff  # rglru block + mlp
             elif kind == "rwkv":
                 per_layer += 5 * d * d + 2 * d * ff
+            elif kind == "local":
+                per_layer += attn + 3 * d * ff
             else:
                 per_layer += attn + 3 * d * ff
         emb = v * d * (1 if self.tie_embeddings else 2)
         return per_layer + emb
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        total = self.param_count()
+        moe_layers = sum(1 for i in range(self.n_layers)
+                         if self.layer_kind(i) == "moe")
+        inactive = moe_layers * (self.n_experts - self.top_k) * 3 * d * ff
+        return total - inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,3 +110,11 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     accum_steps: int = 1         # gradient-accumulation microbatches (train)
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

@@ -3,9 +3,12 @@
 :func:`params_from_jax` takes the output of ``repro``'s ``Transformer.init``
 or ``Transformer.quantize`` (layer-stacked leaves, converted to numpy by
 the caller) and returns the port's state dict, so that both packages
-compute the same function.  The block-sparse FFN blocks are in the
-storage order of the JAX model's shared patterns; the port's model must
-be built over the same patterns
+compute the same function.  A dense tree stacks its blocks under
+``layers``; a hybrid one under ``units/b{j}`` (stacked over the units of
+the layer pattern) and ``tail/b{j}`` (one unit's first blocks), which come
+over as ``layers.{u * len(pattern) + j}`` and then the tail's.  The
+block-sparse FFN blocks are in the storage order of the JAX model's
+shared patterns; the port's model must be built over the same patterns
 (``build_model(cfg, ffn_patterns=...)``).  :func:`quantized_blocks_from_jax`
 does the same for ``repro``'s quantized block storage.  The port never
 reproduces JAX's random numbers.
@@ -51,35 +54,55 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping,
     }
     if "lm_head" in params_np:
         sd["lm_head.table"] = _t(params_np["lm_head"]["table"])
-    lp = params_np["layers"]
-    for i in range(cfg.n_layers):
+    for i, (tree, idx) in enumerate(_layer_trees(cfg, params_np)):
         pre = f"layers.{i}."
-        sd[pre + "norm1.scale"] = _t(lp["norm1"]["scale"][i])
-        sd[pre + "norm2.scale"] = _t(lp["norm2"]["scale"][i])
-        for name in ("wq", "wk", "wv", "wo"):
-            for leaf, arr in lp["attn"][name].items():
-                sd[pre + f"attn.{name}.{leaf}"] = _t(arr[i])
+        sd[pre + "norm1.scale"] = _t(tree["norm1"]["scale"][idx])
+        sd[pre + "norm2.scale"] = _t(tree["norm2"]["scale"][idx])
+        if "attn" in tree:
+            for name in ("wq", "wk", "wv", "wo"):
+                for leaf, arr in tree["attn"][name].items():
+                    sd[pre + f"attn.{name}.{leaf}"] = _t(arr[idx])
+        if "rec" in tree:
+            for name, sub in tree["rec"].items():
+                if isinstance(sub, Mapping):         # a Dense: w (and b)
+                    for leaf, arr in sub.items():
+                        sd[pre + f"rec.{name}.{leaf}"] = _t(arr[idx])
+                else:                                 # conv, a_param
+                    sd[pre + f"rec.{name}"] = _t(sub[idx])
         for proj in _PROJS:
-            leaves = lp["mlp"][proj]
+            leaves = tree["mlp"][proj]
             if "scales" not in leaves:
                 for leaf, arr in leaves.items():
-                    sd[pre + f"mlp.{proj}.{leaf}"] = _t(arr[i])
+                    sd[pre + f"mlp.{proj}.{leaf}"] = _t(arr[idx])
                 continue
-            q = quantized_blocks_from_jax(leaves["blocks"][i],
-                                          leaves["scales"][i],
+            q = quantized_blocks_from_jax(leaves["blocks"][idx],
+                                          leaves["scales"][idx],
                                           _mode_of(leaves))
             sd[pre + f"mlp.{proj}.blocks"] = q.payload
             sd[pre + f"mlp.{proj}.scales"] = q.scales
-    if cfg.ffn_block_sparse:
-        if ffn_patterns_np is None:
-            raise ValueError("a block-sparse FFN needs ffn_patterns_np")
-        for proj in _PROJS:
-            n = np.asarray(ffn_patterns_np[proj][0]).size
-            got = lp["mlp"][proj]["blocks"].shape[1]
-            if got != n:
-                raise ValueError(f"mlp.{proj} has {got} blocks per layer but "
-                                 f"its pattern has {n}")
+        if cfg.ffn_block_sparse and "blocks" in tree["mlp"]["up"]:
+            if ffn_patterns_np is None:
+                raise ValueError("a block-sparse FFN needs ffn_patterns_np")
+            for proj in _PROJS:
+                n = np.asarray(ffn_patterns_np[proj][0]).size
+                got = tree["mlp"][proj]["blocks"].shape[1]
+                if got != n:
+                    raise ValueError(f"mlp.{proj} has {got} blocks per "
+                                     f"layer but its pattern has {n}")
     return sd
+
+
+def _layer_trees(cfg: ModelConfig, params_np: Mapping):
+    """``(block tree, index along its stack axis)`` of each layer, in the
+    port's layer order."""
+    if not cfg.layer_pattern:
+        return [(params_np["layers"], i) for i in range(cfg.n_layers)]
+    p = len(cfg.layer_pattern)
+    n_units = cfg.n_layers // p
+    return ([(params_np["units"][f"b{j}"], u)
+             for u in range(n_units) for j in range(p)]
+            + [(params_np["tail"][f"b{j}"], 0)
+               for j in range(cfg.n_layers - n_units * p)])
 
 
 def _mode_of(leaves: Mapping) -> str:

@@ -8,8 +8,11 @@ from .rg_lru import rg_lru, rg_lru_plain
 from .segment_spgemm import segment_spgemm, segment_spgemm_plain
 from .segment_spmm import segment_spmm, segment_spmm_plain
 from . import ops  # noqa: E402  (ops imports the api, which imports kernels)
+from .ops import (SpgemmPlan, SpmmPlan, flash_mha, moe_apply,  # noqa: E402
+                  plan_spgemm, plan_spmm, rg_lru_scan)
 
-__all__ = ["build_moe_chunks", "flash_attention", "flash_attention_plain",
-           "moe_gemm", "moe_gemm_plain", "ops", "ref", "rg_lru",
-           "rg_lru_plain", "segment_spgemm", "segment_spgemm_plain",
-           "segment_spmm", "segment_spmm_plain"]
+__all__ = ["SpgemmPlan", "SpmmPlan", "build_moe_chunks", "flash_attention",
+           "flash_attention_plain", "flash_mha", "moe_apply", "moe_gemm",
+           "moe_gemm_plain", "ops", "plan_spgemm", "plan_spmm", "ref",
+           "rg_lru", "rg_lru_plain", "rg_lru_scan", "segment_spgemm",
+           "segment_spgemm_plain", "segment_spmm", "segment_spmm_plain"]

@@ -1,5 +1,5 @@
 """Core neural layers in torch (the parts of ``repro.models.layers`` that
-the dense decoder family serves with).
+the dense and hybrid decoder families serve with).
 
 Plain tensor functions mirror the jnp ones one for one; small
 ``nn.Module``s hold the parameters under the same names as the JAX param
@@ -12,7 +12,12 @@ into the cache tensors it is given, which saves a copy of the whole cache
 per step.  An int8 KV cache (``kv_cache_dtype="int8"``) stores keys and
 values with symmetric per-position, per-head fp32 scales, and attention
 factors the scales out of both products (:func:`_direct_attention_q8`), as
-``repro`` does.  The sharding hints of ``repro`` (``act_constrain``) have no
+``repro`` does.  Local attention (the hybrid family) decodes over a ring
+buffer of ``window`` slots (:func:`ring_cache_write`,
+:func:`ring_decode_attention`), and without a cache runs on the
+``flash_attention`` kernel through :func:`repro_torch.kernels.ops.flash_mha`
+(the ``"reference"`` backend keeps ``repro``'s :func:`chunked_attention`).
+The sharding hints of ``repro`` (``act_constrain``) have no
 meaning on one device and are dropped.
 """
 from __future__ import annotations
@@ -21,7 +26,11 @@ import math
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.api.backends import default_backend
+from repro_torch.kernels.ops import flash_mha
 
 Pos = Union[int, torch.Tensor]
 
@@ -210,6 +219,48 @@ def _quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+def ring_decode_attention(q, ck, cv, k_pos, pos, window):
+    """Attention over a ring-buffer KV cache.
+
+    q: (B, Tq, H, D); ck/cv: (B, W, Hkv, D); k_pos: (B, W) absolute position
+    held by each ring slot (per row: continuous batching); pos: (B,)
+    absolute position of q[:, 0].  Each query attends only to the slots in
+    its own (q_pos - window, q_pos]: causal within a multi-token write, and
+    slots that still hold an earlier occupant's keys (ahead of this row's
+    timeline, or negative) are masked out."""
+    b, tq, h, d = q.shape
+    rep = h // ck.shape[2]
+    if rep > 1:
+        ck = ck.repeat_interleave(rep, dim=2)
+        cv = cv.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck.float()) / math.sqrt(d)
+    q_pos = pos[:, None] + torch.arange(tq, device=q.device)      # (B, Tq)
+    kp, qp = k_pos[:, None, :], q_pos[..., None]
+    valid = (kp <= qp) & (kp > qp - window) & (kp >= 0)            # (B, Tq, W)
+    s = torch.where(valid[:, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, cv.float())
+    return out.to(q.dtype)
+
+
+def ring_cache_write(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, pos: Pos) -> torch.Tensor:
+    """Scatter each of the t new keys and values (B, t, Hkv, D) into ring
+    slot ``(pos + i) mod W`` of ``ck``/``cv`` (B, W, Hkv, D), in place, with
+    per-row positions and writes that wrap around the ring.  Returns k_pos
+    (B, W): the absolute position each slot holds after the write."""
+    b, t = k.shape[:2]
+    w = ck.shape[1]
+    dev = ck.device
+    pos_v = _per_row(pos, b, dev)
+    slot = (pos_v[:, None] + torch.arange(t, device=dev)) % w
+    rows = torch.arange(b, device=dev)[:, None]
+    ck[rows, slot] = k.to(ck.dtype)
+    cv[rows, slot] = v.to(cv.dtype)
+    last = (pos_v + (t - 1))[:, None]
+    return last - (last - torch.arange(w, device=dev)) % w
+
+
 def kv_cache_write(buf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
     """Write ``new`` (B, t, …) into ``buf`` (B, T, …) in place at time
     offset ``pos``: a shared scalar or a per-row ``(B,)`` vector."""
@@ -237,13 +288,17 @@ class Attention(nn.Module):
         self.wo = Dense(n_heads * head_dim, d_model, device=device)
 
     def forward(self, x, *, positions, rope_theta=10000.0, cache=None,
-                cache_pos: Pos = 0, chunk=1024, window=None):
+                cache_pos: Pos = 0, chunk=1024, window=None, ring=False):
         """``cache``: optional dict of ``k``/``v`` (B, T_max, n_kv, hd),
         written in place at ``cache_pos`` (shared scalar or per-row
         ``(B,)``); the queries then attend over the whole cache, masked to
         each row's own valid length.  An int8 cache also holds ``k_s``/
         ``v_s`` (B, T_max, n_kv) scales and takes at most 8 queries at a
-        time.  Without a cache: causal attention over ``x``."""
+        time.  ``ring``: the cache is a ring of W slots (local attention;
+        at most W new tokens a call).  Without a cache: causal attention
+        over ``x``, within ``window`` when it is given (then on the
+        ``flash_attention`` kernel, except on the ``"reference"``
+        backend)."""
         b, t, _ = x.shape
         q = self.wq(x).reshape(b, t, self.n_heads, self.head_dim)
         k = self.wk(x).reshape(b, t, self.n_kv, self.head_dim)
@@ -251,7 +306,13 @@ class Attention(nn.Module):
         if rope_theta:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
-        if cache is not None and "k_s" in cache:
+        if cache is not None and ring:
+            k_pos = ring_cache_write(cache["k"], cache["v"], k, v, cache_pos)
+            w = cache["k"].shape[1]
+            out = ring_decode_attention(
+                q, cache["k"], cache["v"], k_pos,
+                _per_row(cache_pos, b, x.device), window or w)
+        elif cache is not None and "k_s" in cache:
             if t > 8:
                 # a named error, not an assert (asserts vanish under -O)
                 raise ValueError(
@@ -280,10 +341,18 @@ class Attention(nn.Module):
                 out = chunked_attention(q, ck, cv, causal=True, window=window,
                                         q_offset=cache_pos, kv_len=kv_len,
                                         chunk=chunk)
+        elif window is not None and default_backend() != "reference":
+            out = flash_mha(q, k, v, causal=True, window=window)
         else:
             out = chunked_attention(q, k, v, causal=True, window=window,
                                     q_offset=0, chunk=chunk)
         return self.wo(out.reshape(b, t, self.n_heads * self.head_dim))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 class SwiGLU(nn.Module):
@@ -296,7 +365,7 @@ class SwiGLU(nn.Module):
         self.down = Dense(d_ff, d_model, device=device)
 
     def forward(self, x):
-        return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
+        return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
 class Embedding(nn.Module):

@@ -7,7 +7,11 @@
 * **admission** — a free slot takes the next queued request, whose prompt
   is prefilled in length-bucketed chunks (the last chunk zero-padded to the
   smallest bucket, its first token sampled at the last *valid* position).
-  The first chunk zeroes the slot's cache row.
+  The first chunk zeroes the slot's cache row (its KV entries and, in a
+  hybrid model, its recurrent state).  A model with recurrent state is
+  prefilled one token at a time (a scan has no mask lane, so padding would
+  pollute the state), and one with local layers in chunks no wider than
+  its window (a wider chunk would write a ring slot twice).
 * **retirement** — a request leaves its slot when it emits ``eos_token`` or
   reaches its own ``max_new_tokens``.
 
@@ -59,11 +63,14 @@ class Engine:
     ``model`` is a :class:`~repro_torch.models.Transformer` whose
     parameters live on ``device`` (``None`` means the card; raises when
     there is none).  ``prefill_buckets`` are descending chunk sizes, each a
-    multiple of the smallest.  ``backend`` scopes the SpMM backend of every
-    model call.  ``quantize`` (``"int8"``, ``"fp8"``, ``"int8.rowwise"``,
-    ``"fp8.rowwise"``) serves ``model.quantize(quantize)``, which shares
-    every tensor but the FFN blocks with ``model``; ``self.model`` is then
-    the quantized model.
+    multiple of the smallest; recurrent state forces ``(1,)``, an int8 KV
+    cache chunks of at most 8, and local layers chunks of at most
+    ``cfg.local_window``, as in ``repro``.  ``backend`` scopes the backend
+    of every model call.  ``quantize`` (``"int8"``, ``"fp8"``,
+    ``"int8.rowwise"``, ``"fp8.rowwise"``) serves
+    ``model.quantize(quantize)``, which shares every tensor but the sparse
+    FFN blocks with ``model``; ``self.model`` is then the quantized
+    model.
     """
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 512,
@@ -91,9 +98,17 @@ class Engine:
             raise ValueError(
                 f"prefill_buckets {buckets} must all be multiples of the "
                 f"smallest bucket (chunk starts must stay bucket-aligned)")
-        if model.cfg.kv_cache_dtype == "int8":
+        kinds = set(model.layer_kinds)
+        if "rec" in kinds:
+            buckets = (1,)   # padding would pollute the carried state
+        elif model.cfg.kv_cache_dtype == "int8":
             # the factored-scale int8 attention path is decode-sized only
             buckets = tuple(c for c in buckets if c <= 8) or (8,)
+        if "local" in kinds:
+            # a chunk wider than the ring would write one slot twice
+            w = int(model.cfg.local_window)
+            buckets = (tuple(c for c in buckets if c <= w)
+                       or (max(1, min(w, 8)),))
         self.prefill_buckets = buckets
         # rounded up so a final padded chunk never writes past the end
         self._cache_len = _round_up(self.max_len, buckets[-1])
@@ -250,3 +265,14 @@ class Engine:
     def compiled_shapes(self) -> Dict[str, int]:
         """Distinct step shapes seen per step kind — flat after warmup."""
         return {k: len(v) for k, v in self._shapes.items()}
+
+
+class Server(Engine):
+    """``repro``'s back-compat surface of the old lockstep batcher: the
+    same constructor keywords (``batch_slots``), served by the
+    continuous-batching :class:`Engine`."""
+
+    def __init__(self, model, *, batch_slots: int = 4, max_len: int = 512,
+                 backend: Optional[str] = None, **kw):
+        super().__init__(model, slots=batch_slots, max_len=max_len,
+                         backend=backend, **kw)
