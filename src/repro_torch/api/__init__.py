@@ -7,7 +7,10 @@ matmuls.
     y = plan(x)                                            # execute
     gplan = api.plan_matmul(A, B, quantize="int8")         # SpGEMM, B a BSR
     c_blocks = gplan()                # (n_c_blocks, bm, bn) at gplan.c_brow/c_bcol
+    api.plan_matmul(A, B, verify="full")   # the plan verifier, once a template
 """
+from repro_torch.analysis.invariants import (Finding, PlanVerificationError,
+                                             VerifyResult, verify_plan)
 from repro_torch.core.formats import (QUANT_DTYPES, QuantizedBlocks,
                                       dequantize_blocks, quant_error_bound,
                                       quantize_blocks)
@@ -27,6 +30,7 @@ __all__ = [
     "SegmentPlan", "SPMM", "SPGEMM",
     "plan_matmul", "execute_plan", "apply_plan", "pick_bn",
     "clear_plan_cache", "plan_cache_stats", "pattern_fingerprint",
+    "verify_plan", "Finding", "VerifyResult", "PlanVerificationError",
     "QUANT_DTYPES", "QuantizedBlocks", "quantize_blocks",
     "dequantize_blocks", "quant_error_bound",
     "SchedulePolicy", "register_policy", "unregister_policy", "get_policy",

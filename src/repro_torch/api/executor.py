@@ -129,13 +129,22 @@ def _out_dtype(plan: SegmentPlan, out_dtype) -> torch.dtype:
 
 def execute_plan(plan: SegmentPlan, rhs: Optional[torch.Tensor] = None, *,
                  bn: Optional[int] = None, backend: Optional[str] = None,
-                 out_dtype=None) -> torch.Tensor:
+                 out_dtype=None, verify=None) -> torch.Tensor:
     """Forward-only plan execution (``plan(...)`` delegates here): an spmm
     plan takes the dense rhs, an spgemm plan none (B is in the plan).
 
     Backend: explicit argument > ``plan.backend`` > the process default.
     Accumulation is always fp32; ``out_dtype`` only sets the written tiles.
+    ``verify`` (``True``/``"fast"``/``"full"``) runs the plan verifier
+    before any launch and raises
+    :class:`~repro_torch.analysis.PlanVerificationError` on a finding: the
+    check for hand-edited plans (planner output is better verified once,
+    through ``plan_matmul(..., verify=...)`` and its cache).
     """
+    if verify:
+        from repro_torch.analysis.invariants import verify_plan
+        level = "fast" if verify is True else verify
+        verify_plan(plan, level=level).raise_if_findings()
     backend = resolve_backend(backend if backend is not None else plan.backend)
     out_dtype = _out_dtype(plan, out_dtype)
     if plan.kind == SPMM:

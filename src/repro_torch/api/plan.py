@@ -103,6 +103,10 @@ class SegmentPlan:
         return int(self.seg_start.shape[0])
 
     @property
+    def lane_len(self) -> int:
+        return self.n_items // self.n_lanes
+
+    @property
     def n_blocks(self) -> int:
         """Number of stored lhs blocks (original BSR order)."""
         src = self.lhs_blocks if self.lhs_blocks is not None else self.a_brow
@@ -113,6 +117,11 @@ class SegmentPlan:
         """Owner runs: output block rows (SpMM) or C blocks (SpGEMM) that
         receive work."""
         return int(self.run_offsets.shape[0]) - 1
+
+    @property
+    def traffic(self) -> Dict[str, float]:
+        """Revisiting-model traffic estimate the planner recorded."""
+        return dict(self.traffic_items)
 
     @property
     def grid_m(self) -> int:
@@ -144,6 +153,16 @@ class SegmentPlan:
 
     def replace(self, **kw) -> "SegmentPlan":
         return dataclasses.replace(self, **kw)
+
+    def verify(self, level: str = "fast", **kw):
+        """Run the static schedule verifier over this plan:
+        :func:`repro_torch.analysis.verify_plan` (``level`` ``"fast"`` or
+        ``"full"``; ``invariants``, ``bn`` and ``n_cols`` pass through).
+        Returns its :class:`~repro_torch.analysis.VerifyResult`;
+        ``.raise_if_findings()`` turns findings into a
+        :class:`~repro_torch.analysis.PlanVerificationError`."""
+        from repro_torch.analysis.invariants import verify_plan
+        return verify_plan(self, level=level, **kw)
 
     def with_values(self, lhs_blocks: torch.Tensor,
                     rhs_blocks: Optional[torch.Tensor] = None, *,

@@ -15,9 +15,12 @@ fp32 scales; its grad plan addresses the same payload and scales).  The
 storage dtype is part of the fingerprint, so fp32 and quantized plans of
 one pattern are separate cache entries.
 
-Not ported yet, and raising ``NotImplementedError`` (see ROADMAP):
-``policy="auto"`` and ``vmem_limit_bytes`` (the tuner and budget checks)
-and ``verify`` (the plan verifier).
+``verify=`` runs the plan verifier (:func:`repro_torch.analysis
+.verify_plan`) once per cached template, on its host numpy leaves, and the
+scale-agreement check on every realized plan, as ``repro`` does.
+
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP §1.3, the
+tuner): ``policy="auto"`` and ``vmem_limit_bytes``.
 """
 from __future__ import annotations
 
@@ -28,9 +31,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.invariants import (PlanVerificationError,
+                                             VerifyResult,
+                                             check_scale_agreement,
+                                             verify_plan)
 from repro_torch.core.formats import (BSR, QUANT_DTYPES, QUANT_MODES,
-                                      QuantizedBlocks, quant_base_dtype,
-                                      quant_is_rowwise, quantize_blocks)
+                                      QuantizedBlocks, dtype_name,
+                                      quant_base_dtype, quant_is_rowwise,
+                                      quantize_blocks)
 from repro_torch.core.policies import get_policy
 from repro_torch.core.schedule import (PREFETCH_MODES, LaneLayout,
                                        build_spgemm_schedule,
@@ -103,16 +111,17 @@ def _realize_values(blocks, block_dtype: str, device: torch.device
     fp32 plans upload the caller's blocks as they are (scales ``None``).
     Quantized plans take a :class:`QuantizedBlocks` of the plan's mode
     verbatim (weights quantized once, at load time), or fp32 blocks, which
-    are quantized here on the host, in storage order."""
+    are quantized here, in storage order, on the device they lie on (numpy
+    blocks on the host; a layer's weights re-plan without a host copy)."""
     if isinstance(blocks, QuantizedBlocks):
         if blocks.dtype != block_dtype:
             raise ValueError(
                 f"pre-quantized blocks are {blocks.dtype!r} but the plan "
                 f"was requested with quantize={block_dtype!r}")
         return blocks.payload.to(device), blocks.scales.to(device)
-    blocks = np.asarray(blocks, np.float32)
+    blocks = torch.as_tensor(blocks, dtype=torch.float32).detach()
     if block_dtype == "fp32":
-        return torch.as_tensor(blocks, device=device), None
+        return blocks.to(device), None
     q = quantize_blocks(blocks, block_dtype)
     return q.payload.to(device), q.scales.to(device)
 
@@ -156,6 +165,17 @@ class _PlanTemplate:
     traffic_basis: dict
     grad: Optional["_PlanTemplate"] = None
     on_device: Dict[torch.device, dict] = dataclasses.field(default_factory=dict)
+    verified_level: Optional[str] = None   # deepest verify_plan run yet
+
+    def host_plan(self) -> SegmentPlan:
+        """The value-free plan over the host numpy leaves, as ``repro``'s
+        template plan: SpMM traffic is priced per realize, so it records
+        none here; SpGEMM traffic is fixed."""
+        traffic = (_freeze_traffic(self.traffic_basis)
+                   if self.aux["kind"] == SPGEMM else ())
+        grad = None if self.grad is None else self.grad.host_plan()
+        return SegmentPlan(**self.aux, **self.leaves, traffic_items=traffic,
+                           grad_plan=grad)
 
     def device_leaves(self, device: torch.device) -> dict:
         got = self.on_device.get(device)
@@ -328,6 +348,18 @@ def _build_spgemm_template(a: BSR, b: BSR, policy: str,
     return _PlanTemplate(aux=aux, leaves=leaves, traffic_basis=traffic)
 
 
+def _resolve_verify(verify) -> Optional[str]:
+    """Normalize the ``verify`` knob: None/False off, True → "fast"."""
+    if verify is None or verify is False:
+        return None
+    if verify is True:
+        return "fast"
+    if verify in ("fast", "full"):
+        return verify
+    raise ValueError(f"verify must be None/False/True/'fast'/'full', "
+                     f"got {verify!r}")
+
+
 def _rhs_to_hint(a: BSR, b) -> Tuple[Optional[BSR], int]:
     """Normalize ``B_or_shape`` → (BSR | None, n_cols_hint)."""
     if b is None:
@@ -348,14 +380,6 @@ def _rhs_to_hint(a: BSR, b) -> Tuple[Optional[BSR], int]:
     if shape[0] != a.shape[1]:
         raise ValueError(f"rhs K={shape[0]} does not match A K={a.shape[1]}")
     return None, int(shape[1])
-
-
-def _dtype_name(dtype) -> Optional[str]:
-    if dtype is None:
-        return None
-    if isinstance(dtype, torch.dtype):
-        return str(dtype).removeprefix("torch.")
-    return np.dtype(dtype).name
 
 
 def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
@@ -380,21 +404,23 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
     block row; the SpMM kernel dequantizes at its fp32 accumulator),
     ``out_dtype`` (default output dtype), ``cache`` (the fingerprint
     cache), ``pipeline``/``bn_hint``/``prefetch`` (recorded on the plan;
-    the TPU DMA-timing knobs change no result).  ``device`` places the
-    plan's tensors; ``None`` means the card.
+    the TPU DMA-timing knobs change no result).  ``verify``
+    (``True``/``"fast"``: the structural catalog; ``"full"``: also the
+    traffic-model recount) verifies each cached template once and checks
+    the realized values' scales on every call, raising
+    :class:`~repro_torch.analysis.PlanVerificationError` on a finding.
+    ``device`` places the plan's tensors; ``None`` means the card.
     """
     if policy == "auto":
         raise NotImplementedError(
             "plan_matmul(policy='auto'): the schedule tuner is not ported "
-            "yet; see ROADMAP 'plan verification and tuning'")
-    if verify not in (None, False):
-        raise NotImplementedError(
-            "plan_matmul(verify=...): the plan verifier is not ported yet; "
-            "see ROADMAP 'plan verification and tuning'")
+            "yet; see ROADMAP §1.3 (plan verification and tuning: the "
+            "tuner)")
     if vmem_limit_bytes is not None:
         raise NotImplementedError(
             "plan_matmul(vmem_limit_bytes=...): the budget check is not "
-            "ported yet; see ROADMAP 'plan verification and tuning'")
+            "ported yet; see ROADMAP §1.3 (plan verification and tuning: "
+            "the tuner and its budget)")
     if backend is not None:
         resolve_backend(backend)
     if quantize is not None and quantize not in QUANT_MODES:
@@ -421,6 +447,7 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
                               else None,
                               pipeline=pipeline, bn_hint=bn_hint,
                               prefetch=prefetch)
+    level = _resolve_verify(verify)
     tpl = _CACHE.get(key) if cache else None
     if tpl is None:
         if kind == SPMM:
@@ -436,10 +463,25 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
             _CACHE[key] = tpl
     else:
         _STATS["hits"] += 1
+    if level is not None:
+        covered = ("fast", "full") if level == "fast" else ("full",)
+        if tpl.verified_level not in covered:
+            # the value-free template, once; remembered on the cache entry
+            verify_plan(tpl.host_plan(), level=level).raise_if_findings()
+            tpl.verified_level = level
     values = {}
     values["lhs_blocks"], values["lhs_scales"] = _realize_values(
         a.blocks, block_dtype, device)
     if b is not None:
         values["rhs_blocks"], values["rhs_scales"] = _realize_values(
             b.blocks, block_dtype, device)
-    return tpl.realize(values, device, backend, hint, _dtype_name(out_dtype))
+    plan = tpl.realize(values, device, backend, hint, dtype_name(out_dtype))
+    if level is not None:
+        # the value leaves are the only per-realize freedom: their dtype
+        # and shape agreement, on every call
+        findings = check_scale_agreement(plan)
+        if findings:
+            raise PlanVerificationError(VerifyResult(
+                findings=tuple(findings), level=level,
+                checked=("scale-agreement",)))
+    return plan

@@ -11,14 +11,16 @@ depends only on the pattern.
 
 The CUDA kernels read the lane-major arrays as they are: every owner (an
 output block row, or a C block) sits in one contiguous run of one lane, so
-one thread block per run is exact.  ``check_lane_accum`` is this package's own copy of
-``repro.analysis.invariants.check_lane_accum``: the package imports nothing
-of ``repro``.
+one thread block per run is exact.  The ``accum_prev`` write-before-read
+check :func:`partition_lanes` runs is
+:func:`repro_torch.analysis.invariants.check_lane_accum`, the plan
+verifier's own (imported lazily, so ``core`` stays importable without
+``analysis``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -45,6 +47,10 @@ class SpmmSchedule:
     n_m_blocks: int
     n_k_blocks: int
     policy: str
+
+    @property
+    def n_items(self) -> int:
+        return int(self.m.shape[0])
 
 
 def _runs_from_sorted(m_sorted: np.ndarray) -> np.ndarray:
@@ -126,6 +132,64 @@ def _segment_order(m: np.ndarray, k: np.ndarray) -> np.ndarray:
     return np.concatenate(order) if order else np.zeros(0, dtype=np.int64)
 
 
+# ---------------------------------------------------------------------------
+# Built-in policies.  ``segment`` reuses the SELECTA-adapted run chaining for
+# SpGEMM by treating the C slot as the "row" and k as the shared operand.
+# ---------------------------------------------------------------------------
+
+
+def _static_cost_hint(policy_name: str):
+    """Closed-form ``SchedulePolicy.cost_hint`` for a *static* order.
+
+    A static policy's schedule is fully determined by its order function,
+    so its default-knob traffic (one lane, fp32, pipelined) is priced
+    exactly by applying the order and evaluating the revisiting model over
+    the lane-major item order (:func:`partition_lanes` round-robins
+    segments even at one lane, so the hint runs the layout the planner
+    builds).  :func:`repro_torch.sim.baselines.dataflow_estimates` scores
+    dataflows with it before any plan is built.
+    """
+
+    def _lane_order(owner_o: np.ndarray, seg_start: np.ndarray):
+        fin = finalize_schedule(seg_start, owner_o)
+        layout = partition_lanes(owner_o, 1, policy=policy_name,
+                                 seg_start=seg_start,
+                                 seg_write=_seg_write_from_starts(seg_start),
+                                 accum_prev=fin.accum_prev)
+        return layout, lane_select(layout, seg_start, zero_pads=True)
+
+    def hint(kind: str, **kw) -> Optional[dict]:
+        pol = get_policy(policy_name)
+        if kind == "spmm":
+            m = np.asarray(kw["m"], dtype=np.int64)
+            k = np.asarray(kw["k"], dtype=np.int64)
+            order = pol.spmm_order(m, k)
+            m_o, k_o = m[order], k[order]
+            layout, ss = _lane_order(m_o, _runs_from_sorted(m_o))
+            return lane_traffic_spmm(
+                lane_select(layout, m_o), lane_select(layout, k_o), ss,
+                layout.valid.reshape(-1), layout.n_lanes, kw["bm"], kw["bk"],
+                kw["n_cols"], bytes_per_el=kw.get("bytes_per_el", 4))
+        if kind == "spgemm":
+            m = np.asarray(kw["m"], dtype=np.int64)
+            n = np.asarray(kw["n"], dtype=np.int64)
+            k = np.asarray(kw["k"], dtype=np.int64)
+            c = np.asarray(kw["c"], dtype=np.int64)
+            order = pol.spgemm_order(m, n, k, c)
+            c_o = c[order]
+            layout, ss = _lane_order(c_o, _runs_from_sorted(c_o))
+            return lane_traffic_spgemm(
+                lane_select(layout, np.asarray(kw["a_idx"])[order]),
+                lane_select(layout, np.asarray(kw["b_idx"])[order]),
+                lane_select(layout, c_o), ss,
+                layout.valid.reshape(-1), layout.n_lanes,
+                kw["bm"], kw["bk"], kw["bn"],
+                bytes_per_el=kw.get("bytes_per_el", 4))
+        return None
+
+    return hint
+
+
 register_policy(
     "segment",
     spmm_order=_segment_order,
@@ -139,12 +203,14 @@ register_policy(
     spmm_order=lambda m, k: np.lexsort((k, m)),
     spgemm_order=lambda m, n, k, c: np.lexsort((k, n, m)),
     description="m-major static order (best classic static dataflow)",
+    cost_hint=_static_cost_hint("gustavson"),
     overwrite=True)
 register_policy(
     "outer",
     spmm_order=lambda m, k: np.lexsort((m, k)),
     spgemm_order=lambda m, n, k, c: np.lexsort((n, m, k)),
     description="k-major static order (outer-product-like; B reuse, C thrash)",
+    cost_hint=_static_cost_hint("outer"),
     overwrite=True)
 
 
@@ -382,52 +448,12 @@ def partition_lanes(owner: np.ndarray, n_lanes: int, *, unroll: int = 1,
                       n_lanes=eff, lane_len=lane_len, stats=stats)
 
 
-def check_lane_accum(owner, seg_start, seg_write, accum_prev, valid,
-                     n_lanes: int, item_ids=None) -> List[str]:
-    """``accum_prev`` write-before-read over flat lane-major arrays.
-
-    Every ``accum_prev=1`` segment head read-modify-writes its output tile,
-    so a ``seg_write`` to that tile must already have happened earlier in
-    the same lane.  Returns one message per violating (lane, tile).
-    """
-    owner = np.asarray(owner).reshape(-1)
-    seg_start = np.asarray(seg_start).reshape(-1)
-    seg_write = np.asarray(seg_write).reshape(-1)
-    accum_prev = np.asarray(accum_prev).reshape(-1)
-    valid = np.asarray(valid).astype(bool).reshape(-1)
-    ids = None if item_ids is None else np.asarray(item_ids).reshape(-1)
-    out: List[str] = []
-    if not valid.any():
-        return out
-    lane_len = owner.size // n_lanes
-    n_owner = int(owner[valid].max()) + 1
-    key = (np.arange(owner.size) // lane_len) * n_owner + owner
-    reads = valid & (seg_start == 1) & (accum_prev == 1)
-    writes = valid & (seg_write == 1)
-    big = np.iinfo(np.int64).max
-    first_read = np.full(n_lanes * n_owner, big)
-    np.minimum.at(first_read, key[reads], np.nonzero(reads)[0])
-    first_write = np.full(n_lanes * n_owner, big)
-    np.minimum.at(first_write, key[writes], np.nonzero(writes)[0])
-    bad = np.nonzero((first_read < big) & (first_write >= first_read))[0]
-    for k in bad.tolist():
-        li, tile = divmod(k, n_owner)
-        g = int(first_read[k])
-        label = (f"schedule item {int(ids[g])}" if ids is not None
-                 else f"lane-major item {g}")
-        out.append(
-            f"{label} (output tile {tile}, lane {li}) has accum_prev=1 but "
-            f"no earlier seg_write to that tile in the same lane — the "
-            f"kernel would read-modify-write an output buffer nothing "
-            f"wrote; the item's segment chain must follow its tile's first "
-            f"write within one lane")
-    return out
-
-
 def _validate_lane_accum(perm: np.ndarray, owner: np.ndarray, seg_start,
                          seg_write, accum_prev) -> None:
     """Gather the schedule-order flags into lane layout and turn the first
-    :func:`check_lane_accum` finding into a ``ValueError``."""
+    :func:`repro_torch.analysis.invariants.check_lane_accum` finding (the
+    one implementation, shared with the verifier's ``accum-prev-order``
+    invariant) into a ``ValueError``."""
     accum_prev = np.asarray(accum_prev)
     seg_start = (np.ones_like(accum_prev) if seg_start is None
                  else np.asarray(seg_start))
@@ -438,12 +464,13 @@ def _validate_lane_accum(perm: np.ndarray, owner: np.ndarray, seg_start,
         if arr.shape != owner.shape:
             raise ValueError(f"{name} has shape {arr.shape}, expected "
                              f"{owner.shape} to match owner")
+    from repro_torch.analysis.invariants import check_lane_accum
     filled = np.where(perm >= 0, perm, 0)
     findings = check_lane_accum(
         owner[filled], seg_start[filled], seg_write[filled],
         accum_prev[filled], perm >= 0, perm.shape[0], item_ids=perm)
     if findings:
-        raise ValueError(findings[0])
+        raise ValueError(findings[0].message)
 
 
 #: valid ``prefetch=`` schedule modes (TPU DMA timing; see repro.core.schedule)
@@ -606,6 +633,16 @@ def lane_traffic_spgemm(a_idx, b_idx, c_idx, seg_start, valid, n_lanes: int,
     return dict(a_bytes=a_bytes, b_bytes=b_bytes, c_bytes=c_bytes, total=total,
                 a_fetches=a_fetches, b_fetches=b_fetches,
                 c_segments=c_segments, prefetch_fetches=0)
+
+
+def spmm_schedule_traffic(sched: SpmmSchedule, bm: int, bk: int, n_cols: int,
+                          bytes_per_el: int = 4) -> dict:
+    """:func:`lane_traffic_spmm` of a single-lane schedule without pads: per
+    step an A tile, a B row-block where ``k`` changes, C rows at segment
+    ends and read back on revisits."""
+    valid = np.ones(sched.n_items, dtype=bool)
+    return lane_traffic_spmm(sched.m, sched.k, sched.seg_start, valid, 1,
+                             bm, bk, n_cols, bytes_per_el)
 
 
 def spgemm_schedule_traffic(sched: SpgemmSchedule, bm: int, bk: int, bn: int,

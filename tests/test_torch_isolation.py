@@ -40,7 +40,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.runtime, repro_torch.convert, repro_torch.core, "
             "repro_torch.kernels, repro_torch.kernels.ops, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
-            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.sim, repro_torch.analysis, "
+            "repro_torch.configs.segfold_paper\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")

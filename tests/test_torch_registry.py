@@ -98,12 +98,14 @@ def test_backend_names():
 
 
 def test_api_exports_repro_names():
-    """Every name ``repro.api`` exports that the port has (not the plan
-    verifier, which is ROADMAP item 1.3), the quantization names being
+    """Every name ``repro.api`` exports (the plan verifier's being
+    ``repro_torch.analysis``'), the quantization names being
     ``repro_torch.core``'s."""
-    later = {"verify_plan", "Finding", "VerifyResult",
-             "PlanVerificationError"}
-    assert set(jax_api.__all__) - set(api.__all__) == later
+    from repro_torch import analysis
+    assert set(jax_api.__all__) - set(api.__all__) == set()
+    for name in ("verify_plan", "Finding", "VerifyResult",
+                 "PlanVerificationError"):
+        assert getattr(api, name) is getattr(analysis, name)
     for name in ("QUANT_DTYPES", "QuantizedBlocks", "quantize_blocks",
                  "dequantize_blocks", "quant_error_bound"):
         assert getattr(api, name) is getattr(formats, name)

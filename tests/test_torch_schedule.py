@@ -17,7 +17,7 @@ from repro.core.formats import BSR as JaxBSR  # noqa: E402
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core.formats import BSR  # noqa: E402
-from repro_torch.core.schedule import check_lane_accum  # noqa: E402
+from repro_torch.analysis import check_lane_accum  # noqa: E402
 from repro_torch.kernels.segment_spmm import run_offsets  # noqa: E402
 
 
@@ -108,11 +108,14 @@ def test_check_lane_accum_flags_read_before_write():
     assert check_lane_accum(owner, seg_start, seg_write, ok, np.ones(4), 1) == []
     # the continuation lands in another lane than its tile's first write
     bad = check_lane_accum(owner, seg_start, seg_write, ok, np.ones(4), 2)
-    assert len(bad) == 1 and "accum_prev=1" in bad[0]
+    assert len(bad) == 1 and "accum_prev=1" in bad[0].message
 
 
-@pytest.mark.parametrize("kw", [{"policy": "auto"}, {"verify": True},
+@pytest.mark.parametrize("kw", [{"policy": "auto"},
+                                {"policy": "auto", "verify": "full"},
                                 {"vmem_limit_bytes": 1 << 20}])
 def test_unported_planner_knobs_raise(kw):
+    """The tuner's knobs still raise, with the verifier on or off (the
+    verifier itself is ported: ``tests/test_torch_verify.py``)."""
     with pytest.raises(NotImplementedError):
         api.plan_matmul(_pattern(), 16, device="cpu", **kw)
