@@ -171,16 +171,44 @@
    against 64 ``decode_step`` calls over the same tokens (≤
    ``LOGIT_RTOL``): the forward kernels against the decode ones and the
    ring cache.
+11. The last four families, each built at published width after the
+   earlier models are freed (bf16 activations, fp32 parameters, random
+   weights from ``SEED``), each holding a decode step's logits against the
+   ``"reference"`` backend and ``forward`` against stepwise decode (≤
+   ``LOGIT_RTOL``) and printing its times and peak memory.  [ssm]
+   RWKV-6 1.6B, all 24 layers: the serve mix (one token a prefill call),
+   32 steady steps, ``forward`` over 1 x ``SSM_FORWARD_T`` tokens (the wkv
+   recurrence is a torch loop: no kernel launches).  [moe] Phi-3.5-MoE,
+   depth cut to ``MOE_LAYERS``: the mix with prefill buckets (64, 16), so
+   chunks pad and drop tokens (every call's kept-token count printed;
+   decode steps drop none), 32 steady steps, ``forward`` + aux over 1 x
+   ``MOE_FORWARD_T`` tokens; forward vs one decode_step over the same
+   tokens (the same capacity) and, with the capacity factor at the expert
+   count so nothing drops, vs 64 stepwise steps.  [vlm] InternVL2-2B, all
+   24 layers, block-sparse FFN: ``forward`` over 256 vision + 1024 text
+   positions (72 SpMM launches, all tc), the mix served text-only (72
+   split launches a decode step) and by ``Engine(quantize="int8")`` (every
+   launch quantized), the SpMM kernel vs plain at N = 4 and 1280.
+   [encdec] Whisper-tiny, block-sparse FFN: ``forward`` over 1500 frames
+   and 448 text tokens (24 launches: the encoder's 4 down projections on
+   the split path, whose B rows of 1500 bf16 TMA cannot read, the other
+   20 on tc), decode logits with the
+   encoder's output, ``Engine`` raising ``NotImplementedError`` as
+   ``repro``'s does, a training step's loss and gradients cuda vs
+   reference, then 3 ``Trainer`` steps at 8 x 448 tokens (72 SpMM
+   launches a step with remat, 24 transposed, all tc), the kernel vs
+   plain at the encoder's 12000 training rows, forward and dx.
 
 The script runs itself under ``PYTHONHASHSEED=0`` (it re-executes when
 started under another), so the suite's matrices are the same in every run.
 Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
-the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``, or
-``hybrid``) builds no granite model.
+the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``,
+``hybrid``, or any of ``ssm,moe,vlm,encdec``) builds no granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -2279,9 +2307,11 @@ def phase_profile(model, engine, dev, label="decode step"):
 
 def sparse_layers(model):
     """The layers whose FFN is block-sparse (each runs 3 SpMM launches a
-    model call): all of granite's, the local ones of the hybrid."""
+    model call): all of granite's, the local ones of the hybrid, the
+    encoder's and the decoder's of an encoder-decoder model."""
     from repro_torch.models import SparseMLP
-    return sum(isinstance(blk.mlp, SparseMLP) for blk in model.layers)
+    return sum(isinstance(getattr(blk, "mlp", None), SparseMLP)
+               for blk in list(model.enc or ()) + list(model.layers))
 
 
 def steady_decode(model, rng, slots=4, steps=32, tag="steady"):
@@ -2693,7 +2723,8 @@ def _zero_counts():
                                              "tc_launches", "simt_launches")),
                           (segment_spmm, ("launches", "split_launches",
                                           "tensor_core_launches",
-                                          "quantized_launches"))):
+                                          "quantized_launches",
+                                          "transposed_launches"))):
         for n in names:
             setattr(kernel, n, 0)
 
@@ -2726,7 +2757,6 @@ def phase_hybrid(dev, replan=False):
     Returns the launch counts and the kernel records."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.runtime import Engine, Request
 
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
                               ffn_block_sparse=True, ffn_block=64,
@@ -2752,20 +2782,12 @@ def phase_hybrid(dev, replan=False):
         verify_replan(model, dev, "[verify hybrid]")
 
     # 1. serving: one token a prefill call (recurrent state), the ring cache
-    rng = np.random.default_rng(SEED)
-    Engine(model, slots=4, max_len=256).generate(
-        [Request(prompt=rng.integers(0, cfg.vocab, 4), max_new_tokens=2)])
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(5, 61)))
-               for _ in range(6)]
-    engine = Engine(model, slots=4, max_len=256)
-    check(engine.prefill_buckets == (1,),
-          f"[hybrid] prefill buckets {engine.prefill_buckets}")
-    _zero_counts()
-    _, spmm, _, split = serve_mix(engine, prompts, "hybrid serve")
-    got = _counts()
-    calls = engine.decode_calls + engine.prefill_calls
+    s = serve_family(model, dev, "hybrid")
+    check(s["buckets"] == (1,), f"[hybrid] prefill buckets {s['buckets']}")
+    got, calls = s["counts"], s["calls"]
     check(got["rg_lru"] == got["rg_lru_simt"] == n_rec * calls
-          and got["flash"] == 0 and split == spmm == 3 * n_sparse * calls,
+          and got["flash"] == 0
+          and s["split"] == s["spmm"] == 3 * n_sparse * calls,
           f"[hybrid serve] launches {got}, expected rg_lru {n_rec} x {calls} "
           f"all on simt, segment_spmm 3 x {n_sparse} x {calls} all split, "
           f"no flash_attention")
@@ -2773,10 +2795,7 @@ def phase_hybrid(dev, replan=False):
     print(f"[hybrid serve] rg_lru launches {serve_lru} == {n_rec} x {calls} "
           f"model calls, all on simt; flash_attention none (the ring cache's "
           f"attention is torch)")
-    decode_logits_check(model, engine, dev, rng, "hybrid serve")
-    idle = phase_profile(model, engine, dev, label="hybrid decode step")
-    del engine
-    med, _ = steady_decode(model, rng, tag="hybrid steady")
+    med, idle = s["steady_ms"], s["idle"]
     serve_peak = torch.cuda.max_memory_allocated() / 2**30
 
     # 2. the kernels against their plain versions at the model's shapes
@@ -2790,50 +2809,472 @@ def phase_hybrid(dev, replan=False):
     # 3. forward over twice the window
     tokens = torch.randint(0, cfg.vocab, (1, HYBRID_FORWARD_T),
                            generator=gen, device=dev)
+    fwd, fwd_ms, fwd_peak, _ = timed_forward(
+        model, "hybrid", {"rg_lru": n_rec, "rg_lru_tile": n_rec,
+                          "flash": n_local, "flash_tc": n_local,
+                          "spmm": 3 * n_sparse, "spmm_tc": 3 * n_sparse},
+        tokens)
+
+    # 4. the caches: forward's last logits vs stepwise decode (simt, ring
+    # attention)
+    stepwise_check(model, tokens[:, :HYBRID_CACHE_T], "hybrid")
+    print(f"[hybrid] summary: steady {med:.2f} ms/step, device idle share "
+          f"{idle:.3f}, serving peak {serve_peak:.2f} GiB; forward "
+          f"{fwd_ms:.2f} ms, peak {fwd_peak:.2f} GiB")
+    return serve_lru, fwd, recs
+
+
+# the last four families ([ssm], [moe], [vlm], [encdec]): each is built at
+# published width after the earlier models are freed, and freed after
+SSM_FORWARD_T = 2048           # [ssm]: forward over 1 x 2048 tokens
+MOE_LAYERS = 2                 # [moe]: Phi-3.5-MoE's depth cut 32 -> 2
+MOE_FORWARD_T = 4096           # [moe]: forward + aux over 1 x 4096 tokens
+VLM_TEXT_T = 1024              # [vlm]: 256 vision + 1024 text positions
+ENCDEC_TEXT_T = 448            # [encdec]: Whisper's text context
+ENCDEC_TRAIN_BATCH = 8         # [encdec]: Trainer steps at 8 x 448 tokens
+ENCDEC_TRAIN_STEPS = 3
+
+
+def build_family(name, tag, dev, **knobs):
+    """``name``'s config at published width (bf16 activations, fp32
+    parameters, ``knobs`` on top), built on the card with random weights
+    from ``SEED``; prints its shape, parameter count and memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(name), dtype="bfloat16", **knobs)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = model.layer_kinds
+    enc = len(model.enc) if model.enc is not None else 0
+    print(f"[{tag}] {cfg.name} full width: {len(kinds)} layers "
+          f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}"
+          f"{f', encoder {enc} attn_bidir' if enc else ''}), d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv} KV, vocab {cfg.vocab}; {sparse_layers(model)} sparse "
+          f"FFNs; {n_params / 1e9:.3f} B fp32 params; built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return model
+
+
+def serve_family(model, dev, tag, steady=True,
+                 around_mix=contextlib.nullcontext, **engine_kw):
+    """The smoke's request mix through ``Engine(slots=4, max_len=256,
+    **engine_kw)`` after a warm-up engine, every launch count set to 0 just
+    before the mix and read just after it (the mix runs inside
+    ``around_mix()``); a decode step's logits on ``"cuda"`` vs
+    ``"reference"``, a profiled decode step and (``steady``) 32 steady
+    4-slot steps.  Returns a dict of the counts, the model calls, the
+    engine's buckets, the idle share and the steady ms/step."""
+    from repro_torch.runtime import Engine, Request
+
+    rng = np.random.default_rng(SEED)
+    vocab = model.cfg.vocab
+    Engine(model, slots=4, max_len=256, **engine_kw).generate(
+        [Request(prompt=rng.integers(0, vocab, 4), max_new_tokens=2)])
+    prompts = [rng.integers(0, vocab, int(rng.integers(5, 61)))
+               for _ in range(6)]
+    engine = Engine(model, slots=4, max_len=256, **engine_kw)
+    with around_mix():
+        _zero_counts()
+        _, spmm, quantized, split = serve_mix(engine, prompts,
+                                              f"{tag} serve")
+    out = dict(counts=_counts(), spmm=spmm, quantized=quantized,
+               split=split, buckets=engine.prefill_buckets,
+               decode_calls=engine.decode_calls,
+               calls=engine.decode_calls + engine.prefill_calls)
+    decode_logits_check(engine.model, engine, dev, rng, f"{tag} serve")
+    out["idle"] = phase_profile(engine.model, engine, dev,
+                                label=f"{tag} decode step")
+    del engine
+    if steady:
+        out["steady_ms"], _ = steady_decode(model, rng, tag=f"{tag} steady")
+    return out
+
+
+def stepwise_check(model, tokens, tag, enc_out=None, **forward_kw):
+    """``forward``'s logits at the last of ``tokens`` (1, T) against T
+    ``decode_step`` calls of one token from an empty cache (≤
+    ``LOGIT_RTOL``)."""
+    t = tokens.shape[1]
+    with torch.inference_mode():
+        want = model(tokens, **forward_kw)[0, -1].float()
+        cache = model.init_cache(1, t)
+        for i in range(t):
+            step, _ = model.decode_step(cache, tokens[:, i:i + 1], i,
+                                        enc_out)
+    got = step[0].float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    top1 = int(got.argmax()) == int(want.argmax())
+    print(f"[{tag} cache] forward vs {t} decode steps at the last position: "
+          f"rel_err {rel:.3e} (tol {LOGIT_RTOL}), same top-1 {top1}")
+    check(bool(torch.isfinite(got).all()), f"[{tag} cache] non-finite")
+    check(rel <= LOGIT_RTOL, f"[{tag} cache] rel err {rel} > {LOGIT_RTOL}")
+
+
+def timed_forward(model, tag, want, *args, **kw):
+    """``model(*args, **kw)`` under inference mode with every count set to
+    0 just before it: the counts (each must equal ``want``'s), the logits'
+    shape and finiteness, then the time of a second call (CUDA events) and
+    the peak memory.  Returns the counts, the ms, the peak GiB and the aux
+    loss."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     with torch.inference_mode():
-        logits = model(tokens)
-        fwd = _counts()
-        check(fwd["rg_lru"] == fwd["rg_lru_tile"] == n_rec
-              and fwd["flash"] == fwd["flash_tc"] == n_local
-              and fwd["spmm"] == fwd["spmm_tc"] == 3 * n_sparse,
-              f"[hybrid forward] launches {fwd}, expected rg_lru {n_rec} on "
-              f"tile, flash_attention {n_local} on tc, segment_spmm "
-              f"{3 * n_sparse} on tc")
-        check(logits.shape == (1, HYBRID_FORWARD_T, cfg.padded_vocab)
-              and bool(torch.isfinite(logits).all()),
-              f"[hybrid forward] logits {tuple(logits.shape)}")
+        logits, aux = model(*args, return_aux=True, **kw)
+        got = _counts()
+        for k, v in want.items():
+            check(got[k] == v, f"[{tag} forward] {k} launches {got[k]} != "
+                               f"{v} ({got})")
+        check(bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(aux)),
+              f"[{tag} forward] non-finite logits or aux")
+        shape = tuple(logits.shape)
         del logits
-        fwd_ms = event_ms(lambda: model(tokens), n=2)
-    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[hybrid forward] 1 x {HYBRID_FORWARD_T} tokens: launches rg_lru "
-          f"{fwd['rg_lru']} (tile), flash_attention {fwd['flash']} (tc), "
-          f"segment_spmm {fwd['spmm']} (tc); {fwd_ms:.2f} ms a forward (CUDA "
-          f"events, {HYBRID_FORWARD_T * 1e3 / fwd_ms:.0f} tokens/s); peak "
-          f"{fwd_peak:.2f} GiB")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model(*args, **kw)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag} forward] logits {shape}, aux {float(aux):.5f}; launches "
+          f"{ {k: v for k, v in got.items() if v} }; "
+          f"{ms:.2f} ms a forward (CUDA events, "
+          f"{shape[0] * shape[1] * 1e3 / ms:.0f} tokens/s); peak "
+          f"{peak:.2f} GiB")
+    return got, ms, peak, float(aux)
 
-    # 4. the caches: forward's last logits vs stepwise decode
+
+def free_model(model):
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(dev):
+    """[ssm]: RWKV-6 1.6B at full width, all 24 layers, bf16 activations.
+    Serves the mix (one token a prefill call: the state has no mask lane),
+    32 steady steps; forward over 1 x ``SSM_FORWARD_T`` tokens; forward vs
+    stepwise decode.  The wkv recurrence is a torch loop (no kernel in
+    either package): no launch of the port's kernels is expected."""
+    model = build_family("rwkv6-1.6b", "ssm", dev)
+    s = serve_family(model, dev, "ssm")
+    check(s["buckets"] == (1,), f"[ssm] prefill buckets {s['buckets']}")
+    check(s["counts"]["spmm"] == 0 and s["counts"]["rg_lru"] == 0
+          and s["counts"]["flash"] == 0, f"[ssm serve] launches "
+                                         f"{s['counts']}, expected none")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    tokens = torch.randint(0, model.cfg.vocab, (1, SSM_FORWARD_T),
+                           generator=gen, device=dev)
+    _, ms, peak, _ = timed_forward(model, "ssm", {"spmm": 0}, tokens)
+    stepwise_check(model, tokens[:, :HYBRID_CACHE_T], "ssm")
+    print(f"[ssm] summary: steady {s['steady_ms']:.2f} ms/step, device "
+          f"idle share {s['idle']:.3f}; forward {ms:.2f} ms, peak "
+          f"{peak:.2f} GiB")
+    free_model(model)
+
+
+@contextlib.contextmanager
+def kept_tokens(seen):
+    """Within the block, ``repro_torch.models.moe.dispatch_batched``
+    appends each dispatch's (B, T), capacity and kept count (a device
+    tensor, read after the run) to ``seen``."""
+    from repro_torch.models import moe as moe_mod
+    inner = moe_mod.dispatch_batched
+
+    def counting(x, expert, n_exp, cap):
+        buf, slot, keep = inner(x, expert, n_exp, cap)
+        seen.append((tuple(x.shape[:2]), cap, keep.sum()))
+        return buf, slot, keep
+
+    moe_mod.dispatch_batched = counting
+    try:
+        yield seen
+    finally:
+        moe_mod.dispatch_batched = inner
+
+
+def summarize_kept(seen, per_call, tag):
+    """Each model call's kept / routed tokens (``per_call`` dispatches a
+    call: MoE layers x top_k), printed in call order."""
+    calls = []
+    for i in range(0, len(seen), per_call):
+        group = seen[i:i + per_call]
+        (b, t), cap = group[0][0], group[0][1]
+        kept = sum(int(k) for _, _, k in group)
+        calls.append((b, t, cap, kept, b * t * per_call))
+    print(f"[{tag}] kept / routed token choices per model call (B x T, "
+          f"cap): " + " ".join(f"{b}x{t}(cap {c}):{k}/{n}"
+                               for b, t, c, k, n in calls))
+    return calls
+
+
+def phase_moe(dev):
+    """[moe]: Phi-3.5-MoE at full width with its depth cut to
+    ``MOE_LAYERS`` (16 experts, top-2, capacity 1.25).  Serves the mix with
+    prefill buckets (64, 16), so chunks pad and drop tokens, and prints
+    every model call's kept-token count; 32 steady steps; forward + aux
+    over 1 x ``MOE_FORWARD_T`` tokens; forward vs one decode_step over the
+    same 64 tokens (the same capacity), and, with the capacity factor set
+    to the expert count so nothing drops, forward vs 64 stepwise decode
+    steps."""
+    model = build_family("phi3.5-moe-42b-a6.6b", "moe", dev,
+                         n_layers=MOE_LAYERS)
+    cfg = model.cfg
+    per_call = cfg.n_layers * cfg.top_k
+    seen = []
+    s = serve_family(model, dev, "moe", steady=False,
+                     around_mix=lambda: kept_tokens(seen))
+    check(s["buckets"] == (64, 16), f"[moe] prefill buckets {s['buckets']}")
+    check(s["counts"]["spmm"] == 0, f"[moe serve] launches {s['counts']}")
+    calls = summarize_kept(seen, per_call, "moe serve")
+    decode = [c for c in calls if c[1] == 1]
+    check(len(calls) == s["calls"]
+          and len(decode) == s["decode_calls"]
+          and all(k == n for _, _, _, k, n in decode),
+          "[moe serve] a decode step dropped a token, or calls miscounted")
+    kept = sum(c[3] for c in calls)
+    routed = sum(c[4] for c in calls)
+    print(f"[moe serve] kept {kept} of {routed} routed token choices "
+          f"({routed - kept} dropped, all in prefill chunks)")
+    steady_ms, _ = steady_decode(model, np.random.default_rng(SEED + 7),
+                                 tag="moe steady")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab, (1, MOE_FORWARD_T), generator=gen,
+                           device=dev)
+    seen = []
+    with kept_tokens(seen):
+        _, ms, peak, aux = timed_forward(model, "moe", {"spmm": 0}, tokens)
+    # the first call's dispatches (the second is the timed one)
+    fwd = summarize_kept(seen[:per_call], per_call, "moe forward")
+    print(f"[moe forward] aux {aux:.5f}; kept {fwd[0][3]} of {fwd[0][4]} "
+          f"token choices at cap {fwd[0][2]}")
+
     prompt = tokens[:, :HYBRID_CACHE_T]
     with torch.inference_mode():
         want = model(prompt)[0, -1].float()
         cache = model.init_cache(1, HYBRID_CACHE_T)
-        for i in range(HYBRID_CACHE_T):
-            step, _ = model.decode_step(cache, prompt[:, i:i + 1], i)
-    got_l = step[0].float()
-    rel = float((got_l - want).abs().max() / want.abs().max())
-    top1 = int(got_l.argmax()) == int(want.argmax())
-    print(f"[hybrid cache] forward (tile, flash_attention) vs "
-          f"{HYBRID_CACHE_T} decode steps (simt, ring attention) at the last "
-          f"position: rel_err {rel:.3e} (tol {LOGIT_RTOL}), same top-1 "
-          f"{top1}")
-    check(rel <= LOGIT_RTOL, f"[hybrid cache] rel err {rel} > {LOGIT_RTOL}")
-    print(f"[hybrid] summary: steady {med:.2f} ms/step, device idle share "
-          f"{idle:.3f}, serving peak {serve_peak:.2f} GiB; forward "
-          f"{fwd_ms:.2f} ms, peak {fwd_peak:.2f} GiB")
-    return serve_lru, fwd, recs
+        got, _ = model.decode_step(cache, prompt, 0)
+    rel = float((got[0].float() - want).abs().max() / want.abs().max())
+    print(f"[moe cache] forward vs one {HYBRID_CACHE_T}-token decode_step "
+          f"(same capacity): rel_err {rel:.3e} (tol {LOGIT_RTOL})")
+    check(rel <= LOGIT_RTOL, f"[moe cache] rel err {rel} > {LOGIT_RTOL}")
+    roomy = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
+    for blk in model.layers:
+        blk.cfg = roomy
+    try:
+        stepwise_check(model, prompt, "moe no-drop")
+    finally:
+        for blk in model.layers:
+            blk.cfg = cfg
+    print(f"[moe] summary: steady {steady_ms:.2f} ms/step, device idle "
+          f"share {s['idle']:.3f}; forward {ms:.2f} ms, peak {peak:.2f} GiB")
+    free_model(model)
+
+
+def phase_vlm(dev):
+    """[vlm]: InternVL2-2B at full width, all 24 layers, with the
+    block-sparse FFN as granite is served (64 blocks, density 0.25).
+    Forward over 256 vision + ``VLM_TEXT_T`` text positions (the SpMM on
+    the tensor cores, 72 launches); the mix served text-only (72 split
+    launches a decode step) and on ``Engine(quantize="int8")`` (every
+    launch quantized); forward vs stepwise decode; SpMM kernel vs plain at
+    the model's decode and forward shapes.  Returns the launch counts and
+    the kernel records."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticDataset
+
+    model = build_family("internvl2-2b", "vlm", dev, ffn_block_sparse=True,
+                         ffn_block=64, ffn_density=0.25)
+    cfg = model.cfg
+    n_sparse = sparse_layers(model)
+    s = serve_family(model, dev, "vlm")
+    check(s["split"] == s["spmm"] - s["counts"]["spmm_tc"]
+          and s["spmm"] == 3 * n_sparse * s["calls"],
+          f"[vlm serve] launches {s['counts']}")
+    q = serve_family(model, dev, "vlm int8", steady=False, quantize="int8")
+    check(q["quantized"] == q["spmm"] == 3 * n_sparse * q["calls"],
+          f"[vlm int8 serve] {q['quantized']} of {q['spmm']} launches "
+          f"quantized, expected 3 x {n_sparse} x {q['calls']}")
+    print(f"[vlm] serving launches: fp32 {s['spmm']} == 3 x {n_sparse} x "
+          f"{s['calls']} ({s['split']} split, {s['counts']['spmm_tc']} tc); "
+          f"int8 {q['quantized']} quantized == 3 x {n_sparse} x "
+          f"{q['calls']} ({q['split']} split)")
+
+    shape = ShapeConfig("vlm", "prefill", cfg.n_frontend_tokens + VLM_TEXT_T,
+                        1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(
+        cfg, shape, seed=SEED + 1).batch(0).items()}
+    fwd, ms, peak, _ = timed_forward(
+        model, "vlm", {"spmm": 3 * n_sparse, "spmm_tc": 3 * n_sparse},
+        batch["tokens"], vis_embeds=batch["vis_embeds"])
+    stepwise_check(model, batch["tokens"][:, :HYBRID_CACHE_T], "vlm")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    up = model.layers[0].mlp.up
+    plan = up.plan.with_values(up.blocks.data)
+    recs = []
+    for n in (4, cfg.n_frontend_tokens + VLM_TEXT_T):
+        x = torch.randn(n, cfg.d_model, generator=gen, device=dev).bfloat16()
+        recs.append(kernel_case(f"vlm up N={n}", plan, x.T, tag="vlm"))
+    print(f"[vlm] summary: steady {s['steady_ms']:.2f} ms/step, device idle "
+          f"share {s['idle']:.3f}; forward {ms:.2f} ms, peak {peak:.2f} GiB")
+    free_model(model)
+    return s["split"], fwd["spmm_tc"], recs
+
+
+def phase_encdec(dev):
+    """[encdec]: Whisper-tiny at full width with the block-sparse FFN (64
+    blocks, density 0.25).  Forward over 1500 frames and
+    ``ENCDEC_TEXT_T`` text tokens (24 SpMM launches, 20 on tc and the
+    encoder's 4 down projections on split); decode
+    logits with the encoder's output on ``"cuda"`` vs ``"reference"``;
+    forward vs stepwise decode; ``Engine`` raises as ``repro``'s does;
+    ``ENCDEC_TRAIN_STEPS`` ``Trainer`` steps at ``ENCDEC_TRAIN_BATCH`` x
+    ``ENCDEC_TEXT_T`` tokens (loss and gradients vs the reference backend
+    first; SpMM launches per step counted exactly, remat included); SpMM
+    kernel vs plain at the encoder's training shapes.  Returns the launch
+    counts and the kernel records."""
+    from repro_torch.api import use_backend
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels.segment_spmm import segment_spmm
+    from repro_torch.runtime import Engine, Trainer, TrainerConfig
+
+    model = build_family("whisper-tiny", "encdec", dev, ffn_block_sparse=True,
+                         ffn_block=64, ffn_density=0.25)
+    cfg = model.cfg
+    n_sparse = sparse_layers(model)
+    try:
+        Engine(model, slots=4, max_len=256)
+    except NotImplementedError as e:
+        print(f"[encdec] Engine raises NotImplementedError: {e}")
+    else:
+        check(False, "[encdec] Engine served an encoder-decoder model")
+
+    shape = ShapeConfig("encdec", "prefill", ENCDEC_TEXT_T, 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(
+        cfg, shape, seed=SEED + 1).batch(0).items()}
+    # the encoder's down projections read h.T with a row stride of 1500
+    # elements (3000 bytes), which TMA cannot read: the split path
+    n_enc = len(model.enc)
+    fwd, ms, peak, _ = timed_forward(
+        model, "encdec", {"spmm": 3 * n_sparse,
+                          "spmm_tc": 3 * n_sparse - n_enc,
+                          "spmm_split": n_enc},
+        batch["tokens"], enc_embeds=batch["enc_embeds"])
+
+    rng = np.random.default_rng(SEED)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1))).to(dev)
+    logits = {}
+    with torch.inference_mode():
+        for backend in ("cuda", "reference"):
+            with use_backend(backend):
+                enc = model.encode(batch["enc_embeds"])
+                cache = model.init_cache(1, 64)
+                model.decode_step(cache, batch["tokens"][:, :40], 0, enc)
+                logits[backend], _ = model.decode_step(cache, tok, 40, enc)
+    got, want = logits["cuda"].float(), logits["reference"].float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[encdec] decode logits (with the encoder's output) cuda vs "
+          f"reference: rel_err {rel:.3e} (tol {LOGIT_RTOL})")
+    check(bool(torch.isfinite(got).all()) and rel <= LOGIT_RTOL,
+          f"[encdec] decode logits rel err {rel}")
+    with torch.inference_mode():
+        enc = model.encode(batch["enc_embeds"])
+    stepwise_check(model, batch["tokens"][:, :HYBRID_CACHE_T], "encdec",
+                   enc_out=enc, enc_embeds=batch["enc_embeds"])
+
+    # training: one step's loss and gradients cuda vs reference, then the
+    # Trainer (remat: 2 forward + 1 transposed launch per projection)
+    tshape = ShapeConfig("encdec-train", "train", ENCDEC_TEXT_T,
+                         ENCDEC_TRAIN_BATCH)
+    tbatch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(
+        cfg, tshape, seed=SEED + 1).batch(0).items()}
+    per_step = 3 * n_sparse * (3 if cfg.remat else 2)
+    picked = ["enc.0.mlp.up.blocks", f"layers.{cfg.dec_layers - 1}.mlp."
+              "down.blocks", "layers.0.xattn.wq.w", "frontend.w"]
+    seen = {}
+    for backend in ("cuda", "reference"):
+        _zero_counts()
+        loss, grads = _grads_on(model, tbatch, backend)
+        counts = (segment_spmm.launches, segment_spmm.transposed_launches,
+                  segment_spmm.tensor_core_launches)
+        if backend == "cuda":
+            check(counts == (per_step, 3 * n_sparse, per_step),
+                  f"[encdec train] gradient step launches (all, transposed,"
+                  f" tc) {counts} != ({per_step}, {3 * n_sparse}, "
+                  f"{per_step})")
+        seen[backend] = (loss, {k: grads[k].clone() for k in picked})
+        del grads
+    errs = {k: float(torch.linalg.vector_norm(seen["cuda"][1][k]
+                                              - seen["reference"][1][k])
+                     / torch.linalg.vector_norm(seen["reference"][1][k]))
+            for k in picked}
+    loss_err = abs(seen["cuda"][0] - seen["reference"][0]) / abs(
+        seen["reference"][0])
+    print(f"[encdec train] cuda vs reference: loss {loss_err:.3e} (tol "
+          f"{LOSS_RTOL}), gradients (norm-relative, tol {GRAD_RTOL}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(loss_err <= LOSS_RTOL, f"[encdec train] loss err {loss_err}")
+    for k, v in errs.items():
+        check(v <= GRAD_RTOL, f"[encdec train] {k} gradient err {v}")
+    del seen
+    tcfg = TrainerConfig(steps=ENCDEC_TRAIN_STEPS, log_every=1, warmup=1)
+    trainer = Trainer(model, cfg, tshape, tcfg, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = trainer.run()
+    launches = segment_spmm.launches
+    transposed = segment_spmm.transposed_launches
+    tc = segment_spmm.tensor_core_launches
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = ENCDEC_TRAIN_BATCH * ENCDEC_TEXT_T
+    for h in out["history"]:
+        print(f"[encdec train] step {h['step']}: loss {h['loss']:.5f}, grad "
+              f"norm {h['grad_norm']:.5f}, {h['ms']:.1f} ms/step, "
+              f"{tokens * 1e3 / h['ms']:.0f} text tokens/s")
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"[encdec train] step {h['step']}: non-finite")
+    check((launches, transposed, tc) == (
+        per_step * ENCDEC_TRAIN_STEPS, 3 * n_sparse * ENCDEC_TRAIN_STEPS,
+        per_step * ENCDEC_TRAIN_STEPS),
+        f"[encdec train] launches (all, transposed, tc) {launches}, "
+        f"{transposed}, {tc} != {per_step} x {ENCDEC_TRAIN_STEPS}, "
+        f"{3 * n_sparse} x {ENCDEC_TRAIN_STEPS}, all")
+    steady = float(np.median([h["ms"] for h in out["history"][1:]]))
+    print(f"[encdec train] batch {ENCDEC_TRAIN_BATCH} x {ENCDEC_TEXT_T} "
+          f"text tokens over {cfg.n_frontend_tokens} frames, remat "
+          f"{cfg.remat}: median of steps 1..{ENCDEC_TRAIN_STEPS - 1} "
+          f"{steady:.1f} ms/step; segment_spmm launches {launches} == "
+          f"{per_step} x {ENCDEC_TRAIN_STEPS} ({transposed} transposed), all "
+          f"{tc} on the tensor cores; peak {train_peak:.2f} GiB")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    up = model.enc[0].mlp.up
+    plan = up.plan.with_values(up.blocks.data)
+    n = ENCDEC_TRAIN_BATCH * cfg.n_frontend_tokens
+    x = torch.randn(n, cfg.d_model, generator=gen, device=dev).bfloat16()
+    dy = torch.randn(n, cfg.d_ff, generator=gen, device=dev).bfloat16()
+    recs = [kernel_case(f"encdec up N={n}", plan, x.T, tag="encdec"),
+            kernel_case(f"encdec up dx N={n}", plan, dy.T, transpose=True,
+                        tag="encdec")]
+    print(f"[encdec] summary: forward {ms:.2f} ms, peak {peak:.2f} GiB; "
+          f"training {steady:.1f} ms/step, peak {train_peak:.2f} GiB")
+    del trainer
+    free_model(model)
+    return launches - transposed, transposed, recs
 
 
 VERIFY_SCALE_CAP = 2048        # [verify]: the paper's suite at this cap
@@ -3103,10 +3544,11 @@ def phase_verify(model, dev):
 
 
 PHASES = ("spgemm", "ops", "kernel", "crossover", "edges", "serve",
-          "qkernel", "qserve", "qgrad", "train", "verify", "hybrid")
-# the phases that need granite-3-8b built (``--only spgemm,ops`` or
-# ``--only hybrid`` skips it)
-GRANITE_PHASES = PHASES[2:-1]
+          "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "ssm",
+          "moe", "vlm", "encdec")
+# the phases that need granite-3-8b built (``--only spgemm,ops``, ``--only
+# hybrid`` or ``--only ssm,moe,vlm,encdec`` skips it)
+GRANITE_PHASES = PHASES[2:PHASES.index("hybrid")]
 
 
 def main():
@@ -3198,6 +3640,19 @@ def main():
     if "hybrid" in only:
         hybrid_lru, hybrid_fwd, hybrid_recs = phase_hybrid(
             dev, replan="verify" in only)
+    # each family's model and plans are freed before the next is built
+    clear_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "ssm" in only:
+        phase_ssm(dev)
+    if "moe" in only:
+        phase_moe(dev)
+    if "vlm" in only:
+        vlm_split, vlm_tc, vlm_recs = phase_vlm(dev)
+        clear_plan_cache()
+    if "encdec" in only:
+        encdec_fwd, encdec_t, encdec_recs = phase_encdec(dev)
     if not full:
         print(f"chip_smoke: phases {only} passed")
         return
@@ -3334,7 +3789,24 @@ def main():
                 "hybrid-forward", hybrid_fwd["rg_lru"], "rg_lru forward"),
                ("flash_attention.tc", "flash_attention", "tc: bf16, 16 heads "
                 "/ 1 KV, D = 256, window 2048, 1 x 4096 forward",
-                "hybrid-forward", hybrid_fwd["flash"], "local forward"))]}))
+                "hybrid-forward", hybrid_fwd["flash"], "local forward"))]
+        # the last families' SpMM launches, each timed at the shape its
+        # path gives it: InternVL2-2B's decode (split) and its forward over
+        # 256 vision + 1024 text positions (tc); Whisper-tiny's training
+        # steps, forward and dx at the encoder's 8 x 1500 rows (tc)
+        + [entry(name, mode, path, n, rec, [rec])
+           for name, mode, path, n, rec in (
+               ("segment_spmm", "split: bf16 x, InternVL2-2B decode",
+                "vlm-serve", vlm_split, one(vlm_recs, n=4)),
+               ("segment_spmm.tensor_core", "tc: InternVL2-2B forward, 256 "
+                "vision + 1024 text positions", "vlm-forward", vlm_tc,
+                one(vlm_recs, mode="forward", path="tc")),
+               ("segment_spmm.tensor_core", "tc: Whisper-tiny training "
+                "forward (remat)", "encdec-train", encdec_fwd,
+                one(encdec_recs, mode="forward")),
+               ("segment_spmm.transpose_lhs", "tc: Whisper-tiny training dx",
+                "encdec-train", encdec_t,
+                one(encdec_recs, mode="transpose_lhs")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

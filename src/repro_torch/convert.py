@@ -3,10 +3,14 @@
 :func:`params_from_jax` takes the output of ``repro``'s ``Transformer.init``
 or ``Transformer.quantize`` (layer-stacked leaves, converted to numpy by
 the caller) and returns the port's state dict, so that both packages
-compute the same function.  A dense tree stacks its blocks under
-``layers``; a hybrid one under ``units/b{j}`` (stacked over the units of
-the layer pattern) and ``tail/b{j}`` (one unit's first blocks), which come
-over as ``layers.{u * len(pattern) + j}`` and then the tail's.  The
+compute the same function.  The port's modules carry ``repro``'s keys, so
+each block's tree comes over leaf for leaf under its dotted path.  A tree
+without a layer pattern stacks its blocks under ``layers``; one with a
+pattern (hybrid, Maverick's ``("attn", "moe")``) under ``units/b{j}``
+(stacked over the units) and ``tail/b{j}`` (one unit's first blocks),
+which come over as ``layers.{u * len(pattern) + j}`` and then the tail's;
+an encoder-decoder's ``enc`` and ``dec`` as ``enc.{i}`` and
+``layers.{i}``.  ``frontend`` and ``lm_head`` come over as they are.  The
 block-sparse FFN blocks are in the storage order of the JAX model's
 shared patterns; the port's model must be built over the same patterns
 (``build_model(cfg, ffn_patterns=...)``).  :func:`quantized_blocks_from_jax`
@@ -52,28 +56,18 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping,
         "embed.table": _t(params_np["embed"]["table"]),
         "final_norm.scale": _t(params_np["final_norm"]["scale"]),
     }
-    if "lm_head" in params_np:
-        sd["lm_head.table"] = _t(params_np["lm_head"]["table"])
-    for i, (tree, idx) in enumerate(_layer_trees(cfg, params_np)):
-        pre = f"layers.{i}."
-        sd[pre + "norm1.scale"] = _t(tree["norm1"]["scale"][idx])
-        sd[pre + "norm2.scale"] = _t(tree["norm2"]["scale"][idx])
-        if "attn" in tree:
-            for name in ("wq", "wk", "wv", "wo"):
-                for leaf, arr in tree["attn"][name].items():
-                    sd[pre + f"attn.{name}.{leaf}"] = _t(arr[idx])
-        if "rec" in tree:
-            for name, sub in tree["rec"].items():
-                if isinstance(sub, Mapping):         # a Dense: w (and b)
-                    for leaf, arr in sub.items():
-                        sd[pre + f"rec.{name}.{leaf}"] = _t(arr[idx])
-                else:                                 # conv, a_param
-                    sd[pre + f"rec.{name}"] = _t(sub[idx])
+    for name in ("lm_head", "frontend"):
+        if name in params_np:
+            _put(sd, name + ".", params_np[name], None)
+    for pre, tree, idx in _layer_trees(cfg, params_np):
+        block = {k: v for k, v in tree.items() if k != "mlp"}
+        _put(sd, pre, block, idx)
+        if "mlp" not in tree:                # moe and rwkv blocks
+            continue
         for proj in _PROJS:
             leaves = tree["mlp"][proj]
             if "scales" not in leaves:
-                for leaf, arr in leaves.items():
-                    sd[pre + f"mlp.{proj}.{leaf}"] = _t(arr[idx])
+                _put(sd, pre + f"mlp.{proj}.", leaves, idx)
                 continue
             q = quantized_blocks_from_jax(leaves["blocks"][idx],
                                           leaves["scales"][idx],
@@ -92,17 +86,40 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping,
     return sd
 
 
+def _put(sd: Dict[str, torch.Tensor], prefix: str, tree: Mapping,
+         idx: Optional[int]) -> None:
+    """Every leaf of a nested dict under its dotted path (the port's module
+    names are ``repro``'s keys), indexed at ``idx`` along a layer-stacked
+    leaf's first axis."""
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            _put(sd, f"{prefix}{key}.", sub, idx)
+        else:
+            sd[prefix + key] = _t(sub if idx is None else sub[idx])
+
+
 def _layer_trees(cfg: ModelConfig, params_np: Mapping):
-    """``(block tree, index along its stack axis)`` of each layer, in the
-    port's layer order."""
+    """``(state-name prefix, block tree, index along its stack axis)`` of
+    each layer: the encoder's (``enc`` → ``enc.{i}``), then the decoder's
+    or the model's in the port's layer order (``dec`` or ``layers``, or a
+    layer pattern's ``units/b{j}`` over units then ``tail/b{j}`` →
+    ``layers.{i}``)."""
+    if cfg.family == "enc_dec":
+        return ([(f"enc.{i}.", params_np["enc"], i)
+                 for i in range(cfg.enc_layers)]
+                + [(f"layers.{i}.", params_np["dec"], i)
+                   for i in range(cfg.dec_layers)])
     if not cfg.layer_pattern:
-        return [(params_np["layers"], i) for i in range(cfg.n_layers)]
-    p = len(cfg.layer_pattern)
-    n_units = cfg.n_layers // p
-    return ([(params_np["units"][f"b{j}"], u)
-             for u in range(n_units) for j in range(p)]
-            + [(params_np["tail"][f"b{j}"], 0)
-               for j in range(cfg.n_layers - n_units * p)])
+        trees = [(params_np["layers"], i) for i in range(cfg.n_layers)]
+    else:
+        p = len(cfg.layer_pattern)
+        n_units = cfg.n_layers // p
+        trees = ([(params_np["units"][f"b{j}"], u)
+                  for u in range(n_units) for j in range(p)]
+                 + [(params_np["tail"][f"b{j}"], 0)
+                    for j in range(cfg.n_layers - n_units * p)])
+    return [(f"layers.{i}.", tree, idx) for i, (tree, idx) in
+            enumerate(trees)]
 
 
 def _mode_of(leaves: Mapping) -> str:

@@ -1,11 +1,12 @@
 """Dense oracles in torch (the port of ``repro.kernels.ref``: SpMM, SpGEMM
-and the dequantization they share, the grouped MoE GEMM, attention and the
-RG-LRU recurrence).
+and the dequantization they share, the grouped MoE GEMM, attention, the
+RG-LRU recurrence and RWKV-6's time mix).
 
 The matmul oracles are the ground truth of the ``"reference"`` backend: no
-schedule, no kernel, just the dense matrix and one fp32 matmul.  The other
-three are what :mod:`repro_torch.kernels.ops`'s entry points are held
-against.
+schedule, no kernel, just the dense matrix and one fp32 matmul.  Attention,
+the MoE GEMM and the RG-LRU are what :mod:`repro_torch.kernels.ops`'s entry
+points are held against; :func:`rwkv6_ref` is the recurrence RWKV-6's
+time mix runs (no kernel exists for it in either package).
 """
 from __future__ import annotations
 
@@ -151,3 +152,28 @@ def rg_lru_ref(x: torch.Tensor, a_gate: torch.Tensor, x_gate: torch.Tensor,
         h = a[:, t] * h + xb[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 (Finch) time-mix oracle, a torch loop over T in fp32.
+
+    r, k, v: (B, T, H, D); w: (B, T, H, D) data-dependent log-decay (< 0);
+    u: (H, D) bonus; state0: (B, H, D, D) (zeros when ``None``).
+    ``out_t = r_t · (S + u ⊙ (k_tᵀ v_t))``, ``S ← diag(e^{w_t}) S +
+    k_tᵀ v_t``.  Returns ``(out (B, T, H, D), S_T)``, both fp32.
+    """
+    b, t, h, d = r.shape
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    rf, kf, vf = r.float(), k.float(), v.float()
+    decay = torch.exp(w.float())
+    bonus = u.float()[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]       # (B, H, D, D)
+        outs.append(torch.einsum("bhi,bhij->bhj", rf[:, i], s + bonus * kv))
+        s = decay[:, i, :, :, None] * s + kv
+    return torch.stack(outs, dim=1), s

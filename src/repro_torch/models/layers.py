@@ -1,5 +1,4 @@
-"""Core neural layers in torch (the parts of ``repro.models.layers`` that
-the dense and hybrid decoder families serve with).
+"""Core neural layers in torch (the port of ``repro.models.layers``).
 
 Plain tensor functions mirror the jnp ones one for one; small
 ``nn.Module``s hold the parameters under the same names as the JAX param
@@ -275,7 +274,8 @@ def kv_cache_write(buf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
 
 
 class Attention(nn.Module):
-    """GQA self-attention with RoPE and an optional in-place KV cache."""
+    """GQA self-attention with RoPE and an optional in-place KV cache;
+    bidirectional (``causal=False``) or cross attention (``kv_ctx``)."""
 
     def __init__(self, d_model, n_heads, n_kv, head_dim, *, qkv_bias=False,
                  device=None):
@@ -288,22 +288,25 @@ class Attention(nn.Module):
         self.wo = Dense(n_heads * head_dim, d_model, device=device)
 
     def forward(self, x, *, positions, rope_theta=10000.0, cache=None,
-                cache_pos: Pos = 0, chunk=1024, window=None, ring=False):
+                cache_pos: Pos = 0, chunk=1024, window=None, ring=False,
+                causal=True, kv_ctx: Optional[torch.Tensor] = None):
         """``cache``: optional dict of ``k``/``v`` (B, T_max, n_kv, hd),
         written in place at ``cache_pos`` (shared scalar or per-row
         ``(B,)``); the queries then attend over the whole cache, masked to
         each row's own valid length.  An int8 cache also holds ``k_s``/
         ``v_s`` (B, T_max, n_kv) scales and takes at most 8 queries at a
         time.  ``ring``: the cache is a ring of W slots (local attention;
-        at most W new tokens a call).  Without a cache: causal attention
-        over ``x``, within ``window`` when it is given (then on the
-        ``flash_attention`` kernel, except on the ``"reference"``
-        backend)."""
+        at most W new tokens a call).  Without a cache: attention over
+        ``x`` (causal unless ``causal=False``), within ``window`` when it is
+        given (then on the ``flash_attention`` kernel, except on the
+        ``"reference"`` backend).  ``kv_ctx`` (B, Tk, D): cross attention,
+        keys and values projected from it, no rope and no mask."""
         b, t, _ = x.shape
+        src = x if kv_ctx is None else kv_ctx
         q = self.wq(x).reshape(b, t, self.n_heads, self.head_dim)
-        k = self.wk(x).reshape(b, t, self.n_kv, self.head_dim)
-        v = self.wv(x).reshape(b, t, self.n_kv, self.head_dim)
-        if rope_theta:
+        k = self.wk(src).reshape(b, src.shape[1], self.n_kv, self.head_dim)
+        v = self.wv(src).reshape(b, src.shape[1], self.n_kv, self.head_dim)
+        if kv_ctx is None and rope_theta:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
         if cache is not None and ring:
@@ -326,7 +329,7 @@ class Attention(nn.Module):
                 kv_cache_write(cache[name + "_s"], scale, cache_pos)
             out = _direct_attention_q8(
                 q, cache["k"], cache["k_s"], cache["v"], cache["v_s"],
-                q_offset=cache_pos, kv_len=cache_pos + t, causal=True,
+                q_offset=cache_pos, kv_len=cache_pos + t, causal=causal,
                 window=window)
         elif cache is not None:
             ck, cv = cache["k"], cache["v"]
@@ -335,17 +338,19 @@ class Attention(nn.Module):
             kv_len = cache_pos + t
             if t <= 8:
                 out = _direct_attention(q, ck, cv, q_offset=cache_pos,
-                                        kv_len=kv_len, causal=True,
+                                        kv_len=kv_len, causal=causal,
                                         window=window)
             else:
-                out = chunked_attention(q, ck, cv, causal=True, window=window,
+                out = chunked_attention(q, ck, cv, causal=causal,
+                                        window=window,
                                         q_offset=cache_pos, kv_len=kv_len,
                                         chunk=chunk)
         elif window is not None and default_backend() != "reference":
             out = flash_mha(q, k, v, causal=True, window=window)
         else:
-            out = chunked_attention(q, k, v, causal=True, window=window,
-                                    q_offset=0, chunk=chunk)
+            out = chunked_attention(q, k, v,
+                                    causal=causal and kv_ctx is None,
+                                    window=window, q_offset=0, chunk=chunk)
         return self.wo(out.reshape(b, t, self.n_heads * self.head_dim))
 
 

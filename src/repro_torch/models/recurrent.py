@@ -1,6 +1,8 @@
-"""The RG-LRU recurrent block of Griffin / RecurrentGemma (the port of
-``repro.models.recurrent``'s ``rglru_block_*``).
+"""The recurrent blocks (the port of ``repro.models.recurrent``): the RG-LRU
+block of Griffin / RecurrentGemma and RWKV-6's (Finch) time mix and
+channel mix.
 
+RG-LRU:
 ``in_x``/``in_g`` project the input; ``xb`` goes through a width-4
 depthwise causal conv, then the gates ``a_gate(xb)``/``x_gate(xb)`` and the
 recurrence ``h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (σ(x_gate_t) ⊙ xb_t)``
@@ -8,12 +10,23 @@ run fused in the ``rg_lru`` kernel (:mod:`repro_torch.kernels.rg_lru`; its
 plain version for CPU tensors, ``repro``'s oracle on the ``"reference"``
 backend), and ``out`` projects ``h ⊙ gelu(gb)``.  Decode carries the
 conv's last 3 inputs (activation dtype) and h (fp32) as state.
+
+RWKV-6 (:class:`RWKVBlock`): a token shift mixes each input with the one
+before it (``mix``, five rows: r, k, v, w, g), the decay is data-dependent
+(``w_bias + tanh(x_w @ w_lora_a) @ w_lora_b`` in fp32, then
+``-softplus``), and the wkv recurrence over a per-head (hd × hd) fp32 state
+S is :func:`repro_torch.kernels.ref.rwkv6_ref`, a torch loop over T (the
+counterpart of ``repro``'s ``lax.scan``; neither package has a kernel for
+it).  The channel mix is a token-shifted squared-ReLU MLP.  Decode carries
+the two shifts (activation dtype) and S as state, so one call over T tokens
+equals T calls of one token.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.api.backends import default_backend
@@ -103,3 +116,104 @@ def rglru_block_state(b: int, d_model: int, dtype=torch.float32,
                                 device=device),
             "h": torch.zeros((b, d_model), dtype=torch.float32,
                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch) time mix + channel mix
+# ---------------------------------------------------------------------------
+
+
+def token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """shifted[t] = x[t-1], ``prev`` (B, D) at t = 0.  x: (B, T, D)."""
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _mixed(x, xs, mix):
+    """``x ⊙ mix + xs ⊙ (1 - mix)`` in x's dtype, as ``repro`` rounds it."""
+    return x * mix + xs * (1 - mix)
+
+
+class RWKVBlock(nn.Module):
+    """RWKV-6 time mix and channel mix of one layer, parameters under
+    ``repro``'s names: ``mix`` (5, D), ``wr``/``wk``/``wv``/``wg``/``wo``,
+    ``w_lora_a`` (D, lora), ``w_lora_b`` (lora, D), ``w_bias`` (D,), ``u``
+    (H, hd), ``ln_x``, ``cm_mix`` (2, D), ``cm_k`` (D → d_ff), ``cm_v``
+    (d_ff → D); lora is ``max(32, D // 16)`` wide."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, *,
+                 device=None):
+        super().__init__()
+        d = d_model
+        self.n_heads = n_heads
+        lora = max(32, d // 16)
+        self.mix = nn.Parameter(torch.empty(5, d, device=device))
+        self.wr = layers.Dense(d, d, device=device)
+        self.wk = layers.Dense(d, d, device=device)
+        self.wv = layers.Dense(d, d, device=device)
+        self.wg = layers.Dense(d, d, device=device)
+        self.w_lora_a = nn.Parameter(torch.empty(d, lora, device=device))
+        self.w_lora_b = nn.Parameter(torch.empty(lora, d, device=device))
+        self.w_bias = nn.Parameter(torch.empty(d, device=device))
+        self.u = nn.Parameter(torch.empty(n_heads, d // n_heads,
+                                          device=device))
+        self.wo = layers.Dense(d, d, device=device)
+        self.ln_x = layers.RMSNorm(d, device=device)
+        self.cm_mix = nn.Parameter(torch.empty(2, d, device=device))
+        self.cm_k = layers.Dense(d, d_ff, device=device)
+        self.cm_v = layers.Dense(d_ff, d, device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        """mix, cm_mix ~ U(0, 1); lora ~ N(0, 0.01²); w_bias = -4 (a slow
+        decay); u ~ N(0, 0.1²) (the projections draw their own)."""
+        self.mix.uniform_(0.0, 1.0, generator=gen)
+        self.w_lora_a.normal_(generator=gen).mul_(0.01)
+        self.w_lora_b.normal_(generator=gen).mul_(0.01)
+        self.w_bias.fill_(-4.0)
+        self.u.normal_(generator=gen).mul_(0.1)
+        self.cm_mix.uniform_(0.0, 1.0, generator=gen)
+
+
+def rwkv_time_mix(block: RWKVBlock, x: torch.Tensor, state: State
+                  ) -> Tuple[torch.Tensor, State]:
+    """x: (B, T, D); state: dict(shift (B, D), S (B, H, hd, hd) fp32).
+    Returns ``(out, {"shift", "S"})``."""
+    b, t, d = x.shape
+    h = block.n_heads
+    xs = token_shift(x, state["shift"])
+    mix = block.mix.to(x.dtype)
+    r = block.wr(_mixed(x, xs, mix[0])).reshape(b, t, h, d // h)
+    k = block.wk(_mixed(x, xs, mix[1])).reshape(b, t, h, d // h)
+    v = block.wv(_mixed(x, xs, mix[2])).reshape(b, t, h, d // h)
+    g = block.wg(_mixed(x, xs, mix[4]))
+    # data-dependent decay in (0, 1): exp(-softplus(w_raw)), in fp32
+    w_raw = (block.w_bias.float()
+             + torch.tanh(_mixed(x, xs, mix[3]).float()
+                          @ block.w_lora_a.float())
+             @ block.w_lora_b.float())
+    log_w = -ref.softplus(w_raw).reshape(b, t, h, d // h)
+    outs, s_t = ref.rwkv6_ref(r, k, v, log_w, block.u, state["S"])
+    outs = outs.reshape(b, t, d).to(x.dtype)
+    out = block.wo(block.ln_x(outs) * F.silu(g))
+    return out, {"shift": x[:, -1], "S": s_t}
+
+
+def rwkv_channel_mix(block: RWKVBlock, x: torch.Tensor,
+                     shift: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The token-shifted squared-ReLU MLP; ``shift`` (B, D) is its state.
+    Returns ``(out, new shift)``."""
+    xs = token_shift(x, shift)
+    xk = _mixed(x, xs, block.cm_mix.to(x.dtype)[0])
+    return block.cm_v(torch.square(F.relu(block.cm_k(xk)))), x[:, -1]
+
+
+def rwkv_block_state(b: int, d_model: int, n_heads: int,
+                     dtype=torch.float32, device=None) -> State:
+    """Zero decode state: ``shift``/``cm_shift`` (B, D) in the activation
+    dtype, ``S`` (B, H, hd, hd) fp32."""
+    hd = d_model // n_heads
+    return {"shift": torch.zeros((b, d_model), dtype=dtype, device=device),
+            "S": torch.zeros((b, n_heads, hd, hd), dtype=torch.float32,
+                             device=device),
+            "cm_shift": torch.zeros((b, d_model), dtype=dtype,
+                                    device=device)}

@@ -1,32 +1,43 @@
-"""Decoder-only transformer of the dense and hybrid families (the parts of
-``repro.models.transformer`` that granite-class models and RecurrentGemma
-serve with).
+"""The transformer of every family in ``repro``'s registry (the port of
+``repro.models.transformer``): one implementation, ten architectures.
 
-Dense: GQA attention + SwiGLU or block-sparse Segment FFN.  Hybrid
-(``cfg.layer_pattern``, e.g. RecurrentGemma's ``("rec", "rec", "local")``):
-``rec`` layers are an RG-LRU block (:mod:`.recurrent`) with a dense SwiGLU,
-``local`` layers windowed attention with the model's FFN, as in ``repro``.
-The layers are one ``nn.ModuleList`` in ``repro``'s order (the pattern
-repeated, then its first ``n_layers mod len(pattern)`` kinds) instead of
-scanned stacks.  With ``ffn_block_sparse`` every sparse FFN uses one shared
-pruning pattern (three plans, built once) and owns its block values, as in
+Block kinds (``cfg.layer_kind``): ``attn`` (GQA attention + SwiGLU or the
+block-sparse Segment FFN), ``local`` (attention within
+``cfg.local_window`` over a ring KV cache), ``rec`` (an RG-LRU block,
+:mod:`.recurrent`, with a dense SwiGLU), ``rwkv`` (RWKV-6 time mix and
+channel mix; ``norm1``, ``norm2`` and ``rwkv`` only), ``moe`` (attention +
+the per-row dispatched MoE of :mod:`.moe`, whose Switch aux loss the model
+sums) and, for the encoder-decoder family, ``attn_bidir`` (bidirectional
+encoder blocks) and ``cross`` (decoder blocks that add ``norm_x`` and
+``xattn`` over the encoder's output).  The layers are one ``nn.ModuleList``
+in ``repro``'s order (a layer pattern repeated, then its first ``n_layers
+mod len(pattern)`` kinds) instead of scanned stacks; the encoder of
+``enc_dec`` is a second list, ``enc``.  A ``frontend`` dense layer (the
+stubbed patch / frame encoders) maps ``vis_embeds`` to a prefix of the
+text (``vlm``) or ``enc_embeds`` to the encoder's input (``enc_dec``).
+With ``ffn_block_sparse`` every sparse FFN uses one shared pruning
+pattern (three plans, built once) and owns its block values, as in
 ``repro``.  Parameter names follow the JAX param dict (``embed.table``,
 ``layers.<i>.attn.wq.w``, ``layers.<i>.mlp.up.blocks``,
-``layers.<i>.rec.a_param``, ...), see :mod:`repro_torch.convert`.
+``layers.<i>.rwkv.mix``, ``layers.<i>.moe.gate``, ``enc.<i>.attn.wq.w``,
+...), see :mod:`repro_torch.convert`.
 
 The cache is a flat dict of tensors, the layer axis first and the slot
 axis second: ``k``/``v`` ``(n_attn, B, T, n_kv, hd)`` over the attention
-layers (T = ``min(max_len, local_window)`` for a ring of local layers;
-int8 with ``kv_cache_dtype="int8"``, beside ``(n_attn, B, T, n_kv)`` fp32
-scales ``k_s``/``v_s``), ``conv`` ``(n_rec, B, 3, D)`` and ``h``
-``(n_rec, B, D)`` fp32 over the RG-LRU layers.  :meth:`Transformer.decode_step`
-writes every entry in place.
+layers (``attn``, ``local``, ``moe``, ``cross``; T = ``min(max_len,
+local_window)`` for a ring of local layers; int8 with
+``kv_cache_dtype="int8"``, beside ``(n_attn, B, T, n_kv)`` fp32 scales
+``k_s``/``v_s``), ``conv`` ``(n_rec, B, 3, D)`` and ``h`` ``(n_rec, B, D)``
+fp32 over the RG-LRU layers, ``shift``/``cm_shift`` ``(n_rwkv, B, D)`` and
+``S`` ``(n_rwkv, B, H, hd, hd)`` fp32 over the RWKV layers.
+:meth:`Transformer.decode_step` writes every entry in place.
 
 Quantized serving: :meth:`Transformer.quantize` returns a model whose
 sparse FFN blocks are int8/fp8 payloads with scales and which shares every
 other tensor with the source.
 
-Training: :meth:`Transformer.loss_fn` is ``repro``'s.  With ``cfg.remat``
+Training: :meth:`Transformer.loss_fn` is ``repro``'s (a prefix of vision
+positions trimmed off the logits, ``+ 0.01 · aux``).  With ``cfg.remat``
 each block of a forward pass that records gradients is rematerialized
 (``torch.utils.checkpoint``, as ``repro`` wraps its layer scan in
 ``jax.checkpoint``): only block inputs are kept, and the backward pass runs
@@ -37,7 +48,7 @@ runs only without gradients (``torch.no_grad``/``inference_mode``).
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +59,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import BSR
 
 from . import layers
-from .recurrent import RGLRUBlock
+from .moe import MoE, moe_apply
+from .recurrent import (RGLRUBlock, RWKVBlock, rwkv_block_state,
+                        rwkv_channel_mix, rwkv_time_mix)
 from .sparse_ffn import SparseLinear, SparseMLP
 
 #: numpy seed of the shared FFN pattern when none is given
@@ -56,8 +69,9 @@ PATTERN_SEED = 17
 
 FfnPatterns = Dict[str, Tuple[np.ndarray, np.ndarray]]
 
-#: the cache entries of the RG-LRU layers; the others belong to attention
-REC_KEYS = ("conv", "h")
+#: the cache entries of the recurrent kinds; the others belong to attention
+STATE_KEYS = {"rec": ("conv", "h"), "rwkv": ("shift", "S", "cm_shift")}
+_ALL_STATE_KEYS = {k for keys in STATE_KEYS.values() for k in keys}
 _NO_BACKWARD = ("the hybrid family has no backward (the rg_lru and "
                 "flash_attention kernels have none); see ROADMAP 'hybrid "
                 "training'. Run its forward under torch.no_grad() or "
@@ -100,29 +114,78 @@ def _sharing_copy(mod: nn.Module, **children: nn.Module) -> nn.Module:
     return new
 
 
-class Block(nn.Module):
-    """Pre-norm attention + FFN block; ``local``: attention within
-    ``cfg.local_window``, over a ring KV cache."""
+def _cache_group(kind: str) -> str:
+    """The cache entries a layer of ``kind`` owns: its own state's, or the
+    attention layers' KV entries."""
+    return kind if kind in STATE_KEYS else "attn"
 
-    def __init__(self, cfg: ModelConfig, mlp: nn.Module, *, local=False,
+
+class Block(nn.Module):
+    """Pre-norm attention + FFN block of kind ``attn``, ``local`` (within
+    ``cfg.local_window``, over a ring KV cache), ``attn_bidir`` (no causal
+    mask) or ``cross`` (then ``norm_x`` and ``xattn``: attention over the
+    encoder output, or over the step's own tokens without a mask when no
+    encoder output is given, as ``repro`` decodes)."""
+
+    def __init__(self, cfg: ModelConfig, mlp: nn.Module, *, kind="attn",
                  device=None):
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
-        self.window = cfg.local_window if local else None
+        self.window = cfg.local_window if kind == "local" else None
+        self.causal = kind != "attn_bidir"
         self.norm1 = layers.RMSNorm(d, device=device)
         self.attn = layers.Attention(d, cfg.n_heads, cfg.n_kv, cfg.hd,
                                      qkv_bias=cfg.qkv_bias, device=device)
+        if kind == "cross":
+            self.norm_x = layers.RMSNorm(d, device=device)
+            self.xattn = layers.Attention(d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                          qkv_bias=cfg.qkv_bias,
+                                          device=device)
+        else:
+            self.xattn = None
         self.norm2 = layers.RMSNorm(d, device=device)
         self.mlp = mlp
 
-    def forward(self, x, *, positions, cache=None, cache_pos=0):
+    def forward(self, x, *, positions, cache=None, cache_pos=0,
+                enc_out=None):
         cfg = self.cfg
         x = x + self.attn(self.norm1(x, cfg.norm_eps), positions=positions,
                           rope_theta=cfg.rope_theta, cache=cache,
                           cache_pos=cache_pos, chunk=cfg.attn_chunk,
-                          window=self.window, ring=self.window is not None)
-        return x + self.mlp(self.norm2(x, cfg.norm_eps))
+                          window=self.window, ring=self.window is not None,
+                          causal=self.causal)
+        if self.xattn is not None:
+            x = x + self.xattn(self.norm_x(x, cfg.norm_eps),
+                               positions=positions, rope_theta=0.0,
+                               causal=False, kv_ctx=enc_out,
+                               chunk=cfg.attn_chunk)
+        return x + self.mlp(self.norm2(x, cfg.norm_eps)), None
+
+
+class MoEBlock(nn.Module):
+    """Pre-norm causal attention + MoE FFN; returns the MoE's aux loss."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.norm1 = layers.RMSNorm(d, device=device)
+        self.attn = layers.Attention(d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                     qkv_bias=cfg.qkv_bias, device=device)
+        self.norm2 = layers.RMSNorm(d, device=device)
+        self.moe = MoE(d, cfg.d_ff, cfg.n_experts, device=device)
+
+    def forward(self, x, *, positions, cache=None, cache_pos=0,
+                enc_out=None):
+        cfg = self.cfg
+        x = x + self.attn(self.norm1(x, cfg.norm_eps), positions=positions,
+                          rope_theta=cfg.rope_theta, cache=cache,
+                          cache_pos=cache_pos, chunk=cfg.attn_chunk)
+        h, aux = moe_apply(self.moe, self.norm2(x, cfg.norm_eps),
+                           top_k=cfg.top_k,
+                           capacity_factor=cfg.moe_capacity_factor)
+        return x + h, aux
 
 
 class RecBlock(nn.Module):
@@ -138,56 +201,95 @@ class RecBlock(nn.Module):
         self.norm2 = layers.RMSNorm(d, device=device)
         self.mlp = layers.SwiGLU(d, cfg.d_ff, device=device)
 
-    def forward(self, x, *, positions=None, cache=None, cache_pos=0):
+    def forward(self, x, *, positions=None, cache=None, cache_pos=0,
+                enc_out=None):
         """``cache``: optional dict of ``conv`` (B, 3, D) and ``h`` (B, D),
         read as the state and overwritten in place with the new one."""
         cfg = self.cfg
         h, state = self.rec(self.norm1(x, cfg.norm_eps), state=cache)
         if cache is not None:
-            for k in REC_KEYS:
+            for k in STATE_KEYS["rec"]:
                 cache[k].copy_(state[k])
         x = x + h
-        return x + self.mlp(self.norm2(x, cfg.norm_eps))
+        return x + self.mlp(self.norm2(x, cfg.norm_eps)), None
+
+
+class RWKVLayer(nn.Module):
+    """Pre-norm RWKV-6 time mix, then channel mix (no other FFN)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.n_heads = cfg.n_heads or 32
+        self.norm1 = layers.RMSNorm(d, device=device)
+        self.norm2 = layers.RMSNorm(d, device=device)
+        self.rwkv = RWKVBlock(d, self.n_heads, cfg.d_ff, device=device)
+
+    def forward(self, x, *, positions=None, cache=None, cache_pos=0,
+                enc_out=None):
+        """``cache``: optional dict of ``shift``, ``S`` and ``cm_shift``,
+        read as the state and overwritten in place with the new one."""
+        cfg = self.cfg
+        st = cache if cache is not None else rwkv_block_state(
+            x.shape[0], cfg.d_model, self.n_heads, x.dtype, x.device)
+        h, tm = rwkv_time_mix(self.rwkv, self.norm1(x, cfg.norm_eps), st)
+        x = x + h
+        h, cm_shift = rwkv_channel_mix(self.rwkv, self.norm2(x, cfg.norm_eps),
+                                       st["cm_shift"])
+        if cache is not None:
+            cache["shift"].copy_(tm["shift"])
+            cache["S"].copy_(tm["S"])
+            cache["cm_shift"].copy_(cm_shift)
+        return x + h, None
 
 
 class Transformer(nn.Module):
-    """Dense- or hybrid-family decoder.  Parameters are allocated
-    (uninitialized) on ``device``; call :meth:`init` or load a state dict."""
+    """The model of ``cfg``.  Parameters are allocated (uninitialized) on
+    ``device``; call :meth:`init` or load a state dict."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  ffn_patterns: Optional[FfnPatterns] = None):
         super().__init__()
-        kinds = tuple(cfg.layer_kind(i) for i in range(cfg.n_layers))
-        if (cfg.family not in ("dense", "hybrid") or cfg.n_experts
-                or not set(kinds) <= {"attn", "local", "rec"}
-                or {"attn", "local"} <= set(kinds)):
+        if cfg.family == "enc_dec":
+            enc_kinds = ("attn_bidir",) * cfg.enc_layers
+            kinds = ("cross",) * cfg.dec_layers
+        else:
+            enc_kinds = ()
+            kinds = tuple(cfg.layer_kind(i) for i in range(cfg.n_layers))
+        if "local" in kinds and {"attn", "moe"} & set(kinds):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and hybrid decoder families are "
-                f"ported; see ROADMAP 'remaining model families'")
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                "modality frontends are not ported yet")
+                f"{cfg.name}: local layers beside full-attention layers; the "
+                f"flat KV cache has one length for all of them")
         self.cfg = cfg
         self.layer_kinds = kinds
         d = cfg.d_model
         self.embed = layers.Embedding(cfg.padded_vocab, d, device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         layers.Embedding(cfg.padded_vocab, d, device=device))
+        self.frontend = (layers.Dense(d, d, device=device)
+                         if cfg.frontend != "none" else None)
         proto = (_shared_sparse_mlp(cfg, ffn_patterns, device)
                  if cfg.ffn_block_sparse else None)
 
         def block(kind):
             if kind == "rec":
                 return RecBlock(cfg, device=device)
+            if kind == "rwkv":
+                return RWKVLayer(cfg, device=device)
+            if kind == "moe":
+                return MoEBlock(cfg, device=device)
             mlp = (proto.like() if proto is not None else
                    layers.SwiGLU(d, cfg.d_ff, device=device))
-            return Block(cfg, mlp, local=kind == "local", device=device)
+            return Block(cfg, mlp, kind=kind, device=device)
 
+        self.enc = (nn.ModuleList(block(k) for k in enc_kinds)
+                    if enc_kinds else None)
         self.layers = nn.ModuleList(block(k) for k in kinds)
         self.final_norm = layers.RMSNorm(d, device=device)
         # each layer's index along the layer axis of its cache entries
-        is_rec = [k == "rec" for k in kinds]
-        self._cache_index = [is_rec[:i].count(r) for i, r in enumerate(is_rec)]
+        groups = [_cache_group(k) for k in kinds]
+        self._cache_index = [groups[:i].count(g) for i, g in enumerate(groups)]
 
     @property
     def device(self) -> torch.device:
@@ -196,25 +298,29 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "Transformer":
         """Random weights from ``gen`` (a generator on the model's device):
-        N(0, 0.02²) embeddings, N(0, 1/d_in) dense and sparse weights,
-        unit norm scales."""
+        N(0, 0.02²) embeddings, N(0, 1/d_in) dense, sparse and expert
+        weights, unit norm scales, the recurrent blocks' own draws."""
         for mod in self.modules():
             if isinstance(mod, (layers.Dense, layers.RMSNorm,
-                                layers.Embedding, SparseLinear, RGLRUBlock)):
+                                layers.Embedding, SparseLinear, RGLRUBlock,
+                                RWKVBlock, MoE)):
                 mod.init_(gen)
         return self
 
+    def _blocks(self) -> List[nn.Module]:
+        return list(self.enc or ()) + list(self.layers)
+
     @property
     def recurrent(self) -> bool:
-        """True when some layer carries recurrent state (the hybrid
-        family), which has no backward."""
-        return "rec" in self.layer_kinds
+        """True when some layer carries recurrent state (``rec``, ``rwkv``):
+        padding would pollute it, so the engine prefills a token a call."""
+        return bool({"rec", "rwkv"} & set(self.layer_kinds))
 
     @property
     def quantized(self) -> bool:
         """True when the sparse FFN blocks are int8/fp8 payloads."""
-        return any(isinstance(blk.mlp, SparseMLP) and blk.mlp.up.quantized
-                   for blk in self.layers)
+        return any(isinstance(getattr(blk, "mlp", None), SparseMLP)
+                   and blk.mlp.up.quantized for blk in self._blocks())
 
     def quantize(self, mode: str = "int8") -> "Transformer":
         """A copy of this model for quantized serving (``repro``'s
@@ -222,8 +328,8 @@ class Transformer(nn.Module):
         ``mode`` payload (``"int8"``, ``"fp8"``, ``"int8.rowwise"`` or
         ``"fp8.rowwise"``) with fp32 scales, under quantized plans that
         share one cached schedule per projection.  Every other tensor (the
-        RG-LRU blocks and their dense SwiGLU included) is shared with this
-        model, not copied."""
+        recurrent and MoE blocks and the dense SwiGLUs included) is shared
+        with this model, not copied."""
         if not self.cfg.ffn_block_sparse:
             raise ValueError(
                 "Transformer.quantize requires a block-sparse FFN model "
@@ -232,56 +338,107 @@ class Transformer(nn.Module):
         if self.quantized:
             raise ValueError("the model is already quantized; quantize "
                              "from the fp32 model")
-        layers = nn.ModuleList(
-            _sharing_copy(blk, mlp=blk.mlp.quantize(mode))
-            if isinstance(blk.mlp, SparseMLP) else blk for blk in self.layers)
-        return _sharing_copy(self, layers=layers)
+
+        def frozen(blocks):
+            return nn.ModuleList(
+                _sharing_copy(blk, mlp=blk.mlp.quantize(mode))
+                if isinstance(getattr(blk, "mlp", None), SparseMLP) else blk
+                for blk in blocks)
+
+        children = {"layers": frozen(self.layers)}
+        if self.enc is not None:
+            children["enc"] = frozen(self.enc)
+        return _sharing_copy(self, **children)
 
     def _head(self) -> torch.Tensor:
         return (self.lm_head or self.embed).table
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, T) → logits (B, T, padded_vocab).  A hybrid model
-        raises ``NotImplementedError`` when gradients are recorded."""
-        if self.recurrent and torch.is_grad_enabled():
-            raise NotImplementedError(_NO_BACKWARD)
-        x = self.embed(tokens).to(act_dtype(self.cfg))
-        b, t, _ = x.shape
-        positions = torch.arange(t, device=x.device).expand(b, t)
+    def _run(self, blocks, x, positions, enc_out=None):
+        """The blocks over x, rematerialized under ``cfg.remat`` when
+        gradients are recorded.  Returns ``(x, summed aux loss)``."""
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for blk in self.layers:
+        aux = torch.zeros((), device=x.device)
+        for blk in blocks:
             if remat:
                 # the blocks draw no random numbers: no RNG state to keep
-                x = checkpoint(blk, x, positions=positions,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(blk, x, positions=positions,
+                                  enc_out=enc_out, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = blk(x, positions=positions)
+                x, a = blk(x, positions=positions, enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder's output (no final norm) over ``enc_embeds`` (B,
+        T_enc, D) through the frontend: what the decoder's cross attention
+        reads (``enc_dec`` only)."""
+        e = self.frontend(enc_embeds.to(act_dtype(self.cfg)))
+        b, t, _ = e.shape
+        positions = torch.arange(t, device=e.device).expand(b, t)
+        return self._run(self.enc, e, positions)[0]
+
+    def forward(self, tokens: torch.Tensor,
+                vis_embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None, *,
+                return_aux: bool = False):
+        """tokens (B, T_text) → logits (B, T, padded_vocab), with
+        ``return_aux`` ``(logits, aux)``: the summed MoE aux loss (fp32,
+        0 without MoE layers).  ``vis_embeds`` (B, Nv, D): a prefix through
+        the frontend (``vlm``; T = Nv + T_text, positions over the whole
+        sequence); ``enc_embeds`` (B, T_enc, D): the encoder's input
+        (``enc_dec``, required there).  A hybrid model raises
+        ``NotImplementedError`` when gradients are recorded."""
+        if "rec" in self.layer_kinds and torch.is_grad_enabled():
+            raise NotImplementedError(_NO_BACKWARD)
+        dt = act_dtype(self.cfg)
+        x = self.embed(tokens).to(dt)
+        if vis_embeds is not None:
+            x = torch.cat([self.frontend(vis_embeds.to(dt)), x], dim=1)
+        enc_out = None
+        if self.enc is not None:
+            if enc_embeds is None:
+                raise ValueError(f"{self.cfg.name}: the encoder-decoder "
+                                 f"forward needs enc_embeds")
+            enc_out = self.encode(enc_embeds)
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device).expand(b, t)
+        x, aux = self._run(self.layers, x, positions, enc_out)
         x = self.final_norm(x, self.cfg.norm_eps)
-        return layers.lm_head_apply(self._head(), x)
+        logits = layers.lm_head_apply(self._head(), x)
+        return (logits, aux) if return_aux else logits
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]):
-        """batch: dict(tokens (B, T), targets (B, T)[, mask (B, T)]).
+        """batch: dict(tokens (B, T), targets (B, T)[, vis_embeds,
+        enc_embeds, mask (B, T)]).
 
         Returns ``(loss + 0.01·aux, {"loss", "aux"})`` as ``repro`` does;
-        the dense family has no auxiliary loss, so ``aux`` is 0.  The
+        the logits of a vision prefix are trimmed off before the loss.  The
         hybrid family raises ``NotImplementedError`` (no backward)."""
-        if self.recurrent:
+        if "rec" in self.layer_kinds:
             raise NotImplementedError(_NO_BACKWARD)
-        logits = self(batch["tokens"])
-        loss = layers.cross_entropy(logits, batch["targets"],
-                                    batch.get("mask"))
-        aux = torch.zeros((), device=loss.device)
-        return loss + 0.01 * aux, {"loss": loss.detach(), "aux": aux}
+        logits, aux = self(batch["tokens"], batch.get("vis_embeds"),
+                           batch.get("enc_embeds"), return_aux=True)
+        targets = batch["targets"]
+        n_prefix = logits.shape[1] - targets.shape[1]
+        if n_prefix > 0:
+            logits = logits[:, n_prefix:]
+        loss = layers.cross_entropy(logits, targets, batch.get("mask"))
+        return loss + 0.01 * aux, {"loss": loss.detach(),
+                                   "aux": aux.detach()}
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Zero cache for ``batch_size`` slots of ``max_len`` positions.
-        Raises ``ValueError`` for an int8 KV cache over local layers: the
-        ring has no int8 mode (``repro``'s ring write drops the scales)."""
+        """Zero cache for ``batch_size`` slots of ``max_len`` positions (the
+        decoder's layers only).  Raises ``ValueError`` for an int8 KV cache
+        over local layers: the ring has no int8 mode (``repro``'s ring
+        write drops the scales)."""
         cfg = self.cfg
         dev, dt = self.device, act_dtype(cfg)
         kinds = self.layer_kinds
+        groups = [_cache_group(k) for k in kinds]
         cache = {}
-        n_attn = sum(k != "rec" for k in kinds)
+        n_attn = groups.count("attn")
         if n_attn:
             local = "local" in kinds
             t_len = min(max_len, cfg.local_window) if local else max_len
@@ -300,22 +457,31 @@ class Transformer(nn.Module):
             else:
                 cache.update(k=torch.zeros(shape, dtype=dt, device=dev),
                              v=torch.zeros(shape, dtype=dt, device=dev))
-        n_rec = kinds.count("rec")
+        d = cfg.d_model
+        n_rec = groups.count("rec")
         if n_rec:
-            d = cfg.d_model
             cache.update(
                 conv=torch.zeros((n_rec, batch_size, 3, d), dtype=dt,
                                  device=dev),
                 h=torch.zeros((n_rec, batch_size, d), dtype=torch.float32,
                               device=dev))
+        n_rwkv = groups.count("rwkv")
+        if n_rwkv:
+            st = rwkv_block_state(n_rwkv * batch_size, d, cfg.n_heads or 32,
+                                  dt, dev)
+            cache.update({k: v.reshape(n_rwkv, batch_size, *v.shape[1:])
+                          for k, v in st.items()})
         return cache
 
     def decode_step(self, cache: Dict[str, torch.Tensor], token: torch.Tensor,
-                    pos, *, logit_idx: Optional[torch.Tensor] = None):
+                    pos, enc_out: Optional[torch.Tensor] = None, *,
+                    logit_idx: Optional[torch.Tensor] = None):
         """token: (B, T) int (T=1 decode, T>1 chunked prefill); pos: the
         absolute position of token[:, 0], a shared int or a per-row (B,)
-        tensor.  ``logit_idx``: optional per-row (B,) index of each row's
-        last valid token (logits are taken there, not at T-1).
+        tensor.  ``enc_out``: the encoder's output for the cross blocks
+        (:meth:`encode`; without it they attend over the step's own tokens,
+        as ``repro``'s do).  ``logit_idx``: optional per-row (B,) index of
+        each row's last valid token (logits are taken there, not at T-1).
 
         Writes the new keys and values (and the recurrent state) into
         ``cache`` in place and returns ``(logits (B, padded_vocab),
@@ -329,9 +495,11 @@ class Transformer(nn.Module):
             positions = pos.long()[:, None] + steps
         for blk, kind, i in zip(self.layers, self.layer_kinds,
                                 self._cache_index):
+            own = STATE_KEYS.get(kind)
             mine = {k: v[i] for k, v in cache.items()
-                    if (k in REC_KEYS) == (kind == "rec")}
-            x = blk(x, positions=positions, cache=mine, cache_pos=pos)
+                    if (k in own if own else k not in _ALL_STATE_KEYS)}
+            x, _ = blk(x, positions=positions, cache=mine, cache_pos=pos,
+                       enc_out=enc_out)
         x = self.final_norm(x, self.cfg.norm_eps)
         # gather each row's output position before the head, so the
         # (B, T, vocab) prefill logits never materialize

@@ -8,10 +8,12 @@
   is prefilled in length-bucketed chunks (the last chunk zero-padded to the
   smallest bucket, its first token sampled at the last *valid* position).
   The first chunk zeroes the slot's cache row (its KV entries and, in a
-  hybrid model, its recurrent state).  A model with recurrent state is
-  prefilled one token at a time (a scan has no mask lane, so padding would
-  pollute the state), and one with local layers in chunks no wider than
-  its window (a wider chunk would write a ring slot twice).
+  hybrid or RWKV model, its recurrent state).  A model with recurrent
+  state is prefilled one token at a time (a scan has no mask lane, so
+  padding would pollute the state), and one with local layers in chunks no
+  wider than its window (a wider chunk would write a ring slot twice).
+  An MoE model routes a padded chunk's padding too, as ``repro``'s does
+  (its capacity is taken from the chunk's width).
 * **retirement** — a request leaves its slot when it emits ``eos_token`` or
   reaches its own ``max_new_tokens``.
 
@@ -20,7 +22,9 @@ token; attention masking keeps them invisible.  ``quantize=`` serves a
 quantized copy of the model (``Transformer.quantize``: int8/fp8 FFN
 payloads); with an int8 KV cache prefill chunks are at most 8 tokens.  PyTorch runs eagerly, so
 :attr:`Engine.compiled_shapes` counts the distinct step shapes seen, the
-analogue of ``repro``'s trace counters.
+analogue of ``repro``'s trace counters.  The encoder-decoder family is
+not served (``NotImplementedError``, as ``repro``'s engine raises), and a
+vision-language model is served text only.
 """
 from __future__ import annotations
 
@@ -77,6 +81,10 @@ class Engine:
                  backend: Optional[str] = None,
                  prefill_buckets: Tuple[int, ...] = (64, 16),
                  quantize: Optional[str] = None, device=None):
+        if model.cfg.family == "enc_dec":
+            raise NotImplementedError(
+                "enc_dec serving needs encoder output plumbing; the engine "
+                "currently serves decoder-only families")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model parameters are on {model.device}, the "
@@ -99,7 +107,7 @@ class Engine:
                 f"prefill_buckets {buckets} must all be multiples of the "
                 f"smallest bucket (chunk starts must stay bucket-aligned)")
         kinds = set(model.layer_kinds)
-        if "rec" in kinds:
+        if model.recurrent:
             buckets = (1,)   # padding would pollute the carried state
         elif model.cfg.kv_cache_dtype == "int8":
             # the factored-scale int8 attention path is decode-sized only
