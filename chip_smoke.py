@@ -171,7 +171,25 @@
    against 64 ``decode_step`` calls over the same tokens (≤
    ``LOGIT_RTOL``): the forward kernels against the decode ones and the
    ring cache.
-11. The last four families, each built at published width after the
+11. Hybrid training ([hybrid_train], after [hybrid]'s model is freed): the
+   two backward kernels against their plain versions, ``rg_lru_bwd`` at
+   the model's (1, 4096, 4096) bf16 call and at (4, 2048, 4096) fp32,
+   ``flash_attention_bwd`` at the local block's 1 x 4096 bf16 call on both
+   of its paths (``tc``, the one training takes, and ``simt``; after the
+   forward kernel's row statistics are held against the plain forward's)
+   and at small ragged bf16 (both paths) and fp32 (``simt``) calls
+   (``KERNEL_RTOL`` in fp32,
+   ``BF16_RTOL`` across a bf16 rounding), each timed beside its bound, its
+   plain version and (attention) an fp32 SDPA forward + backward; then
+   RecurrentGemma-9B at full width with its depth cut 38 -> 6 layers (two
+   ``(rec, rec, local)`` units, the block-sparse FFN, remat) on 1 x 4096
+   tokens: one step's loss and gradients on ``"cuda"`` vs ``"reference"``
+   (the granite training gates) with exact launches per path (per step:
+   8 ``rg_lru`` on tile, 4 ``rg_lru_bwd``, 4 ``flash_attention`` on tc, 2
+   ``flash_attention_bwd`` on tc, 18 SpMM on the tensor cores, 6 of them
+   transposed), then 3 ``Trainer`` steps with the same counts, ms/step and
+   peak memory, and one profiled step.
+12. The last four families, each built at published width after the
    earlier models are freed (bf16 activations, fp32 parameters, random
    weights from ``SEED``), each holding a decode step's logits against the
    ``"reference"`` backend and ``forward`` against stepwise decode (≤
@@ -204,7 +222,8 @@ started under another), so the suite's matrices are the same in every run.
 Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
 the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``,
-``hybrid``, or any of ``ssm,moe,vlm,encdec``) builds no granite model.
+``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec``) builds no
+granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -2712,15 +2731,20 @@ def phase_train(model, dev):
 
 
 def _zero_counts():
-    """Every launch count of the hybrid's three kernels set to 0."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rg_lru import rg_lru
+    """Every launch count of the hybrid's kernels (forward and backward) set
+    to 0."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rg_lru import rg_lru, rg_lru_bwd
     from repro_torch.kernels.segment_spmm import segment_spmm
     torch.cuda.synchronize()
     for kernel, names in ((rg_lru, ("launches", "tile_launches",
                                     "simt_launches")),
+                          (rg_lru_bwd, ("launches",)),
                           (flash_attention, ("launches", "splitkv_launches",
                                              "tc_launches", "simt_launches")),
+                          (flash_attention_bwd, ("launches", "tc_launches",
+                                                 "simt_launches")),
                           (segment_spmm, ("launches", "split_launches",
                                           "tensor_core_launches",
                                           "quantized_launches",
@@ -2730,17 +2754,22 @@ def _zero_counts():
 
 
 def _counts():
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rg_lru import rg_lru
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rg_lru import rg_lru, rg_lru_bwd
     from repro_torch.kernels.segment_spmm import segment_spmm
     torch.cuda.synchronize()
     return dict(rg_lru=rg_lru.launches, rg_lru_tile=rg_lru.tile_launches,
                 rg_lru_simt=rg_lru.simt_launches,
+                rg_lru_bwd=rg_lru_bwd.launches,
                 flash=flash_attention.launches,
                 flash_tc=flash_attention.tc_launches,
+                flash_bwd=flash_attention_bwd.launches,
+                flash_bwd_tc=flash_attention_bwd.tc_launches,
                 spmm=segment_spmm.launches,
                 spmm_split=segment_spmm.split_launches,
-                spmm_tc=segment_spmm.tensor_core_launches)
+                spmm_tc=segment_spmm.tensor_core_launches,
+                spmm_t=segment_spmm.transposed_launches)
 
 
 def phase_hybrid(dev, replan=False):
@@ -2822,6 +2851,350 @@ def phase_hybrid(dev, replan=False):
           f"{idle:.3f}, serving peak {serve_peak:.2f} GiB; forward "
           f"{fwd_ms:.2f} ms, peak {fwd_peak:.2f} GiB")
     return serve_lru, fwd, recs
+
+
+# [hybrid_train]: RecurrentGemma-9B trained at full width with its depth
+# cut 38 -> HYBRID_TRAIN_LAYERS (two (rec, rec, local) units): 38 layers of
+# fp32 parameters, gradients and AdamW moments (~129 GB) do not fit one
+# card, 6 (2.1 B parameters) take ~34 GB.  Batches of 1 x HYBRID_TRAIN_T
+# tokens, twice the window, so the backward pass's window mask bites.
+HYBRID_TRAIN_LAYERS = 6
+HYBRID_TRAIN_T = 4096
+HYBRID_TRAIN_STEPS = 3
+# the backward kernels against their plain versions, D = d_model: the
+# RG-LRU at the model's (1, 4096, 4096) bf16 call and a (4, 2048, 4096)
+# fp32 one, (batch, T, dtype); the attention at the local block's 1 x 4096
+# bf16 call (16 heads on one KV head, D = 256, window 2048) and small
+# ragged calls (padded stacked rows and keys), (batch, T, heads, KV heads,
+# D, window, dtype): the bf16 ones on both paths, the fp32 one (D = 40)
+# on simt
+HYBRID_BWD_RG_LRU_CASES = {
+    "rg_lru bwd 1x4096 bf16": (1, HYBRID_TRAIN_T, torch.bfloat16),
+    "rg_lru bwd 4x2048 fp32": (4, 2048, torch.float32),
+}
+HYBRID_BWD_ATTN_CASES = {
+    "local bwd 1x4096 bf16": (1, HYBRID_TRAIN_T, 16, 1, 256, 2048,
+                              torch.bfloat16),
+    "ragged bwd bf16": (2, 200, 4, 2, 64, 64, torch.bfloat16),
+    "ragged bwd fp32": (2, 200, 4, 2, 40, 64, torch.float32),
+}
+
+
+def rg_lru_bwd_case(label, b, t, dt, dev, gen, sfu):
+    """One ``rg_lru_bwd`` call at RecurrentGemma-9B's width on the forward's
+    fp32 h (the forward run with x in fp32, as the autograd Function runs
+    it): one launch, every output against ``rg_lru_bwd_plain``
+    (``KERNEL_RTOL`` for fp32 outputs, ``BF16_RTOL`` for bf16 ones), its
+    time, the plain version's, and the bound (bytes; the forward's SFU
+    operations an element, which the backward recomputes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rg_lru import rg_lru, rg_lru_bwd, rg_lru_bwd_plain
+    d = get_config("recurrentgemma-9b").d_model
+    x, a_gate, x_gate = (torch.randn(b, t, d, generator=gen,
+                                     device=dev).to(dt) for _ in range(3))
+    a_param = torch.randn(d, generator=gen, device=dev)
+    h0 = torch.randn(b, d, generator=gen, device=dev)
+    with torch.no_grad():
+        hs, _ = rg_lru(x.float(), a_gate, x_gate, a_param, h0, ct=t)
+    dout = torch.randn(b, t, d, generator=gen, device=dev).to(dt)
+    dh_t = torch.randn(b, d, generator=gen, device=dev)
+    args = (x, a_gate, x_gate, a_param, h0, hs, dout, dh_t)
+    torch.cuda.synchronize()
+    rg_lru_bwd.launches = 0
+    got = rg_lru_bwd(*args)
+    torch.cuda.synchronize()
+    check(rg_lru_bwd.launches == 1, f"[hybrid_train] {label}: rg_lru_bwd "
+                                    f"launched {rg_lru_bwd.launches} times")
+    want = rg_lru_bwd_plain(*args)
+    errs = []
+    for name, g, w in zip(("dx", "da_gate", "dx_gate", "da_param", "dh0"),
+                          got, want):
+        rel, diff = _rel(g, w)
+        tol = KERNEL_RTOL if g.dtype == torch.float32 else BF16_RTOL
+        check(g.dtype == w.dtype and bool(torch.isfinite(g).all())
+              and rel <= tol, f"[hybrid_train] {label}: {name} kernel vs "
+                              f"plain {rel:.3g} > {tol}")
+        errs.append((name, rel, diff))
+    ms = scaled_device_ms(lambda: rg_lru_bwd(*args))
+    plain_ms = event_ms(lambda: rg_lru_bwd_plain(*args), 1)
+    bound_ms, bound_by, terms = rg_lru_bound(
+        _nbytes(x, a_gate, x_gate, dout, hs, h0, dh_t, a_param, *got),
+        x.numel(), sfu)
+    print(f"[hybrid_train] {label:<22} B={b} T={t} D={d}: launches 1; "
+          + ", ".join(f"{n} {r:.2e}" for n, r, _ in errs)
+          + f" vs plain; {ms:.4f} ms, plain_ms={plain_ms:.4f}, bound_ms="
+          f"{bound_ms:.4f} ({bound_by}; bytes {terms[0]:.4f}, fp32 ops "
+          f"{terms[1]:.4f}, SFU {terms[2]:.4f}); no single library call")
+    return dict(case=label, kernel="rg_lru_bwd", dtype=str(dt)[6:],
+                launches=1, rel_err=max(r for _, r, _ in errs),
+                max_abs_err=max(a for _, _, a in errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, library="no single call computes it")
+
+
+def attn_bwd_bound(path, nbytes, pairs, d, dt):
+    """The least time of an attention backward call: the bytes moved once,
+    and its five products over the live (query, key) pairs (S = Q Kᵀ, dP =
+    dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K; 2 D operations a pair each)
+    at the peak of the path's arithmetic: fp32 on the CUDA cores
+    (``simt``), or on ``tc`` as bf16 passes at 989 TFLOP/s, P and dS in the
+    two bf16 parts the kernel uses (S and dP: one pass each, the other
+    three: two)."""
+    if path != "tc":
+        return _bound(nbytes, 10 * d * pairs)
+    return _bound(nbytes, 2 * d * pairs * (2 + 3 * 2), BF16_FLOPS)
+
+
+def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
+    """One attention backward at the stacked shapes ``flash_mha`` gives the
+    kernel (causal, ``window``): the forward kernel on the path
+    ``choose_path`` picks, writing its row statistics (held against the
+    plain forward's, ≤ ``KERNEL_RTOL``); ``flash_attention_bwd`` on every
+    path that can take the call, one launch each by that path's own count,
+    dq, dk, dv against ``flash_attention_bwd_plain`` (``KERNEL_RTOL`` in
+    fp32, ``BF16_RTOL`` in bf16), each path timed beside its bound; the
+    plain version's time and, as a yardstick, one fp32
+    ``scaled_dot_product_attention`` forward and backward with a boolean
+    window mask.  The record is ``choose_bwd_path``'s path's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q = (torch.randn(b, t, h, d, generator=gen, device=dev) * 0.5).to(dt)
+    k = (torch.randn(b, t, hkv, d, generator=gen, device=dev) * 0.5).to(dt)
+    v = (torch.randn(b, t, hkv, d, generator=gen, device=dev) * 0.5).to(dt)
+    qh, kh, vh, kw = ops.stack_heads(q, k, v)
+    kw.update(causal=True, window=window)
+    with torch.no_grad():
+        out, stats = fa._forward(qh, kh, vh, kw, dt, None, stats=True)
+        _, want_stats = fa.flash_attention_plain(
+            qh, kh, vh, out_dtype=torch.float32, stats=True, **kw)
+    rel_m, _ = _rel(stats[..., 0], want_stats[..., 0])
+    rel_l, _ = _rel(stats[..., 1], want_stats[..., 1])
+    check(rel_m <= KERNEL_RTOL and rel_l <= KERNEL_RTOL,
+          f"[hybrid_train] {label}: forward row statistics vs plain m "
+          f"{rel_m:.3g}, l {rel_l:.3g}")
+    dout = (torch.randn(out.shape, generator=gen, device=dev)).to(dt)
+    args = (qh, kh, vh, out, dout, stats)
+
+    def plain():
+        return fa.flash_attention_bwd_plain(*args, **kw)
+
+    want = plain()
+    tol = KERNEL_RTOL if dt == torch.float32 else BF16_RTOL
+    # live (query, key) pairs: query i sees keys max(0, i - window + 1) .. i
+    pos = torch.arange(t, device=dev)
+    pairs = int((pos + 1 - (pos - window + 1).clamp(min=0)).sum()) * b * h
+    dtypes = (dt,) * 4
+    main = fa.choose_bwd_path(d, dtypes)
+    by_path = {}
+    for path in fa.bwd_paths_for(d, dtypes):
+        torch.cuda.synchronize()
+        for n in ("launches", "tc_launches", "simt_launches"):
+            setattr(fa.flash_attention_bwd, n, 0)
+        got = fa.flash_attention_bwd(*args, path=path, **kw)
+        torch.cuda.synchronize()
+        counts = [getattr(fa.flash_attention_bwd, n)
+                  for n in ("launches", "tc_launches", "simt_launches")]
+        check(counts == [1, int(path == "tc"), int(path == "simt")],
+              f"[hybrid_train] {label} on {path}: flash_attention_bwd "
+              f"launches (all, tc, simt) {counts}")
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            rel, diff = _rel(g, w)
+            check(bool(torch.isfinite(g).all()) and rel <= tol,
+                  f"[hybrid_train] {label} on {path}: {name} kernel vs "
+                  f"plain {rel:.3g} > {tol}")
+            errs.append((name, rel, diff))
+        del got
+        bound_ms, bound_by = attn_bwd_bound(
+            path, _nbytes(qh, kh, vh, out, dout, stats, qh, kh, vh), pairs,
+            d, dt)
+        by_path[path] = dict(
+            ms=scaled_device_ms(lambda path=path: fa.flash_attention_bwd(
+                *args, path=path, **kw)),
+            errs=errs, bound_ms=bound_ms, bound_by=bound_by)
+    del want
+    plain_ms = event_ms(plain, 1)
+    # the library: fp32 SDPA forward + backward, boolean window mask
+    qf, kf, vf = (x.float().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    go = torch.randn(qf.shape, generator=gen, device=dev)
+
+    def library():
+        o = F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qf, kf, vf), go)
+
+    library_ms = event_ms(library, 3)
+    times = "; ".join(
+        f"{p} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['bound_by']}; "
+        + ", ".join(f"{n} {e:.2e}" for n, e, _ in r["errs"]) + ")"
+        for p, r in by_path.items())
+    print(f"[hybrid_train] {label:<22} B={b} T={t} H={h} Hkv={hkv} D={d} "
+          f"window={window}: forward row statistics vs plain m {rel_m:.2e} "
+          f"l {rel_l:.2e}; backward path {main}, {pairs} live pairs; "
+          f"{times}; plain_ms={plain_ms:.4f}, library_ms={library_ms:.4f} "
+          f"(fp32 scaled_dot_product_attention forward + backward, boolean "
+          f"window mask)")
+    mine = by_path[main]
+    return dict(case=label, kernel="flash_attention_bwd", path=main,
+                dtype=str(dt)[6:], launches=1,
+                rel_err=max(r for _, r, _ in mine["errs"]),
+                max_abs_err=max(a for _, _, a in mine["errs"]),
+                ms=mine["ms"], plain_ms=plain_ms, bound_ms=mine["bound_ms"],
+                bound_by=mine["bound_by"], library_ms=library_ms,
+                library="fp32 scaled_dot_product_attention forward + "
+                        "backward, boolean window mask", by_path=by_path)
+
+
+def phase_hybrid_train(dev):
+    """[hybrid_train]: the two backward kernels against their plain
+    versions (``HYBRID_BWD_*_CASES``), then RecurrentGemma-9B at full width
+    with its depth cut to ``HYBRID_TRAIN_LAYERS`` (4 RG-LRU blocks with a
+    dense SwiGLU, 2 local-attention blocks with the block-sparse FFN; bf16
+    activations, fp32 parameters, remat) on 1 x ``HYBRID_TRAIN_T`` tokens:
+    one step's loss and gradients on ``"cuda"`` vs ``"reference"``
+    (``LOSS_RTOL``, ``GNORM_RTOL``, ``GRAD_RTOL``) with the exact launches
+    of every kernel per path, then ``HYBRID_TRAIN_STEPS`` ``Trainer``
+    steps (launches, ms/step, peak memory) and one profiled step.  Returns
+    the Trainer run's launch counts and the kernel records."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.runtime import Trainer, TrainerConfig, make_train_step
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    sfu = rg_lru_sfu_per_element()
+    recs = [rg_lru_bwd_case(label, *case, dev, gen, sfu)
+            for label, case in HYBRID_BWD_RG_LRU_CASES.items()]
+    recs += [attn_bwd_case(label, *case, dev, gen)
+             for label, case in HYBRID_BWD_ATTN_CASES.items()]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_family("recurrentgemma-9b", "hybrid_train", dev,
+                         n_layers=HYBRID_TRAIN_LAYERS, ffn_block_sparse=True,
+                         ffn_block=64, ffn_density=0.25)
+    cfg = model.cfg
+    kinds = model.layer_kinds
+    n_rec, n_local = kinds.count("rec"), kinds.count("local")
+    n_sparse = sparse_layers(model)
+    check(cfg.remat and n_sparse == n_local and n_rec == 2 * n_local,
+          f"[hybrid_train] layers {kinds}, {n_sparse} sparse FFNs, remat "
+          f"{cfg.remat}")
+    shape = ShapeConfig("hybrid-train", "train", HYBRID_TRAIN_T, 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(
+        cfg, shape, seed=SEED + 1).batch(0).items()}
+    # a step with remat: each forward kernel twice (the forward, then the
+    # backward pass's recompute), each backward kernel once; the SpMM's dx
+    # on the transposed mode, every SpMM launch on the tensor cores
+    per_step = dict(rg_lru=2 * n_rec, rg_lru_tile=2 * n_rec,
+                    rg_lru_bwd=n_rec, flash=2 * n_local,
+                    flash_tc=2 * n_local, flash_bwd=n_local,
+                    flash_bwd_tc=n_local,
+                    spmm=3 * n_sparse * 3, spmm_tc=3 * n_sparse * 3,
+                    spmm_t=3 * n_sparse)
+
+    def check_counts(got, steps, what):
+        bad = {k: (got[k], v * steps) for k, v in per_step.items()
+               if got[k] != v * steps}
+        check(not bad and got["rg_lru_simt"] == 0,
+              f"[hybrid_train] {what}: launches (got, expected) {bad}; "
+              f"{got}")
+
+    # (a) one step's loss and gradients, cuda vs reference
+    picked = ["layers.0.rec.a_param", "layers.0.rec.a_gate.w",
+              "layers.0.rec.x_gate.w", "layers.0.rec.in_x.w",
+              "layers.3.rec.conv", "layers.2.attn.wq.w", "layers.2.attn.wk.w",
+              "layers.5.attn.wv.w", "layers.2.mlp.up.blocks",
+              "layers.5.mlp.down.blocks", "layers.4.mlp.gate.w",
+              "final_norm.scale"]
+    seen = {}
+    for backend in ("cuda", "reference"):
+        _zero_counts()
+        t1 = time.perf_counter()
+        loss, grads = _grads_on(model, batch, backend)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = _counts()
+        if backend == "cuda":
+            check_counts(got, 1, "gradient step")
+        norm = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads.values()])))
+        check(np.isfinite(loss) and np.isfinite(norm),
+              f"[hybrid_train] {backend}: loss {loss}, grad norm {norm}")
+        seen[backend] = (loss, norm, {k: grads[k].clone() for k in picked})
+        del grads
+        print(f"[hybrid_train] gradient step on {backend}: loss {loss:.5f}, "
+              f"grad norm {norm:.5f}, {ms:.1f} ms; launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+    (l_cuda, n_cuda, g_cuda), (l_ref, n_ref, g_ref) = (seen["cuda"],
+                                                       seen["reference"])
+    errs = {k: float(torch.linalg.vector_norm(g_cuda[k] - g_ref[k])
+                     / torch.linalg.vector_norm(g_ref[k])) for k in picked}
+    loss_err = abs(l_cuda - l_ref) / abs(l_ref)
+    norm_err = abs(n_cuda - n_ref) / n_ref
+    print(f"[hybrid_train] cuda vs reference: loss {loss_err:.3e} (tol "
+          f"{LOSS_RTOL}), grad norm {norm_err:.3e} (tol {GNORM_RTOL}), "
+          f"gradients (norm-relative, tol {GRAD_RTOL}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(loss_err <= LOSS_RTOL, f"[hybrid_train] loss err {loss_err:.3g}")
+    check(norm_err <= GNORM_RTOL, f"[hybrid_train] grad norm err "
+                                  f"{norm_err:.3g}")
+    for k, v in errs.items():
+        check(v <= GRAD_RTOL, f"[hybrid_train] {k} gradient err {v:.3g}")
+    del seen, g_cuda, g_ref
+
+    # (b) the Trainer: no checkpoint directory
+    tcfg = TrainerConfig(steps=HYBRID_TRAIN_STEPS, log_every=1, warmup=1)
+    trainer = Trainer(model, cfg, shape, tcfg, seed=SEED)
+    probe = {k: p.detach().reshape(-1)[:64].clone()
+             for k, p in trainer.params.items() if k in picked}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = trainer.run()
+    got = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in out["history"]:
+        print(f"[hybrid_train] step {h['step']}: loss {h['loss']:.5f}, grad "
+              f"norm {h['grad_norm']:.5f}, {h['ms']:.1f} ms/step, "
+              f"{HYBRID_TRAIN_T * 1e3 / h['ms']:.0f} tokens/s")
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"[hybrid_train] step {h['step']}: non-finite")
+    check(len(out["history"]) == HYBRID_TRAIN_STEPS,
+          "[hybrid_train] a step was not logged")
+    moved = [k for k, v in probe.items()
+             if not torch.equal(trainer.params[k].detach().reshape(-1)[:64],
+                                v)]
+    check(len(moved) == len(probe), f"[hybrid_train] parameters that did "
+                                    f"not move: {sorted(set(probe) - set(moved))}")
+    check_counts(got, HYBRID_TRAIN_STEPS, "Trainer run")
+    steady = float(np.median([h["ms"] for h in out["history"][1:]]))
+    # (c) one more step under the profiler: where a step's time goes
+    step_fn = make_train_step(model, trainer.opt, 1)
+    nxt = {k: torch.from_numpy(v).to(dev)
+           for k, v in trainer.data.batch(HYBRID_TRAIN_STEPS).items()}
+    idle = profile_once("hybrid training step",
+                        lambda: step_fn(trainer.opt_state, nxt))
+    print(f"[hybrid_train] launches per step, each exact: rg_lru forward "
+          f"{per_step['rg_lru']} (all tile, remat), rg_lru_bwd "
+          f"{per_step['rg_lru_bwd']}, flash_attention forward "
+          f"{per_step['flash']} (all tc, remat), flash_attention_bwd "
+          f"{per_step['flash_bwd']} (all tc), segment_spmm "
+          f"{per_step['spmm']} (all "
+          f"tc; {per_step['spmm_t']} transposed)")
+    print(f"[hybrid_train] summary: {cfg.name} full width, "
+          f"{cfg.n_layers} layers, batch 1 x {HYBRID_TRAIN_T}, remat: "
+          f"median of steps 1..{HYBRID_TRAIN_STEPS - 1} {steady:.1f} ms/step "
+          f"({HYBRID_TRAIN_T * 1e3 / steady:.0f} tokens/s), peak {peak:.2f} "
+          f"GiB, device idle share {idle:.3f}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    del trainer
+    free_model(model)
+    return got, recs
 
 
 # the last four families ([ssm], [moe], [vlm], [encdec]): each is built at
@@ -3544,8 +3917,8 @@ def phase_verify(model, dev):
 
 
 PHASES = ("spgemm", "ops", "kernel", "crossover", "edges", "serve",
-          "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "ssm",
-          "moe", "vlm", "encdec")
+          "qkernel", "qserve", "qgrad", "train", "verify", "hybrid",
+          "hybrid_train", "ssm", "moe", "vlm", "encdec")
 # the phases that need granite-3-8b built (``--only spgemm,ops``, ``--only
 # hybrid`` or ``--only ssm,moe,vlm,encdec`` skips it)
 GRANITE_PHASES = PHASES[2:PHASES.index("hybrid")]
@@ -3644,6 +4017,9 @@ def main():
     clear_plan_cache()
     gc.collect()
     torch.cuda.empty_cache()
+    if "hybrid_train" in only:
+        train_counts, train_recs = phase_hybrid_train(dev)
+        clear_plan_cache()
     if "ssm" in only:
         phase_ssm(dev)
     if "moe" in only:
@@ -3663,14 +4039,18 @@ def main():
             kernel = "segment_spmm_tc"
         return {"name": name, "route": "cuda", "mode": mode, "path": path,
                 "source": f"src/repro_torch/csrc/{kernel}.cu",
-                "replaces": "src/repro/kernels/" + {
-                    "segment_spmm": "segment_spmm.py:335",
-                    "segment_spmm_tc": "segment_spmm.py:335",
-                    "segment_spgemm": "segment_spgemm.py:227",
-                    "segment_spgemm_tc": "segment_spgemm.py:227",
-                    "flash_attention": "flash_attention.py:93",
-                    "moe_gemm": "moe_gemm.py:39",
-                    "rg_lru": "rg_lru.py:56"}[kernel],
+                # the backward kernels have no Pallas counterpart: they
+                # stand where repro takes jax.grad of jnp code
+                "replaces": "src/repro/" + {
+                    "segment_spmm": "kernels/segment_spmm.py:335",
+                    "segment_spmm_tc": "kernels/segment_spmm.py:335",
+                    "segment_spgemm": "kernels/segment_spgemm.py:227",
+                    "segment_spgemm_tc": "kernels/segment_spgemm.py:227",
+                    "flash_attention": "kernels/flash_attention.py:93",
+                    "moe_gemm": "kernels/moe_gemm.py:39",
+                    "rg_lru": "kernels/rg_lru.py:56",
+                    "rg_lru_bwd": "models/recurrent.py:69",
+                    "flash_attention_bwd": "models/layers.py:114"}[kernel],
                 "launches": n_launches,
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
@@ -3714,6 +4094,14 @@ def main():
                    and r["case"] == "granite prefill"
                    and r["dtype"] == "float32")
     simt_rec = dict(prefill, **prefill["by_path"]["simt"], path="simt")
+    # the attention backward's simt path at the local block, forced
+    bwd_simt = [r for r in train_recs if r["kernel"] == "flash_attention_bwd"
+                and "simt" in r["by_path"]]
+    local = one(train_recs, case="local bwd 1x4096 bf16")
+    forced = local["by_path"]["simt"]
+    bwd_simt_rec = dict(local, ms=forced["ms"], bound_ms=forced["bound_ms"],
+                        bound_by=forced["bound_by"], path="simt",
+                        max_abs_err=max(a for _, _, a in forced["errs"]))
     print(smi)
     print(json.dumps({"kernels": [
         entry("segment_spmm", "split (folded owner runs, CUDA cores): "
@@ -3790,6 +4178,28 @@ def main():
                ("flash_attention.tc", "flash_attention", "tc: bf16, 16 heads "
                 "/ 1 KV, D = 256, window 2048, 1 x 4096 forward",
                 "hybrid-forward", hybrid_fwd["flash"], "local forward"))]
+        # [hybrid_train]: the two backward kernels, launched by the Trainer
+        # run, each timed at the model's call
+        + [entry(name, mode, "hybrid-train", train_counts[count],
+                 one(train_recs, case=case),
+                 [r for r in train_recs if r["kernel"] == kernel
+                  and r.get("path") in (None, "tc")], kernel=kernel)
+           for name, kernel, mode, count, case in (
+               ("rg_lru_bwd", "rg_lru_bwd", "reverse walk in tiles of 64 "
+                "steps x 16 channels (CUDA cores): bf16, 1 x 4096 x 4096",
+                "rg_lru_bwd", "rg_lru bwd 1x4096 bf16"),
+               ("flash_attention_bwd.tc", "flash_attention_bwd", "tc "
+                "(mma.sync; KV-outer dK/dV over row ranges, Q-outer dQ; P and "
+                "dS as two bf16 parts): bf16, 16 heads / 1 KV, D = 256, "
+                "window 2048, 1 x 4096", "flash_bwd_tc",
+                "local bwd 1x4096 bf16"))]
+        # the attention backward's CUDA-core path: fp32 and mixed calls, no
+        # main path; its launches are the checked calls of [hybrid_train]
+        # (one a case), its times those of the local block forced onto it
+        + [entry("flash_attention_bwd.simt", "simt (fp32 on the CUDA cores): "
+                 "timed forced at the local block, 1 x 4096 bf16",
+                 "hybrid-train-checks", len(bwd_simt), bwd_simt_rec,
+                 [bwd_simt_rec], kernel="flash_attention_bwd")]
         # the last families' SpMM launches, each timed at the shape its
         # path gives it: InternVL2-2B's decode (split) and its forward over
         # 256 vision + 1024 text positions (tc); Whisper-tiny's training

@@ -85,6 +85,13 @@
 // differs from the TPU kernel.  The output is acc / max(l, 1e-30).  expf
 // and true division, no fast-math.
 //
+// When gradients are recorded the wrapper passes `stats` (bh x tq float2)
+// and every path writes each real row's softmax statistics there: the
+// final running max m and sum l, whose log-sum-exp is m + log l (kept as
+// the pair, so a row whose live keys are all masked keeps its exact 1 / l
+// weights).  flash_attention_bwd.cu recomputes P = exp(s - m) / max(l,
+// 1e-30) from them.  With stats null nothing else changes.
+//
 // Bounds.  4 D operations per live (query, key) pair: granite-3-8b
 // prefill (T = 4096, 32 heads, D = 128, causal) is 137.5 GFLOP, 2.05 ms
 // at the 67 TFLOP/s fp32 CUDA-core peak and 0.83 ms as six bf16 passes at
@@ -115,7 +122,17 @@ struct Params {
   long long offset;
   int kv_len, bq, bkv, q_period;
   int q_bf16, out_bf16;
+  float* stats;   // (bh, tq) x (m, l) when non-null
 };
+
+// a row's final running max and sum, for the backward pass
+__device__ __forceinline__ void write_stats(const Params& p, long long bh,
+                                            int row, float m, float l) {
+  if (p.stats) {
+    float2* st = reinterpret_cast<float2*>(p.stats);
+    st[bh * p.tq + row] = make_float2(m, l);
+  }
+}
 
 // ---- masks and tiles, shared by every path ---------------------------------
 
@@ -500,6 +517,7 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!rvalid[i]) continue;
+      if (c == 0) write_stats(p, bh, q0 + rg * 4 + i, m[i], l[i]);
       const float den = fmaxf(l[i], 1e-30f);
       const long long row = (bh * p.tq + q0 + rg * 4 + i) * D;
 #pragma unroll
@@ -579,6 +597,7 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
         }
       }
     }
+    if (c == 0) write_stats(p, bh, q0 + r, mx, den);
     den = fmaxf(den, 1e-30f);
     const long long row = (bh * p.tq + q0 + r) * D;
 #pragma unroll
@@ -1043,6 +1062,7 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!rvalid[h]) continue;
+    if ((lane & 3) == 0) write_stats(p, bhi, row[h], m[h], l[h]);
     const float den = fmaxf(l[h], 1e-30f);
     const long long orow = (static_cast<long long>(bhi) * p.tq + row[h]) * p.d;
 #pragma unroll
@@ -1297,7 +1317,8 @@ extern "C" {
 // rows x (d + 2) values, rows = 32 for tq <= 32 else 64; counters: as many
 // int32 zeros, one per (bh, q tile), left at zero), 2 = "tc" (parts: bf16
 // scratch for three parts of q, then of k, then of v, unless all three are
-// bf16: then null).
+// bf16: then null).  stats: null, or (bh, tq) fp32 pairs that every path
+// fills with each row's final (m, l) for the backward pass.
 // Returns 0, a cudaError_t value, -1 for arguments out of range, or -2
 // when a TMA descriptor cannot be made.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
@@ -1306,13 +1327,13 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int has_window, long long window, long long offset,
                     int kv_len, int bq, int bkv, int q_period, int path,
                     int split_keys, float* work, int* counters, void* parts,
-                    void* stream) {
+                    float* stats, void* stream) {
   if (bh < 1 || tq < 1 || tk < 1 || d < 8 || d > 256 || d % 8 || bq < 1 ||
       bkv < 1 || q_period < 1 || path < 0 || path > 2)
     return -1;
   const Params p{bh,     tq,     tk,     d,   scale, causal, has_window,
                  window, offset, kv_len, bq,  bkv,   q_period, q_bf16,
-                 out_bf16};
+                 out_bf16, stats};
   auto s = static_cast<cudaStream_t>(stream);
   if (path == 2) {
     if (d % 16) return -1;

@@ -29,6 +29,20 @@ device.
 
 Layout: q (BH, Tq, D), k/v (BH, Tk, D); GQA head grouping is resolved in
 :func:`repro_torch.kernels.ops.flash_mha`.
+
+Gradients: when autograd records a call (grad mode on and q, k or v
+requiring grad), :func:`flash_attention` runs through
+:class:`FlashAttentionFunction`.  Its forward is the same launch on the same
+path, which also writes each row's softmax statistics (the final max m and
+sum l; log-sum-exp m + log l); its backward is :func:`flash_attention_bwd`:
+the kernels of ``src/repro_torch/csrc/flash_attention_bwd.cu`` for CUDA
+tensors (no Pallas kernel has them: ``repro`` takes ``jax.grad`` of its jnp
+``chunked_attention``), the dense masked-softmax formula
+:func:`flash_attention_bwd_plain` for CPU tensors.  The backward has two
+paths, which :func:`choose_bwd_path` picks from the dtypes and D:
+``"tc"`` (``mma.sync`` on the tensor cores) for calls whose q, k, v and
+output are all bf16 with D = 64, 128 or 256 (training's local blocks),
+``"simt"`` (fp32 on the CUDA cores) for the rest.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ import torch
 from . import build
 
 _SOURCE = "flash_attention.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPES = (torch.float32, torch.bfloat16)
 _MASKED = -1e30          # repro's finite "minus infinity"
 #: score elements per chunk of rows in the plain version (bounds its
@@ -59,6 +74,13 @@ SMS = 132
 SPLITKV_MAX_BLOCKS_PER_SM = 1.0
 #: blocks per SM that :func:`split_plan` aims the split grid at
 SPLIT_BLOCKS_PER_SM = 4
+#: the backward kernels' paths, in the order :func:`choose_bwd_path`
+#: prefers them
+BWD_PATHS = ("tc", "simt")
+#: keys of one block of the backward's dK/dV pass on ``"tc"``, and the
+#: blocks per SM its grid aims at (:func:`bwd_splits`)
+BWD_TC_KEYS = 32
+BWD_BLOCKS_PER_SM = 4
 #: the fewest keys a split walks, and the unit of ``split_keys``
 SPLIT_MIN_KEYS = 256
 SPLIT_UNIT = 64
@@ -70,10 +92,24 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention.argtypes = (
             [p] * 4 + [i] * 8 + [ctypes.c_float, i, i, ll, ll] + [i] * 6
-            + [p] * 4)
+            + [p] * 5)
         lib.flash_attention.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load(_BWD_SOURCE)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_bwd.argtypes = (
+            [p] * 10 + [i] * 8 + [ctypes.c_float, i, i, ll, ll] + [i] * 6
+            + [p] * 2)
+        lib.flash_attention_bwd.restype = i
+        lib.flash_attention_bwd_error_string.argtypes = [i]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
@@ -163,18 +199,21 @@ def _tile_masks(tq, tk, *, causal, window, offset, kv_len, bq, bkv,
 def flash_attention_plain(q, k, v, *, causal: bool, window: Optional[int],
                           offset: int, kv_len: int, bq: int, bkv: int,
                           q_period: Optional[int], out_dtype,
-                          chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+                          chunk: int = PLAIN_CHUNK, stats: bool = False):
     """The kernel's plain torch version: for a chunk of query rows at a
     time, fp32 scores ``(q · k) * scale``, masked keys of live TPU tiles
     set to ``-1e30`` and keys of dead tiles dropped, one softmax without
     the normalisation, ``P V / max(l, 1e-30)``.  Arguments as resolved by
     :func:`flash_attention`; ``chunk`` (score elements a chunk) sets the
-    rows a chunk, so a test can run several chunks at a small size."""
+    rows a chunk, so a test can run several chunks at a small size.  With
+    ``stats`` it returns ``(out, stats)``: each row's max m and sum l,
+    ``(BH, Tq, 2)`` fp32, as the backward pass reads them."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     period = tq if q_period is None else q_period
     scale = 1.0 / math.sqrt(d)
     out = torch.empty((bh, tq, d), dtype=out_dtype, device=q.device)
+    st = torch.empty((bh, tq, 2), dtype=torch.float32, device=q.device)
     kf, vf = k.float(), v.float()
     step = max(1, chunk // max(bh * tk, 1))
     for lo in range(0, tq, step):
@@ -190,9 +229,54 @@ def flash_attention_plain(q, k, v, *, causal: bool, window: Optional[int],
         m = s.amax(dim=-1, keepdim=True)
         m = torch.where(m == -math.inf, 0.0, m)     # a row with no live key
         pe = torch.exp(s - m)
-        den = torch.clamp(pe.sum(dim=-1, keepdim=True), min=1e-30)
-        out[:, lo:lo + rows.shape[0]] = torch.bmm(pe, vf) / den
-    return out
+        l_sum = pe.sum(dim=-1, keepdim=True)
+        out[:, lo:lo + rows.shape[0]] = torch.bmm(pe, vf) / torch.clamp(
+            l_sum, min=1e-30)
+        st[:, lo:lo + rows.shape[0]] = torch.cat([m, l_sum], dim=-1)
+    return (out, st) if stats else out
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, stats, *, causal: bool,
+                              window: Optional[int], offset: int, kv_len: int,
+                              bq: int, bkv: int, q_period: Optional[int],
+                              chunk: int = PLAIN_CHUNK):
+    """The backward kernels' plain torch version, the dense masked-softmax
+    formula in fp32 for a chunk of query rows at a time: ``P = exp(s - m) /
+    max(l, 1e-30)`` from the forward's row statistics (``stats``, ``(BH, Tq,
+    2)``), ``delta = rowsum(dO ∘ O)``, ``dS = P ∘ (dO Vᵀ - delta)`` on the
+    unmasked keys of live tiles (0 elsewhere: the forward's ``-1e30`` does
+    not depend on q or k), ``dV = Pᵀ dO``, ``dK = scale dSᵀ Q``, ``dQ =
+    scale dS K``.  Arguments as :func:`flash_attention_plain` takes them.
+    Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    period = tq if q_period is None else q_period
+    scale = 1.0 / math.sqrt(d)
+    kf, vf = k.float(), v.float()
+    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    dq = torch.empty((bh, tq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((bh, tk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((bh, tk, d), dtype=torch.float32, device=q.device)
+    step = max(1, chunk // max(bh * tk, 1))
+    for lo in range(0, tq, step):
+        rows = torch.arange(lo, min(lo + step, tq), device=q.device)
+        hi = lo + rows.shape[0]
+        live, mask = _tile_masks(tq, tk, causal=causal, window=window,
+                                 offset=offset, kv_len=kv_len, bq=bq,
+                                 bkv=bkv, period=period, rows=rows,
+                                 device=q.device)
+        qc, doc = q[:, lo:hi].float(), dout[:, lo:hi].float()
+        s = torch.einsum("bqd,bkd->bqk", qc, kf) * scale
+        s = torch.where(mask, s, _MASKED)
+        s = torch.where(live, s, -math.inf)
+        m, l_sum = stats[:, lo:hi, 0:1], stats[:, lo:hi, 1:2]
+        p = torch.exp(s - m) / torch.clamp(l_sum, min=1e-30)
+        dp = torch.einsum("bqd,bkd->bqk", doc, vf)
+        ds = torch.where(live & mask, p * (dp - delta[:, lo:hi]), 0.0)
+        dv += torch.bmm(p.transpose(1, 2), doc)
+        dk += torch.bmm(ds.transpose(1, 2), qc) * scale
+        dq[:, lo:hi] = torch.bmm(ds, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -234,14 +318,141 @@ def flash_attention(q, k, v, *, causal: bool = True,
     kv_len = tk if kv_len is None else kv_len
     out_dtype = out_dtype or q.dtype
     kw = dict(causal=causal, window=window, offset=offset, kv_len=kv_len,
-              bq=bq, bkv=bkv, q_period=q_period, out_dtype=out_dtype)
-    device = q.device
-    if device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
-    if device.type != "cuda":
+              bq=bq, bkv=bkv, q_period=q_period)
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
-                         f"{device}")
-    return _launch(q, k, v, path=path, **kw)
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, kw, out_dtype, path)
+    return _forward(q, k, v, kw, out_dtype, path)
+
+
+def _forward(q, k, v, kw, out_dtype, path, stats=False):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, out_dtype=out_dtype,
+                                     stats=stats, **kw)
+    return _launch(q, k, v, path=path, out_dtype=out_dtype, stats=stats,
+                   **kw)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the forward launch (or plain
+    version) with each row's statistics written beside the output, and
+    :func:`flash_attention_bwd` for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, out_dtype, path):
+        out, stats = _forward(q, k, v, kw, out_dtype, path, stats=True)
+        ctx.save_for_backward(q, k, v, out, stats)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, stats = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, stats, **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def bwd_paths_for(d: int, dtypes=()) -> tuple:
+    """The backward's CUDA paths that can take a call with head dim ``d``
+    and operand dtypes ``dtypes`` (q, k, v, out), in :data:`BWD_PATHS`
+    order: ``"tc"`` when all are bf16 and D is 64, 128 or 256; ``"simt"``
+    for head dims that are multiples of 8 up to 256 in fp32 or bf16."""
+    if d < 8 or d % 8 or d > 256 or any(t not in _DTYPES for t in dtypes):
+        return ()
+    tc = d in (64, 128, 256) and all(t == torch.bfloat16 for t in dtypes)
+    return ("tc", "simt") if tc else ("simt",)
+
+
+def choose_bwd_path(d: int, dtypes=()) -> Optional[str]:
+    """The backward path a CUDA call runs on: the first of
+    :func:`bwd_paths_for`'s (``None`` when none takes it)."""
+    able = bwd_paths_for(d, dtypes)
+    return able[0] if able else None
+
+
+def bwd_splits(bh: int, tq: int, tk: int, sms: int = SMS) -> int:
+    """Ranges of row tiles the ``"tc"`` backward's dK/dV pass cuts the
+    stacked q axis into, so that its grid holds :data:`BWD_BLOCKS_PER_SM`
+    blocks an SM (each range writes an fp32 partial, added in order)."""
+    kv_blocks = bh * -(-tk // BWD_TC_KEYS)
+    return max(1, min(-(-tq // BWD_TC_KEYS),
+                      -(-BWD_BLOCKS_PER_SM * sms // kv_blocks)))
+
+
+def flash_attention_bwd(q, k, v, out, dout, stats, *, causal: bool,
+                        window: Optional[int], offset: int, kv_len: int,
+                        bq: int, bkv: int, q_period: Optional[int],
+                        path: Optional[str] = None):
+    """Gradients ``(dq, dk, dv)`` (in q's, k's and v's dtypes) of one
+    :func:`flash_attention` call, given its output ``out``, the output's
+    gradient ``dout`` and the row statistics ``stats`` ``(BH, Tq, 2)`` that
+    its forward wrote; the masks as resolved by :func:`flash_attention`.
+    The kernels of ``csrc/flash_attention_bwd.cu`` for CUDA tensors, on
+    ``path`` (one of :func:`bwd_paths_for`'s; ``None`` takes
+    :func:`choose_bwd_path`'s; checked on every device): one call is one
+    count of ``flash_attention_bwd.launches`` and of its path's
+    (``tc_launches``, ``simt_launches``): the row sums, the KV-outer dK/dV
+    pass and the Q-outer dQ pass.  The plain version for CPU tensors."""
+    kw = dict(causal=causal, window=window, offset=offset, kv_len=kv_len,
+              bq=bq, bkv=bkv, q_period=q_period)
+    d = q.shape[-1]
+    dtypes = (q.dtype, k.dtype, v.dtype, out.dtype)
+    if path is not None and path not in bwd_paths_for(d, dtypes):
+        raise ValueError(f"flash_attention_bwd: path={path!r} cannot take "
+                         f"this call; paths that can: "
+                         f"{bwd_paths_for(d, dtypes)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, stats, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    for name, t, shape in (("k", k, (bh, tk, d)), ("v", v, (bh, tk, d)),
+                           ("out", out, (bh, tq, d)),
+                           ("dout", dout, (bh, tq, d)),
+                           ("stats", stats, (bh, tq, 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"flash_attention_bwd: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: all operands must be on "
+                             f"{q.device}, got {name} on {t.device}")
+    path = path or choose_bwd_path(d, dtypes)
+    if path is None:
+        raise NotImplementedError(
+            f"flash_attention_bwd: the CUDA kernels take head dims that are "
+            f"multiples of 8 up to 256 and fp32 or bf16 q, k, v and out, got "
+            f"D={d}, {q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
+    q, k, v, out = (_aligned(t) for t in (q, k, v, out))
+    dout = _aligned(dout.to(out.dtype))
+    stats = stats.float().contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    n_split = bwd_splits(bh, tq, tk, _sms(q.device)) if path == "tc" else 1
+    part = (torch.empty(2 * n_split * bh * tk * d, dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
+    lib = _bwd_lib()
+    bf = torch.bfloat16
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), int(q.dtype == bf), int(k.dtype == bf),
+        int(v.dtype == bf), int(out.dtype == bf), bh, tq, tk, d,
+        1.0 / math.sqrt(d), int(causal), int(window is not None),
+        0 if window is None else int(window), int(offset), int(kv_len), bq,
+        bkv, tq if q_period is None else q_period, int(path == "tc"),
+        n_split, None if part is None else part.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed ({path}): "
+                           f"{lib.flash_attention_bwd_error_string(rc).decode()}")
+    flash_attention_bwd.launches += 1
+    setattr(flash_attention_bwd, f"{path}_launches",
+            getattr(flash_attention_bwd, f"{path}_launches") + 1)
+    return dq, dk, dv
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -275,7 +486,7 @@ def _sms(device: torch.device) -> int:
 
 
 def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
-            out_dtype, path):
+            out_dtype, path, stats=False):
     bh, tq, d = q.shape
     tk = k.shape[1]
     device = q.device
@@ -301,6 +512,8 @@ def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
     # strided or offset view is copied, as on the CPU any layout is taken
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((bh, tq, d), dtype=out_dtype, device=device)
+    st = (torch.empty((bh, tq, 2), dtype=torch.float32, device=device)
+          if stats else None)
     work = counters = parts = None
     split_keys = 0
     if path == "splitkv":
@@ -327,6 +540,7 @@ def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
         None if work is None else work.data_ptr(),
         None if counters is None else counters.data_ptr(),
         None if parts is None else parts.data_ptr(),
+        None if st is None else st.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed ({path}): "
@@ -338,7 +552,7 @@ def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
         flash_attention.tc_launches += 1
     else:
         flash_attention.simt_launches += 1
-    return out
+    return (out, st) if stats else out
 
 #: Calls that launched a kernel since the count was last set to 0 (only
 #: :func:`flash_attention` on CUDA tensors adds to it): one a call, and one
@@ -348,3 +562,9 @@ flash_attention.launches = 0
 flash_attention.splitkv_launches = 0
 flash_attention.tc_launches = 0
 flash_attention.simt_launches = 0
+#: Backward calls that launched the backward kernels since the count was
+#: last set to 0, all and per path (only :func:`flash_attention_bwd` on
+#: CUDA tensors adds to them; one a call).
+flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
+flash_attention_bwd.simt_launches = 0

@@ -3,6 +3,10 @@
 FFN, each on its hand-written Hopper kernel for CUDA tensors and on the
 kernel's plain version for CPU tensors.  The shapes, the padding and every
 contract (output dtypes, capacity, dropped tokens) are ``repro``'s.
+:func:`flash_mha` and :func:`rg_lru_scan` record gradients: their kernels'
+autograd Functions run backward kernels of their own, and ``stack_heads``'
+pads and reshapes are plain torch under autograd (padded rows and keys
+get zero gradient).
 
 :func:`plan_spmm` / :func:`plan_spgemm` remain, as in ``repro``, thin
 deprecation shims that delegate to :func:`repro_torch.api.plan_matmul`;

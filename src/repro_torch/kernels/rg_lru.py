@@ -22,6 +22,16 @@ own dtype and converted to fp32, as ``repro`` casts each); out is in x's
 dtype, h_T in fp32.  ``ct`` (the TPU kernel's time chunk) changes no
 result: it is validated as ``repro`` validates it, so the CPU and the
 card accept the same calls.
+
+Gradients: when autograd records a call (grad mode on and an operand that
+requires grad), :func:`rg_lru` runs through :class:`RGLRUFunction`.  Its
+forward launches the same kernel with x in fp32, so that ``out`` is the
+recurrence's fp32 h bit for bit (the kernel converts x to fp32 on load
+either way), keeps that h for the backward and returns it in x's dtype.
+Its backward is :func:`rg_lru_bwd`: the kernel of
+``src/repro_torch/csrc/rg_lru_bwd.cu`` for CUDA tensors (no Pallas kernel
+has it: ``repro`` takes ``jax.grad`` of its ``lax.scan``), the explicit
+reverse walk :func:`rg_lru_bwd_plain` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from .flash_attention import _aligned, _sms
 from .ref import softplus
 
 _SOURCE = "rg_lru.cu"
+_BWD_SOURCE = "rg_lru_bwd.cu"
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PATH_CODE = {"simt": 0, "tile": 1}
@@ -62,6 +73,19 @@ def _lib() -> ctypes.CDLL:
         lib.rg_lru.restype = i
         lib.rg_lru_error_string.argtypes = [i]
         lib.rg_lru_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load(_BWD_SOURCE)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rg_lru_bwd.argtypes = [p] * 14 + [i] * 3 + [ctypes.c_float] + \
+            [i] * 3 + [p]
+        lib.rg_lru_bwd.restype = i
+        lib.rg_lru_bwd_error_string.argtypes = [i]
+        lib.rg_lru_bwd_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
@@ -141,12 +165,140 @@ def rg_lru(x, a_gate, x_gate, a_param, h0, *, ct: int = 128, c: float = 8.0,
         if path not in able:
             raise ValueError(f"rg_lru: path={path!r} cannot take this call; "
                              f"paths that can: {able}")
-    device = x.device
-    if device.type == "cpu":
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rg_lru runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (x, a_gate, x_gate, a_param, h0)):
+        return RGLRUFunction.apply(x, a_gate, x_gate, a_param, h0, c, path)
+    return _forward(x, a_gate, x_gate, a_param, h0, c, path)
+
+
+def _forward(x, a_gate, x_gate, a_param, h0, c, path):
+    if x.device.type == "cpu":
         return rg_lru_plain(x, a_gate, x_gate, a_param, h0, c=c)
-    if device.type != "cuda":
-        raise ValueError(f"rg_lru runs on cuda or cpu tensors, got {device}")
     return _launch(x, a_gate, x_gate, a_param, h0, c, path)
+
+
+class RGLRUFunction(torch.autograd.Function):
+    """:func:`rg_lru` under autograd: the forward kernel (or plain version)
+    run with x in fp32, so its ``out`` is the fp32 h the backward needs (the
+    same h as a call with x in its own dtype: the kernel converts x to fp32
+    on load), and :func:`rg_lru_bwd` for the backward.  ``out`` is returned
+    in x's dtype, ``h_T`` in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, a_gate, x_gate, a_param, h0, c, path):
+        hs, h_t = _forward(x.float(), a_gate, x_gate, a_param, h0, c, path)
+        ctx.save_for_backward(x, a_gate, x_gate, a_param, h0, hs)
+        ctx.c = c
+        return hs.to(x.dtype), h_t
+
+    @staticmethod
+    def backward(ctx, dout, dh_t):
+        x, a_gate, x_gate, a_param, h0, hs = ctx.saved_tensors
+        b, t, d = x.shape
+        if dout is None:
+            dout = torch.zeros_like(x)
+        if dh_t is None:
+            dh_t = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        dx, dag, dxg, dp, dh0 = rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs,
+                                           dout, dh_t, c=ctx.c)
+        return (dx, dag, dxg, dp.to(a_param.dtype), dh0.to(h0.dtype), None,
+                None)
+
+
+def rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
+                     c: float = 8.0):
+    """The backward kernel's plain torch version, all in fp32: the gates
+    again, then an explicit reverse walk ``g_t = dout_t + a_{t+1} g_{t+1}``
+    (``g_{T-1} = dout_{T-1} + dh_T``), then each element's gradient from
+    g, the forward's fp32 h (``hs``) and the gates.  Through ``max(1 - a²,
+    1e-12)`` the derivative is 0 on the clamped side, as ``jax.grad``
+    gives it.  ``da_param`` is summed over T per (batch row, channel), then
+    over the rows in order.  Returns ``(dx in x's dtype, da_gate in
+    a_gate's, dx_gate in x_gate's, da_param (D,) fp32, dh0 (B, D) fp32)``."""
+    p = a_param.float()
+    neg_c_sp = -c * softplus(p)
+    xf = x.float()
+    sg = torch.sigmoid(a_gate.float())
+    a = torch.exp(neg_c_sp * sg)
+    ig = torch.sigmoid(x_gate.float())
+    one_m = 1.0 - a * a
+    beta = torch.sqrt(torch.clamp(one_m, min=1e-12))
+    dbeta = torch.where(one_m > 1e-12, -a / beta, torch.zeros_like(a))
+    hprev = torch.cat([h0.float()[:, None], hs[:, :-1].float()], dim=1)
+    do = dout.float()
+    g = torch.empty_like(xf)
+    carry = dh_t.float()
+    for t in reversed(range(x.shape[1])):
+        g[:, t] = do[:, t] + carry
+        carry = a[:, t] * g[:, t]
+    d_a = g * hprev + g * ig * xf * dbeta
+    das = d_a * a * sg
+    dx = g * beta * ig
+    dxg = g * beta * xf * ig * (1.0 - ig)
+    dag = das * neg_c_sp * (1.0 - sg)
+    dp = -c * torch.sigmoid(p) * das.sum(dim=1).sum(dim=0)
+    return (dx.to(x.dtype), dag.to(a_gate.dtype), dxg.to(x_gate.dtype), dp,
+            carry)
+
+
+def rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
+               c: float = 8.0):
+    """Gradients of :func:`rg_lru` given the forward's fp32 h (``hs``, (B,
+    T, D)), ``dout`` (B, T, D) and ``dh_t`` (B, D): ``(dx in x's dtype,
+    da_gate in a_gate's, dx_gate in x_gate's, da_param (D,) fp32, dh0 (B,
+    D) fp32)``.  The kernel of ``csrc/rg_lru_bwd.cu`` for CUDA tensors
+    (counted in ``rg_lru_bwd.launches``), :func:`rg_lru_bwd_plain` for CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout,
+                                dh_t, c=c)
+    if x.device.type != "cuda":
+        raise ValueError(f"rg_lru_bwd runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    b, t, d = x.shape
+    for name, ten, shape in (("a_gate", a_gate, (b, t, d)),
+                             ("x_gate", x_gate, (b, t, d)),
+                             ("hs", hs, (b, t, d)), ("dout", dout, (b, t, d)),
+                             ("a_param", a_param, (d,)), ("h0", h0, (b, d)),
+                             ("dh_t", dh_t, (b, d))):
+        if tuple(ten.shape) != shape:
+            raise ValueError(f"rg_lru_bwd: {name} has shape "
+                             f"{tuple(ten.shape)}, expected {shape}")
+        if ten.device != x.device:
+            raise ValueError(f"rg_lru_bwd: all operands must be on "
+                             f"{x.device}, got {name} on {ten.device}")
+    if any(v.dtype not in _DTYPES for v in (x, a_gate, x_gate)):
+        raise NotImplementedError(
+            f"rg_lru_bwd: the CUDA kernel takes x, a_gate and x_gate each in "
+            f"one of {_DTYPES}, got {x.dtype}, {a_gate.dtype}, "
+            f"{x_gate.dtype}")
+    x, a_gate, x_gate = (v.contiguous() for v in (x, a_gate, x_gate))
+    dout = dout.to(x.dtype).contiguous()
+    hs, h0, dh_t, a_param = (v.float().contiguous()
+                             for v in (hs, h0, dh_t, a_param))
+    dx = torch.empty_like(x)
+    dag = torch.empty_like(a_gate)
+    dxg = torch.empty_like(x_gate)
+    dp = torch.empty((d,), dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    part = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    lib = _bwd_lib()
+    rc = lib.rg_lru_bwd(
+        x.data_ptr(), a_gate.data_ptr(), x_gate.data_ptr(), dout.data_ptr(),
+        hs.data_ptr(), h0.data_ptr(), dh_t.data_ptr(), a_param.data_ptr(),
+        dx.data_ptr(), dag.data_ptr(), dxg.data_ptr(), dp.data_ptr(),
+        dh0.data_ptr(), part.data_ptr(), b, t, d, float(c),
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[a_gate.dtype],
+        _DTYPE_CODE[x_gate.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rg_lru_bwd launch failed: "
+                           f"{lib.rg_lru_bwd_error_string(rc).decode()}")
+    rg_lru_bwd.launches += 1
+    return dx, dag, dxg, dp, dh0
 
 
 def _launch(x, a_gate, x_gate, a_param, h0, c, path):
@@ -197,3 +349,6 @@ def _launch(x, a_gate, x_gate, a_param, h0, c, path):
 rg_lru.launches = 0
 rg_lru.tile_launches = 0
 rg_lru.simt_launches = 0
+#: Backward kernel launches since the count was last set to 0 (only
+#: :func:`rg_lru_bwd` on CUDA tensors adds to it).
+rg_lru_bwd.launches = 0

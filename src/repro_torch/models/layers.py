@@ -15,7 +15,8 @@ factors the scales out of both products (:func:`_direct_attention_q8`), as
 buffer of ``window`` slots (:func:`ring_cache_write`,
 :func:`ring_decode_attention`), and without a cache runs on the
 ``flash_attention`` kernel through :func:`repro_torch.kernels.ops.flash_mha`
-(the ``"reference"`` backend keeps ``repro``'s :func:`chunked_attention`).
+(the ``"reference"`` backend keeps ``repro``'s :func:`chunked_attention`),
+which records gradients through the kernel's backward pass.
 The sharding hints of ``repro`` (``act_constrain``) have no
 meaning on one device and are dropped.
 """

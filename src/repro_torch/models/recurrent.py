@@ -9,7 +9,9 @@ recurrence ``h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (σ(x_gate_t) ⊙ xb_t)
 run fused in the ``rg_lru`` kernel (:mod:`repro_torch.kernels.rg_lru`; its
 plain version for CPU tensors, ``repro``'s oracle on the ``"reference"``
 backend), and ``out`` projects ``h ⊙ gelu(gb)``.  Decode carries the
-conv's last 3 inputs (activation dtype) and h (fp32) as state.
+conv's last 3 inputs (activation dtype) and h (fp32) as state.  Under
+autograd the kernel's backward is a kernel too (``rg_lru_bwd``); the
+``"reference"`` backend's oracle is differentiated by torch, step by step.
 
 RWKV-6 (:class:`RWKVBlock`): a token shift mixes each input with the one
 before it (``mix``, five rows: r, k, v, w, g), the decay is data-dependent

@@ -41,9 +41,10 @@ positions trimmed off the logits, ``+ 0.01 · aux``).  With ``cfg.remat``
 each block of a forward pass that records gradients is rematerialized
 (``torch.utils.checkpoint``, as ``repro`` wraps its layer scan in
 ``jax.checkpoint``): only block inputs are kept, and the backward pass runs
-each block's forward again.  The hybrid family has no backward: neither
-the ``rg_lru`` nor the ``flash_attention`` kernel has one, so its forward
-runs only without gradients (``torch.no_grad``/``inference_mode``).
+each block's forward again.  The hybrid family trains too: its RG-LRU and
+local-attention kernels record gradients through their autograd Functions,
+whose backward passes are kernels of their own (``rg_lru_bwd``,
+``flash_attention_bwd``).
 """
 from __future__ import annotations
 
@@ -72,10 +73,6 @@ FfnPatterns = Dict[str, Tuple[np.ndarray, np.ndarray]]
 #: the cache entries of the recurrent kinds; the others belong to attention
 STATE_KEYS = {"rec": ("conv", "h"), "rwkv": ("shift", "S", "cm_shift")}
 _ALL_STATE_KEYS = {k for keys in STATE_KEYS.values() for k in keys}
-_NO_BACKWARD = ("the hybrid family has no backward (the rg_lru and "
-                "flash_attention kernels have none); see ROADMAP 'hybrid "
-                "training'. Run its forward under torch.no_grad() or "
-                "torch.inference_mode()")
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -388,10 +385,7 @@ class Transformer(nn.Module):
         0 without MoE layers).  ``vis_embeds`` (B, Nv, D): a prefix through
         the frontend (``vlm``; T = Nv + T_text, positions over the whole
         sequence); ``enc_embeds`` (B, T_enc, D): the encoder's input
-        (``enc_dec``, required there).  A hybrid model raises
-        ``NotImplementedError`` when gradients are recorded."""
-        if "rec" in self.layer_kinds and torch.is_grad_enabled():
-            raise NotImplementedError(_NO_BACKWARD)
+        (``enc_dec``, required there)."""
         dt = act_dtype(self.cfg)
         x = self.embed(tokens).to(dt)
         if vis_embeds is not None:
@@ -414,10 +408,7 @@ class Transformer(nn.Module):
         enc_embeds, mask (B, T)]).
 
         Returns ``(loss + 0.01·aux, {"loss", "aux"})`` as ``repro`` does;
-        the logits of a vision prefix are trimmed off before the loss.  The
-        hybrid family raises ``NotImplementedError`` (no backward)."""
-        if "rec" in self.layer_kinds:
-            raise NotImplementedError(_NO_BACKWARD)
+        the logits of a vision prefix are trimmed off before the loss."""
         logits, aux = self(batch["tokens"], batch.get("vis_embeds"),
                            batch.get("enc_embeds"), return_aux=True)
         targets = batch["targets"]

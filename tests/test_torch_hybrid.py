@@ -407,13 +407,3 @@ def test_int8_kv_cache_with_ring_raises_in_both():
     with pytest.raises(ValueError, match="ring KV cache has no int8 mode"):
         Engine(model, slots=1, max_len=16, device="cpu")
 
-
-def test_hybrid_has_no_backward(dense_pair):
-    jcfg, _, _, model = dense_pair
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="hybrid training"):
-        model.loss_fn({"tokens": tokens, "targets": tokens})
-    with pytest.raises(NotImplementedError, match="hybrid training"):
-        model(tokens)
-    with torch.inference_mode():
-        assert model(tokens).shape == (1, 8, jcfg.padded_vocab)
