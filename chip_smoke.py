@@ -172,23 +172,28 @@
    ``LOGIT_RTOL``): the forward kernels against the decode ones and the
    ring cache.
 11. Hybrid training ([hybrid_train], after [hybrid]'s model is freed): the
-   two backward kernels against their plain versions, ``rg_lru_bwd`` at
-   the model's (1, 4096, 4096) bf16 call and at (4, 2048, 4096) fp32,
-   ``flash_attention_bwd`` at the local block's 1 x 4096 bf16 call on both
-   of its paths (``tc``, the one training takes, and ``simt``; after the
-   forward kernel's row statistics are held against the plain forward's)
-   and at small ragged bf16 (both paths) and fp32 (``simt``) calls
+   two backward kernels against their plain versions on every path that
+   takes each call, ``rg_lru_bwd`` at the model's (1, 4096, 4096) bf16
+   call and at (4, 2048, 4096) fp32 (``tile``, the one training takes,
+   and ``simt``; dx, da_gate, dx_gate and dh0 of the two bit for bit,
+   da_param within 1e-6) and at a short ragged (4, 100, 4096) bf16 call,
+   ``flash_attention_bwd`` at the local block's 1 x 4096 call in bf16 and
+   fp32 on both of its paths (``tc``, the one training takes, and
+   ``simt``; after the forward kernel's row statistics are held against
+   the plain forward's) and at small ragged bf16 (both paths) and fp32 D =
+   40 (``simt``) calls, each path's two calls bit for bit
    (``KERNEL_RTOL`` in fp32,
    ``BF16_RTOL`` across a bf16 rounding), each timed beside its bound, its
-   plain version and (attention) an fp32 SDPA forward + backward; then
+   plain version and (attention) an fp32 SDPA forward + backward (and a
+   bf16 one for bf16 calls); then
    RecurrentGemma-9B at full width with its depth cut 38 -> 6 layers (two
    ``(rec, rec, local)`` units, the block-sparse FFN, remat) on 1 x 4096
    tokens: one step's loss and gradients on ``"cuda"`` vs ``"reference"``
    (the granite training gates) with exact launches per path (per step:
-   8 ``rg_lru`` on tile, 4 ``rg_lru_bwd``, 4 ``flash_attention`` on tc, 2
-   ``flash_attention_bwd`` on tc, 18 SpMM on the tensor cores, 6 of them
-   transposed), then 3 ``Trainer`` steps with the same counts, ms/step and
-   peak memory, and one profiled step.
+   8 ``rg_lru`` on tile, 4 ``rg_lru_bwd`` on tile, 4 ``flash_attention``
+   on tc, 2 ``flash_attention_bwd`` on tc, 18 SpMM on the tensor cores, 6
+   of them transposed), then 3 ``Trainer`` steps with the same counts,
+   ms/step and peak memory, and one profiled step.
 12. The last four families, each built at published width after the
    earlier models are freed (bf16 activations, fp32 parameters, random
    weights from ``SEED``), each holding a decode step's logits against the
@@ -994,6 +999,13 @@ def _rel(got, want):
     absolute difference."""
     diff = float((got.float() - want.float()).abs().max())
     return diff / max(float(want.float().abs().max()), 1e-30), diff
+
+
+def _fro(got, want):
+    """||got - want|| over ||want|| (Frobenius, as fp32)."""
+    w = want.float()
+    return float(torch.linalg.vector_norm(got.float() - w)) / max(
+        float(torch.linalg.vector_norm(w)), 1e-30)
 
 
 def _dense_of(plan, side):
@@ -2740,7 +2752,8 @@ def _zero_counts():
     torch.cuda.synchronize()
     for kernel, names in ((rg_lru, ("launches", "tile_launches",
                                     "simt_launches")),
-                          (rg_lru_bwd, ("launches",)),
+                          (rg_lru_bwd, ("launches", "tile_launches",
+                                        "simt_launches")),
                           (flash_attention, ("launches", "splitkv_launches",
                                              "tc_launches", "simt_launches")),
                           (flash_attention_bwd, ("launches", "tc_launches",
@@ -2762,10 +2775,13 @@ def _counts():
     return dict(rg_lru=rg_lru.launches, rg_lru_tile=rg_lru.tile_launches,
                 rg_lru_simt=rg_lru.simt_launches,
                 rg_lru_bwd=rg_lru_bwd.launches,
+                rg_lru_bwd_tile=rg_lru_bwd.tile_launches,
+                rg_lru_bwd_simt=rg_lru_bwd.simt_launches,
                 flash=flash_attention.launches,
                 flash_tc=flash_attention.tc_launches,
                 flash_bwd=flash_attention_bwd.launches,
                 flash_bwd_tc=flash_attention_bwd.tc_launches,
+                flash_bwd_simt=flash_attention_bwd.simt_launches,
                 spmm=segment_spmm.launches,
                 spmm_split=segment_spmm.split_launches,
                 spmm_tc=segment_spmm.tensor_core_launches,
@@ -2862,19 +2878,28 @@ HYBRID_TRAIN_LAYERS = 6
 HYBRID_TRAIN_T = 4096
 HYBRID_TRAIN_STEPS = 3
 # the backward kernels against their plain versions, D = d_model: the
-# RG-LRU at the model's (1, 4096, 4096) bf16 call and a (4, 2048, 4096)
-# fp32 one, (batch, T, dtype); the attention at the local block's 1 x 4096
-# bf16 call (16 heads on one KV head, D = 256, window 2048) and small
-# ragged calls (padded stacked rows and keys), (batch, T, heads, KV heads,
-# D, window, dtype): the bf16 ones on both paths, the fp32 one (D = 40)
-# on simt
+# RG-LRU at the model's (1, 4096, 4096) bf16 call, a (4, 2048, 4096) fp32
+# one and a short one whose T is not a multiple of a tile's 64 steps (both
+# paths take every T), (batch, T, dtype); the attention at the local block's 1 x 4096
+# call (16 heads on one KV head, D = 256, window 2048) in bf16, as the
+# model runs it, and in fp32, and small ragged calls (padded stacked rows
+# and keys), (batch, T, heads, KV heads, D, window, dtype): every case on
+# every path that takes it (the fp32 D = 40 one only on simt)
 HYBRID_BWD_RG_LRU_CASES = {
     "rg_lru bwd 1x4096 bf16": (1, HYBRID_TRAIN_T, torch.bfloat16),
     "rg_lru bwd 4x2048 fp32": (4, 2048, torch.float32),
+    "rg_lru bwd 4x100 bf16": (4, 100, torch.bfloat16),
 }
+# a bf16 attention backward's error (Frobenius, against the plain version)
+# is held below this share of a control's that takes P and dS as one bf16
+# part (flash_attention_bwd_plain(p_dtype=bf16), the function of a bf16
+# SDPA): BF16_RTOL alone would pass a kernel that drops their lo parts
+ONE_PART_SHARE = 0.5
 HYBRID_BWD_ATTN_CASES = {
     "local bwd 1x4096 bf16": (1, HYBRID_TRAIN_T, 16, 1, 256, 2048,
                               torch.bfloat16),
+    "local bwd 1x4096 fp32": (1, HYBRID_TRAIN_T, 16, 1, 256, 2048,
+                              torch.float32),
     "ragged bwd bf16": (2, 200, 4, 2, 64, 64, torch.bfloat16),
     "ragged bwd fp32": (2, 200, 4, 2, 40, 64, torch.float32),
 }
@@ -2883,12 +2908,17 @@ HYBRID_BWD_ATTN_CASES = {
 def rg_lru_bwd_case(label, b, t, dt, dev, gen, sfu):
     """One ``rg_lru_bwd`` call at RecurrentGemma-9B's width on the forward's
     fp32 h (the forward run with x in fp32, as the autograd Function runs
-    it): one launch, every output against ``rg_lru_bwd_plain``
-    (``KERNEL_RTOL`` for fp32 outputs, ``BF16_RTOL`` for bf16 ones), its
-    time, the plain version's, and the bound (bytes; the forward's SFU
-    operations an element, which the backward recomputes)."""
+    it), on every path that takes it: one launch by that path's own count,
+    every output against ``rg_lru_bwd_plain`` (``KERNEL_RTOL`` for fp32
+    outputs, ``BF16_RTOL`` for bf16 ones), ``tile`` against ``simt`` bit for
+    bit (``da_param``, the same sum in another order, within 1e-6), each
+    path's time, the plain version's, and the bound (bytes; the forward's
+    SFU operations an element, which the backward recomputes).  The record
+    is ``choose_bwd_path``'s path's."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.rg_lru import rg_lru, rg_lru_bwd, rg_lru_bwd_plain
+    from repro_torch.kernels.rg_lru import (choose_bwd_path, paths_for,
+                                            rg_lru, rg_lru_bwd,
+                                            rg_lru_bwd_plain)
     d = get_config("recurrentgemma-9b").d_model
     x, a_gate, x_gate = (torch.randn(b, t, d, generator=gen,
                                      device=dev).to(dt) for _ in range(3))
@@ -2899,50 +2929,95 @@ def rg_lru_bwd_case(label, b, t, dt, dev, gen, sfu):
     dout = torch.randn(b, t, d, generator=gen, device=dev).to(dt)
     dh_t = torch.randn(b, d, generator=gen, device=dev)
     args = (x, a_gate, x_gate, a_param, h0, hs, dout, dh_t)
-    torch.cuda.synchronize()
-    rg_lru_bwd.launches = 0
-    got = rg_lru_bwd(*args)
-    torch.cuda.synchronize()
-    check(rg_lru_bwd.launches == 1, f"[hybrid_train] {label}: rg_lru_bwd "
-                                    f"launched {rg_lru_bwd.launches} times")
     want = rg_lru_bwd_plain(*args)
-    errs = []
-    for name, g, w in zip(("dx", "da_gate", "dx_gate", "da_param", "dh0"),
-                          got, want):
-        rel, diff = _rel(g, w)
-        tol = KERNEL_RTOL if g.dtype == torch.float32 else BF16_RTOL
-        check(g.dtype == w.dtype and bool(torch.isfinite(g).all())
-              and rel <= tol, f"[hybrid_train] {label}: {name} kernel vs "
-                              f"plain {rel:.3g} > {tol}")
-        errs.append((name, rel, diff))
-    ms = scaled_device_ms(lambda: rg_lru_bwd(*args))
+    names = ("dx", "da_gate", "dx_gate", "da_param", "dh0")
+    by_path, outs = {}, {}
+    for path in paths_for(d, (dt,) * 3):
+        torch.cuda.synchronize()
+        for n in ("launches", "tile_launches", "simt_launches"):
+            setattr(rg_lru_bwd, n, 0)
+        got = rg_lru_bwd(*args, path=path)
+        torch.cuda.synchronize()
+        counts = [getattr(rg_lru_bwd, n)
+                  for n in ("launches", "tile_launches", "simt_launches")]
+        check(counts == [1, int(path == "tile"), int(path == "simt")],
+              f"[hybrid_train] {label} on {path}: rg_lru_bwd launches (all, "
+              f"tile, simt) {counts}")
+        errs = []
+        for name, g, w in zip(names, got, want):
+            rel, diff = _rel(g, w)
+            tol = KERNEL_RTOL if g.dtype == torch.float32 else BF16_RTOL
+            check(g.dtype == w.dtype and bool(torch.isfinite(g).all())
+                  and rel <= tol, f"[hybrid_train] {label} on {path}: "
+                                  f"{name} kernel vs plain {rel:.3g} > {tol}")
+            errs.append((name, rel, diff))
+        outs[path] = got
+        by_path[path] = dict(errs=errs, ms=scaled_device_ms(
+            lambda path=path: rg_lru_bwd(*args, path=path)))
+    same = ""
+    if "tile" in outs and "simt" in outs:
+        for i, name in enumerate(names):
+            if name == "da_param":
+                rel, _ = _rel(outs["tile"][i], outs["simt"][i])
+                check(rel <= 1e-6, f"[hybrid_train] {label}: da_param tile "
+                                   f"vs simt {rel:.3g} > 1e-6")
+                same += f"; da_param tile vs simt {rel:.2e}"
+            else:
+                check(torch.equal(outs["tile"][i], outs["simt"][i]),
+                      f"[hybrid_train] {label}: {name} on tile differs "
+                      f"from simt")
+        same = "; dx, da_gate, dx_gate, dh0 tile == simt bit for bit" + same
+    del outs
+    main = choose_bwd_path(d, (dt,) * 3)
     plain_ms = event_ms(lambda: rg_lru_bwd_plain(*args), 1)
     bound_ms, bound_by, terms = rg_lru_bound(
-        _nbytes(x, a_gate, x_gate, dout, hs, h0, dh_t, a_param, *got),
+        _nbytes(x, a_gate, x_gate, dout, hs, h0, dh_t, a_param, *want),
         x.numel(), sfu)
-    print(f"[hybrid_train] {label:<22} B={b} T={t} D={d}: launches 1; "
-          + ", ".join(f"{n} {r:.2e}" for n, r, _ in errs)
-          + f" vs plain; {ms:.4f} ms, plain_ms={plain_ms:.4f}, bound_ms="
-          f"{bound_ms:.4f} ({bound_by}; bytes {terms[0]:.4f}, fp32 ops "
-          f"{terms[1]:.4f}, SFU {terms[2]:.4f}); no single library call")
-    return dict(case=label, kernel="rg_lru_bwd", dtype=str(dt)[6:],
-                launches=1, rel_err=max(r for _, r, _ in errs),
-                max_abs_err=max(a for _, _, a in errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, library="no single call computes it")
+    times = "; ".join(f"{p} {r['ms']:.4f} ms (" + ", ".join(
+        f"{n} {e:.2e}" for n, e, _ in r["errs"]) + " vs plain)"
+        for p, r in by_path.items())
+    print(f"[hybrid_train] {label:<22} B={b} T={t} D={d}: path {main}; "
+          f"{times}{same}; plain_ms={plain_ms:.4f}, bound_ms={bound_ms:.4f} "
+          f"({bound_by}; bytes {terms[0]:.4f}, fp32 ops {terms[1]:.4f}, SFU "
+          f"{terms[2]:.4f}); no single library call")
+    mine = by_path[main]
+    return dict(case=label, kernel="rg_lru_bwd", path=main,
+                dtype=str(dt)[6:], launches=1,
+                rel_err=max(r for _, r, _ in mine["errs"]),
+                max_abs_err=max(a for _, _, a in mine["errs"]),
+                ms=mine["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                library="no single call computes it", by_path=by_path)
 
 
 def attn_bwd_bound(path, nbytes, pairs, d, dt):
     """The least time of an attention backward call: the bytes moved once,
-    and its five products over the live (query, key) pairs (S = Q Kᵀ, dP =
-    dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K; 2 D operations a pair each)
-    at the peak of the path's arithmetic: fp32 on the CUDA cores
-    (``simt``), or on ``tc`` as bf16 passes at 989 TFLOP/s, P and dS in the
-    two bf16 parts the kernel uses (S and dP: one pass each, the other
-    three: two)."""
+    and the function's five products (S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO,
+    dK = dSᵀ Q, dQ = dS K; 2 D operations a pair each) over the live
+    (query, key) pairs at the peak of the path's arithmetic.  ``simt``: in
+    fp32 on the CUDA cores.  ``tc``: as bf16 products at 989 TFLOP/s, at
+    the precision the function needs there (:func:`attn_bwd_passes`): 16 D
+    operations a pair for bf16 operands, 60 D for fp32.  What the kernel
+    repeats (S and dP in each dK/dV column group and again in the dQ pass)
+    is its overhead against this bound, not part of it."""
     if path != "tc":
         return _bound(nbytes, 10 * d * pairs)
-    return _bound(nbytes, 2 * d * pairs * (2 + 3 * 2), BF16_FLOPS)
+    need, _ = attn_bwd_passes(d, dt)
+    return _bound(nbytes, 2 * d * pairs * need, BF16_FLOPS)
+
+
+def attn_bwd_passes(d, dt):
+    """bf16 products a live pair, ``(the function's, the tc kernel's)``.
+    The function's: S and dP take the split's passes of the operands (one
+    for bf16, six for fp32: ``tc_passes``), dV, dK and dQ those of P's or
+    dS's parts (two for bf16 calls, three for fp32) with the operand's.
+    The kernel's (``bwd_tc_layout``): S and dP once in each dK/dV column
+    group and once more in the dQ pass, which recomputes them."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    lay = fa.bwd_tc_layout(d, (dt,) * 4)
+    n_s = len(fa.tc_passes(lay["parts"], lay["parts"]))
+    n_o = len(fa.tc_passes(lay["p_parts"], lay["parts"]))
+    return 2 * n_s + 3 * n_o, 2 * n_s * (lay["groups"] + 1) + 3 * n_o
 
 
 def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
@@ -2952,10 +3027,13 @@ def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
     plain forward's, ≤ ``KERNEL_RTOL``); ``flash_attention_bwd`` on every
     path that can take the call, one launch each by that path's own count,
     dq, dk, dv against ``flash_attention_bwd_plain`` (``KERNEL_RTOL`` in
-    fp32, ``BF16_RTOL`` in bf16), each path timed beside its bound; the
-    plain version's time and, as a yardstick, one fp32
-    ``scaled_dot_product_attention`` forward and backward with a boolean
-    window mask.  The record is ``choose_bwd_path``'s path's."""
+    fp32, ``BF16_RTOL`` in bf16; in bf16 also below ``ONE_PART_SHARE`` of
+    a one-part-P control's error) and a second call bit for bit, each path
+    timed beside its bound; the plain version's time and, as yardsticks,
+    one ``scaled_dot_product_attention`` forward and backward with a
+    boolean window mask in fp32 (the same function: ``library_ms``) and,
+    for bf16 calls, in bf16 (P in bf16: not the same function).  The
+    record is ``choose_bwd_path``'s path's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -2981,6 +3059,10 @@ def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
 
     want = plain()
     tol = KERNEL_RTOL if dt == torch.float32 else BF16_RTOL
+    control = None
+    if dt == torch.bfloat16:
+        control = [_fro(c, w) for c, w in zip(fa.flash_attention_bwd_plain(
+            *args, p_dtype=torch.bfloat16, **kw), want)]
     # live (query, key) pairs: query i sees keys max(0, i - window + 1) .. i
     pos = torch.arange(t, device=dev)
     pairs = int((pos + 1 - (pos - window + 1).clamp(min=0)).sum()) * b * h
@@ -2998,6 +3080,10 @@ def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
         check(counts == [1, int(path == "tc"), int(path == "simt")],
               f"[hybrid_train] {label} on {path}: flash_attention_bwd "
               f"launches (all, tc, simt) {counts}")
+        again = fa.flash_attention_bwd(*args, path=path, **kw)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"[hybrid_train] {label} on {path}: two calls differ")
+        del again
         errs = []
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             rel, diff = _rel(g, w)
@@ -3005,6 +3091,12 @@ def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
                   f"[hybrid_train] {label} on {path}: {name} kernel vs "
                   f"plain {rel:.3g} > {tol}")
             errs.append((name, rel, diff))
+        fro = [_fro(g, w) for g, w in zip(got, want)]
+        if control is not None:
+            check(all(f <= ONE_PART_SHARE * c for f, c in zip(fro, control)),
+                  f"[hybrid_train] {label} on {path}: error (Frobenius) "
+                  f"{fro} not below {ONE_PART_SHARE} of the one-part-P "
+                  f"control's {control}")
         del got
         bound_ms, bound_by = attn_bwd_bound(
             path, _nbytes(qh, kh, vh, out, dout, stats, qh, kh, vh), pairs,
@@ -3012,7 +3104,7 @@ def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
         by_path[path] = dict(
             ms=scaled_device_ms(lambda path=path: fa.flash_attention_bwd(
                 *args, path=path, **kw)),
-            errs=errs, bound_ms=bound_ms, bound_by=bound_by)
+            errs=errs, fro=fro, bound_ms=bound_ms, bound_by=bound_by)
     del want
     plain_ms = event_ms(plain, 1)
     # the library: fp32 SDPA forward + backward, boolean window mask
@@ -3028,16 +3120,42 @@ def attn_bwd_case(label, b, t, h, hkv, d, window, dt, dev, gen):
         return torch.autograd.grad(o, (qf, kf, vf), go)
 
     library_ms = event_ms(library, 3)
+    del qf, kf, vf, go
+    bf16_sdpa = ""
+    if dt == torch.bfloat16:
+        qb, kb, vb = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        gb = torch.randn(qb.shape, generator=gen, device=dev).to(dt)
+
+        def library_bf16():
+            o = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask,
+                                               enable_gqa=True)
+            return torch.autograd.grad(o, (qb, kb, vb), gb)
+
+        bf16_ms = event_ms(library_bf16, 3)
+        bf16_sdpa = (f", bf16 SDPA forward + backward {bf16_ms:.4f} ms (P in "
+                     f"bf16, not the same function)")
+        del qb, kb, vb, gb
+    need, run = attn_bwd_passes(d, dt)
     times = "; ".join(
         f"{p} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['bound_by']}; "
-        + ", ".join(f"{n} {e:.2e}" for n, e, _ in r["errs"]) + ")"
+        + ", ".join(f"{n} {e:.2e}" for n, e, _ in r["errs"]) + "; Frobenius "
+        + ", ".join(f"{f:.2e}" for f in r["fro"]) + ")"
         for p, r in by_path.items())
+    if control is not None:
+        times += ("; one-part-P control (Frobenius, dq dk dv) "
+                  + ", ".join(f"{c:.2e}" for c in control)
+                  + f", every path within {ONE_PART_SHARE} of it")
+    if "tc" in by_path:
+        times += (f"; tc runs {2 * run} D operations a pair where the "
+                  f"function needs {2 * need} D (its bound)")
     print(f"[hybrid_train] {label:<22} B={b} T={t} H={h} Hkv={hkv} D={d} "
           f"window={window}: forward row statistics vs plain m {rel_m:.2e} "
           f"l {rel_l:.2e}; backward path {main}, {pairs} live pairs; "
-          f"{times}; plain_ms={plain_ms:.4f}, library_ms={library_ms:.4f} "
-          f"(fp32 scaled_dot_product_attention forward + backward, boolean "
-          f"window mask)")
+          f"{times}; two calls of each path bit for bit; plain_ms="
+          f"{plain_ms:.4f}, library_ms={library_ms:.4f} (fp32 "
+          f"scaled_dot_product_attention forward + backward, boolean window "
+          f"mask){bf16_sdpa}")
     mine = by_path[main]
     return dict(case=label, kernel="flash_attention_bwd", path=main,
                 dtype=str(dt)[6:], launches=1,
@@ -3091,7 +3209,8 @@ def phase_hybrid_train(dev):
     # backward pass's recompute), each backward kernel once; the SpMM's dx
     # on the transposed mode, every SpMM launch on the tensor cores
     per_step = dict(rg_lru=2 * n_rec, rg_lru_tile=2 * n_rec,
-                    rg_lru_bwd=n_rec, flash=2 * n_local,
+                    rg_lru_bwd=n_rec, rg_lru_bwd_tile=n_rec,
+                    flash=2 * n_local,
                     flash_tc=2 * n_local, flash_bwd=n_local,
                     flash_bwd_tc=n_local,
                     spmm=3 * n_sparse * 3, spmm_tc=3 * n_sparse * 3,
@@ -3100,7 +3219,8 @@ def phase_hybrid_train(dev):
     def check_counts(got, steps, what):
         bad = {k: (got[k], v * steps) for k, v in per_step.items()
                if got[k] != v * steps}
-        check(not bad and got["rg_lru_simt"] == 0,
+        check(not bad and got["rg_lru_simt"] == 0
+              and got["rg_lru_bwd_simt"] == 0 and got["flash_bwd_simt"] == 0,
               f"[hybrid_train] {what}: launches (got, expected) {bad}; "
               f"{got}")
 
@@ -3181,7 +3301,7 @@ def phase_hybrid_train(dev):
                         lambda: step_fn(trainer.opt_state, nxt))
     print(f"[hybrid_train] launches per step, each exact: rg_lru forward "
           f"{per_step['rg_lru']} (all tile, remat), rg_lru_bwd "
-          f"{per_step['rg_lru_bwd']}, flash_attention forward "
+          f"{per_step['rg_lru_bwd']} (all tile), flash_attention forward "
           f"{per_step['flash']} (all tc, remat), flash_attention_bwd "
           f"{per_step['flash_bwd']} (all tc), segment_spmm "
           f"{per_step['spmm']} (all "
@@ -4094,14 +4214,21 @@ def main():
                    and r["case"] == "granite prefill"
                    and r["dtype"] == "float32")
     simt_rec = dict(prefill, **prefill["by_path"]["simt"], path="simt")
-    # the attention backward's simt path at the local block, forced
+    # the backward kernels' simt paths at the model's calls, forced: their
+    # launches are the checked calls of [hybrid_train] (one a case)
+    def forced(case, path):
+        rec = one(train_recs, case=case)
+        f = rec["by_path"][path]
+        return dict(rec, ms=f["ms"], path=path,
+                    max_abs_err=max(a for _, _, a in f["errs"]),
+                    **{k: f[k] for k in ("bound_ms", "bound_by") if k in f})
+
     bwd_simt = [r for r in train_recs if r["kernel"] == "flash_attention_bwd"
                 and "simt" in r["by_path"]]
-    local = one(train_recs, case="local bwd 1x4096 bf16")
-    forced = local["by_path"]["simt"]
-    bwd_simt_rec = dict(local, ms=forced["ms"], bound_ms=forced["bound_ms"],
-                        bound_by=forced["bound_by"], path="simt",
-                        max_abs_err=max(a for _, _, a in forced["errs"]))
+    bwd_simt_rec = forced("local bwd 1x4096 bf16", "simt")
+    lru_simt = [r for r in train_recs if r["kernel"] == "rg_lru_bwd"
+                and "simt" in r["by_path"]]
+    lru_simt_rec = forced("rg_lru bwd 1x4096 bf16", "simt")
     print(smi)
     print(json.dumps({"kernels": [
         entry("segment_spmm", "split (folded owner runs, CUDA cores): "
@@ -4183,23 +4310,31 @@ def main():
         + [entry(name, mode, "hybrid-train", train_counts[count],
                  one(train_recs, case=case),
                  [r for r in train_recs if r["kernel"] == kernel
-                  and r.get("path") in (None, "tc")], kernel=kernel)
-           for name, kernel, mode, count, case in (
-               ("rg_lru_bwd", "rg_lru_bwd", "reverse walk in tiles of 64 "
-                "steps x 16 channels (CUDA cores): bf16, 1 x 4096 x 4096",
-                "rg_lru_bwd", "rg_lru bwd 1x4096 bf16"),
-               ("flash_attention_bwd.tc", "flash_attention_bwd", "tc "
-                "(mma.sync; KV-outer dK/dV over row ranges, Q-outer dQ; P and "
-                "dS as two bf16 parts): bf16, 16 heads / 1 KV, D = 256, "
-                "window 2048, 1 x 4096", "flash_bwd_tc",
-                "local bwd 1x4096 bf16"))]
-        # the attention backward's CUDA-core path: fp32 and mixed calls, no
-        # main path; its launches are the checked calls of [hybrid_train]
-        # (one a case), its times those of the local block forced onto it
-        + [entry("flash_attention_bwd.simt", "simt (fp32 on the CUDA cores): "
-                 "timed forced at the local block, 1 x 4096 bf16",
-                 "hybrid-train-checks", len(bwd_simt), bwd_simt_rec,
-                 [bwd_simt_rec], kernel="flash_attention_bwd")]
+                  and r["path"] == path], kernel=kernel)
+           for name, kernel, path, mode, count, case in (
+               ("rg_lru_bwd.tile", "rg_lru_bwd", "tile", "tile (TMA-fed "
+                "tiles walked last to first, eight gate warps, one chain "
+                "warp): bf16, 1 x 4096 x 4096", "rg_lru_bwd_tile",
+                "rg_lru bwd 1x4096 bf16"),
+               ("flash_attention_bwd.tc", "flash_attention_bwd", "tc", "tc "
+                "(wgmma fed by a TMA ring; KV-outer dK/dV over row ranges, "
+                "Q-outer dQ recomputing S and dP; P and dS as bf16 parts): "
+                "bf16, 16 heads / 1 KV, D = 256, window 2048, 1 x 4096",
+                "flash_bwd_tc", "local bwd 1x4096 bf16"))]
+        # the backward kernels' simt paths: fp32 D % 16 != 0 attention and
+        # short or TMA-unreadable RG-LRU calls, no main path; their launches
+        # are the checked calls of [hybrid_train] (one a case), their times
+        # those of the model's calls forced onto them
+        + [entry(name, mode, "hybrid-train-checks", n, rec, [rec],
+                 kernel=kernel)
+           for name, kernel, mode, n, rec in (
+               ("flash_attention_bwd.simt", "flash_attention_bwd",
+                "simt (fp32 on the CUDA cores): timed forced at the local "
+                "block, 1 x 4096 bf16", len(bwd_simt), bwd_simt_rec),
+               ("rg_lru_bwd.simt", "rg_lru_bwd", "simt (one block of 256 "
+                "threads a 16-channel tile, 16 walk the chain): timed "
+                "forced at 1 x 4096 x 4096 bf16", len(lru_simt),
+                lru_simt_rec))]
         # the last families' SpMM launches, each timed at the shape its
         # path gives it: InternVL2-2B's decode (split) and its forward over
         # 256 vision + 1024 text positions (tc); Whisper-tiny's training

@@ -93,8 +93,7 @@ def main():
         cu = out / f"rg_lru_{name}.cu"
         cu.write_text(source(name, text))
         procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-             str(out / f"rg_lru_{name}.so"), str(cu)],
+            build.nvcc_command(cu, out / f"rg_lru_{name}.so"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
         log, _ = proc.communicate()

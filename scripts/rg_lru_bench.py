@@ -51,8 +51,8 @@ def main():
     lib = build.library_path("rg_lru.cu")
     if not lib.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
-                        str(build.CSRC_DIR / "rg_lru.cu")], check=True)
+        subprocess.run(build.nvcc_command(build.CSRC_DIR / "rg_lru.cu", lib),
+                       check=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
     bad = 0

@@ -82,8 +82,7 @@ def main():
         cu = out / f"{name}.cu"
         cu.write_text(source(name, text))
         procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-             str(out / f"{name}.so"), str(cu)],
+            build.nvcc_command(cu, out / f"{name}.so"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
         log, _ = proc.communicate()

@@ -105,6 +105,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "attn_tc.cuh"
+
 namespace {
 
 constexpr int kMaxDevices = 64;
@@ -654,172 +656,6 @@ struct Layout {
   static_assert(kSlots >= 2, "ring too shallow");
 };
 
-// the passes (part of the left operand, part of the right one) with i + j
-// <= 2, smallest first
-__host__ __device__ constexpr int pass_a(int ps) {
-  return ps == 0 ? 2 : ps == 1 ? 1 : ps == 2 ? 0 : ps == 3 ? 1 : 0;
-}
-__host__ __device__ constexpr int pass_b(int ps) {
-  return ps == 0 ? 0 : ps == 1 ? 1 : ps == 2 ? 2 : ps == 3 ? 0 : ps == 4 ? 1
-                                                                       : 0;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// Waits for the phase of parity `parity` to complete; traps after ~2^34
-// cycles (a fault in the pipeline, never a slow load).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-// wgmma shared-memory descriptor under the 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4), layout type 1 (bits 62-63).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-__device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-template <int N>
-__device__ __forceinline__ void regs_up() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_down() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// d (64 x 64 fp32, 32 registers a thread) = A @ B (+ d when accumulate):
-// bf16 A and B from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                             uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (64 x 32 fp32, 16 registers a thread) = A @ B (+ d when accumulate):
-// bf16 A and B from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
-                                             uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (64 x 64 fp32) = A @ B (+ d when accumulate): bf16 A from registers
-// (the m16n8k16 A fragment of each warp's 16 rows), B from shared memory,
-// MN-major (transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
-}
-
-template <int BKV>
-__device__ __forceinline__ void wgmma_s(float (&d)[BKV / 2], uint64_t da,
-                                        uint64_t db, int accumulate) {
-  if constexpr (BKV == 64) {
-    wgmma_ss_n64(d, da, db, accumulate);
-  } else {
-    wgmma_ss_n32(d, da, db, accumulate);
-  }
-}
-
 // PARTS bf16 parts per operand: 3 (the split of fp32; a bf16 operand of a
 // mixed call is split into itself and two zero parts) or 1 (all bf16).
 // The passes and the DMAX / 16 k steps are fixed at compile time: a
@@ -956,7 +792,7 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
                                             in_chunk,
                                         16, 1024);
           // the first product of the batch overwrites the fragment
-          wgmma_s<BKV>(s, da, db, ps != kFirstS || kk != 0);
+          wgmma_ss<BKV>(s, da, db, ps != kFirstS || kk != 0);
         }
       }
     }
@@ -1077,46 +913,6 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
   }
 }
 
-// the exact split of fp32 values into bf16 hi, mid, lo (parts at 0, n, 2 n)
-__global__ void split3_kernel(const float4* __restrict__ x,
-                              uint2* __restrict__ parts, long long n4) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float4 a = x[i];
-    const float v[4] = {a.x, a.y, a.z, a.w};
-    unsigned hw[2], mw[2], lw[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-      const float2 hf = __bfloat1622float2(h2);
-      const float r0 = __fsub_rn(v[2 * j], hf.x);
-      const float r1 = __fsub_rn(v[2 * j + 1], hf.y);
-      const __nv_bfloat162 m2 = __floats2bfloat162_rn(r0, r1);
-      const float2 mf = __bfloat1622float2(m2);
-      hw[j] = bits(h2);
-      mw[j] = bits(m2);
-      lw[j] = bits(__floats2bfloat162_rn(__fsub_rn(r0, mf.x),
-                                         __fsub_rn(r1, mf.y)));
-    }
-    parts[i] = make_uint2(hw[0], hw[1]);
-    parts[n4 + i] = make_uint2(mw[0], mw[1]);
-    parts[2 * n4 + i] = make_uint2(lw[0], lw[1]);
-  }
-}
-
-// a bf16 operand of a mixed call: itself and two zero parts
-__global__ void split3_bf16_kernel(const uint2* __restrict__ x,
-                                   uint2* __restrict__ parts, long long n4) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    parts[i] = x[i];
-    parts[n4 + i] = make_uint2(0u, 0u);
-    parts[2 * n4 + i] = make_uint2(0u, 0u);
-  }
-}
-
 }  // namespace tc
 
 // ---- launches ---------------------------------------------------------------
@@ -1177,73 +973,6 @@ int simt_by_rows(const void* q, const void* k, const void* v, void* out,
                                               p, split_keys, s)
                     : simt_by_dim<TK, TV, 64>(q, k, v, out, work, counters,
                                               p, split_keys, s);
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult qr;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &qr) != cudaSuccess ||
-        qr != cudaDriverEntryPointSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &qr) != cudaSuccess ||
-        qr != cudaDriverEntryPointSuccess)
-      return nullptr;
-#endif
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// bf16 (planes, t, d) as a 3-D map, innermost first: (d, t, planes); boxes
-// of 64 columns x `rows` rows x 1 plane, 128-byte swizzle, zeros past d
-// and t
-bool encode3d(CUtensorMap* map, const void* ptr, int d, int t, long long planes,
-              int rows) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(d) * t * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// an operand of n values (fp32, or bf16 when is_bf16) to its three bf16
-// parts at `dst`
-int split3(const void* src, int is_bf16, void* dst, long long n,
-           cudaStream_t stream) {
-  const long long n4 = n / 4;
-  const long long b = (n4 + 255) / 256;
-  const unsigned blocks = static_cast<unsigned>(b < 8192 ? b : 8192);
-  if (is_bf16)
-    tc::split3_bf16_kernel<<<blocks, 256, 0, stream>>>(
-        static_cast<const uint2*>(src), static_cast<uint2*>(dst), n4);
-  else
-    tc::split3_kernel<<<blocks, 256, 0, stream>>>(
-        static_cast<const float4*>(src), static_cast<uint2*>(dst), n4);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // PARTS = 1 when q, k and v are all bf16 (read in place), else 3: the

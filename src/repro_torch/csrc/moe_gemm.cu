@@ -63,6 +63,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -310,49 +312,6 @@ constexpr int kStageBytes = 4 * kBox;
 constexpr int kSmemBytes = kStages * kStageBytes + 1024   // 1 KiB: alignment
                            + 2 * kStages * 8;              // the mbarriers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete.  A wait of more than
-// 2^34 cycles (~9 s: a fault in the pipeline, never a slow load) traps, so
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
 // TMA tile loads into shared memory, completing on mbarrier `bar`, with an
 // L2 cache policy from createpolicy.
 __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
@@ -366,27 +325,6 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1, int c2,
-                                       uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "l"(policy)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor under the 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4), layout type 1 (bits 62-63).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
 // A (x): K-major, 64 rows of 128 bytes, 8-row groups 1024 bytes apart; the
 // leading offset is unused under the swizzle.  A k16 slice starts 32 bytes
 // further along the row.
@@ -396,20 +334,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 // (2048 bytes) further.
 constexpr uint32_t kLboA = 16, kSboA = 1024;
 constexpr uint32_t kLboB = kBox, kSboB = 1024;
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Pins the order of register reads against the asynchronous wgmma.
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
 
 // d (64 x 128 fp32, 64 registers a thread) = A @ B (+ d when accumulate):
 // bf16 operands, A K-major, B MN-major (imm-trans-b = 1).
@@ -609,37 +533,6 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gemm_tc(
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#endif
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A bf16 tensor map of `rank` dims (innermost first), 64 x 64 boxes (x 1

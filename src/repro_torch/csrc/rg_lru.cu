@@ -81,6 +81,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -235,59 +237,6 @@ struct Smem {
       kBars + 8 * (2 * kStages + 2 * kGateStages) + kAlign;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete; traps after 2^34
-// cycles (~9 s: a fault in the pipeline, never a slow load).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "l"(policy)
-      : "memory");
-}
-
 // 4 consecutive elements of a tile in shared memory, as fp32
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
@@ -356,11 +305,11 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
       mbar_wait(in_empty(s), ((i / kStages) & 1) ^ 1);
       mbar_expect_tx(in_full(s), S::kIn);
       const uint32_t dst = sbase + s * S::kIn;
-      tma_load(dst, &map_x, in_full(s), c0, i * L, b, stream_once);
-      tma_load(dst + kTileElems * sizeof(TX), &map_ag, in_full(s), c0, i * L,
-               b, stream_once);
-      tma_load(dst + kTileElems * (sizeof(TX) + sizeof(TA)), &map_xg,
-               in_full(s), c0, i * L, b, stream_once);
+      tma_3d(dst, &map_x, in_full(s), c0, i * L, b, stream_once);
+      tma_3d(dst + kTileElems * sizeof(TX), &map_ag, in_full(s), c0, i * L,
+             b, stream_once);
+      tma_3d(dst + kTileElems * (sizeof(TX) + sizeof(TA)), &map_xg,
+             in_full(s), c0, i * L, b, stream_once);
     }
     return;
   }
@@ -453,37 +402,6 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
     mbar_arrive(g_empty(r));
   }
   if (live) h_t[static_cast<long long>(b) * D + ch] = h;
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#endif
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 template <typename T> constexpr CUtensorMapDataType map_type();

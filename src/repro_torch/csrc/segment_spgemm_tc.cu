@@ -81,6 +81,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 enum Payload { kF32 = 0, kI8 = 1, kF8 = 2 };
@@ -146,48 +148,6 @@ __host__ __device__ constexpr int pass_b(int ps) {
   return 0;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete; traps after ~2^34
-// cycles (a fault in the pipeline, never a slow load).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
 // `bytes` contiguous bytes from global to shared memory, completing on
 // mbarrier `bar` (both addresses and the size multiples of 16).
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
@@ -202,29 +162,6 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
 // the 128 threads of pipeline `pipe`'s consumer warpgroup
 __device__ __forceinline__ void pipe_sync(int pipe) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + pipe) : "memory");
-}
-
-// wgmma shared-memory descriptor under the 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4), layout type 1 (bits 62-63).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
 }
 
 // d (64 x 64 fp32, 32 registers a thread) = A @ B (+ d when accumulate):
@@ -267,10 +204,6 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 // four payload bytes (element 0 in the low byte) to fp32, exactly

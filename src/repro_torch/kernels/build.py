@@ -1,9 +1,10 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each source in ``csrc/`` is compiled for Hopper (``sm_90a``) into its own
-shared library with a plain C interface; the libraries land in
-``src/repro_torch/_build/`` (listed in ``.gitignore``) under a name that
-carries a digest of the source and the flags, so an edited source is
+shared library with a plain C interface; the sources share the building
+blocks of ``csrc/*.cuh``.  The libraries land in ``src/repro_torch/_build/``
+(listed in ``.gitignore``) under a name that carries a digest of the
+source, the headers and the flags, so an edited source or header is
 rebuilt and a stale library is never loaded.  :func:`build_all` starts one
 ``nvcc`` per missing library, all at once, and waits for them.  Nothing is
 compiled at import time: the first :func:`load` builds.
@@ -48,8 +49,16 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     src = (CSRC_DIR / source).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def nvcc_command(source, out) -> list:
+    """The ``nvcc`` command that builds ``source`` (a path; a copy outside
+    ``csrc/`` finds the headers there too) into the library ``out``."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+            str(source)]
 
 
 def build_all() -> Dict[str, Path]:
@@ -67,8 +76,8 @@ def build_all() -> Dict[str, Path]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            nvcc_command(CSRC_DIR / source, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
         running.append((source, lib, tmp, proc))
     failures = []
     for source, lib, tmp, proc in running:

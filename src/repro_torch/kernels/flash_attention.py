@@ -39,10 +39,13 @@ the kernels of ``src/repro_torch/csrc/flash_attention_bwd.cu`` for CUDA
 tensors (no Pallas kernel has them: ``repro`` takes ``jax.grad`` of its jnp
 ``chunked_attention``), the dense masked-softmax formula
 :func:`flash_attention_bwd_plain` for CPU tensors.  The backward has two
-paths, which :func:`choose_bwd_path` picks from the dtypes and D:
-``"tc"`` (``mma.sync`` on the tensor cores) for calls whose q, k, v and
-output are all bf16 with D = 64, 128 or 256 (training's local blocks),
-``"simt"`` (fp32 on the CUDA cores) for the rest.
+paths, which :func:`choose_bwd_path` picks from D, as the forward's
+``"tc"`` set is picked: ``"tc"`` (``wgmma`` fed by a TMA ring; fp32
+operands over their exact bf16 split, :func:`tc_passes`; a KV-outer dK/dV
+pass over row ranges, :func:`bwd_splits`, and a Q-outer dQ pass that
+recomputes S and dP; its shape per dtype in :func:`bwd_tc_layout`) for
+head dims that are multiples of 16, ``"simt"`` (fp32 on the CUDA cores)
+for the rest.
 """
 from __future__ import annotations
 
@@ -77,9 +80,8 @@ SPLIT_BLOCKS_PER_SM = 4
 #: the backward kernels' paths, in the order :func:`choose_bwd_path`
 #: prefers them
 BWD_PATHS = ("tc", "simt")
-#: keys of one block of the backward's dK/dV pass on ``"tc"``, and the
-#: blocks per SM its grid aims at (:func:`bwd_splits`)
-BWD_TC_KEYS = 32
+#: blocks per SM that the ``"tc"`` backward's dK/dV grid aims at
+#: (:func:`bwd_splits`; one block fills an SM's shared memory)
 BWD_BLOCKS_PER_SM = 4
 #: the fewest keys a split walks, and the unit of ``split_keys``
 SPLIT_MIN_KEYS = 256
@@ -103,14 +105,21 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load(_BWD_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_bwd.argtypes = (
-            [p] * 10 + [i] * 8 + [ctypes.c_float, i, i, ll, ll] + [i] * 6
-            + [p] * 2)
-        lib.flash_attention_bwd.restype = i
-        lib.flash_attention_bwd_error_string.argtypes = [i]
-        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
+        bwd_argtypes(lib)
+    return lib
+
+
+def bwd_argtypes(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a library built from
+    ``csrc/flash_attention_bwd.cu`` (or a copy of it); returns ``lib``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attention_bwd.argtypes = (
+        [p] * 10 + [i] * 8 + [ctypes.c_float, i, i, ll, ll] + [i] * 6
+        + [p] * 4)
+    lib.flash_attention_bwd.restype = i
+    lib.flash_attention_bwd_error_string.argtypes = [i]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib._argtypes_set = True
     return lib
 
 
@@ -239,15 +248,19 @@ def flash_attention_plain(q, k, v, *, causal: bool, window: Optional[int],
 def flash_attention_bwd_plain(q, k, v, out, dout, stats, *, causal: bool,
                               window: Optional[int], offset: int, kv_len: int,
                               bq: int, bkv: int, q_period: Optional[int],
-                              chunk: int = PLAIN_CHUNK):
+                              chunk: int = PLAIN_CHUNK,
+                              p_dtype: torch.dtype = torch.float32):
     """The backward kernels' plain torch version, the dense masked-softmax
     formula in fp32 for a chunk of query rows at a time: ``P = exp(s - m) /
     max(l, 1e-30)`` from the forward's row statistics (``stats``, ``(BH, Tq,
     2)``), ``delta = rowsum(dO ∘ O)``, ``dS = P ∘ (dO Vᵀ - delta)`` on the
     unmasked keys of live tiles (0 elsewhere: the forward's ``-1e30`` does
     not depend on q or k), ``dV = Pᵀ dO``, ``dK = scale dSᵀ Q``, ``dQ =
-    scale dS K``.  Arguments as :func:`flash_attention_plain` takes them.
-    Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
+    scale dS K``.  Arguments as :func:`flash_attention_plain` takes them;
+    ``p_dtype`` rounds P and dS before the last three products (bf16: one
+    bf16 part, the function a bf16 SDPA backward computes, not this one;
+    chip_smoke.py holds the kernels' error below its).  Returns ``(dq, dk,
+    dv)`` in q's, k's and v's dtypes."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     period = tq if q_period is None else q_period
@@ -273,6 +286,8 @@ def flash_attention_bwd_plain(q, k, v, out, dout, stats, *, causal: bool,
         p = torch.exp(s - m) / torch.clamp(l_sum, min=1e-30)
         dp = torch.einsum("bqd,bkd->bqk", doc, vf)
         ds = torch.where(live & mask, p * (dp - delta[:, lo:hi]), 0.0)
+        if p_dtype != torch.float32:
+            p, ds = p.to(p_dtype).float(), ds.to(p_dtype).float()
         dv += torch.bmm(p.transpose(1, 2), doc)
         dk += torch.bmm(ds.transpose(1, 2), qc) * scale
         dq[:, lo:hi] = torch.bmm(ds, kf) * scale
@@ -357,12 +372,12 @@ class FlashAttentionFunction(torch.autograd.Function):
 def bwd_paths_for(d: int, dtypes=()) -> tuple:
     """The backward's CUDA paths that can take a call with head dim ``d``
     and operand dtypes ``dtypes`` (q, k, v, out), in :data:`BWD_PATHS`
-    order: ``"tc"`` when all are bf16 and D is 64, 128 or 256; ``"simt"``
-    for head dims that are multiples of 8 up to 256 in fp32 or bf16."""
+    order: ``"tc"`` for head dims that are multiples of 16 (``wgmma``'s
+    bf16 step), in any mix of fp32 and bf16; ``"simt"`` for head dims that
+    are multiples of 8 up to 256."""
     if d < 8 or d % 8 or d > 256 or any(t not in _DTYPES for t in dtypes):
         return ()
-    tc = d in (64, 128, 256) and all(t == torch.bfloat16 for t in dtypes)
-    return ("tc", "simt") if tc else ("simt",)
+    return ("tc", "simt") if d % 16 == 0 else ("simt",)
 
 
 def choose_bwd_path(d: int, dtypes=()) -> Optional[str]:
@@ -372,12 +387,33 @@ def choose_bwd_path(d: int, dtypes=()) -> Optional[str]:
     return able[0] if able else None
 
 
-def bwd_splits(bh: int, tq: int, tk: int, sms: int = SMS) -> int:
+def bwd_tc_layout(d: int, dtypes=()) -> dict:
+    """The ``"tc"`` backward's shape for a call, which sizes
+    :func:`bwd_splits`' grid; :func:`flash_attention_bwd` passes it to the
+    kernel, which refuses a layout that is not its ``Cfg``'s.  ``parts`` of
+    each operand (1 when q, k, v and out are all bf16, else 3: the exact
+    split of fp32), ``p_parts`` of P and dS (2, or 3 with fp32 operands),
+    ``wgs`` consumer warpgroups a block (they share its 64 resident keys or
+    rows and take the live streamed tiles in turn), ``rows`` of a streamed
+    tile, ``groups`` of dK/dV columns (128 columns a group above D = 128;
+    the dQ pass takes all of D in one)."""
+    parts = 1 if all(t == torch.bfloat16 for t in dtypes) else 3
+    dmax = 64 if d <= 64 else 128 if d <= 128 else 256
+    return dict(parts=parts, p_parts=2 if parts == 1 else 3,
+                wgs=2 if parts == 1 else 1, rows=64 if parts == 1 else 32,
+                groups=dmax // 128 if dmax > 128 else 1)
+
+
+def bwd_splits(bh: int, tq: int, tk: int, d: int, dtypes=(),
+               sms: int = SMS) -> int:
     """Ranges of row tiles the ``"tc"`` backward's dK/dV pass cuts the
-    stacked q axis into, so that its grid holds :data:`BWD_BLOCKS_PER_SM`
-    blocks an SM (each range writes an fp32 partial, added in order)."""
-    kv_blocks = bh * -(-tk // BWD_TC_KEYS)
-    return max(1, min(-(-tq // BWD_TC_KEYS),
+    stacked q axis into, so that its grid (bh x blocks of 64 keys x column
+    groups, :func:`bwd_tc_layout`) holds :data:`BWD_BLOCKS_PER_SM` blocks
+    an SM; never more ranges than row tiles.  Each range writes an fp32
+    partial, added in range order."""
+    lay = bwd_tc_layout(d, dtypes)
+    kv_blocks = bh * -(-tk // 64) * lay["groups"]
+    return max(1, min(-(-tq // lay["rows"]),
                       -(-BWD_BLOCKS_PER_SM * sms // kv_blocks)))
 
 
@@ -394,7 +430,9 @@ def flash_attention_bwd(q, k, v, out, dout, stats, *, causal: bool,
     :func:`choose_bwd_path`'s; checked on every device): one call is one
     count of ``flash_attention_bwd.launches`` and of its path's
     (``tc_launches``, ``simt_launches``): the row sums, the KV-outer dK/dV
-    pass and the Q-outer dQ pass.  The plain version for CPU tensors."""
+    pass and the Q-outer dQ pass (on ``"tc"`` also the split of fp32
+    operands and the sum of the row ranges' partials).  The plain version
+    for CPU tensors."""
     kw = dict(causal=causal, window=window, offset=offset, kv_len=kv_len,
               bq=bq, bkv=bkv, q_period=q_period)
     d = q.shape[-1]
@@ -430,21 +468,32 @@ def flash_attention_bwd(q, k, v, out, dout, stats, *, causal: bool,
     dout = _aligned(dout.to(out.dtype))
     stats = stats.float().contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    n_split = bwd_splits(bh, tq, tk, _sms(q.device)) if path == "tc" else 1
+    # each row's (m, l, delta, 0), written by the first launch
+    info = torch.empty((bh, tq, 4), dtype=torch.float32, device=q.device)
+    lay = bwd_tc_layout(d, dtypes) if path == "tc" else None
+    n_split = (bwd_splits(bh, tq, tk, d, dtypes, _sms(q.device))
+               if path == "tc" else 1)
     part = (torch.empty(2 * n_split * bh * tk * d, dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
+    # the three bf16 parts of q, k, v and dout (a bf16 operand of a mixed
+    # call: itself and two zero parts), written by the split pre-pass
+    parts = (torch.empty(3 * 2 * (q.numel() + k.numel()),
+                         dtype=torch.bfloat16, device=q.device)
+             if lay is not None and lay["parts"] == 3 else None)
+    layout = (ctypes.c_int * 5)(*(lay[k] for k in _LAYOUT_KEYS)) if lay \
+        else None
     lib = _bwd_lib()
     bf = torch.bfloat16
     rc = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), stats.data_ptr(), info.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), int(q.dtype == bf), int(k.dtype == bf),
         int(v.dtype == bf), int(out.dtype == bf), bh, tq, tk, d,
         1.0 / math.sqrt(d), int(causal), int(window is not None),
         0 if window is None else int(window), int(offset), int(kv_len), bq,
         bkv, tq if q_period is None else q_period, int(path == "tc"),
-        n_split, None if part is None else part.data_ptr(),
+        n_split, layout, None if part is None else part.data_ptr(),
+        None if parts is None else parts.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed ({path}): "
@@ -468,6 +517,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 _COUNTERS: dict = {}
 _SMS: dict = {}
 _PATH_CODE = {"simt": 0, "splitkv": 1, "tc": 2}
+#: :func:`bwd_tc_layout`'s values in the order the backward library checks
+#: them against its ``Cfg``
+_LAYOUT_KEYS = ("parts", "p_parts", "wgs", "rows", "groups")
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:

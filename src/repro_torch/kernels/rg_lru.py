@@ -28,10 +28,14 @@ requires grad), :func:`rg_lru` runs through :class:`RGLRUFunction`.  Its
 forward launches the same kernel with x in fp32, so that ``out`` is the
 recurrence's fp32 h bit for bit (the kernel converts x to fp32 on load
 either way), keeps that h for the backward and returns it in x's dtype.
-Its backward is :func:`rg_lru_bwd`: the kernel of
+Its backward is :func:`rg_lru_bwd`: the kernels of
 ``src/repro_torch/csrc/rg_lru_bwd.cu`` for CUDA tensors (no Pallas kernel
-has it: ``repro`` takes ``jax.grad`` of its ``lax.scan``), the explicit
-reverse walk :func:`rg_lru_bwd_plain` for CPU tensors.
+has them: ``repro`` takes ``jax.grad`` of its ``lax.scan``), the explicit
+reverse walk :func:`rg_lru_bwd_plain` for CPU tensors.  The backward has
+two paths, which :func:`choose_bwd_path` picks: ``"tile"`` (TMA-fed tiles
+walked last to first, gate warps and one chain warp) wherever TMA can read
+the rows, ``"simt"`` for the rest.  They agree bit for bit but for
+``da_param``, the same sum taken in another order.
 """
 from __future__ import annotations
 
@@ -82,7 +86,7 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rg_lru_bwd.argtypes = [p] * 14 + [i] * 3 + [ctypes.c_float] + \
-            [i] * 3 + [p]
+            [i] * 5 + [p]
         lib.rg_lru_bwd.restype = i
         lib.rg_lru_bwd_error_string.argtypes = [i]
         lib.rg_lru_bwd_error_string.restype = ctypes.c_char_p
@@ -119,6 +123,17 @@ def choose_path(b: int, t: int, d: int, x_dtype=torch.float32,
     if not able:
         return None
     return "tile" if "tile" in able and t >= TILE_MIN_T else "simt"
+
+
+def choose_bwd_path(d: int, dtypes=()) -> Optional[str]:
+    """The backward kernel a CUDA call runs on (``None`` when no path takes
+    it): the first of :func:`paths_for`'s, ``"tile"`` wherever TMA can
+    read the rows (dout takes x's dtype, and the forward's fp32 h has rows
+    of 4 D bytes, a multiple of 16 wherever x's rows are), at any T
+    (chip_smoke.py's short ragged call runs faster on it too: PERF.md
+    row 5b)."""
+    able = paths_for(d, dtypes)
+    return able[0] if able else None
 
 
 def rg_lru_gates(x, a_gate, x_gate, neg_c_sp):
@@ -208,25 +223,44 @@ class RGLRUFunction(torch.autograd.Function):
                 None)
 
 
-def rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
-                     c: float = 8.0):
-    """The backward kernel's plain torch version, all in fp32: the gates
-    again, then an explicit reverse walk ``g_t = dout_t + a_{t+1} g_{t+1}``
-    (``g_{T-1} = dout_{T-1} + dh_T``), then each element's gradient from
-    g, the forward's fp32 h (``hs``) and the gates.  Through ``max(1 - a²,
-    1e-12)`` the derivative is 0 on the clamped side, as ``jax.grad``
-    gives it.  ``da_param`` is summed over T per (batch row, channel), then
-    over the rows in order.  Returns ``(dx in x's dtype, da_gate in
-    a_gate's, dx_gate in x_gate's, da_param (D,) fp32, dh0 (B, D) fp32)``."""
-    p = a_param.float()
-    neg_c_sp = -c * softplus(p)
-    xf = x.float()
-    sg = torch.sigmoid(a_gate.float())
-    a = torch.exp(neg_c_sp * sg)
-    ig = torch.sigmoid(x_gate.float())
+def rg_lru_bwd_gates(a_gate, x_gate, neg_c_sp):
+    """The backward's gate values on fp32 inputs: ``(s, a, i)`` with ``s =
+    σ(a_gate)``, ``a = exp(neg_c_sp * s)``, ``i = σ(x_gate)``."""
+    sg = torch.sigmoid(a_gate)
+    return sg, torch.exp(neg_c_sp * sg), torch.sigmoid(x_gate)
+
+
+def rg_lru_bwd_elems(g, x, sg, a, ig, hprev, neg_c_sp):
+    """Each element's gradients from its ``g`` (the reverse chain's value),
+    ``x``, the gates and ``h_{t-1}``, all fp32: ``(dx, dx_gate, da_gate,
+    das)``, ``das`` the element's ``da_param`` term ``dA a s``.  Through
+    ``max(1 - a², 1e-12)`` the derivative is 0 on the clamped side, as
+    ``jax.grad`` gives it."""
     one_m = 1.0 - a * a
     beta = torch.sqrt(torch.clamp(one_m, min=1e-12))
     dbeta = torch.where(one_m > 1e-12, -a / beta, torch.zeros_like(a))
+    d_a = g * hprev + g * ig * x * dbeta
+    das = d_a * a * sg
+    dx = g * beta * ig
+    dxg = g * beta * x * ig * (1.0 - ig)
+    dag = das * neg_c_sp * (1.0 - sg)
+    return dx, dxg, dag, das
+
+
+def rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
+                     c: float = 8.0):
+    """The backward kernels' plain torch version, all in fp32: the gates
+    again (:func:`rg_lru_bwd_gates`), then an explicit reverse walk ``g_t =
+    dout_t + a_{t+1} g_{t+1}`` (``g_{T-1} = dout_{T-1} + dh_T``), then each
+    element's gradient from g, the forward's fp32 h (``hs``) and the gates
+    (:func:`rg_lru_bwd_elems`).  ``da_param`` is summed over T per (batch
+    row, channel), then over the rows in order.  Returns ``(dx in x's
+    dtype, da_gate in a_gate's, dx_gate in x_gate's, da_param (D,) fp32,
+    dh0 (B, D) fp32)``."""
+    p = a_param.float()
+    neg_c_sp = -c * softplus(p)
+    xf = x.float()
+    sg, a, ig = rg_lru_bwd_gates(a_gate.float(), x_gate.float(), neg_c_sp)
     hprev = torch.cat([h0.float()[:, None], hs[:, :-1].float()], dim=1)
     do = dout.float()
     g = torch.empty_like(xf)
@@ -234,24 +268,27 @@ def rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
     for t in reversed(range(x.shape[1])):
         g[:, t] = do[:, t] + carry
         carry = a[:, t] * g[:, t]
-    d_a = g * hprev + g * ig * xf * dbeta
-    das = d_a * a * sg
-    dx = g * beta * ig
-    dxg = g * beta * xf * ig * (1.0 - ig)
-    dag = das * neg_c_sp * (1.0 - sg)
+    dx, dxg, dag, das = rg_lru_bwd_elems(g, xf, sg, a, ig, hprev, neg_c_sp)
     dp = -c * torch.sigmoid(p) * das.sum(dim=1).sum(dim=0)
     return (dx.to(x.dtype), dag.to(a_gate.dtype), dxg.to(x_gate.dtype), dp,
             carry)
 
 
 def rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
-               c: float = 8.0):
+               c: float = 8.0, path: Optional[str] = None):
     """Gradients of :func:`rg_lru` given the forward's fp32 h (``hs``, (B,
     T, D)), ``dout`` (B, T, D) and ``dh_t`` (B, D): ``(dx in x's dtype,
     da_gate in a_gate's, dx_gate in x_gate's, da_param (D,) fp32, dh0 (B,
-    D) fp32)``.  The kernel of ``csrc/rg_lru_bwd.cu`` for CUDA tensors
-    (counted in ``rg_lru_bwd.launches``), :func:`rg_lru_bwd_plain` for CPU
-    tensors."""
+    D) fp32)``.  The kernels of ``csrc/rg_lru_bwd.cu`` for CUDA tensors, on
+    ``path`` (one of :func:`paths_for`'s, checked on every device;
+    ``None`` takes :func:`choose_bwd_path`'s), counted in
+    ``rg_lru_bwd.launches`` and the path's ``tile_launches`` /
+    ``simt_launches``; :func:`rg_lru_bwd_plain` for CPU tensors."""
+    if path is not None:
+        able = paths_for(x.shape[-1], (x.dtype, a_gate.dtype, x_gate.dtype))
+        if path not in able:
+            raise ValueError(f"rg_lru_bwd: path={path!r} cannot take this "
+                             f"call; paths that can: {able}")
     if x.device.type == "cpu":
         return rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout,
                                 dh_t, c=c)
@@ -275,10 +312,13 @@ def rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
             f"rg_lru_bwd: the CUDA kernel takes x, a_gate and x_gate each in "
             f"one of {_DTYPES}, got {x.dtype}, {a_gate.dtype}, "
             f"{x_gate.dtype}")
-    x, a_gate, x_gate = (v.contiguous() for v in (x, a_gate, x_gate))
-    dout = dout.to(x.dtype).contiguous()
-    hs, h0, dh_t, a_param = (v.float().contiguous()
-                             for v in (hs, h0, dh_t, a_param))
+    if path is None:
+        path = choose_bwd_path(d, (x.dtype, a_gate.dtype, x_gate.dtype))
+    # the (B, T, D) operands contiguous and 16-byte aligned for TMA
+    x, a_gate, x_gate = (_aligned(v) for v in (x, a_gate, x_gate))
+    dout = _aligned(dout.to(x.dtype))
+    hs = _aligned(hs.float())
+    h0, dh_t, a_param = (v.float().contiguous() for v in (h0, dh_t, a_param))
     dx = torch.empty_like(x)
     dag = torch.empty_like(a_gate)
     dxg = torch.empty_like(x_gate)
@@ -292,12 +332,15 @@ def rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
         dx.data_ptr(), dag.data_ptr(), dxg.data_ptr(), dp.data_ptr(),
         dh0.data_ptr(), part.data_ptr(), b, t, d, float(c),
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[a_gate.dtype],
-        _DTYPE_CODE[x_gate.dtype],
+        _DTYPE_CODE[x_gate.dtype], _PATH_CODE[path],
+        tile_channels(b, d, _sms(x.device)) if path == "tile" else 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"rg_lru_bwd launch failed: "
+        raise RuntimeError(f"rg_lru_bwd launch failed on {path}: "
                            f"{lib.rg_lru_bwd_error_string(rc).decode()}")
     rg_lru_bwd.launches += 1
+    setattr(rg_lru_bwd, f"{path}_launches",
+            getattr(rg_lru_bwd, f"{path}_launches") + 1)
     return dx, dag, dxg, dp, dh0
 
 
@@ -349,6 +392,9 @@ def _launch(x, a_gate, x_gate, a_param, h0, c, path):
 rg_lru.launches = 0
 rg_lru.tile_launches = 0
 rg_lru.simt_launches = 0
-#: Backward kernel launches since the count was last set to 0 (only
-#: :func:`rg_lru_bwd` on CUDA tensors adds to it).
+#: Backward calls that launched a kernel since the count was last set to
+#: 0, all and per path (only :func:`rg_lru_bwd` on CUDA tensors adds to
+#: them; one a call).
 rg_lru_bwd.launches = 0
+rg_lru_bwd.tile_launches = 0
+rg_lru_bwd.simt_launches = 0

@@ -210,31 +210,35 @@ def test_flash_attention_bwd_gives_padding_zero_gradient():
 
 @pytest.mark.parametrize("d,dtype,want", [
     (256, torch.bfloat16, ("tc", "simt")), (128, torch.bfloat16, ("tc", "simt")),
-    (64, torch.bfloat16, ("tc", "simt")), (256, torch.float32, ("simt",)),
-    (40, torch.bfloat16, ("simt",)), (96, torch.bfloat16, ("simt",)),
+    (64, torch.bfloat16, ("tc", "simt")), (256, torch.float32, ("tc", "simt")),
+    (40, torch.bfloat16, ("simt",)), (96, torch.bfloat16, ("tc", "simt")),
     (264, torch.bfloat16, ()), (36, torch.float32, ())])
 def test_attention_bwd_dispatch(d, dtype, want):
-    """``bwd_paths_for`` / ``choose_bwd_path``: ``"tc"`` for all-bf16 calls
-    at D = 64, 128, 256 (the local blocks' training calls), ``"simt"``
-    for the other head dims the forward takes; a mixed call is ``simt``."""
+    """``bwd_paths_for`` / ``choose_bwd_path``: ``"tc"`` for head dims that
+    are multiples of 16 in fp32, bf16 or a mix (the forward's ``"tc"``
+    set), ``"simt"`` for the other head dims the forward takes."""
     assert bwd_paths_for(d, (dtype,) * 4) == want
     assert choose_bwd_path(d, (dtype,) * 4) == (want[0] if want else None)
     if want:
         mixed = (torch.bfloat16,) * 3 + (torch.float32,)
-        assert bwd_paths_for(d, mixed) == ("simt",)
+        assert bwd_paths_for(d, mixed) == want
 
 
 def test_attention_bwd_splits_fill_the_card():
     """The ``"tc"`` dK/dV pass cuts the stacked rows into ranges until its
     grid holds 4 blocks an SM (RecurrentGemma-9B's local block at 1 x 4096:
-    128 key tiles, 5 ranges), never more ranges than row tiles."""
-    assert bwd_splits(1, 16 * 4096, 4096, 132) == 5
-    assert bwd_splits(1, 64, 4096, 132) == 2
-    assert bwd_splits(64, 4096, 4096, 132) == 1
+    64 blocks of 64 keys x 2 column groups, 5 ranges, in bf16 and fp32),
+    never more ranges than row tiles."""
+    bf, f32 = (torch.bfloat16,) * 4, (torch.float32,) * 4
+    assert bwd_splits(1, 16 * 4096, 4096, 256, bf, 132) == 5
+    assert bwd_splits(1, 16 * 4096, 4096, 256, f32, 132) == 5
+    assert bwd_splits(1, 64, 4096, 256, bf, 132) == 1
+    assert bwd_splits(64, 4096, 4096, 256, bf, 132) == 1
 
 
 def test_flash_attention_bwd_path_is_checked_on_every_device():
-    q = torch.zeros((1, 32, 16))
+    # D = 24: a multiple of 8 that is not one of 16, so "tc" cannot take it
+    q = torch.zeros((1, 32, 24))
     out, stats = flash_attention_plain(q, q, q, causal=True, window=None,
                                        offset=0, kv_len=32, bq=32, bkv=32,
                                        q_period=None, out_dtype=q.dtype,
