@@ -71,6 +71,22 @@
    live-row counts and unsorted experts, the RG-LRU on both paths at T, D
    and dtype edges (fp16, mixed x/gate dtypes, D = 37, T = 37, B = T = 1),
    calls that must raise).
+3b. Tune ([tune], before the model exists): the shared-memory closed
+   forms of ``repro_torch.analysis.budget`` against every compiled
+   launcher's own number (the sources' ``*_smem_bytes`` exports), exactly,
+   over all 150 instantiations; a plan one byte under its need raising
+   ``VmemBudgetError`` with no launch, and the same plan at the default
+   limit running.  The cost model's calibration: every policy × fold of
+   granite-3-8b's FFN patterns on each SpMM path (``TUNE_CASES``) and of
+   the paper's suite (A @ Aᵀ) on both SpGEMM paths, CUDA-graph times,
+   ``calibrate`` per path, its coefficients and residuals printed.  Then
+   ``autotune_matmul(objective="cuda")`` on each case and suite matrix
+   (host seconds), the winner against its plain version and the default
+   plan's result (≤ 1e-5) and within ``TUNE_SLOWDOWN`` of the default's
+   time; the tuned plans once through ``plan()`` (exact launches);
+   ``SparseLinear.from_pattern(policy="auto")`` forward and backward vs
+   the reference backend, its search counted once, then answered from
+   the cache.
 4. Kernel vs plain version: the Segment SpMM kernels on the shapes the
    main paths give them (granite-3-8b's up/gate and down FFN patterns at
    N = 4, 16, 64, B in bf16 and fp32; the training width N = 2048; a
@@ -171,6 +187,12 @@
    against 64 ``decode_step`` calls over the same tokens (≤
    ``LOGIT_RTOL``): the forward kernels against the decode ones and the
    ring cache.
+10b. Mixed ([mixed]): RecurrentGemma-9B's widths with full-attention
+   layers beside its local ones (``layer_pattern=("attn", "local")``,
+   ``MIXED_LAYERS`` layers): the two KV cache groups, ``forward`` over 1 x
+   4096 tokens with each layer's ``flash_attention`` launches counted
+   (one ``tc`` launch per local layer, none per full-attention layer),
+   forward vs stepwise decode, the serve mix through ``Engine``.
 11. Hybrid training ([hybrid_train], after [hybrid]'s model is freed): the
    two backward kernels against their plain versions on every path that
    takes each call, ``rg_lru_bwd`` at the model's (1, 4096, 4096) bf16
@@ -233,6 +255,7 @@ Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import importlib
@@ -4036,12 +4059,502 @@ def phase_verify(model, dev):
     return replan, g_launches, p_launches, g_rec, p_rec
 
 
-PHASES = ("spgemm", "ops", "kernel", "crossover", "edges", "serve",
-          "qkernel", "qserve", "qgrad", "train", "verify", "hybrid",
+# [tune]: the plan tuner on the card.  Granite-3-8b's FFN projections at
+# full width (up 4096 -> 12800 from SEED, down 12800 -> 4096 from SEED + 1;
+# 64 x 64 blocks at 25 %) at a width of each SpMM path: (path, N, B dtype)
+TUNE_CASES = (("split", 4, torch.bfloat16), ("split", 16, torch.bfloat16),
+              ("tc", 64, torch.bfloat16), ("tc", 2048, torch.bfloat16),
+              ("simt", 64, torch.float32))
+#: the knobs the card tells apart, timed for the calibration: each policy,
+#: and the segment policy's fold (the only one that folds)
+TUNE_CALIBRATION = (("segment", None), ("segment", 8), ("gustavson", None),
+                    ("outer", None))
+#: a tuned plan may take at most this times the default plan's device time
+#: (the better of two timings each; card rows agree within ~3 % run to run)
+TUNE_SLOWDOWN = 1.10
+
+
+def _granite_ffn():
+    """Granite-3-8b's up and down projection patterns at full width, with
+    random values, from ``SEED`` and ``SEED + 1``."""
+    from repro_torch.core.formats import BSR
+    return {"up": BSR.random(np.random.default_rng(SEED), (12800, 4096),
+                             (64, 64), 0.25),
+            "down": BSR.random(np.random.default_rng(SEED + 1),
+                               (4096, 12800), (64, 64), 0.25)}
+
+
+def _smem_exports():
+    """The four SpMM/SpGEMM libraries' shared-memory exports, typed."""
+    from repro_torch.kernels import build
+    i = ctypes.c_int
+    out = {}
+    for src, name, n in (("segment_spmm.cu", "segment_spmm_smem_bytes", 5),
+                         ("segment_spmm.cu", "segment_spmm_split_smem_bytes",
+                          3),
+                         ("segment_spmm_tc.cu", "segment_spmm_tc_smem_bytes",
+                          3),
+                         ("segment_spgemm.cu", "segment_spgemm_smem_bytes", 5),
+                         ("segment_spgemm_tc.cu",
+                          "segment_spgemm_tc_smem_bytes", 2)):
+        fn = getattr(build.load(src), name)
+        fn.argtypes = [i] * n
+        fn.restype = ctypes.c_longlong
+        out[name] = fn
+    return out
+
+
+def tune_budget(dev, up):
+    """The closed forms of ``analysis.budget`` against every compiled
+    launcher's own number, exactly, over every instantiation the launchers
+    can pick; then a plan one byte under its need raising before any
+    launch, and the same plan at the default limit running."""
+    from repro_torch import api
+    from repro_torch.analysis import budget
+    ex = _smem_exports()
+    modes = ((0, 0), (1, 1), (1, 2), (2, 1), (2, 2))
+    rows = []
+    for p, s in modes:
+        for bm, tn, tr in itertools.product((32, 64), (4, 8, 16, 32), (0, 1)):
+            rows.append((f"simt spmm {bm} TN{tn} trans{tr} mode{p}.{s}",
+                         ex["segment_spmm_smem_bytes"](bm, tn, tr, p, s),
+                         budget.simt_spmm_smem_bytes(bm, tn, bool(tr), p, s)))
+        for tn in (4, 8, 16):
+            rows.append((f"split TN{tn} mode{p}.{s}",
+                         ex["segment_spmm_split_smem_bytes"](tn, p, s),
+                         budget.split_spmm_smem_bytes(tn, p, s)))
+        for n in (64, 256):
+            rows.append((f"tc spmm N{n} mode{p}.{s}",
+                         ex["segment_spmm_tc_smem_bytes"](n, p, s),
+                         budget.tc_spmm_smem_bytes(n, p, s)))
+        for bm, bk, bn in itertools.product((32, 64), repeat=3):
+            rows.append((f"simt spgemm {bm}x{bk}x{bn} mode{p}.{s}",
+                         ex["segment_spgemm_smem_bytes"](bm, bk, bn, p, s),
+                         budget.simt_spgemm_smem_bytes(bm, bk, bn, p, s)))
+        rows.append((f"tc spgemm mode{p}.{s}",
+                     ex["segment_spgemm_tc_smem_bytes"](p, s),
+                     budget.tc_spgemm_smem_bytes(p, s)))
+    bad = [r for r in rows if r[1] != r[2]]
+    check(not bad, f"[tune budget] closed form != compiled: {bad[:5]}")
+    refused = (ex["segment_spmm_smem_bytes"](64, 32, 0, 0, 1),
+               ex["segment_spmm_split_smem_bytes"](5, 0, 0),
+               ex["segment_spmm_tc_smem_bytes"](64, 3, 1),
+               ex["segment_spgemm_smem_bytes"](16, 64, 64, 0, 0),
+               ex["segment_spgemm_tc_smem_bytes"](1, 0))
+    check(refused == (-1,) * 5, f"[tune budget] refusals {refused}")
+    big = max(rows, key=lambda r: r[1])
+    print(f"[tune budget] {len(rows)} instantiations: every closed form "
+          f"equals its compiled number; largest {big[1]} bytes ({big[0]}) "
+          f"of {budget.DEFAULT_VMEM_LIMIT_BYTES}; 5 refusals -1")
+
+    x = torch.randn(64, up.shape[1], device=dev).bfloat16()
+    need = budget.plan_vmem_bytes(
+        api.plan_matmul(up, 64, with_grad=True, cache=False, device=dev),
+        n_cols=64)
+    before = _path_counts()
+    try:
+        api.plan_matmul(up, 64, with_grad=True, cache=False, device=dev,
+                        vmem_limit_bytes=need - 1)
+        raised = None
+    except budget.VmemBudgetError as e:
+        raised = str(e)
+    check(raised is not None and _path_counts() == before,
+          f"[tune budget] {need - 1} bytes: raised {raised!r}, launches "
+          f"{_path_counts()} vs {before}")
+    plan = api.plan_matmul(up, 64, with_grad=True, cache=False, device=dev,
+                           vmem_limit_bytes=budget.DEFAULT_VMEM_LIMIT_BYTES)
+    y = plan(x.T)
+    torch.cuda.synchronize()
+    _check_path("[tune budget] default limit", before, "tc")
+    check(bool(torch.isfinite(y).all()), "[tune budget] non-finite output")
+    print(f"[tune budget] granite up at N = 64 with its grad plan needs "
+          f"{need} bytes (tc, one consumer warpgroup): a limit of "
+          f"{need - 1} raised VmemBudgetError with no launch; the default "
+          f"limit planned and ran (1 tc launch)")
+
+
+def _card_work(plan, path, n, b):
+    from repro_torch.tune.cost import spmm_card_work
+    return spmm_card_work(
+        path=path, m=plan.m_idx.cpu().numpy(), valid=plan.valid.cpu().numpy(),
+        seg_write=plan.seg_write.cpu().numpy(),
+        accum_prev=plan.accum_prev.cpu().numpy(),
+        runs=plan.run_offsets.cpu().numpy(), bm=64, bk=64, n=n,
+        rhs_dtype=str(b.dtype).removeprefix("torch."))
+
+
+def _spmm_kern(plan, b):
+    from repro_torch.kernels.segment_spmm import segment_spmm
+    return lambda: segment_spmm(
+        plan.lhs_blocks, plan.slot_idx, plan.m_idx, plan.k_idx,
+        plan.seg_start, plan.seg_write, plan.accum_prev, plan.valid, b,
+        grid_m=plan.grid_m, n_lanes=plan.n_lanes, unroll=plan.unroll,
+        runs=plan.run_offsets, chunks=plan.chunk_offsets)
+
+
+def _fit(samples, tag):
+    """``calibrate`` over ``(bytes, steps, us, label)`` samples, each
+    scaled by its own time (so the fit minimizes relative errors, and a
+    2 ms sample does not outweigh a 20 µs one); prints the coefficients
+    and each sample's residual.  Returns the model."""
+    from repro_torch.tune import calibrate
+    model = calibrate([(b / us, s / us, 1.0) for b, s, us, _ in samples])
+    res = [(model.predict_us(b, s) - us) / us for b, s, us, _ in samples]
+    print(f"[tune fit] {tag}: {len(samples)} samples -> bytes_per_us="
+          f"{model.bytes_per_us:.6g} step_us={model.step_us:.6g}; residual "
+          f"max |{max(abs(r) for r in res):.3f}|, mean "
+          f"{sum(abs(r) for r in res) / len(res):.3f}")
+    for (b, s, us, label), r in zip(samples, res):
+        print(f"[tune fit]   {tag} {label:<34} bytes={b:.0f} steps={s:.0f} "
+              f"us={us:.3f} predicted={model.predict_us(b, s):.3f} "
+              f"residual={r:+.3f}")
+    return model
+
+
+def _tuned_vs_default(label, kern_d, kern_t, host_s, knobs):
+    """Device times of the default and the tuned plan, interleaved (d, t,
+    t, d); the gate: the tuned plan's better time within
+    ``TUNE_SLOWDOWN`` of the default's.  Returns the record."""
+    d1 = device_ms(kern_d)
+    t1 = device_ms(kern_t)
+    t2 = device_ms(kern_t)
+    d2 = device_ms(kern_d)
+    tuned, default = min(t1, t2), min(d1, d2)
+    ratio = tuned / default
+    print(f"[tune] {label:<34} search {host_s:.3f} s -> {knobs}; tuned "
+          f"{tuned * 1e3:.2f} us ({t1 * 1e3:.2f}, {t2 * 1e3:.2f}), default "
+          f"{default * 1e3:.2f} us ({d1 * 1e3:.2f}, {d2 * 1e3:.2f}), "
+          f"ratio {ratio:.4f}")
+    check(ratio <= TUNE_SLOWDOWN, f"[tune] {label}: tuned {tuned:.5f} ms > "
+                                  f"{TUNE_SLOWDOWN} x default {default:.5f}")
+    return dict(case=label, tuned_ms=tuned, default_ms=default, ratio=ratio,
+                host_s=host_s)
+
+
+def _knobs(res):
+    c = res.best.candidate
+    return (f"{c.policy} fold={c.fold_len} lanes={c.n_lanes} "
+            f"unroll={c.unroll} bn={c.bn}")
+
+
+def phase_tune(dev):
+    """[tune]: the shared-memory budget against the compiled kernels
+    (:func:`tune_budget`); the cost model's calibration (every policy ×
+    fold of granite-3-8b's FFN patterns on each SpMM path, and of the
+    paper's suite A @ Aᵀ on both SpGEMM paths, timed as CUDA-graph
+    replays; :func:`~repro_torch.tune.calibrate` per path); then for each
+    case and each suite matrix the search under ``"cuda"`` (host seconds),
+    its winner against the plain version and the default plan's result,
+    and both timed (``TUNE_SLOWDOWN``).  The tuned plans run once more
+    through their entry point (``plan(b)``) with the counts set to 0 just
+    before; and ``SparseLinear.from_pattern(policy="auto")`` at granite's
+    up projection runs forward and ``transpose_lhs`` on the card against
+    the ``"reference"`` backend, its searches counted.  Returns the launch
+    counts and two kernel records."""
+    from repro_torch import api, tune
+    from repro_torch.core.formats import BSR
+    from repro_torch.models.sparse_ffn import SparseLinear
+    from repro_torch.sim import matrices
+    from repro_torch.tune.cost import spgemm_card_work
+
+    sg = importlib.import_module("repro_torch.kernels.segment_spgemm")
+    sm = importlib.import_module("repro_torch.kernels.segment_spmm")
+    api.clear_plan_cache()
+    pats = _granite_ffn()
+    tune_budget(dev, pats["up"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    # 1. calibration samples: granite's FFN on each SpMM path
+    samples = {"split": [], "tc": [], "simt": [], "spgemm_tc": [],
+               "spgemm_simt": []}
+    bs = {}
+    for path, n, dt in TUNE_CASES:
+        for name, w in pats.items():
+            b = torch.randn(w.shape[1], n, generator=gen, device=dev).to(dt)
+            bs[path, n, name] = b
+            for policy, fold in TUNE_CALIBRATION:
+                plan = api.plan_matmul(w, n, policy=policy, fold_len=fold,
+                                       cache=False, device=dev)
+                picked = sm.choose_path(n, dt, 64, 64, b.stride(),
+                                        b.data_ptr())
+                check(picked == path, f"[tune] {name} N={n}: path {picked}")
+                work = _card_work(plan, path, n, b)
+                us = device_ms(_spmm_kern(plan, b)) * 1e3
+                samples[path].append((work["total"], work["steps"], us,
+                                      f"{name} N={n} {policy} fold={fold}"))
+    # ... and the paper's suite, A @ Aᵀ, on both SpGEMM paths
+    suite = matrices.suite(scale_cap=VERIFY_SCALE_CAP)
+    mats = {}
+    for name, (a, _) in suite.items():
+        dense = a.to_dense()
+        am = BSR.from_dense(dense, VERIFY_BLOCK)
+        at = BSR.from_dense(np.ascontiguousarray(dense.T), VERIFY_BLOCK)
+        mats[name] = (am, at, a)
+        for policy, fold in TUNE_CALIBRATION:
+            g = api.plan_matmul(am, at, policy=policy, fold_len=fold,
+                                cache=False, device=dev)
+            if g.n_out_blocks == 0:
+                continue
+            work = spgemm_card_work(
+                valid=g.valid.cpu().numpy(),
+                seg_write=g.seg_write.cpu().numpy(),
+                accum_prev=g.accum_prev.cpu().numpy(),
+                runs=g.run_offsets.cpu().numpy(), bm=64, bk=64, bn=64)
+            for path in ("tc", "simt"):
+                us = device_ms(lambda: _spgemm_call(g, path)) * 1e3
+                samples[f"spgemm_{path}"].append(
+                    (work["total"], work["steps"], us,
+                     f"{name} {policy} fold={fold}"))
+    fitted = {path: _fit(s, path) for path, s in samples.items()}
+    print("[tune fit] DEFAULT_CUDA = {" + ", ".join(
+        f'"{p}": CostModel(bytes_per_us={m.bytes_per_us:.6g}, '
+        f'step_us={m.step_us:.6g})' for p, m in fitted.items()) + "}")
+    shipped = tune.DEFAULT_CUDA
+    print("[tune fit] shipped DEFAULT_CUDA: " + ", ".join(
+        f"{p} ({m.bytes_per_us:.6g}, {m.step_us:.6g})"
+        for p, m in shipped.items()))
+
+    # 2. tuned vs default, granite's cases
+    recs, tuned_plans = [], []
+    for path, n, dt in TUNE_CASES:
+        for name, w in pats.items():
+            b = bs[path, n, name]
+            label = f"{name} N={n} {path}"
+            t0 = time.perf_counter()
+            res = tune.autotune_matmul(
+                w, n_cols_hint=n, objective="cuda",
+                rhs_dtype=str(dt).removeprefix("torch."))
+            host_s = time.perf_counter() - t0
+            check(res.objective == "cuda", f"[tune] {label}: objective")
+            dflt = api.plan_matmul(w, n, cache=False, device=dev)
+            tuned = api.plan_matmul(w, n, cache=False, device=dev,
+                                    **res.plan_kwargs())
+            y_t, y_d = _spmm_kern(tuned, b)(), _spmm_kern(dflt, b)()
+            plain = sm.segment_spmm_plain(
+                tuned.lhs_blocks, tuned.slot_idx, tuned.m_idx, tuned.k_idx,
+                tuned.valid, b, grid_m=tuned.grid_m)
+            rel_p, abs_p = _rel(y_t, plain)
+            rel_d, _ = _rel(y_t, y_d)
+            del plain
+            check(rel_p <= KERNEL_RTOL and rel_d <= KERNEL_RTOL,
+                  f"[tune] {label}: tuned vs plain {rel_p:.3g}, vs default "
+                  f"{rel_d:.3g} > {KERNEL_RTOL}")
+            rec = _tuned_vs_default(label, _spmm_kern(dflt, b),
+                                    _spmm_kern(tuned, b), host_s,
+                                    _knobs(res))
+            rec.update(rel_err=rel_p, max_abs_err=abs_p, path=path,
+                       plan=tuned, b=b)
+            recs.append(rec)
+            tuned_plans.append((tuned, b, path))
+    # ... the paper's suite: A @ X (fp32 X, simt) and A @ Aᵀ (tc)
+    x_n = VERIFY_N
+    suite_g, suite_p = [], []
+    for name, (am, at, a) in mats.items():
+        x = torch.randn(am.grid[1] * VERIFY_BLOCK[1], x_n, generator=gen,
+                        device=dev)
+        t0 = time.perf_counter()
+        res = tune.autotune_matmul(am, n_cols_hint=x_n,
+                                   rhs_dtype="float32")
+        host_s = time.perf_counter() - t0
+        dflt = api.plan_matmul(am, x_n, cache=False, device=dev)
+        tuned = api.plan_matmul(am, x_n, cache=False, device=dev,
+                                **res.plan_kwargs())
+        y_t = _spmm_kern(tuned, x)()
+        rel_p, abs_p = _rel(y_t, sm.segment_spmm_plain(
+            tuned.lhs_blocks, tuned.slot_idx, tuned.m_idx, tuned.k_idx,
+            tuned.valid, x, grid_m=tuned.grid_m))
+        rel_d, _ = _rel(y_t, _spmm_kern(dflt, x)())
+        check(rel_p <= KERNEL_RTOL and rel_d <= KERNEL_RTOL,
+              f"[tune] suite {name} A @ X: vs plain {rel_p:.3g}, vs default "
+              f"{rel_d:.3g}")
+        rec = _tuned_vs_default(f"suite {name} A@X simt", _spmm_kern(dflt, x),
+                                _spmm_kern(tuned, x), host_s, _knobs(res))
+        rec.update(rel_err=rel_p, max_abs_err=abs_p, path="simt")
+        suite_p.append(rec)
+        tuned_plans.append((tuned, x, "simt"))
+        t0 = time.perf_counter()
+        res = tune.autotune_matmul(am, at)
+        host_s = time.perf_counter() - t0
+        dflt = api.plan_matmul(am, at, cache=False, device=dev)
+        tuned = api.plan_matmul(am, at, cache=False, device=dev,
+                                **res.plan_kwargs())
+        if tuned.n_out_blocks == 0:
+            continue
+        c_t = _spgemm_call(tuned)
+        rel_p, abs_p = _rel(c_t, _spgemm_plain(tuned))
+        # the C blocks sit at the symbolic pattern, whatever the order
+        rel_d, _ = _rel(c_t, _spgemm_call(dflt))
+        check(rel_p <= KERNEL_RTOL and rel_d <= KERNEL_RTOL,
+              f"[tune] suite {name} A @ Aᵀ: vs plain {rel_p:.3g}, vs "
+              f"default {rel_d:.3g}")
+        rec = _tuned_vs_default(f"suite {name} A@At tc",
+                                lambda: _spgemm_call(dflt),
+                                lambda: _spgemm_call(tuned), host_s,
+                                _knobs(res))
+        rec.update(rel_err=rel_p, max_abs_err=abs_p, path="tc", plan=tuned,
+                   out=c_t)
+        suite_g.append(rec)
+        tuned_plans.append((tuned, None, "spgemm"))
+
+    # 3. the tuned plans through their entry point, counts from 0
+    _zero_counts()
+    _zero_spgemm_counts()
+    for plan, b, _ in tuned_plans:
+        plan(b) if b is not None else plan()
+    torch.cuda.synchronize()
+    spmm_n = sum(b is not None for _, b, _ in tuned_plans)
+    spgemm_n = len(tuned_plans) - spmm_n
+    got_p, got_g = list(_path_counts()), _spgemm_counts()
+    want_tc = sum(p == "tc" for _, b, p in tuned_plans if b is not None)
+    want_split = sum(p == "split" for _, _, p in tuned_plans)
+    check(got_p == [spmm_n, want_tc, want_split]
+          and got_g[0] == got_g[2] == spgemm_n,
+          f"[tune] tuned plans' launches: segment_spmm {got_p} != "
+          f"({spmm_n}, {want_tc}, {want_split}); segment_spgemm {got_g}")
+    print(f"[tune] tuned plans through plan(): segment_spmm {spmm_n} "
+          f"launches ({want_tc} tc, {want_split} split, "
+          f"{spmm_n - want_tc - want_split} simt), segment_spgemm "
+          f"{spgemm_n} (all tc)")
+
+    # 4. through the model: SparseLinear over granite's up pattern
+    api.clear_plan_cache()
+    up = pats["up"]
+    SparseLinear.from_pattern(up, policy="auto", device=dev)
+    s1 = api.plan_cache_stats()
+    lin = SparseLinear.from_pattern(up, policy="auto", device=dev)
+    s2 = api.plan_cache_stats()
+    check((s1["searched"], s1["search_cache_hits"]) == (1, 0)
+          and (s2["searched"], s2["search_cache_hits"]) == (1, 1),
+          f"[tune model] counters {s1} then {s2}")
+    xs = torch.randn(64, up.shape[1], generator=gen,
+                     device=dev).bfloat16().requires_grad_()
+    _zero_counts()
+    y = lin(xs)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(counts["spmm"] == 2 and counts["spmm_t"] == 1,
+          f"[tune model] launches {counts}")
+    from repro_torch.api import use_backend
+    xr = xs.detach().clone().requires_grad_()
+    with use_backend("reference"):
+        yr = lin(xr)
+        yr.float().square().sum().backward()
+    rel_y, _ = _rel(y.detach(), yr.detach())
+    rel_dx, _ = _rel(xs.grad, xr.grad)
+    check(rel_y <= BF16_RTOL and rel_dx <= BF16_RTOL,
+          f"[tune model] cuda vs reference: y {rel_y:.3g}, dx {rel_dx:.3g} "
+          f"> {BF16_RTOL}")
+    c = lin.plan
+    print(f"[tune model] SparseLinear.from_pattern(policy='auto') at granite "
+          f"up: plan {c.policy} lanes={c.n_lanes} unroll={c.unroll}; "
+          f"searched {s2['searched']}, search_cache_hits "
+          f"{s2['search_cache_hits']}; forward + backward at 64 bf16 tokens: "
+          f"2 launches ({counts['spmm_tc']} tc, 1 transpose_lhs); vs "
+          f"reference y {rel_y:.2e}, dx "
+          f"{rel_dx:.2e} (tol {BF16_RTOL})")
+    api.clear_plan_cache()
+    host = sum(r["host_s"] for r in recs + suite_p + suite_g)
+    worst = max(recs + suite_p + suite_g, key=lambda r: r["ratio"])
+    print(f"[tune] summary: {len(recs)} granite cases, {len(suite_p)} suite "
+          f"A @ X, {len(suite_g)} suite A @ Aᵀ; host search {host:.2f} s in "
+          f"all; worst tuned/default {worst['ratio']:.4f} ({worst['case']})")
+    # the kernel records of the line: the tuned training-width plan and the
+    # suite's largest tuned A @ Aᵀ, each against its plain version again
+    tc_case = next(r for r in recs if r["case"] == "up N=2048 tc")
+    tc_rec = kernel_case("tuned up", tc_case["plan"], tc_case["b"],
+                         tag="tune")
+    big = max(suite_g, key=lambda r: int(r["plan"].valid.sum()))
+    g_rec = spgemm_case(f"tuned {big['case']}", big["plan"], big["out"])
+    counts = dict(spmm=spmm_n, spmm_tc=want_tc, spgemm=spgemm_n)
+    return counts, tc_rec, g_rec
+
+
+# [mixed]: RecurrentGemma-9B's published widths with full-attention layers
+# beside its local ones (layer_pattern ("attn", "local")), depth cut 38 -> 4
+# to keep the phase short; bf16 activations, block-sparse FFN
+MIXED_LAYERS = 4
+
+
+def phase_mixed(dev):
+    """[mixed]: a model with ``"local"`` beside ``"attn"`` layers on the
+    card: its cache groups (full-length ``k``/``v``, window rings at
+    ``k_local``/``v_local``); ``forward`` over 1 x ``HYBRID_FORWARD_T``
+    tokens, its ``flash_attention`` launches counted layer by layer (one
+    on ``tc`` per local layer, none per full-attention layer, whose
+    attention is chunked torch attention as in ``repro``); forward vs
+    stepwise decode; the serve mix through ``Engine``.  Returns the
+    forward's launch counts."""
+    model = build_family("recurrentgemma-9b", "mixed", dev,
+                         layer_pattern=("attn", "local"),
+                         n_layers=MIXED_LAYERS, ffn_block_sparse=True,
+                         ffn_block=64, ffn_density=0.25)
+    cfg = model.cfg
+    kinds = model.layer_kinds
+    n_sparse = sparse_layers(model)
+    cache = model.init_cache(2, 4096)
+    shapes = {k: tuple(v.shape) for k, v in cache.items()}
+    kv = (cfg.n_kv, cfg.hd)
+    check(shapes == {"k": (2, 2, 4096, *kv), "v": (2, 2, 4096, *kv),
+                     "k_local": (2, 2, cfg.local_window, *kv),
+                     "v_local": (2, 2, cfg.local_window, *kv)},
+          f"[mixed] cache {shapes}")
+    del cache
+    print(f"[mixed] cache groups: {shapes}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    per_layer = []
+
+    def pre(mod, args, kwargs):
+        per_layer.append([flash_attention.tc_launches])
+
+    def post(mod, args, kwargs, out):
+        per_layer[-1].append(flash_attention.tc_launches)
+
+    hooks = [blk.register_forward_pre_hook(pre, with_kwargs=True)
+             for blk in model.layers]
+    hooks += [blk.register_forward_hook(post, with_kwargs=True)
+              for blk in model.layers]
+    tokens = torch.randint(0, cfg.vocab, (1, HYBRID_FORWARD_T),
+                           generator=gen, device=dev)
+    n_local = kinds.count("local")
+    try:
+        fwd, fwd_ms, _, _ = timed_forward(
+            model, "mixed", {"flash": n_local, "flash_tc": n_local,
+                             "spmm": 3 * n_sparse, "spmm_tc": 3 * n_sparse},
+            tokens)
+    finally:
+        for h in hooks:
+            h.remove()
+    # the local layers take the kernel; full attention is chunked torch
+    # attention, as repro's is
+    deltas = [b - a for a, b in per_layer[:len(kinds)]]
+    want = [int(k == "local") for k in kinds]
+    check(deltas == want, f"[mixed] flash_attention tc launches per layer "
+                          f"{list(zip(kinds, deltas))} != {want}")
+    print(f"[mixed] forward: flash_attention tc launches per layer "
+          f"{list(zip(kinds, deltas))}")
+    stepwise_check(model, tokens[:, :HYBRID_CACHE_T], "mixed")
+    s = serve_family(model, dev, "mixed", steady=False)
+    got = s["counts"]
+    check(s["buckets"] == (64, 16) and got["flash"] == 0
+          and s["spmm"] == 3 * n_sparse * s["calls"],
+          f"[mixed serve] buckets {s['buckets']}, launches {got}")
+    print(f"[mixed serve] buckets {s['buckets']}; segment_spmm {s['spmm']} "
+          f"launches == 3 x {n_sparse} x {s['calls']} model calls "
+          f"({s['split']} split); flash_attention none (cached attention is "
+          f"torch)")
+    free_model(model)
+    return fwd
+
+
+PHASES = ("spgemm", "ops", "tune", "kernel", "crossover", "edges", "serve",
+          "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "mixed",
           "hybrid_train", "ssm", "moe", "vlm", "encdec")
-# the phases that need granite-3-8b built (``--only spgemm,ops``, ``--only
-# hybrid`` or ``--only ssm,moe,vlm,encdec`` skips it)
-GRANITE_PHASES = PHASES[2:PHASES.index("hybrid")]
+# the phases that need granite-3-8b built (``--only spgemm,ops,tune``,
+# ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
+GRANITE_PHASES = PHASES[3:PHASES.index("hybrid")]
 
 
 def main():
@@ -4081,6 +4594,10 @@ def main():
     if "ops" in only:
         ops_recs, attn_simt = phase_ops(dev)
         gc.collect()                 # Maverick's 21.5 GB of expert weights
+        torch.cuda.empty_cache()
+    if "tune" in only:
+        tune_counts, tune_tc_rec, tune_g_rec = phase_tune(dev)
+        gc.collect()
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()   # [memory] reads the model's peak
 
@@ -4137,6 +4654,9 @@ def main():
     clear_plan_cache()
     gc.collect()
     torch.cuda.empty_cache()
+    if "mixed" in only:
+        mixed_fwd = phase_mixed(dev)
+        clear_plan_cache()
     if "hybrid_train" in only:
         train_counts, train_recs = phase_hybrid_train(dev)
         clear_plan_cache()
@@ -4305,6 +4825,22 @@ def main():
                ("flash_attention.tc", "flash_attention", "tc: bf16, 16 heads "
                 "/ 1 KV, D = 256, window 2048, 1 x 4096 forward",
                 "hybrid-forward", hybrid_fwd["flash"], "local forward"))]
+        # [mixed]: local layers beside full-attention ones; the local
+        # layers' forward launches, timed at the same call in [hybrid]
+        + [entry("flash_attention.tc", "tc: bf16, 16 heads / 1 KV, D = 256, "
+                 "window 2048, 1 x 4096 forward of the local layers beside "
+                 "full-attention ones", "mixed-forward", mixed_fwd["flash_tc"],
+                 one(hybrid_recs, case="local forward"),
+                 [one(hybrid_recs, case="local forward")],
+                 kernel="flash_attention")]
+        # [tune]: the tuned plans through plan(), timed at the training
+        # width (SpMM) and the suite's largest A @ Aᵀ (SpGEMM)
+        + [entry("segment_spmm.tensor_core", "tc: tuned plans "
+                 "(autotune_matmul(objective='cuda') knobs), granite FFN",
+                 "tune", tune_counts["spmm_tc"], tune_tc_rec, [tune_tc_rec]),
+           entry("segment_spgemm.tc", "tc: tuned plans, the paper's suite "
+                 "A @ Aᵀ at 64 x 64 blocks", "tune", tune_counts["spgemm"],
+                 tune_g_rec, [tune_g_rec], kernel="segment_spgemm_tc")]
         # [hybrid_train]: the two backward kernels, launched by the Trainer
         # run, each timed at the model's call
         + [entry(name, mode, "hybrid-train", train_counts[count],

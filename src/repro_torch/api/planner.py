@@ -18,9 +18,10 @@ one pattern are separate cache entries.
 ``verify=`` runs the plan verifier (:func:`repro_torch.analysis
 .verify_plan`) once per cached template, on its host numpy leaves, and the
 scale-agreement check on every realized plan, as ``repro`` does.
-
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP §1.3, the
-tuner): ``policy="auto"`` and ``vmem_limit_bytes``.
+``vmem_limit_bytes=`` refuses a plan whose kernel launches would ask for
+more shared memory than that (:func:`repro_torch.analysis.budget
+.check_plan_vmem`), and ``policy="auto"`` hands the knobs to the schedule
+search (:mod:`repro_torch.tune`), imported only then.
 """
 from __future__ import annotations
 
@@ -203,19 +204,33 @@ class _PlanTemplate:
 
 
 _CACHE: Dict[str, _PlanTemplate] = {}
-_STATS = {"hits": 0, "misses": 0}
+# hits/misses: the template cache; searched/search_cache_hits/
+# dataflow_fallbacks: the tuner's counters, added to by repro_torch.tune
+_STATS = {"hits": 0, "misses": 0,
+          "searched": 0, "search_cache_hits": 0, "dataflow_fallbacks": 0}
 
 
 def clear_plan_cache() -> None:
-    """Drop every cached template (fp32 and quantized entries alike)."""
+    """Drop every cached template (fp32 and quantized entries alike) and
+    the :mod:`repro_torch.tune` search cache beside it."""
+    import sys
     _CACHE.clear()
     for k in _STATS:
         _STATS[k] = 0
+    # only if the tuner was imported: it imports this module, never the
+    # other way round
+    ts = sys.modules.get("repro_torch.tune.search")
+    if ts is not None:
+        ts._SEARCH_CACHE.clear()
 
 
 def plan_cache_stats() -> dict:
     """Hit/miss counters, cache size, and the entries per ``block_dtype``
-    (``by_dtype``): quantized plans of a pattern are entries of their own."""
+    (``by_dtype``): quantized plans of a pattern are entries of their own.
+    Also the tuner's counters: ``searched`` (searches run),
+    ``search_cache_hits`` (searches answered from its cache) and
+    ``dataflow_fallbacks`` (times the analytically best dataflow had no
+    policy and the tuner fell back to the best dispatchable one)."""
     by_dtype: Dict[str, int] = {}
     for tpl in _CACHE.values():
         d = tpl.aux["block_dtype"]
@@ -409,18 +424,20 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
     traffic-model recount) verifies each cached template once and checks
     the realized values' scales on every call, raising
     :class:`~repro_torch.analysis.PlanVerificationError` on a finding.
-    ``device`` places the plan's tensors; ``None`` means the card.
+    ``vmem_limit_bytes`` raises
+    :class:`~repro_torch.analysis.budget.VmemBudgetError` when a launch
+    the plan can make at its N hint (on any path ``choose_path`` can take
+    it to, the transposed one too) asks for more shared memory; the
+    default, ``None``, checks nothing, and the card's own limit is
+    ``DEFAULT_VMEM_LIMIT_BYTES`` (232,448 bytes on an H100).
+    ``policy="auto"`` runs :func:`repro_torch.tune.select_schedule` over
+    the pattern (explicit ``fold_len``/``n_lanes``/``unroll``/
+    ``pipeline``/``bn_hint``/``prefetch`` are pinned) and plans with its
+    winner.  It always tunes for ``"cuda"``, the H100's fitted models,
+    whatever the device: a plan is the same on either.  (``repro`` tunes
+    for its ``"interpret"`` model off the TPU.)  ``device`` places the
+    plan's tensors; ``None`` means the card.
     """
-    if policy == "auto":
-        raise NotImplementedError(
-            "plan_matmul(policy='auto'): the schedule tuner is not ported "
-            "yet; see ROADMAP §1.3 (plan verification and tuning: the "
-            "tuner)")
-    if vmem_limit_bytes is not None:
-        raise NotImplementedError(
-            "plan_matmul(vmem_limit_bytes=...): the budget check is not "
-            "ported yet; see ROADMAP §1.3 (plan verification and tuning: "
-            "the tuner and its budget)")
     if backend is not None:
         resolve_backend(backend)
     if quantize is not None and quantize not in QUANT_MODES:
@@ -430,6 +447,39 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
         raise ValueError(f"prefetch={prefetch!r} not in {PREFETCH_MODES}")
     if prefetch is not None and not pipeline:
         raise ValueError("prefetch='cross_pass' requires pipeline=True")
+    if policy == "auto":
+        # the knob search lives in repro_torch.tune, imported only here;
+        # explicit knobs become pins the search must keep
+        from repro_torch.tune.search import select_schedule
+        b0, hint0 = _rhs_to_hint(a, b_or_shape)
+        if n_cols_hint is not None:
+            hint0 = n_cols_hint
+        pins: Dict[str, object] = {}
+        if fold_len is not None:
+            pins["fold_len"] = fold_len
+        if n_lanes != 1:
+            pins["n_lanes"] = n_lanes
+        if unroll != 1:
+            pins["unroll"] = unroll
+        if pipeline is not True:
+            pins["pipeline"] = pipeline
+        if bn_hint is not None:
+            pins["bn"] = bn_hint
+        if prefetch is not None:
+            pins["prefetch"] = prefetch
+        # always the card's objective: a plan is the same on either device
+        best = select_schedule(a, b0, n_cols_hint=hint0, with_grad=with_grad,
+                               quantize=quantize, objective="cuda",
+                               vmem_limit_bytes=vmem_limit_bytes, pins=pins,
+                               rhs_dtype=getattr(b_or_shape, "dtype", None))
+        return plan_matmul(
+            a, b_or_shape, policy=best.policy, backend=backend,
+            fold_len=best.fold_len, with_grad=with_grad,
+            n_cols_hint=n_cols_hint, n_lanes=best.n_lanes,
+            unroll=best.unroll, cache=cache, quantize=quantize,
+            out_dtype=out_dtype, verify=verify,
+            vmem_limit_bytes=vmem_limit_bytes, pipeline=best.pipeline,
+            bn_hint=best.bn, prefetch=best.prefetch, device=device)
     pol = get_policy(policy)
     b, hint = _rhs_to_hint(a, b_or_shape)
     if n_cols_hint is not None:
@@ -484,4 +534,10 @@ def plan_matmul(a: BSR, b_or_shape=None, *, policy: str = "segment",
             raise PlanVerificationError(VerifyResult(
                 findings=tuple(findings), level=level,
                 checked=("scale-agreement",)))
+    if vmem_limit_bytes is not None:
+        from repro_torch.analysis.budget import check_plan_vmem
+        check_plan_vmem(plan, bn=bn_hint or 512,
+                        n_cols=hint if kind == SPMM else None,
+                        limit=vmem_limit_bytes,
+                        label=f"plan_matmul[{kind}]")
     return plan

@@ -397,6 +397,29 @@ int by_bk(int bk, int bn, int payload, int scale_mode, int c_bf16,
   return -1;
 }
 
+// the shared memory of the launch by_bk makes (the scale mode does not
+// enter it)
+template <int BM, int BK, int BN>
+long long smem_by_payload(int payload) {
+  if (payload == kF32) return smem_bytes<BM, BK, BN, kF32>();
+  if (payload == kI8) return smem_bytes<BM, BK, BN, kI8>();
+  return smem_bytes<BM, BK, BN, kF8>();
+}
+
+template <int BM, int BK>
+long long smem_by_bn(int bn, int payload) {
+  if (bn == 32) return smem_by_payload<BM, BK, 32>(payload);
+  if (bn == 64) return smem_by_payload<BM, BK, 64>(payload);
+  return -1;
+}
+
+template <int BM>
+long long smem_by_bk(int bk, int bn, int payload) {
+  if (bk == 32) return smem_by_bn<BM, 32>(bn, payload);
+  if (bk == 64) return smem_by_bn<BM, 64>(bn, payload);
+  return -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -422,6 +445,20 @@ int segment_spgemm(const void* a, const void* b, void* c,
                static_cast<cudaStream_t>(stream)};
   if (bm == 64) return by_bk<64>(bk, bn, payload, scale_mode, c_bf16, x);
   if (bm == 32) return by_bk<32>(bk, bn, payload, scale_mode, c_bf16, x);
+  return -1;
+}
+
+// Bytes of dynamic shared memory a segment_spgemm launch asks for, by its
+// tile shape, payload and scale mode; -1 for a call the launcher refuses.
+// No launch.
+long long segment_spgemm_smem_bytes(int bm, int bk, int bn, int payload,
+                                    int scale_mode) {
+  if (payload == kF32 ? scale_mode != kNone
+                      : (payload != kI8 && payload != kF8) ||
+                            (scale_mode != kBlock && scale_mode != kRow))
+    return -1;
+  if (bm == 64) return smem_by_bk<64>(bk, bn, payload);
+  if (bm == 32) return smem_by_bk<32>(bk, bn, payload);
   return -1;
 }
 

@@ -598,6 +598,17 @@ int segment_spgemm_tc(const void* a, const void* b, void* c,
                 : by_mode<float>(payload, scale_mode, x);
 }
 
+// Bytes of dynamic shared memory a segment_spgemm_tc launch asks for, by
+// payload and scale mode; -1 for a call the launcher refuses.  No launch.
+long long segment_spgemm_tc_smem_bytes(int payload, int scale_mode) {
+  if (payload == kF32 && scale_mode == kNone) return Layout<kF32, kNone>::kSmem;
+  if (payload == kI8 && scale_mode == kBlock) return Layout<kI8, kBlock>::kSmem;
+  if (payload == kI8 && scale_mode == kRow) return Layout<kI8, kRow>::kSmem;
+  if (payload == kF8 && scale_mode == kBlock) return Layout<kF8, kBlock>::kSmem;
+  if (payload == kF8 && scale_mode == kRow) return Layout<kF8, kRow>::kSmem;
+  return -1;
+}
+
 const char* segment_spgemm_tc_error_string(int code) {
   if (code == -1) return "call out of the tensor-core path's range";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -963,6 +963,42 @@ int by_payload(int payload, int scale_mode, int c_bf16, int tile_n,
 
 }  // namespace fold
 
+// The dynamic shared memory of each launch, as a function of the launch's
+// own parameters (-1 where the launchers make no launch).
+bool known_mode(int payload, int scale_mode) {
+  return payload == kF32 ? scale_mode == kNone
+                         : (payload == kI8 || payload == kF8) &&
+                               (scale_mode == kBlock || scale_mode == kRow);
+}
+
+template <int BM, bool TRANS, int PAY>
+long long simt_smem(int tile_n) {
+  switch (tile_n) {
+    case 4: return smem_bytes<BM, BM, 4, TRANS, PAY>();
+    case 8: return smem_bytes<BM, BM, 8, TRANS, PAY>();
+    case 16: return smem_bytes<BM, BM, 16, TRANS, PAY>();
+    case 32: return smem_bytes<BM, BM, 32, TRANS, PAY>();
+  }
+  return -1;
+}
+
+template <int BM, bool TRANS>
+long long simt_smem(int payload, int tile_n) {
+  if (payload == kF32) return simt_smem<BM, TRANS, kF32>(tile_n);
+  if (payload == kI8) return simt_smem<BM, TRANS, kI8>(tile_n);
+  return simt_smem<BM, TRANS, kF8>(tile_n);
+}
+
+template <int PAY, int SCALE>
+long long split_smem(int tile_n) {
+  switch (tile_n) {
+    case 4: return fold::smem_bytes<4, PAY, SCALE>();
+    case 8: return fold::smem_bytes<8, PAY, SCALE>();
+    case 16: return fold::smem_bytes<16, PAY, SCALE>();
+  }
+  return -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1026,6 +1062,33 @@ int segment_spmm_split(const void* a, const float* a_scales, const void* b,
                                         x)
                : fold::by_payload<false>(payload, scale_mode, c_bf16, tile_n,
                                          x);
+}
+
+// Bytes of dynamic shared memory a segment_spmm launch asks for, by its
+// block size, N tile, mode, payload and scale mode; -1 for a call the
+// launcher refuses.  No launch.
+long long segment_spmm_smem_bytes(int bm, int tile_n, int trans,
+                                  int payload, int scale_mode) {
+  if (!known_mode(payload, scale_mode)) return -1;
+  if (bm == 64)
+    return trans ? simt_smem<64, true>(payload, tile_n)
+                 : simt_smem<64, false>(payload, tile_n);
+  if (bm == 32)
+    return trans ? simt_smem<32, true>(payload, tile_n)
+                 : simt_smem<32, false>(payload, tile_n);
+  return -1;
+}
+
+// The same for segment_spmm_split (the mode does not enter).
+long long segment_spmm_split_smem_bytes(int tile_n, int payload,
+                                        int scale_mode) {
+  if (!known_mode(payload, scale_mode)) return -1;
+  if (payload == kF32) return split_smem<kF32, kNone>(tile_n);
+  if (payload == kI8)
+    return scale_mode == kBlock ? split_smem<kI8, kBlock>(tile_n)
+                                : split_smem<kI8, kRow>(tile_n);
+  return scale_mode == kBlock ? split_smem<kF8, kBlock>(tile_n)
+                              : split_smem<kF8, kRow>(tile_n);
 }
 
 const char* segment_spmm_error_string(int code) {

@@ -596,6 +596,13 @@ int by_payload(int payload, int scale_mode, int kb, int c_bf16,
   return -1;
 }
 
+// the shared memory of the launch by_width makes at width n
+template <int PAY, int SCALE>
+long long smem(int n) {
+  return n <= kWgN ? Layout<PAY, SCALE, 1>::kSmem
+                   : Layout<PAY, SCALE, 2>::kSmem;
+}
+
 }  // namespace
 
 extern "C" {
@@ -632,6 +639,18 @@ int segment_spmm_tc(const void* a, const float* a_scales, const void* b,
                sbn, static_cast<cudaStream_t>(stream)};
   return trans ? by_payload<true>(payload, scale_mode, kb, c_bf16, x)
                : by_payload<false>(payload, scale_mode, kb, c_bf16, x);
+}
+
+// Bytes of dynamic shared memory a segment_spmm_tc launch at width n asks
+// for (one consumer warpgroup up to 128 columns, two above), by payload and
+// scale mode; -1 for a call the launcher refuses.  No launch.
+long long segment_spmm_tc_smem_bytes(int n, int payload, int scale_mode) {
+  if (payload == kF32 && scale_mode == kNone) return smem<kF32, kNone>(n);
+  if (payload == kI8 && scale_mode == kBlock) return smem<kI8, kBlock>(n);
+  if (payload == kI8 && scale_mode == kRow) return smem<kI8, kRow>(n);
+  if (payload == kF8 && scale_mode == kBlock) return smem<kF8, kBlock>(n);
+  if (payload == kF8 && scale_mode == kRow) return smem<kF8, kRow>(n);
+  return -1;
 }
 
 const char* segment_spmm_tc_error_string(int code) {

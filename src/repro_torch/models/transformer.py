@@ -23,11 +23,12 @@ pattern (three plans, built once) and owns its block values, as in
 ...), see :mod:`repro_torch.convert`.
 
 The cache is a flat dict of tensors, the layer axis first and the slot
-axis second: ``k``/``v`` ``(n_attn, B, T, n_kv, hd)`` over the attention
-layers (``attn``, ``local``, ``moe``, ``cross``; T = ``min(max_len,
-local_window)`` for a ring of local layers; int8 with
-``kv_cache_dtype="int8"``, beside ``(n_attn, B, T, n_kv)`` fp32 scales
-``k_s``/``v_s``), ``conv`` ``(n_rec, B, 3, D)`` and ``h`` ``(n_rec, B, D)``
+axis second: ``k``/``v`` ``(n_attn, B, max_len, n_kv, hd)`` over the
+full-attention layers (``attn``, ``moe``, ``cross``; int8 with
+``kv_cache_dtype="int8"``, beside ``(n_attn, B, max_len, n_kv)`` fp32
+scales ``k_s``/``v_s``) and ``(n_local, B, min(max_len, local_window),
+n_kv, hd)`` rings over the ``local`` layers, at ``k``/``v`` when no layer
+has full attention and at ``k_local``/``v_local`` beside them, ``conv`` ``(n_rec, B, 3, D)`` and ``h`` ``(n_rec, B, D)``
 fp32 over the RG-LRU layers, ``shift``/``cm_shift`` ``(n_rwkv, B, D)`` and
 ``S`` ``(n_rwkv, B, H, hd, hd)`` fp32 over the RWKV layers.
 :meth:`Transformer.decode_step` writes every entry in place.
@@ -72,7 +73,6 @@ FfnPatterns = Dict[str, Tuple[np.ndarray, np.ndarray]]
 
 #: the cache entries of the recurrent kinds; the others belong to attention
 STATE_KEYS = {"rec": ("conv", "h"), "rwkv": ("shift", "S", "cm_shift")}
-_ALL_STATE_KEYS = {k for keys in STATE_KEYS.values() for k in keys}
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -111,10 +111,26 @@ def _sharing_copy(mod: nn.Module, **children: nn.Module) -> nn.Module:
     return new
 
 
+#: a layer's names for its KV entries (``Attention`` reads these)
+_KV_NAMES = ("k", "v", "k_s", "v_s")
+
+
 def _cache_group(kind: str) -> str:
-    """The cache entries a layer of ``kind`` owns: its own state's, or the
-    attention layers' KV entries."""
-    return kind if kind in STATE_KEYS else "attn"
+    """The cache entries a layer of ``kind`` owns: its own state's, the
+    ring KV entries (``local``) or the full-length ones (every other
+    attention kind)."""
+    return kind if kind in STATE_KEYS or kind == "local" else "attn"
+
+
+def _cache_keys(group: str, groups) -> Dict[str, str]:
+    """A layer's names for its cache entries → the cache's keys.  The KV
+    group of a model with one kind of attention layer is ``k``/``v``; a
+    model with local layers beside full-attention ones keeps the full
+    group there and puts the rings at ``k_local``/``v_local``."""
+    if group in STATE_KEYS:
+        return {k: k for k in STATE_KEYS[group]}
+    suffix = "_local" if group == "local" and "attn" in groups else ""
+    return {k: k + suffix for k in _KV_NAMES}
 
 
 class Block(nn.Module):
@@ -254,10 +270,6 @@ class Transformer(nn.Module):
         else:
             enc_kinds = ()
             kinds = tuple(cfg.layer_kind(i) for i in range(cfg.n_layers))
-        if "local" in kinds and {"attn", "moe"} & set(kinds):
-            raise NotImplementedError(
-                f"{cfg.name}: local layers beside full-attention layers; the "
-                f"flat KV cache has one length for all of them")
         self.cfg = cfg
         self.layer_kinds = kinds
         d = cfg.d_model
@@ -284,9 +296,11 @@ class Transformer(nn.Module):
                     if enc_kinds else None)
         self.layers = nn.ModuleList(block(k) for k in kinds)
         self.final_norm = layers.RMSNorm(d, device=device)
-        # each layer's index along the layer axis of its cache entries
+        # each layer's index along the layer axis of its cache entries, and
+        # the cache keys it reads them from
         groups = [_cache_group(k) for k in kinds]
         self._cache_index = [groups[:i].count(g) for i, g in enumerate(groups)]
+        self._cache_keys = [_cache_keys(g, groups) for g in groups]
 
     @property
     def device(self) -> torch.device:
@@ -421,33 +435,40 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Zero cache for ``batch_size`` slots of ``max_len`` positions (the
-        decoder's layers only).  Raises ``ValueError`` for an int8 KV cache
-        over local layers: the ring has no int8 mode (``repro``'s ring
-        write drops the scales)."""
+        decoder's layers only).  Full-attention layers get ``max_len``
+        positions, local layers a ring of ``min(max_len, local_window)``,
+        as ``repro``'s per-layer caches do.  Raises ``ValueError`` for an
+        int8 KV cache over local layers: the ring has no int8 mode
+        (``repro``'s ring write drops the scales)."""
         cfg = self.cfg
         dev, dt = self.device, act_dtype(cfg)
-        kinds = self.layer_kinds
-        groups = [_cache_group(k) for k in kinds]
+        groups = [_cache_group(k) for k in self.layer_kinds]
         cache = {}
-        n_attn = groups.count("attn")
-        if n_attn:
-            local = "local" in kinds
-            t_len = min(max_len, cfg.local_window) if local else max_len
-            shape = (n_attn, batch_size, t_len, cfg.n_kv, cfg.hd)
+        for group, t_len in (("attn", max_len),
+                             ("local", min(max_len, cfg.local_window))):
+            n = groups.count(group)
+            if not n:
+                continue
+            keys = _cache_keys(group, groups)
+            shape = (n, batch_size, t_len, cfg.n_kv, cfg.hd)
             if cfg.kv_cache_dtype == "int8":
-                if local:
+                if group == "local":
                     raise ValueError(
                         f"{cfg.name}: kv_cache_dtype='int8' is not supported "
                         f"with local attention layers (the ring KV cache has "
                         f"no int8 mode); use the {dt} cache")
-                cache.update(
-                    k=torch.zeros(shape, dtype=torch.int8, device=dev),
-                    v=torch.zeros(shape, dtype=torch.int8, device=dev),
-                    k_s=torch.zeros(shape[:-1], device=dev),
-                    v_s=torch.zeros(shape[:-1], device=dev))
+                cache.update({
+                    keys["k"]: torch.zeros(shape, dtype=torch.int8,
+                                           device=dev),
+                    keys["v"]: torch.zeros(shape, dtype=torch.int8,
+                                           device=dev),
+                    keys["k_s"]: torch.zeros(shape[:-1], device=dev),
+                    keys["v_s"]: torch.zeros(shape[:-1], device=dev)})
             else:
-                cache.update(k=torch.zeros(shape, dtype=dt, device=dev),
-                             v=torch.zeros(shape, dtype=dt, device=dev))
+                cache.update({keys["k"]: torch.zeros(shape, dtype=dt,
+                                                     device=dev),
+                              keys["v"]: torch.zeros(shape, dtype=dt,
+                                                     device=dev)})
         d = cfg.d_model
         n_rec = groups.count("rec")
         if n_rec:
@@ -484,11 +505,10 @@ class Transformer(nn.Module):
             positions = (int(pos) + steps).expand(b, t)
         else:
             positions = pos.long()[:, None] + steps
-        for blk, kind, i in zip(self.layers, self.layer_kinds,
+        for blk, keys, i in zip(self.layers, self._cache_keys,
                                 self._cache_index):
-            own = STATE_KEYS.get(kind)
-            mine = {k: v[i] for k, v in cache.items()
-                    if (k in own if own else k not in _ALL_STATE_KEYS)}
+            mine = {name: cache[key][i] for name, key in keys.items()
+                    if key in cache}
             x, _ = blk(x, positions=positions, cache=mine, cache_pos=pos,
                        enc_out=enc_out)
         x = self.final_norm(x, self.cfg.norm_eps)

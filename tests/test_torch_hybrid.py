@@ -103,11 +103,11 @@ def _jax_cache_layers(cfg, jcache):
 
 
 def _port_cache_layers(model, cache):
-    out = []
-    for kind, i in zip(model.layer_kinds, model._cache_index):
-        keys = ("conv", "h") if kind == "rec" else ("k", "v")
-        out.append({k: cache[k][i].float().numpy() for k in keys})
-    return out
+    """The port's flat cache as one dict of numpy arrays per layer, under
+    the layer's own names (``k``/``v`` whatever group holds them)."""
+    return [{name: cache[key][i].float().numpy()
+             for name, key in keys.items() if key in cache}
+            for keys, i in zip(model._cache_keys, model._cache_index)]
 
 
 # --------------------------------------------------------------------------
@@ -407,3 +407,93 @@ def test_int8_kv_cache_with_ring_raises_in_both():
     with pytest.raises(ValueError, match="ring KV cache has no int8 mode"):
         Engine(model, slots=1, max_len=16, device="cpu")
 
+
+
+# --------------------------------------------------------------------------
+# local attention beside full attention: one KV cache group per kind
+# --------------------------------------------------------------------------
+
+MIXED = dict(layer_pattern=("attn", "local"), n_layers=4)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["dense", "sparse"])
+def mixed_pair(request):
+    return _pair(SPARSE if request.param else FP32, **MIXED)
+
+
+def test_mixed_forward_logits_match(mixed_pair):
+    """T = 80 > local_window = 32: the local layers' window mask bites,
+    the full layers see every earlier position."""
+    jcfg, jmodel, jparams, model = mixed_pair
+    assert model.layer_kinds == ("attn", "local", "attn", "local")
+    tokens = np.random.default_rng(5).integers(0, jcfg.vocab, (2, 80),
+                                               dtype=np.int32)
+    want, _ = jmodel.forward(jparams, jnp.asarray(tokens))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long())
+    assert got.shape == want.shape == (2, 80, jcfg.padded_vocab)
+    assert _rel(got, want) <= RTOL
+
+
+def test_mixed_cache_groups_match_repro(mixed_pair):
+    """Full-length ``k``/``v`` for the attn layers, window-long rings at
+    ``k_local``/``v_local``, each layer's entries shaped as ``repro``'s."""
+    jcfg, jmodel, _, model = mixed_pair
+    b, max_len = 2, 96
+    cache = model.init_cache(b, max_len)
+    kv = (jcfg.n_kv, jcfg.hd)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == {
+        "k": (2, b, max_len, *kv), "v": (2, b, max_len, *kv),
+        "k_local": (2, b, 32, *kv), "v_local": (2, b, 32, *kv)}
+    want = _jax_cache_layers(jcfg, jmodel.init_cache(b, max_len))
+    got = _port_cache_layers(model, cache)
+    assert [{k: v.shape for k, v in g.items()} for g in got] == [
+        {k: v.shape for k, v in w.items()} for w in want]
+
+
+@pytest.mark.parametrize("length", [5, 40, 70])
+def test_mixed_decode_steps_match(length, mixed_pair):
+    """A prompt fed one token a step (past the window at 40 and 70): the
+    logits of every step, then every layer's cache rows."""
+    jcfg, jmodel, jparams, model = mixed_pair
+    max_len = 80
+    jcache = jmodel.init_cache(1, max_len)
+    cache = model.init_cache(1, max_len)
+    prompt = np.random.default_rng(length).integers(
+        0, jcfg.vocab, (1, length), dtype=np.int32)
+    jstep = jax.jit(jmodel.decode_step)
+    for p in range(length):
+        tok = prompt[:, p:p + 1]
+        pos = np.array([p], np.int32)
+        jl, jcache = jstep(jparams, jcache, jnp.asarray(tok), jnp.asarray(pos))
+        with torch.no_grad():
+            gl, _ = model.decode_step(cache, torch.from_numpy(tok).long(),
+                                      torch.from_numpy(pos).long())
+        assert _rel(gl, jl) <= RTOL, p
+    want = _jax_cache_layers(jcfg, jcache)
+    got = _port_cache_layers(model, cache)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys()
+        for k in g:
+            assert _rel(g[k], w[k]) <= RTOL, (i, k)
+
+
+def test_mixed_engine_tokens_match_jax_engine(mixed_pair):
+    """Prompts of 5, 40 and 70 tokens over 2 slots: chunked prefill capped
+    at the window, the rings wrapping, the full layers keeping every key."""
+    jcfg, jmodel, jparams, model = mixed_pair
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, jcfg.vocab, n, dtype=np.int32)
+               for n in (5, 40, 70)]
+    new = (6, 5, 4)
+    jeng = JaxEngine(jmodel, jparams, slots=2, max_len=80,
+                     backend="reference")
+    want = [r.out_tokens.tolist() for r in jeng.generate(
+        [JaxRequest(prompt=p.copy(), max_new_tokens=n)
+         for p, n in zip(prompts, new)])]
+    eng = Engine(model, slots=2, max_len=80, device="cpu")
+    assert eng.prefill_buckets == jeng.prefill_buckets == (16,)
+    got = [r.out_tokens.tolist() for r in eng.generate(
+        [Request(prompt=p.copy(), max_new_tokens=n)
+         for p, n in zip(prompts, new)])]
+    assert got == want

@@ -89,7 +89,9 @@ def test_plan_cache_hits_on_same_pattern():
     p1 = api.plan_matmul(a, 16, device="cpu")
     p2 = api.plan_matmul(a, 16, device="cpu")
     assert api.plan_cache_stats() == {"hits": 1, "misses": 1, "size": 1,
-                                      "by_dtype": {"fp32": 1}}
+                                      "by_dtype": {"fp32": 1}, "searched": 0,
+                                      "search_cache_hits": 0,
+                                      "dataflow_fallbacks": 0}
     assert p1.slot_idx is p2.slot_idx     # leaves uploaded once per device
 
 
@@ -114,8 +116,17 @@ def test_check_lane_accum_flags_read_before_write():
 @pytest.mark.parametrize("kw", [{"policy": "auto"},
                                 {"policy": "auto", "verify": "full"},
                                 {"vmem_limit_bytes": 1 << 20}])
-def test_unported_planner_knobs_raise(kw):
-    """The tuner's knobs still raise, with the verifier on or off (the
-    verifier itself is ported: ``tests/test_torch_verify.py``)."""
-    with pytest.raises(NotImplementedError):
-        api.plan_matmul(_pattern(), 16, device="cpu", **kw)
+def test_tuner_planner_knobs_match_repro(kw):
+    """``policy="auto"`` (with the verifier off and on) and
+    ``vmem_limit_bytes`` plan: the plan equals ``repro``'s plan of the
+    same pattern at the knobs the port's search picked, leaf for leaf."""
+    a = _pattern()
+    got = api.plan_matmul(a, 16, device="cpu", cache=False, **kw)
+    knobs = dict(policy=got.policy, n_lanes=got.n_lanes, unroll=got.unroll,
+                 pipeline=got.pipeline, bn_hint=got.bn_hint,
+                 prefetch=got.prefetch)
+    want = japi.plan_matmul(
+        JaxBSR(a.shape, a.block_shape, a.brow, a.bcol, a.blocks), 16,
+        cache=False, **{k: v for k, v in kw.items() if k != "policy"},
+        **knobs)
+    _assert_same_plan(got, want)

@@ -469,15 +469,22 @@ def test_plan_methods_match_repro(plans):
     assert g.traffic == jg.traffic and g.lane_len == jg.lane_len
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(policy="auto"), "tuner"), (dict(policy="auto", verify="full"),
-                                     "tuner"),
-    (dict(vmem_limit_bytes=1 << 20), "budget")])
-def test_tuner_knobs_still_raise(kw, match):
-    a, _ = _mat()
-    with pytest.raises(NotImplementedError, match=match) as e:
-        api.plan_matmul(a, 32, device="cpu", **kw)
-    assert "ROADMAP §1.3" in str(e.value)
+@pytest.mark.parametrize("kw", [
+    dict(policy="auto"), dict(policy="auto", verify="full"),
+    dict(vmem_limit_bytes=1 << 20)])
+def test_tuner_knobs_plan_and_run_as_repro(kw):
+    """The tuner's knobs plan, and the plan computes ``repro``'s product
+    (its ``"reference"`` backend) on the same numbers."""
+    a, ja = _mat()
+    got = api.plan_matmul(a, 32, device="cpu", cache=False, **kw)
+    x = np.random.default_rng(4).standard_normal((a.shape[1], 32)).astype(
+        np.float32)
+    want = japi.plan_matmul(ja, 32, cache=False, policy=got.policy,
+                            n_lanes=got.n_lanes, unroll=got.unroll)(
+        jnp.asarray(x), backend="reference")
+    y = got(torch.from_numpy(x), backend="reference")
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
