@@ -243,14 +243,37 @@
    reference, then 3 ``Trainer`` steps at 8 x 448 tokens (72 SpMM
    launches a step with remat, 24 transposed, all tc), the kernel vs
    plain at the encoder's 12000 training rows, forward and dx.
+13. The sharded runtime ([dist], last): one process in an NCCL group of
+   world size 1 (``init_process_group`` on a free local port, destroyed at
+   the end of the phase); granite-3-8b at full width with its depth cut 40
+   -> ``DIST_LAYERS`` layers (sparse FFN, remat) on 8 x 256 tokens with
+   accum 2.  ``Trainer(mesh=make_mesh((1, 1), ("data", "model")))`` against
+   the plain ``Trainer`` from the same init for ``DIST_STEPS`` steps:
+   losses within ``LOSS_RTOL``, the largest parameter difference printed,
+   SpMM launches per path equal (all tc, a third transposed), ms/step and
+   peak memory of both, every master shard the parameter itself.  The
+   plain trainer's state after step 2 written in ``repro``'s checkpoint
+   layout (``write_repro_checkpoint``: ``jax_state_layout``'s order,
+   ``leaf_%05d``, the manifest) and restored onto the mesh through
+   ``restore_onto_mesh(JaxCheckpoint(...))``: the sharded trainer's step 3
+   loss against the uninterrupted run's within ``LOSS_RTOL``.
+   ``make_compressed_dp_step`` (int8, topk) against plain steps on the
+   compression's formula, ``pipeline_forward`` with one stage against the
+   same two layers in sequence.  At world size 1 the trainer skips every
+   collective (each mesh dim has one rank), so the NCCL calls the sharded
+   runtime makes (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+   ``all_reduce``, ``DTensor.full_tensor``) are made directly on the
+   trainer's tensors, bf16 and fp32, along a non-leading dim of a
+   non-contiguous view: each result equals its input bit for bit.  Last,
+   the SpMM kernel vs plain at the trainer's N = 1024, forward and dx.
 
 The script runs itself under ``PYTHONHASHSEED=0`` (it re-executes when
 started under another), so the suite's matrices are the same in every run.
 Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
 the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``,
-``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec``) builds no
-granite model.
+``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec,dist``)
+builds no 40-layer granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -4549,9 +4572,311 @@ def phase_mixed(dev):
     return fwd
 
 
+DIST_LAYERS = 8                # [dist]: granite-3-8b's depth cut 40 -> 8
+DIST_STEPS = 3
+DIST_ACCUM = 2                 # 8 x 256 tokens a step: 2 microbatches of 4
+DIST_MICRO = 4                 # pipeline_forward: 4 microbatches of 2 x 256
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_repro_checkpoint(directory, step, cfg, state, ffn_patterns):
+    """``state`` (a trainer's state dict of full tensors) as ``repro``'s
+    trainer writes a checkpoint: the leaves of ``(params, AdamWState)`` in
+    ``jax_state_layout``'s order (layers stacked on axis 0), keyed
+    ``leaf_%05d`` in ``step_%08d/arrays.npz``, beside the manifest.
+    Returns the bytes written."""
+    from repro_torch.checkpoint import jax_state_layout
+    arrays = {}
+    for i, leaf in enumerate(jax_state_layout(cfg, ffn_patterns)):
+        ts = [state[n].detach().cpu() for n in leaf.names]
+        t = torch.stack(ts) if len(leaf.shape) == ts[0].ndim + 1 else ts[0]
+        check(tuple(t.shape) == leaf.shape,
+              f"{leaf.path}: shape {tuple(t.shape)} != {leaf.shape}")
+        arrays[f"leaf_{i:05d}"] = t.numpy()
+    path = os.path.join(directory, f"step_{step:08d}")
+    os.makedirs(path)
+    np.savez(os.path.join(path, "arrays.npz"), **arrays)
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump({"step": step, "n_leaves": len(arrays),
+                   "shapes": [list(a.shape) for a in arrays.values()],
+                   "dtypes": [str(a.dtype) for a in arrays.values()]}, f)
+    return sum(a.nbytes for a in arrays.values())
+
+
+def _dist_train(trainer, label, tokens, hook=None):
+    """``trainer.run(failure_hook=hook)`` with the launch counts of its run
+    and its peak memory above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = trainer.run(failure_hook=hook)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in out["history"]:
+        check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]),
+              f"[dist] {label} step {h['step']}: non-finite")
+        print(f"[dist] {label} step {h['step']}: loss {h['loss']:.6f}, grad "
+              f"norm {h['grad_norm']:.6f}, {h['ms']:.1f} ms/step, "
+              f"{tokens * 1e3 / h['ms']:.0f} tokens/s")
+    steps = out["history"][1:] or out["history"]
+    ms = float(np.median([h["ms"] for h in steps]))
+    print(f"[dist] {label}: median {ms:.1f} ms/step; peak "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the "
+          f"{base / 2**30:.2f} GiB resident); segment_spmm {counts['spmm']} "
+          f"launches ({counts['spmm_tc']} tc, {counts['spmm_t']} "
+          f"transposed)")
+    return out["history"], counts
+
+
+def phase_dist(dev):
+    """[dist]: the sharded runtime on an NCCL group of one rank (see the
+    module docstring).  Returns the sharded trainer's launch counts and
+    the kernel records at its N."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import JaxCheckpoint
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.runtime.compression import (init_error_fb,
+                                                 make_compressed_dp_step)
+    from repro_torch.runtime.elastic import restore_onto_mesh
+    from repro_torch.runtime.pipeline_parallel import pipeline_forward
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        cfg = dataclasses.replace(get_config("granite-3-8b"),
+                                  ffn_block_sparse=True, ffn_block=64,
+                                  ffn_density=0.25, dtype="bfloat16",
+                                  n_layers=DIST_LAYERS)
+        shape = ShapeConfig("dist", "train", TRAIN_SEQ, TRAIN_BATCH)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        tcfg = TrainerConfig(steps=DIST_STEPS, log_every=1, warmup=2,
+                             accum_steps=DIST_ACCUM)
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        t0 = time.perf_counter()
+        plain = Trainer(build_model(cfg, device=dev), cfg, shape, tcfg,
+                        seed=SEED)
+        sharded = Trainer(build_model(cfg, device=dev), cfg, shape, tcfg,
+                          mesh=mesh, seed=SEED)
+        n_params = sum(p.numel() for p in plain.params.values())
+        print(f"[dist] {cfg.name} full width, {DIST_LAYERS} of 40 layers, "
+              f"sparse FFN: {n_params / 1e9:.3f} B fp32 params a trainer; "
+              f"plain and sharded (1 x 1 mesh, NCCL, world 1) built in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        master = sharded._step_fn.master
+        check(all(master[k].data_ptr() == p.data_ptr()
+                  for k, p in sharded.params.items()),
+              "[dist] a master shard at world size 1 is not its parameter")
+        mlp = plain.model.layers[0].mlp
+        pats = {p: (getattr(mlp, p).plan.a_brow.cpu().numpy(),
+                    getattr(mlp, p).plan.a_bcol.cpu().numpy())
+                for p in ("up", "gate", "down")}
+
+        # (1) plain, writing its state after step 2 in repro's layout, then
+        # sharded from the same init
+        with tempfile.TemporaryDirectory() as d:
+            written = {}
+
+            def writer(step):
+                if step == 1:                 # after 2 steps
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    sd = plain.state_dict()
+                    written["bytes"] = write_repro_checkpoint(d, 2, cfg, sd,
+                                                              pats)
+                    written["s"] = time.perf_counter() - t
+                    written["probe"] = {
+                        k: sd[k].detach().reshape(-1)[:4096].clone()
+                        for k in ("params/layers.0.mlp.up.blocks",
+                                  "opt/m/embed.table",
+                                  "opt/v/layers.7.attn.wo.w")}
+
+            want, c_plain = _dist_train(plain, "plain", tokens, writer)
+            got, c_sharded = _dist_train(sharded, "sharded", tokens)
+            per_step = 3 * DIST_LAYERS * 3 * DIST_ACCUM   # remat fwd x2 + dx
+            spmm = {k: v for k, v in c_sharded.items() if "spmm" in k}
+            check(spmm == {k: v for k, v in c_plain.items() if "spmm" in k}
+                  and spmm["spmm"] == per_step * DIST_STEPS
+                  and spmm["spmm_tc"] == spmm["spmm"]
+                  and spmm["spmm_t"] == spmm["spmm"] // 3,
+                  f"[dist] SpMM launches sharded {spmm} vs plain "
+                  f"{c_plain}; want {per_step} x {DIST_STEPS}, all tc, a "
+                  f"third transposed")
+            for g, w in zip(got, want):
+                err = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                check(err <= LOSS_RTOL, f"[dist] step {g['step']} loss "
+                                        f"sharded vs plain {err:.3g}")
+            dmax = max(float((p.detach() - q.detach()).abs().max())
+                       for p, q in zip(sharded.params.values(),
+                                       plain.params.values()))
+            errs = [f"{abs(g['loss'] - w['loss']) / abs(w['loss']):.2e}"
+                    for g, w in zip(got, want)]
+            print(f"[dist] sharded vs plain over {DIST_STEPS} steps: loss "
+                  f"errors {errs} (tol {LOSS_RTOL}); max parameter "
+                  f"difference {dmax:.3e}; SpMM launches equal: {spmm}")
+
+            # (2) the sharded trainer resumes from the repro-layout
+            # checkpoint and takes step 3
+            t = time.perf_counter()
+            sd = restore_onto_mesh(JaxCheckpoint(d, cfg, pats), 2,
+                                   sharded.state_dict(), mesh)
+            sharded.load_state_dict(sd)
+            del sd
+            read_s = time.perf_counter() - t
+        state = sharded.state_dict()
+        for k, v in written["probe"].items():
+            check(torch.equal(state[k].to_local().reshape(-1)[:4096], v),
+                  f"[dist] {k} after the checkpoint round trip")
+        check(sharded.opt_state.step == 2, "[dist] restored step "
+                                           f"{sharded.opt_state.step} != 2")
+        sharded.start_step = 2
+        resumed, _ = _dist_train(sharded, "resumed", tokens)
+        err = abs(resumed[0]["loss"] - want[2]["loss"]) / abs(want[2]["loss"])
+        print(f"[dist] repro-layout checkpoint: {written['bytes'] / 1e9:.2f} "
+              f"GB written in {written['s']:.1f} s, restored onto the mesh in "
+              f"{read_s:.1f} s; resumed step 3 loss {resumed[0]['loss']:.6f} "
+              f"vs uninterrupted {want[2]['loss']:.6f} (rel {err:.3e}, tol "
+              f"{LOSS_RTOL})")
+        check(err <= LOSS_RTOL, f"[dist] resumed step 3 loss {err:.3g}")
+
+        # (3) compressed DP and the pipeline at world size 1
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        w_true = torch.randn(cfg.d_model, generator=gen, device=dev)
+        xs = [torch.randn(256, cfg.d_model, generator=gen, device=dev)
+              for _ in range(3)]
+
+        def lsq(params, batch):
+            x, y = batch
+            return torch.mean((x @ params["w"] - y) ** 2)
+
+        for method in ("int8", "topk"):
+            opt = AdamW(lr=constant(0.05), weight_decay=0.0)
+            params = {"w": torch.zeros(cfg.d_model, device=dev)}
+            state = (params, opt.init(params), init_error_fb(params))
+            step = make_compressed_dp_step(lsq, opt, mesh, method=method)
+            ref = {"w": torch.zeros(cfg.d_model, device=dev)}
+            ref_opt, ef = opt.init(ref), torch.zeros(cfg.d_model, device=dev)
+            for x in xs:
+                state, loss = step(state, (x, x @ w_true))
+                leaf = ref["w"].detach().requires_grad_(True)
+                g = torch.autograd.grad(lsq({"w": leaf}, (x, x @ w_true)),
+                                        leaf)[0] + ef
+                if method == "int8":
+                    s = g.abs().max() / 127.0 + 1e-12
+                    sent = torch.clamp(torch.round(g / s), -127, 127) * s
+                else:
+                    k = max(1, int(g.numel() * 0.1))
+                    kth = g.abs().sort(descending=True).values[k - 1]
+                    sent = g * (g.abs() >= kth)
+                ef = g - sent
+                opt.update({"w": sent}, ref_opt, ref)
+            e_w, _ = _rel(state[0]["w"], ref["w"])
+            e_ef, _ = _rel(state[2]["w"], ef)
+            print(f"[dist] make_compressed_dp_step {method}: 3 steps, loss "
+                  f"{float(loss):.4f}; weights vs the plain steps {e_w:.2e}, "
+                  f"error feedback {e_ef:.2e} (tol {KERNEL_RTOL})")
+            check(e_w <= KERNEL_RTOL and e_ef <= KERNEL_RTOL,
+                  f"[dist] compressed {method}: {e_w:.3g} / {e_ef:.3g}")
+
+        stage_mesh = make_mesh((1,), ("stage",), device="cuda")
+        blocks = sharded.model.layers[:2]
+
+        def stage_fn(_, a):
+            pos = torch.arange(a.shape[1], device=dev).expand(a.shape[0], -1)
+            for blk in blocks:
+                a, _ = blk(a, positions=pos)
+            return a
+
+        x = torch.randn(DIST_MICRO, 2, TRAIN_SEQ, cfg.d_model, generator=gen,
+                        device=dev).bfloat16()
+        with torch.no_grad():
+            out = pipeline_forward(stage_fn, torch.zeros(1, device=dev), x,
+                                   mesh=stage_mesh, n_micro=DIST_MICRO)
+            seq = torch.stack([stage_fn(None, x[i])
+                               for i in range(DIST_MICRO)])
+        e, _ = _rel(out, seq)
+        print(f"[dist] pipeline_forward, 1 stage of 2 layers, {DIST_MICRO} "
+              f"microbatches of 2 x {TRAIN_SEQ}: vs sequential {e:.2e}")
+        check(bool(torch.isfinite(out).all()) and e <= KERNEL_RTOL,
+              f"[dist] pipeline vs sequential {e:.3g}")
+
+        # (4) the collectives of the sharded runtime on NCCL.  At world
+        # size 1 the trainer calls none of them (it skips every mesh dim of
+        # one rank), so they are called here: on the trainer's tensors in
+        # bf16 and fp32, gathered / scattered along a non-leading dim of a
+        # transposed (non-contiguous) view, each result equal to its input
+        from torch.distributed.tensor import DTensor, Shard
+        from repro_torch.sharding.rules import _all_gather, _reduce_scatter
+        group = mesh.get_group(0)
+        n_coll = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            for k in ("embed.table", "layers.0.attn.wq.w",
+                      "layers.0.mlp.up.blocks"):
+                x = sharded.params[k].detach().to(dtype).transpose(0, -1)
+                dim = x.ndim - 1
+                outs = {"all_gather_into_tensor": _all_gather(x, dim, 1,
+                                                              group),
+                        "reduce_scatter_tensor": _reduce_scatter(x, dim, 1,
+                                                                 group)}
+                # NCCL takes only contiguous tensors: the all-reduce of
+                # Sharding.reduce_scatter copies into a contiguous one too
+                r = x.clone(memory_format=torch.contiguous_format)
+                dist.all_reduce(r, group=group)
+                outs["all_reduce"] = r
+                outs["full_tensor"] = DTensor.from_local(
+                    x.contiguous(), mesh, (Shard(dim), Shard(0)),
+                    run_check=False).full_tensor()
+                for name, y in outs.items():
+                    check(y.dtype == dtype and torch.equal(y, x),
+                          f"[dist] NCCL {name} of {k} ({dtype}) != input")
+                    n_coll += 1
+        loss = torch.tensor(3.0, device=dev)
+        dist.all_reduce(loss, group=group)     # as the dp mean of the loss
+        check(float(loss) == 3.0, "[dist] NCCL all_reduce of a scalar")
+        torch.cuda.synchronize()
+        print(f"[dist] NCCL collectives, world size 1: {n_coll + 1} calls "
+              f"(all_gather_into_tensor, reduce_scatter_tensor, all_reduce, "
+              f"DTensor.full_tensor on embed.table, wq.w and up.blocks "
+              f"transposed, bf16 and fp32, along the last dim; a scalar "
+              f"all_reduce), each equal to its input bit for bit")
+
+        # the SpMM kernel vs plain at the trainer's N (a microbatch of
+        # 4 x 256 tokens), forward and dx, on layer 0's up plan
+        up = mlp.up.plan.with_values(mlp.up.blocks.data)
+        n = TRAIN_BATCH // DIST_ACCUM * TRAIN_SEQ
+        xk = torch.randn(n, cfg.d_model, generator=gen, device=dev)
+        dy = torch.randn(n, cfg.d_ff, generator=gen, device=dev)
+        recs = [kernel_case("up", up, xk.bfloat16().T, tag="dist"),
+                kernel_case("up dx (transpose_lhs)", up, dy.bfloat16().T,
+                            transpose=True, tag="dist")]
+        check(all(r["path"] == "tc" for r in recs),
+              f"[dist] kernel paths {[r['path'] for r in recs]}")
+        del plain, sharded, blocks, state, up
+        return c_sharded, recs
+    finally:
+        dist.destroy_process_group()
+
+
 PHASES = ("spgemm", "ops", "tune", "kernel", "crossover", "edges", "serve",
           "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "mixed",
-          "hybrid_train", "ssm", "moe", "vlm", "encdec")
+          "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist")
 # the phases that need granite-3-8b built (``--only spgemm,ops,tune``,
 # ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
 GRANITE_PHASES = PHASES[3:PHASES.index("hybrid")]
@@ -4669,6 +4994,11 @@ def main():
         clear_plan_cache()
     if "encdec" in only:
         encdec_fwd, encdec_t, encdec_recs = phase_encdec(dev)
+        clear_plan_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "dist" in only:
+        dist_counts, dist_recs = phase_dist(dev)
     if not full:
         print(f"chip_smoke: phases {only} passed")
         return
@@ -4887,7 +5217,16 @@ def main():
                 one(encdec_recs, mode="forward")),
                ("segment_spmm.transpose_lhs", "tc: Whisper-tiny training dx",
                 "encdec-train", encdec_t,
-                one(encdec_recs, mode="transpose_lhs")))]}))
+                one(encdec_recs, mode="transpose_lhs")),
+               # [dist]: the sharded Trainer's run (1 x 1 mesh, NCCL),
+               # timed at its microbatch of 4 x 256 tokens
+               ("segment_spmm.tensor_core", "tc: granite-3-8b, 8 layers, "
+                "sharded Trainer forward (remat)", "dist-train",
+                dist_counts["spmm"] - dist_counts["spmm_t"],
+                one(dist_recs, mode="forward")),
+               ("segment_spmm.transpose_lhs", "tc: granite-3-8b, 8 layers, "
+                "sharded Trainer dx", "dist-train", dist_counts["spmm_t"],
+                one(dist_recs, mode="transpose_lhs")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,13 +5,14 @@ Every token is a pure function of ``(seed, step, batch row, position)``
 through a counter-based hash: the pipeline's state is the step counter, and
 a restart replays the same batches.  The frontend embeddings of the vision
 and encoder-decoder families (``vis_embeds``, ``enc_embeds``) are float
-stand-ins hashed the same way.  The row sharding of ``repro`` is not ported
-(ROADMAP "Multi-GPU").
+stand-ins hashed the same way.  ``batch(step, shard=rows)`` computes only
+the given rows, each equal bit for bit to the same row of the full batch,
+so any rank can compute its share of any step without coordination.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Sequence, Union
 
 import numpy as np
 
@@ -40,15 +41,21 @@ class SyntheticDataset:
                + rows[:, None].astype(np.uint64) * np.uint64(1 << 20) + pos)
         return (_hash_u32(ctr) % np.uint32(self.cfg.vocab)).astype(np.int32)
 
-    def batch(self, step: int) -> Dict[str, np.ndarray]:
+    def batch(self, step: int, *,
+              shard: Union[slice, Sequence[int], None] = None
+              ) -> Dict[str, np.ndarray]:
         """The global batch for ``step``: int32 ``tokens`` and next-token
         ``targets``, both ``(global_batch, seq_len)`` (a ``vlm``'s text is
         ``n_frontend_tokens`` shorter, so that its image prefix and text
         fill ``seq_len``), and fp32 ``vis_embeds`` (``vlm``) or
         ``enc_embeds`` (``enc_dec``) of ``(global_batch,
-        n_frontend_tokens, d_model)``."""
+        n_frontend_tokens, d_model)``.  ``shard`` (a slice or row indices,
+        as ``repro``'s) selects rows of the global batch before they are
+        hashed."""
         cfg = self.cfg
         rows = np.arange(self.shape.global_batch, dtype=np.int64)
+        if shard is not None:
+            rows = rows[shard]
         n_front = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
         toks = self._tokens(step, rows, self.shape.seq_len - n_front + 1)
         out = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}

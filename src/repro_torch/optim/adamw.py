@@ -12,7 +12,7 @@ model, and a fifth would not fit on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -54,14 +54,20 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
-               params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+               params: Mapping[str, torch.Tensor],
+               grad_norm: Optional[torch.Tensor] = None) -> Dict[str, object]:
         """One step, in place on ``params``, ``state.m`` and ``state.v``
-        (``state.step`` advances).  Returns ``{"grad_norm": the pre-clip
-        global norm (a device scalar), "lr": the step's rate}``."""
+        (``state.step`` advances).  ``grad_norm``: the pre-clip global norm
+        when the caller computed it (over shards of the gradients that
+        other ranks hold too); by default the norm of ``grads``.  Returns
+        ``{"grad_norm": the pre-clip global norm (a device scalar), "lr":
+        the step's rate}``."""
         step = state.step + 1
-        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                             for g in grads.values()])
-        gnorm = torch.linalg.vector_norm(norms)
+        if grad_norm is None:
+            norms = torch.stack([torch.linalg.vector_norm(
+                g, dtype=torch.float32) for g in grads.values()])
+            grad_norm = torch.linalg.vector_norm(norms)
+        gnorm = grad_norm
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         f32 = np.float32
