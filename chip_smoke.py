@@ -266,6 +266,29 @@
    trainer's tensors, bf16 and fp32, along a non-leading dim of a
    non-contiguous view: each result equals its input bit for bit.  Last,
    the SpMM kernel vs plain at the trainer's N = 1024, forward and dx.
+14. The dry run ([dryrun], after [dist] has closed its group):
+   ``repro_torch.launch.dryrun.run_cell`` traces ``DRYRUN_CELLS`` on fake
+   CUDA tensors in a fake process group of 256 ranks (``pod_16x16``):
+   granite-3-8b's train_4k, prefill_32k and decode_32k and
+   RecurrentGemma-9B's train_4k (the cell whose fake rules are the
+   attention's and the RG-LRU's, forward and backward).  Each cell's
+   per-rank bytes by MemTracker category, FLOPs, bytes, collective bytes
+   by opcode, roofline terms, fit against the card's memory and
+   ``useful_flops_ratio`` printed; each must complete, and its
+   ``Parameter`` and ``Optstate`` bytes must equal the closed form of the
+   rules' shard sizes (every rank holds the full fp32 parameters; the
+   AdamW moments are its shards; each storage rounded to the allocator's
+   512 bytes).  Then the dry run's predictions against two steps that
+   really run on the card (``DRYRUN_REAL``): [dist]'s granite-3-8b at 8
+   layers (sparse FFN, 8 x 256 tokens, accum 2, one rank: SpMM on ``tc``)
+   and [hybrid_train]'s RecurrentGemma-9B at 6 layers (1 x 4096 tokens:
+   ``flash_attention``, ``rg_lru`` and both backward kernels).  The
+   predicted peak must lie within ``DRYRUN_PEAK_RTOL`` of
+   ``torch.cuda.max_memory_allocated()`` over the same step (after
+   ``reset_peak_memory_stats()``, above what was allocated before the
+   model), the trace's FLOPs must equal a ``CostCounter`` run over the real
+   step exactly, and the measured step time must be at least the roofline
+   bound (the ratio printed).
 
 The script runs itself under ``PYTHONHASHSEED=0`` (it re-executes when
 started under another), so the suite's matrices are the same in every run.
@@ -4874,9 +4897,163 @@ def phase_dist(dev):
         dist.destroy_process_group()
 
 
+# [dryrun]: the production cells traced on fake CUDA tensors (pod_16x16)
+DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("granite-3-8b", "prefill_32k"),
+                ("granite-3-8b", "decode_32k"),
+                ("recurrentgemma-9b", "train_4k"))
+# the predicted peak against max_memory_allocated over the same real step
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def _closed_form_state(cfg, shape, arch):
+    """(parameter bytes, optimizer bytes) one rank holds in a dry-run cell
+    on ``pod_16x16``, from the rules: the full fp32 parameters, and for a
+    training cell the two AdamW moments over this rank's shard of each
+    (its spec sanitized on the mesh), each storage rounded up to 512
+    bytes as the caching allocator (and MemTracker) round it."""
+    import types
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import abstract_params
+    from repro_torch.sharding import param_pspec, sanitize_pspec
+
+    def rounded(n):
+        return -(-n // 512) * 512
+
+    sizes = {"data": 16, "model": 16}
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes),
+                                 shape=tuple(sizes.values()))
+    fsdp = ("data", "pod") if arch in dryrun.CROSS_POD_FSDP else "data"
+    item = 2 if arch in dryrun.BF16_OPT else 4
+    params = opt = 0
+    for k, t in abstract_params(cfg).items():
+        params += rounded(t.numel() * 4)
+        if shape.kind != "train":
+            continue
+        spec = sanitize_pspec(mesh, param_pspec(k, t.shape, dp=fsdp),
+                              t.shape)
+        div = 1
+        for axes in spec:
+            for a in (axes if isinstance(axes, tuple) else (axes,)):
+                div *= sizes.get(a, 1)
+        opt += 2 * rounded(t.numel() // div * item)
+    return params, opt
+
+
+def _dryrun_real(tag, cfg, shape, accum, dev):
+    """One real training step of ``cfg`` against the dry run's trace of
+    it: the predicted peak, FLOPs and roofline bound beside the measured
+    ones.  Returns the printed numbers."""
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.roofline import CostCounter, roofline_terms
+    from repro_torch.runtime import make_train_step
+
+    t0 = time.perf_counter()
+    pred = dryrun.trace_cell(cfg, shape, None, dev=dev, accum=accum)
+    trace_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt = AdamW(lr=constant(3e-4))
+    step = make_train_step(model, opt, accum)
+    state = opt.init(step.master)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(
+        cfg, shape, seed=SEED + 1).batch(0).items()}
+    # the first step under the counter (it also warms up the libraries)
+    with CostCounter() as cost:
+        step(state, batch)
+    torch.cuda.synchronize()
+    ms, peaks = [], []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss = step(state, batch)["loss"]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        check(bool(torch.isfinite(loss)), f"[dryrun] {tag}: loss {loss}")
+    measured = max(peaks)
+    predicted = pred["peak"]["Total"]
+    terms = roofline_terms(pred["flops"], pred["bytes"], 0.0, 1)
+    step_ms = float(np.median(ms))
+    bound_ms = terms["bound_s"] * 1e3
+    err = abs(predicted - measured) / measured
+    cats = ", ".join(f"{k} {v / 2**30:.2f}" for k, v in pred["peak"].items()
+                     if k != "Total" and v)
+    print(f"[dryrun] {tag}: predicted peak {predicted / 2**30:.3f} GiB "
+          f"({cats}; traced in {trace_s:.1f} s) vs max_memory_allocated "
+          f"{measured / 2**30:.3f} GiB above the {base / 2**30:.2f} GiB "
+          f"resident before: {err * 100:.2f} % (tol "
+          f"{DRYRUN_PEAK_RTOL * 100:.0f} %)")
+    print(f"[dryrun] {tag}: FLOPs traced {pred['flops']} vs the real step "
+          f"{cost.flops}; bytes traced {pred['bytes']} vs {cost.bytes}")
+    print(f"[dryrun] {tag}: step {step_ms:.1f} ms (steps {ms[0]:.1f}, "
+          f"{ms[1]:.1f}) vs roofline bound {bound_ms:.3f} ms "
+          f"({terms['dominant']}; compute {terms['compute_s'] * 1e3:.3f}, "
+          f"memory {terms['memory_s'] * 1e3:.3f} ms): ratio "
+          f"{step_ms / bound_ms:.2f}")
+    check(err <= DRYRUN_PEAK_RTOL,
+          f"[dryrun] {tag}: predicted peak off by {err * 100:.2f} %")
+    check(pred["flops"] == cost.flops,
+          f"[dryrun] {tag}: FLOPs {pred['flops']} != {cost.flops}")
+    check(step_ms >= bound_ms,
+          f"[dryrun] {tag}: step {step_ms:.3f} ms under its bound "
+          f"{bound_ms:.3f} ms")
+    del model, step, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"predicted": predicted, "measured": measured, "err": err,
+            "flops": cost.flops, "ms": step_ms, "bound_ms": bound_ms}
+
+
+def phase_dryrun(dev):
+    """[dryrun]: the dry run over the production cells, then its
+    predictions against two real steps (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[dryrun] card memory (total_memory) {total} bytes")
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape_name in DRYRUN_CELLS:
+            res = dryrun.run_cell(arch, shape_name, out_dir=out, device=dev)
+            print(f"[dryrun] {dryrun.summary(res)}")
+            print(f"[dryrun]   roofline {json.dumps(res['roofline'])}")
+            cfg = dryrun.cell_config(arch, SHAPES[shape_name])
+            want = _closed_form_state(cfg, SHAPES[shape_name], arch)
+            cats = res["memory"]["peak_by_category"]
+            got = (cats.get("Parameter", 0), cats.get("Optstate", 0))
+            print(f"[dryrun]   parameter / optimizer bytes a rank {got}, "
+                  f"closed form {want}")
+            check(got == want, f"[dryrun] {arch} {shape_name}: parameter / "
+                               f"optimizer bytes {got} != {want}")
+    granite = dataclasses.replace(
+        get_config("granite-3-8b"), ffn_block_sparse=True, ffn_block=64,
+        ffn_density=0.25, dtype="bfloat16", n_layers=DIST_LAYERS)
+    hybrid = dataclasses.replace(
+        get_config("recurrentgemma-9b"), dtype="bfloat16",
+        n_layers=HYBRID_TRAIN_LAYERS, ffn_block_sparse=True, ffn_block=64,
+        ffn_density=0.25)
+    return [
+        _dryrun_real("granite-3-8b 8 layers, sparse FFN, 8 x 256, accum 2",
+                     granite, ShapeConfig("dist", "train", TRAIN_SEQ,
+                                          TRAIN_BATCH), DIST_ACCUM, dev),
+        _dryrun_real("recurrentgemma-9b 6 layers, 1 x 4096", hybrid,
+                     ShapeConfig("hybrid-train", "train", HYBRID_TRAIN_T, 1),
+                     1, dev)]
+
+
 PHASES = ("spgemm", "ops", "tune", "kernel", "crossover", "edges", "serve",
           "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "mixed",
-          "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist")
+          "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist", "dryrun")
 # the phases that need granite-3-8b built (``--only spgemm,ops,tune``,
 # ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
 GRANITE_PHASES = PHASES[3:PHASES.index("hybrid")]
@@ -4999,6 +5176,10 @@ def main():
         torch.cuda.empty_cache()
     if "dist" in only:
         dist_counts, dist_recs = phase_dist(dev)
+    if "dryrun" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dryrun(dev)
     if not full:
         print(f"chip_smoke: phases {only} passed")
         return

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.analysis.invariants import (PlanVerificationError,
                                              VerifyResult,
@@ -183,7 +184,10 @@ class _PlanTemplate:
         if got is None:
             got = {k: torch.from_numpy(v).to(device)
                    for k, v in self.leaves.items()}
-            self.on_device[device] = got
+            # leaves made under a FakeTensorMode (the dry run) have no
+            # memory: a real call on the same device must not find them
+            if not any(is_fake(t) for t in got.values()):
+                self.on_device[device] = got
         return got
 
     def realize(self, values: dict, device: torch.device,

@@ -51,11 +51,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from . import build
+from .fake import aligned_like, copies
+from .fake import sms as _fake_sms
 
 _SOURCE = "flash_attention.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
@@ -334,7 +336,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out_dtype = out_dtype or q.dtype
     kw = dict(causal=causal, window=window, offset=offset, kv_len=kv_len,
               bq=bq, bkv=bkv, q_period=q_period)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -343,11 +345,85 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def _forward(q, k, v, kw, out_dtype, path, stats=False):
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, out_dtype=out_dtype,
-                                     stats=stats, **kw)
-    return _launch(q, k, v, path=path, out_dtype=out_dtype, stats=stats,
-                   **kw)
+    res = flash_attention_op(q, k, v, kw["causal"], kw["window"],
+                             kw["offset"], kw["kv_len"], kw["bq"], kw["bkv"],
+                             kw["q_period"], out_dtype, stats, path)
+    return (res[0], res[1]) if stats else res[0]
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int], offset: int,
+                       kv_len: int, bq: int, bkv: int,
+                       q_period: Optional[int], out_dtype: torch.dtype,
+                       stats: bool, path: Optional[str]
+                       ) -> List[torch.Tensor]:
+    """The operator :func:`flash_attention` calls once its arguments are
+    resolved: ``[out, (row statistics with stats), *scratch]``.  The launch
+    for CUDA tensors, the plain version for CPU tensors, the fake rule
+    (:func:`launch_allocations`) for fake and meta tensors."""
+    raise NotImplementedError(f"flash_attention has no kernel for "
+                              f"{q.device}")
+
+
+@flash_attention_op.register_kernel("cpu")
+def _fwd_cpu(q, k, v, causal, window, offset, kv_len, bq, bkv, q_period,
+             out_dtype, stats, path):
+    res = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                offset=offset, kv_len=kv_len, bq=bq, bkv=bkv,
+                                q_period=q_period, out_dtype=out_dtype,
+                                stats=stats)
+    return list(res) if stats else [res]
+
+
+@flash_attention_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, causal, window, offset, kv_len, bq, bkv, q_period,
+              out_dtype, stats, path):
+    return _launch(q, k, v, causal=causal, window=window, offset=offset,
+                   kv_len=kv_len, bq=bq, bkv=bkv, q_period=q_period,
+                   out_dtype=out_dtype, path=path, stats=stats)
+
+
+@flash_attention_op.register_fake
+def _fwd_fake(q, k, v, causal, window, offset, kv_len, bq, bkv, q_period,
+              out_dtype, stats, path):
+    bh, tq, d = q.shape
+    if q.device.type != "cuda":
+        out = [torch.empty((bh, tq, d), dtype=out_dtype, device=q.device)]
+        if stats:
+            out.append(torch.empty((bh, tq, 2), dtype=torch.float32,
+                                   device=q.device))
+        return out
+    return launch_allocations(q, k, v, out_dtype, stats, path)
+
+
+def launch_allocations(q, k, v, out_dtype, stats, path):
+    """What one forward launch on the card allocates, as fake tensors on
+    q's device: out, the row statistics (with ``stats``), the copies of q,
+    k or v that are not contiguous and 16-byte aligned, then the path's
+    scratch: ``"splitkv"``'s fp32 partials, or ``"tc"``'s three bf16 parts
+    of each operand when one of them is fp32.  The split path's arrival
+    counters are one persistent int32 buffer a device (at least 16 KB, made
+    by the first launch that needs it), not a per-call allocation."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    device = q.device
+    path = _check_launch(q, k, v, out_dtype, path, _fake_sms(device))
+    ops = [aligned_like(t) for t in (q, k, v)]
+    out = [torch.empty((bh, tq, d), dtype=out_dtype, device=device)]
+    if stats:
+        out.append(torch.empty((bh, tq, 2), dtype=torch.float32,
+                               device=device))
+    out += copies(zip(ops, (q, k, v)))
+    if path == "splitkv":
+        rows = simt_rows(tq)
+        n_splits, _ = split_plan(bh, tq, tk, sms=_fake_sms(device))
+        out.append(torch.empty(bh * -(-tq // rows) * n_splits * rows
+                               * (d + 2), dtype=torch.float32, device=device))
+    elif path == "tc" and torch.float32 in (q.dtype, k.dtype, v.dtype):
+        out.append(torch.empty(3 * (q.numel() + k.numel() + v.numel()),
+                               dtype=torch.bfloat16, device=device))
+    return out
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -433,19 +509,62 @@ def flash_attention_bwd(q, k, v, out, dout, stats, *, causal: bool,
     pass and the Q-outer dQ pass (on ``"tc"`` also the split of fp32
     operands and the sum of the row ranges' partials).  The plain version
     for CPU tensors."""
-    kw = dict(causal=causal, window=window, offset=offset, kv_len=kv_len,
-              bq=bq, bkv=bkv, q_period=q_period)
     d = q.shape[-1]
     dtypes = (q.dtype, k.dtype, v.dtype, out.dtype)
     if path is not None and path not in bwd_paths_for(d, dtypes):
         raise ValueError(f"flash_attention_bwd: path={path!r} cannot take "
                          f"this call; paths that can: "
                          f"{bwd_paths_for(d, dtypes)}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, dout, stats, **kw)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
                          f"got {q.device}")
+    res = flash_attention_bwd_op(q, k, v, out, dout, stats, causal, window,
+                                 offset, kv_len, bq, bkv, q_period, path)
+    return res[0], res[1], res[2]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, dout: torch.Tensor,
+                           stats: torch.Tensor, causal: bool,
+                           window: Optional[int], offset: int, kv_len: int,
+                           bq: int, bkv: int, q_period: Optional[int],
+                           path: Optional[str]) -> List[torch.Tensor]:
+    """The operator :func:`flash_attention_bwd` calls: ``[dq, dk, dv,
+    *scratch]``.  The launch for CUDA tensors, the plain version for CPU
+    tensors, the fake rule (:func:`bwd_launch_allocations`) for fake and
+    meta tensors."""
+    raise NotImplementedError(f"flash_attention_bwd has no kernel for "
+                              f"{q.device}")
+
+
+@flash_attention_bwd_op.register_kernel("cpu")
+def _bwd_cpu(q, k, v, out, dout, stats, causal, window, offset, kv_len, bq,
+             bkv, q_period, path):
+    return list(flash_attention_bwd_plain(
+        q, k, v, out, dout, stats, causal=causal, window=window,
+        offset=offset, kv_len=kv_len, bq=bq, bkv=bkv, q_period=q_period))
+
+
+@flash_attention_bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, out, dout, stats, causal, window, offset, kv_len, bq,
+              bkv, q_period, path):
+    return _bwd_launch(q, k, v, out, dout, stats, causal=causal,
+                       window=window, offset=offset, kv_len=kv_len, bq=bq,
+                       bkv=bkv, q_period=q_period, path=path)
+
+
+@flash_attention_bwd_op.register_fake
+def _bwd_fake(q, k, v, out, dout, stats, causal, window, offset, kv_len, bq,
+              bkv, q_period, path):
+    if q.device.type != "cuda":
+        return [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                for t in (q, k, v)]
+    return bwd_launch_allocations(q, k, v, out, dout, stats, path)
+
+
+def _check_bwd_launch(q, k, v, out, dout, stats, path) -> str:
+    """Raise what the backward launch raises; returns its path."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     for name, t, shape in (("k", k, (bh, tk, d)), ("v", v, (bh, tk, d)),
@@ -458,16 +577,72 @@ def flash_attention_bwd(q, k, v, out, dout, stats, *, causal: bool,
         if t.device != q.device:
             raise ValueError(f"flash_attention_bwd: all operands must be on "
                              f"{q.device}, got {name} on {t.device}")
+    dtypes = (q.dtype, k.dtype, v.dtype, out.dtype)
     path = path or choose_bwd_path(d, dtypes)
     if path is None:
         raise NotImplementedError(
             f"flash_attention_bwd: the CUDA kernels take head dims that are "
             f"multiples of 8 up to 256 and fp32 or bf16 q, k, v and out, got "
             f"D={d}, {q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
+    return path
+
+
+def bwd_launch_allocations(q, k, v, out, dout, stats, path):
+    """What one backward launch on the card allocates, as fake tensors on
+    q's device: dq, dk, dv, the copies of operands that are not
+    contiguous and aligned (dout also when it is not in out's dtype, the
+    statistics when not contiguous fp32), each row's ``info``, the row
+    ranges' fp32 partials (``"tc"`` with more than one range) and the
+    three bf16 parts of q, k, v and dout (``"tc"`` with an fp32
+    operand)."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    device = q.device
+    path = _check_bwd_launch(q, k, v, out, dout, stats, path)
+    dtypes = (q.dtype, k.dtype, v.dtype, out.dtype)
+    ops = [aligned_like(t) for t in (q, k, v, out)]
+    d_cast = (dout if dout.dtype == out.dtype else
+              torch.empty(dout.shape, dtype=out.dtype, device=device))
+    d_al = aligned_like(d_cast)
+    st = (stats if stats.dtype == torch.float32 and stats.is_contiguous()
+          else torch.empty(stats.shape, dtype=torch.float32, device=device))
+    res = [torch.empty(t.shape, dtype=t.dtype, device=device)
+           for t in ops[:3]]
+    res += copies(zip(ops, (q, k, v, out)))
+    res += [t for t in {id(x): x for x in (d_cast, d_al)}.values()
+            if t is not dout]
+    res += copies([(st, stats)])
+    res.append(torch.empty((bh, tq, 4), dtype=torch.float32, device=device))
+    lay = bwd_tc_layout(d, dtypes) if path == "tc" else None
+    n_split = (bwd_splits(bh, tq, tk, d, dtypes, _fake_sms(device))
+               if path == "tc" else 1)
+    if n_split > 1:
+        res.append(torch.empty(2 * n_split * bh * tk * d,
+                               dtype=torch.float32, device=device))
+    if lay is not None and lay["parts"] == 3:
+        res.append(torch.empty(3 * 2 * (q.numel() + k.numel()),
+                               dtype=torch.bfloat16, device=device))
+    return res
+
+
+def _bwd_launch(q, k, v, out, dout, stats, *, causal, window, offset,
+                kv_len, bq, bkv, q_period, path) -> List[torch.Tensor]:
+    """One backward launch: ``[dq, dk, dv, *scratch]``
+    (:func:`bwd_launch_allocations`)."""
+    path = _check_bwd_launch(q, k, v, out, dout, stats, path)
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    dtypes = (q.dtype, k.dtype, v.dtype, out.dtype)
+    src = (q, k, v, out, dout, stats)
     q, k, v, out = (_aligned(t) for t in (q, k, v, out))
-    dout = _aligned(dout.to(out.dtype))
+    d_cast = dout.to(out.dtype)
+    dout = _aligned(d_cast)
     stats = stats.float().contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = copies(zip((q, k, v, out), src[:4]))
+    scratch += [t for t in {id(x): x for x in (d_cast, dout)}.values()
+                if t is not src[4]]
+    scratch += copies([(stats, src[5])])
     # each row's (m, l, delta, 0), written by the first launch
     info = torch.empty((bh, tq, 4), dtype=torch.float32, device=q.device)
     lay = bwd_tc_layout(d, dtypes) if path == "tc" else None
@@ -501,7 +676,8 @@ def flash_attention_bwd(q, k, v, out, dout, stats, *, causal: bool,
     flash_attention_bwd.launches += 1
     setattr(flash_attention_bwd, f"{path}_launches",
             getattr(flash_attention_bwd, f"{path}_launches") + 1)
-    return dq, dk, dv
+    return [dq, dk, dv, *scratch, info,
+            *(t for t in (part, parts) if t is not None)]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -537,8 +713,8 @@ def _sms(device: torch.device) -> int:
     return _SMS[device]
 
 
-def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
-            out_dtype, path, stats=False):
+def _check_launch(q, k, v, out_dtype, path, sms) -> str:
+    """Raise what the forward launch raises; returns its path."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     device = q.device
@@ -554,14 +730,26 @@ def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
                              f"{device}, got {name} on {t.device}")
     if path is None:
         path = choose_path(bh, tq, tk, d, q.dtype, k.dtype, v.dtype,
-                           sms=_sms(device))
+                           sms=sms)
     if path is None:
         raise NotImplementedError(
             f"flash_attention: the CUDA kernels take head dims that are "
             f"multiples of 8 up to 256 and fp32 or bf16 q, k and v, got "
             f"D={d}, {q.dtype}, {k.dtype}, {v.dtype}")
+    return path
+
+
+def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
+            out_dtype, path, stats=False) -> List[torch.Tensor]:
+    """One forward launch: ``[out, (st), *scratch]``
+    (:func:`launch_allocations`)."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    device = q.device
+    path = _check_launch(q, k, v, out_dtype, path, _sms(device))
     # the kernels' 16-byte copies and TMA need contiguous, aligned rows: a
     # strided or offset view is copied, as on the CPU any layout is taken
+    src = (q, k, v)
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((bh, tq, d), dtype=out_dtype, device=device)
     st = (torch.empty((bh, tq, 2), dtype=torch.float32, device=device)
@@ -604,7 +792,8 @@ def _launch(q, k, v, *, causal, window, offset, kv_len, bq, bkv, q_period,
         flash_attention.tc_launches += 1
     else:
         flash_attention.simt_launches += 1
-    return (out, st) if stats else out
+    return ([out] + ([st] if stats else []) + copies(zip((q, k, v), src))
+            + [t for t in (work, parts) if t is not None])
 
 #: Calls that launched a kernel since the count was last set to 0 (only
 #: :func:`flash_attention` on CUDA tensors adds to it): one a call, and one

@@ -19,6 +19,7 @@ import math
 import torch
 
 from . import build
+from .fake import no_fake_rule
 
 _SOURCE = "moe_gemm.cu"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -120,6 +121,7 @@ def moe_gemm(x_sorted, w, chunk_expert, *, chunk_rows: int = 128,
         raise ValueError(f"d_out={d_out} must be a multiple of the N tile "
                          f"bn={bn}")
     device = x_sorted.device
+    no_fake_rule("moe_gemm", x_sorted, w, chunk_expert, live_rows)
     if live_rows is not None:
         _check_live_rows(live_rows, n_chunks, chunk_rows, device)
     if device.type == "cpu":

@@ -40,11 +40,12 @@ the rows, ``"simt"`` for the rest.  They agree bit for bit but for
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from . import build
+from .fake import aligned_like, copies
 from .flash_attention import _aligned, _sms
 from .ref import softplus
 
@@ -180,7 +181,7 @@ def rg_lru(x, a_gate, x_gate, a_param, h0, *, ct: int = 128, c: float = 8.0,
         if path not in able:
             raise ValueError(f"rg_lru: path={path!r} cannot take this call; "
                              f"paths that can: {able}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rg_lru runs on cuda or cpu tensors, got "
                          f"{x.device}")
     if torch.is_grad_enabled() and any(
@@ -190,9 +191,59 @@ def rg_lru(x, a_gate, x_gate, a_param, h0, *, ct: int = 128, c: float = 8.0,
 
 
 def _forward(x, a_gate, x_gate, a_param, h0, c, path):
-    if x.device.type == "cpu":
-        return rg_lru_plain(x, a_gate, x_gate, a_param, h0, c=c)
+    res = rg_lru_op(x, a_gate, x_gate, a_param, h0, c, path)
+    return res[0], res[1]
+
+
+@torch.library.custom_op("repro_torch::rg_lru", mutates_args=())
+def rg_lru_op(x: torch.Tensor, a_gate: torch.Tensor, x_gate: torch.Tensor,
+              a_param: torch.Tensor, h0: torch.Tensor, c: float,
+              path: Optional[str]) -> List[torch.Tensor]:
+    """The operator :func:`rg_lru` calls: ``[out, h_T, *scratch]``.  The
+    launch for CUDA tensors, the plain version for CPU tensors, the fake
+    rule (:func:`launch_allocations`) for fake and meta tensors."""
+    raise NotImplementedError(f"rg_lru has no kernel for {x.device}")
+
+
+@rg_lru_op.register_kernel("cpu")
+def _fwd_cpu(x, a_gate, x_gate, a_param, h0, c, path):
+    return list(rg_lru_plain(x, a_gate, x_gate, a_param, h0, c=c))
+
+
+@rg_lru_op.register_kernel("cuda")
+def _fwd_cuda(x, a_gate, x_gate, a_param, h0, c, path):
     return _launch(x, a_gate, x_gate, a_param, h0, c, path)
+
+
+@rg_lru_op.register_fake
+def _fwd_fake(x, a_gate, x_gate, a_param, h0, c, path):
+    b, _, d = x.shape
+    if x.device.type != "cuda":
+        return [torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                torch.empty((b, d), dtype=torch.float32, device=x.device)]
+    return launch_allocations(x, a_gate, x_gate, a_param, h0, path)
+
+
+def _small_like(t: torch.Tensor) -> torch.Tensor:
+    """The fake counterpart of ``t.float().contiguous()``."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return torch.empty(t.shape, dtype=torch.float32, device=t.device)
+
+
+def launch_allocations(x, a_gate, x_gate, a_param, h0, path):
+    """What one forward launch on the card allocates, as fake tensors on
+    x's device: out and h_T, then the copies it makes (a_param and h0 when
+    not contiguous fp32; x, a_gate, x_gate when not contiguous and 16-byte
+    aligned)."""
+    _check_launch(x, a_gate, x_gate, a_param, h0, path)
+    b, _, d = x.shape
+    small = [_small_like(t) for t in (a_param, h0)]
+    big = [aligned_like(t) for t in (x, a_gate, x_gate)]
+    return ([torch.empty(x.shape, dtype=x.dtype, device=x.device),
+             torch.empty((b, d), dtype=torch.float32, device=x.device)]
+            + copies(zip(small, (a_param, h0)))
+            + copies(zip(big, (x, a_gate, x_gate))))
 
 
 class RGLRUFunction(torch.autograd.Function):
@@ -289,12 +340,81 @@ def rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
         if path not in able:
             raise ValueError(f"rg_lru_bwd: path={path!r} cannot take this "
                              f"call; paths that can: {able}")
-    if x.device.type == "cpu":
-        return rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout,
-                                dh_t, c=c)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rg_lru_bwd runs on cuda or cpu tensors, got "
                          f"{x.device}")
+    res = rg_lru_bwd_op(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, c,
+                        path)
+    return tuple(res[:5])
+
+
+@torch.library.custom_op("repro_torch::rg_lru_bwd", mutates_args=())
+def rg_lru_bwd_op(x: torch.Tensor, a_gate: torch.Tensor,
+                  x_gate: torch.Tensor, a_param: torch.Tensor,
+                  h0: torch.Tensor, hs: torch.Tensor, dout: torch.Tensor,
+                  dh_t: torch.Tensor, c: float, path: Optional[str]
+                  ) -> List[torch.Tensor]:
+    """The operator :func:`rg_lru_bwd` calls: ``[dx, da_gate, dx_gate,
+    da_param, dh0, *scratch]``.  The launch for CUDA tensors, the plain
+    version for CPU tensors, the fake rule
+    (:func:`bwd_launch_allocations`) for fake and meta tensors."""
+    raise NotImplementedError(f"rg_lru_bwd has no kernel for {x.device}")
+
+
+@rg_lru_bwd_op.register_kernel("cpu")
+def _bwd_cpu(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, c, path):
+    return list(rg_lru_bwd_plain(x, a_gate, x_gate, a_param, h0, hs, dout,
+                                 dh_t, c=c))
+
+
+@rg_lru_bwd_op.register_kernel("cuda")
+def _bwd_cuda(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, c, path):
+    return _bwd_launch(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, c,
+                       path)
+
+
+@rg_lru_bwd_op.register_fake
+def _bwd_fake(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, c, path):
+    if x.device.type == "cuda":
+        return bwd_launch_allocations(x, a_gate, x_gate, a_param, h0, hs,
+                                      dout, dh_t, path)
+    b, _, d = x.shape
+    return ([torch.empty(t.shape, dtype=t.dtype, device=t.device)
+             for t in (x, a_gate, x_gate)]
+            + [torch.empty((d,), dtype=torch.float32, device=x.device),
+               torch.empty((b, d), dtype=torch.float32, device=x.device)])
+
+
+def bwd_launch_allocations(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t,
+                           path):
+    """What one backward launch on the card allocates, as fake tensors on
+    x's device: dx, da_gate, dx_gate, da_param and dh0, the copies it
+    makes of its operands (dout in x's dtype, hs in fp32, each contiguous
+    and aligned; h0, dh_t and a_param contiguous fp32), and the fp32
+    per-row partials of da_param."""
+    _check_bwd_launch(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, path)
+    b, _, d = x.shape
+    big = [aligned_like(t) for t in (x, a_gate, x_gate)]
+    d_cast = (dout if dout.dtype == x.dtype else
+              torch.empty(dout.shape, dtype=x.dtype, device=x.device))
+    h_cast = (hs if hs.dtype == torch.float32 else
+              torch.empty(hs.shape, dtype=torch.float32, device=x.device))
+    d_al, h_al = aligned_like(d_cast), aligned_like(h_cast)
+    small = [_small_like(t) for t in (h0, dh_t, a_param)]
+    res = [torch.empty(t.shape, dtype=t.dtype, device=x.device) for t in big]
+    res += [torch.empty((d,), dtype=torch.float32, device=x.device),
+            torch.empty((b, d), dtype=torch.float32, device=x.device)]
+    res += copies(zip(big, (x, a_gate, x_gate)))
+    for pair, src in (((d_cast, d_al), dout), ((h_cast, h_al), hs)):
+        res += [t for t in {id(v): v for v in pair}.values() if t is not src]
+    res += copies(zip(small, (h0, dh_t, a_param)))
+    res.append(torch.empty((b, d), dtype=torch.float32, device=x.device))
+    return res
+
+
+def _check_bwd_launch(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t,
+                      path) -> str:
+    """Raise what the backward launch raises; returns its path."""
     b, t, d = x.shape
     for name, ten, shape in (("a_gate", a_gate, (b, t, d)),
                              ("x_gate", x_gate, (b, t, d)),
@@ -314,11 +434,27 @@ def rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
             f"{x_gate.dtype}")
     if path is None:
         path = choose_bwd_path(d, (x.dtype, a_gate.dtype, x_gate.dtype))
+    return path
+
+
+def _bwd_launch(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, c, path
+                ) -> List[torch.Tensor]:
+    """One backward launch: ``[dx, da_gate, dx_gate, da_param, dh0,
+    *scratch]`` (:func:`bwd_launch_allocations`)."""
+    path = _check_bwd_launch(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t,
+                             path)
+    b, t, d = x.shape
+    src = (x, a_gate, x_gate, dout, hs, h0, dh_t, a_param)
     # the (B, T, D) operands contiguous and 16-byte aligned for TMA
     x, a_gate, x_gate = (_aligned(v) for v in (x, a_gate, x_gate))
-    dout = _aligned(dout.to(x.dtype))
-    hs = _aligned(hs.float())
+    d_cast, h_cast = dout.to(x.dtype), hs.float()
+    dout, hs = _aligned(d_cast), _aligned(h_cast)
     h0, dh_t, a_param = (v.float().contiguous() for v in (h0, dh_t, a_param))
+    scratch = copies(zip((x, a_gate, x_gate), src[:3]))
+    for pair, old in (((d_cast, dout), src[3]), ((h_cast, hs), src[4])):
+        scratch += [v for v in {id(u): u for u in pair}.values()
+                    if v is not old]
+    scratch += copies(zip((h0, dh_t, a_param), src[5:]))
     dx = torch.empty_like(x)
     dag = torch.empty_like(a_gate)
     dxg = torch.empty_like(x_gate)
@@ -341,10 +477,11 @@ def rg_lru_bwd(x, a_gate, x_gate, a_param, h0, hs, dout, dh_t, *,
     rg_lru_bwd.launches += 1
     setattr(rg_lru_bwd, f"{path}_launches",
             getattr(rg_lru_bwd, f"{path}_launches") + 1)
-    return dx, dag, dxg, dp, dh0
+    return [dx, dag, dxg, dp, dh0, *scratch, part]
 
 
-def _launch(x, a_gate, x_gate, a_param, h0, c, path):
+def _check_launch(x, a_gate, x_gate, a_param, h0, path) -> str:
+    """Raise what the forward launch raises; returns its path."""
     b, t, d = x.shape
     device = x.device
     for name, ten, shape in (("a_gate", a_gate, (b, t, d)),
@@ -362,6 +499,16 @@ def _launch(x, a_gate, x_gate, a_param, h0, c, path):
         raise NotImplementedError(
             f"rg_lru: the CUDA kernels take x, a_gate and x_gate each in one "
             f"of {_DTYPES}, got {x.dtype}, {a_gate.dtype}, {x_gate.dtype}")
+    return path
+
+
+def _launch(x, a_gate, x_gate, a_param, h0, c, path) -> List[torch.Tensor]:
+    """One forward launch: ``[out, h_T, *scratch]``
+    (:func:`launch_allocations`)."""
+    path = _check_launch(x, a_gate, x_gate, a_param, h0, path)
+    b, t, d = x.shape
+    device = x.device
+    src = (a_param, h0, x, a_gate, x_gate)
     # the small per-channel and per-row operands in fp32 (B*D + D values);
     # the (B, T, D) operands contiguous, and 16-byte aligned for TMA (an
     # offset view is copied, as on the CPU any layout is taken)
@@ -384,7 +531,7 @@ def _launch(x, a_gate, x_gate, a_param, h0, c, path):
     rg_lru.launches += 1
     setattr(rg_lru, f"{path}_launches",
             getattr(rg_lru, f"{path}_launches") + 1)
-    return out, h_t
+    return [out, h_t] + copies(zip((a_param, h0, x, a_gate, x_gate), src))
 
 
 #: Kernel launches since the count was last set to 0, all and per path

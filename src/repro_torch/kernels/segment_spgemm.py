@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from . import build, ref
+from .fake import no_fake_rule
 from .segment_spmm import validate_schedule_args
 
 _SOURCE = "segment_spgemm.cu"
@@ -283,6 +284,8 @@ def segment_spgemm(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start,
         able = paths_for(bm, bk, bn, mode, out_dtype)
         if path not in able:
             raise ValueError(f"path={path!r}: this call can take {able}")
+    no_fake_rule("segment_spgemm", a_blocks, b_blocks, a_idx, b_idx, c_idx,
+                 a_scales, b_scales)
     device = a_blocks.device
     if device.type == "cpu":
         return segment_spgemm_plain(a_blocks, b_blocks, a_idx, b_idx, c_idx,

@@ -55,12 +55,13 @@ and change no result; these kernels do not read them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from . import build
+from .fake import addr
 
 _SOURCE = "segment_spmm.cu"
 _TC_SOURCE = "segment_spmm_tc.cu"
@@ -336,21 +337,96 @@ def segment_spmm(a_blocks, slot_idx, m_idx, k_idx, seg_start, seg_write,
             raise ValueError(f"path={path!r}: expected None or one of "
                              f"{PATHS}")
         able = paths_for(b_dense.dtype, bm, bk, b_dense.stride(),
-                         b_dense.data_ptr())
+                         addr(b_dense))
         if path not in able:
             raise ValueError(f"segment_spmm: path={path!r} cannot take this "
                              f"call; it can run on {able}")
-    if b_dense.device.type == "cpu":
-        return segment_spmm_plain(a_blocks, slot_idx, m_idx, k_idx, valid,
-                                  b_dense, grid_m=grid_m,
-                                  transpose_lhs=transpose_lhs,
-                                  out_dtype=out_dtype, a_scales=a_scales)
-    if b_dense.device.type != "cuda":
+    if b_dense.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"segment_spmm runs on cuda or cpu tensors, got "
                          f"{b_dense.device}")
+    return segment_spmm_op(a_blocks, a_scales, slot_idx, m_idx, k_idx,
+                           seg_start, seg_write, accum_prev, valid, b_dense,
+                           runs, chunks, grid_m, bn, transpose_lhs,
+                           out_dtype, path)[0]
+
+
+@torch.library.custom_op("repro_torch::segment_spmm", mutates_args=())
+def segment_spmm_op(a_blocks: torch.Tensor, a_scales: Optional[torch.Tensor],
+                    slot_idx: torch.Tensor, m_idx: torch.Tensor,
+                    k_idx: torch.Tensor, seg_start: torch.Tensor,
+                    seg_write: torch.Tensor, accum_prev: torch.Tensor,
+                    valid: torch.Tensor, b_dense: torch.Tensor,
+                    runs: Optional[torch.Tensor],
+                    chunks: Optional[torch.Tensor], grid_m: int, bn: int,
+                    transpose_lhs: bool, out_dtype: torch.dtype,
+                    path: Optional[str]) -> List[torch.Tensor]:
+    """The operator :func:`segment_spmm` calls once its arguments are
+    checked: ``[C, *scratch]`` (the split path's fp32 partials).  The
+    launch for CUDA tensors, the plain version for CPU tensors, the fake
+    rule for fake and meta tensors."""
+    raise NotImplementedError(f"segment_spmm has no kernel for "
+                              f"{b_dense.device}")
+
+
+@segment_spmm_op.register_kernel("cpu")
+def _spmm_cpu(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+              seg_write, accum_prev, valid, b_dense, runs, chunks, grid_m,
+              bn, transpose_lhs, out_dtype, path):
+    return [segment_spmm_plain(a_blocks, slot_idx, m_idx, k_idx, valid,
+                               b_dense, grid_m=grid_m,
+                               transpose_lhs=transpose_lhs,
+                               out_dtype=out_dtype, a_scales=a_scales)]
+
+
+@segment_spmm_op.register_kernel("cuda")
+def _spmm_cuda(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+               seg_write, accum_prev, valid, b_dense, runs, chunks, grid_m,
+               bn, transpose_lhs, out_dtype, path):
     return _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
                    seg_write, accum_prev, valid, b_dense, grid_m, bn,
                    transpose_lhs, out_dtype, runs, chunks, path)
+
+
+@segment_spmm_op.register_fake
+def _spmm_fake(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+               seg_write, accum_prev, valid, b_dense, runs, chunks, grid_m,
+               bn, transpose_lhs, out_dtype, path):
+    """What the launch on ``b_dense``'s device allocates: C, and on the
+    split path its partials (:func:`launch_allocations`)."""
+    _, bm, _ = a_blocks.shape
+    device = b_dense.device
+    if device.type != "cuda":
+        return [torch.empty((grid_m * bm, b_dense.shape[1]), dtype=out_dtype,
+                            device=device)]
+    _check_launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+                  seg_write, accum_prev, valid, b_dense, out_dtype, runs,
+                  chunks, path)
+    return [torch.empty(shape, dtype=dt, device=device)
+            for shape, dt in launch_allocations(
+                a_blocks, b_dense, grid_m, out_dtype, runs, chunks, path)]
+
+
+def launch_allocations(a_blocks, b_dense, grid_m, out_dtype, runs, chunks,
+                       path):
+    """``[(shape, dtype), ...]`` of what one launch allocates, C first:
+    ``(grid_m·bm, N)`` in ``out_dtype``, and on the split path the fp32
+    partials of every (chunk, N tile).  The arrival counters are one
+    persistent int32 buffer a device (at least 16 KB, made by the first
+    split launch of the process), not a per-call allocation."""
+    _, bm, bk = a_blocks.shape
+    n = b_dense.shape[1]
+    allocs = [((grid_m * bm, n), out_dtype)]
+    n_runs = runs.shape[0] - 1
+    if n_runs == 0 or n == 0:
+        return allocs
+    if path is None:
+        path = choose_path(n, b_dense.dtype, bm, bk, b_dense.stride(),
+                           addr(b_dense))
+    if path == "split":
+        tile_n = _split_tile_n(n)
+        work = chunks.shape[0] * -(-n // tile_n) * bm * tile_n
+        allocs.append(((work,), torch.float32))
+    return allocs
 
 
 def _check_payload(a_blocks, a_scales) -> None:
@@ -386,9 +462,11 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
-            seg_write, accum_prev, valid, b_dense, grid_m, bn, transpose_lhs,
-            out_dtype, runs, chunks, path) -> torch.Tensor:
+def _check_launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+                  seg_write, accum_prev, valid, b_dense, out_dtype, runs,
+                  chunks, path) -> str:
+    """Raise what the launch raises on these operands; returns the path
+    it takes."""
     _, bm, bk = a_blocks.shape
     k_dim, n = b_dense.shape
     device = b_dense.device
@@ -409,7 +487,7 @@ def _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
         raise ValueError(
             f"segment_spmm: B needs a unit stride on one axis, got strides "
             f"{(sbk, sbn)}; pass a contiguous tensor or its transpose")
-    if not a_blocks.is_contiguous() or a_blocks.data_ptr() % 16:
+    if not a_blocks.is_contiguous() or addr(a_blocks) % 16:
         raise ValueError("segment_spmm: a_blocks must be contiguous and "
                          "16-byte aligned")
     sched = (slot_idx, m_idx, k_idx, seg_start, seg_write, accum_prev, valid)
@@ -427,21 +505,40 @@ def _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
                          f"run offsets (plan.run_offsets) as int32 on {device}")
     if path is None:
         path = choose_path(n, b_dense.dtype, bm, bk, (sbk, sbn),
-                           b_dense.data_ptr())
+                           addr(b_dense))
     if path == "split" and (chunks is None or chunks.device != device
                             or chunks.dtype != torch.int32
                             or chunks.ndim != 2 or chunks.shape[1] != 4):
         raise ValueError("segment_spmm: the split path needs the plan's "
                          f"chunk table (plan.chunk_offsets) as (n_chunks, 4) "
                          f"int32 on {device}")
+    n_runs = runs.shape[0] - 1
+    if n_runs > 65535:
+        raise ValueError(f"segment_spmm: {n_runs} owner runs exceed the "
+                         f"65535 thread-block rows of one launch")
+    if path == "split" and chunks.shape[0] > 65535:
+        raise ValueError(f"segment_spmm: {chunks.shape[0]} chunks exceed "
+                         f"the 65535 thread-block rows of one launch")
+    return path
+
+
+def _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
+            seg_write, accum_prev, valid, b_dense, grid_m, bn, transpose_lhs,
+            out_dtype, runs, chunks, path) -> List[torch.Tensor]:
+    """One launch: ``[C, *scratch]`` (:func:`launch_allocations`)."""
+    path = _check_launch(a_blocks, a_scales, slot_idx, m_idx, k_idx,
+                         seg_start, seg_write, accum_prev, valid, b_dense,
+                         out_dtype, runs, chunks, path)
+    _, bm, bk = a_blocks.shape
+    k_dim, n = b_dense.shape
+    sbk, sbn = b_dense.stride()
+    device = b_dense.device
+    sched = (slot_idx, m_idx, k_idx, seg_start, seg_write, accum_prev, valid)
     # square blocks: the output tile has bm rows in either mode
     out = torch.empty((grid_m * bm, n), dtype=out_dtype, device=device)
     n_runs = runs.shape[0] - 1
     if n_runs == 0 or n == 0:
-        return out.zero_()
-    if n_runs > 65535:
-        raise ValueError(f"segment_spmm: {n_runs} owner runs exceed the "
-                         f"65535 thread-block rows of one launch")
+        return [out.zero_()]
     # 1-byte payloads cross as raw bytes (an fp8 tensor as its uint8 view);
     # 0 = no scales, 1 = per block, 2 = per block row
     scale_mode = 0 if a_scales is None else a_scales.ndim
@@ -461,9 +558,6 @@ def _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
         lib = _lib()
         tile_n = _split_tile_n(n)
         n_chunks = chunks.shape[0]
-        if n_chunks > 65535:
-            raise ValueError(f"segment_spmm: {n_chunks} chunks exceed the "
-                             f"65535 thread-block rows of one launch")
         n_tiles = -(-n // tile_n)
         # fp32 partials of every (chunk, N tile); the last block of a run
         # to finish adds its run's, in chunk order
@@ -494,7 +588,7 @@ def _launch(a_blocks, a_scales, slot_idx, m_idx, k_idx, seg_start,
         segment_spmm.transposed_launches += 1
     if scale_mode:
         segment_spmm.quantized_launches += 1
-    return out
+    return [out] if path != "split" else [out, work]
 
 
 def _split_tile_n(n: int) -> int:

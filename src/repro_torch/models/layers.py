@@ -98,6 +98,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def _per_row(v: Pos, b: int, device) -> torch.Tensor:
     """A shared scalar or a per-row ``(B,)`` vector, as ``(B,)`` int64."""
+    if isinstance(v, int):
+        return torch.full((b,), v, dtype=torch.long, device=device)
     return torch.as_tensor(v, device=device).long().expand(b)
 
 

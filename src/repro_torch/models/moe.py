@@ -99,8 +99,11 @@ def moe_apply(moe: MoE, x: torch.Tensor, *, top_k: int,
 
     # Switch-style load-balance loss over every token's first choice
     me = probs.reshape(-1, n_exp).mean(dim=0)
-    ce = torch.bincount(top_idx[..., 0].reshape(-1),
-                        minlength=n_exp).float() / (b * t)
+    # the first choices' counts per expert (a scatter, not bincount: its
+    # output shape does not depend on the values, so a fake tensor traces)
+    first = top_idx[..., 0].reshape(-1)
+    ce = torch.zeros(n_exp, dtype=torch.float32, device=x.device).index_add_(
+        0, first, torch.ones(first.shape, device=x.device)) / (b * t)
     aux = n_exp * torch.sum(me * ce)
 
     w_gate, w_up, w_down = (w.to(x.dtype) for w in

@@ -45,12 +45,12 @@ def make_elastic_mesh(ranks: Optional[Sequence[int]] = None,
 
 def restore_onto_mesh(ckpt, step: int,
                       state_like: Mapping[str, torch.Tensor],
-                      mesh: DeviceMesh):
+                      mesh: DeviceMesh, fsdp="data"):
     """Restore ``step`` of ``ckpt`` (a ``CheckpointManager`` or a
-    ``JaxCheckpoint``) under ``mesh``'s layout of ``state_like``'s names:
-    DTensors over this rank's shards (the step and the AdamW moments share
-    the parameters' rules)."""
-    shardings = make_shardings(mesh, params_pspecs(state_like),
+    ``JaxCheckpoint``) under ``mesh``'s layout of ``state_like``'s names
+    (FSDP on ``fsdp``): DTensors over this rank's shards (the step and the
+    AdamW moments share the parameters' rules)."""
+    shardings = make_shardings(mesh, params_pspecs(state_like, fsdp=fsdp),
                                state_like)
     return ckpt.restore(step, state_like, shardings=shardings)
 

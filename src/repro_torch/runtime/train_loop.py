@@ -68,7 +68,7 @@ class TrainStep:
     ``shardings``: each parameter's ``Sharding``, or ``None``."""
 
     def __init__(self, model, opt: AdamW, accum_steps: int,
-                 accum_dtype: torch.dtype, mesh):
+                 accum_dtype: torch.dtype, mesh, fsdp="data"):
         self.model, self.opt = model, opt
         self.accum_steps, self.accum_dtype = accum_steps, accum_dtype
         self.mesh = mesh
@@ -78,7 +78,7 @@ class TrainStep:
             self.master = self.params
         else:
             self.shardings = make_shardings(
-                mesh, params_pspecs(self.params), self.params)
+                mesh, params_pspecs(self.params, fsdp=fsdp), self.params)
             self.master = {k: self.shardings[k].shard(p.detach())
                            for k, p in self.params.items()}
 
@@ -144,8 +144,8 @@ def _dp_mean(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def make_train_step(model, opt: AdamW, accum_steps: int,
-                    accum_dtype: torch.dtype = torch.float32, mesh=None
-                    ) -> TrainStep:
+                    accum_dtype: torch.dtype = torch.float32, mesh=None,
+                    fsdp="data") -> TrainStep:
     """Build ``step(opt_state, batch) → metrics``, which updates the
     model's parameters and ``opt_state`` (built over ``step.master``) in
     place.
@@ -155,8 +155,9 @@ def make_train_step(model, opt: AdamW, accum_steps: int,
     ``accum_steps`` before it is added) into an ``accum_dtype`` buffer, and
     the step's loss is their mean.  On ``mesh`` the batch is this rank's
     rows (:func:`rank_rows`), the master state is sharded by the rules
-    (FSDP on ``data``) and the loss is the mean over dp."""
-    return TrainStep(model, opt, accum_steps, accum_dtype, mesh)
+    (FSDP on ``fsdp``: ``"data"``, or ``("data", "pod")`` for cross-pod
+    ZeRO, as ``repro``'s ``fsdp=``) and the loss is the mean over dp."""
+    return TrainStep(model, opt, accum_steps, accum_dtype, mesh, fsdp)
 
 
 def rank_rows(global_batch: int, accum_steps: int, mesh) -> np.ndarray:
@@ -180,14 +181,16 @@ def rank_rows(global_batch: int, accum_steps: int, mesh) -> np.ndarray:
 
 
 class Trainer:
-    """Trainer on one GPU, or on ``mesh`` (one process a device; see the
-    module docstring): initializes ``model`` from ``seed``, builds AdamW
+    """Trainer on one GPU, or on ``mesh`` (one process a device, FSDP on
+    ``fsdp``; see the module docstring): initializes ``model`` from
+    ``seed``, builds AdamW
     with ``repro``'s cosine schedule, and resumes from ``tcfg.ckpt_dir``'s
     latest checkpoint when there is one (``repro``'s ``resume="auto"``).
     The model's parameters live on its device; batches are moved there."""
 
     def __init__(self, model, model_cfg: ModelConfig, shape_cfg: ShapeConfig,
-                 tcfg: TrainerConfig, mesh=None, seed: int = 0):
+                 tcfg: TrainerConfig, mesh=None, seed: int = 0,
+                 fsdp="data"):
         self.model = model
         self.model_cfg = model_cfg
         self.shape_cfg = shape_cfg
@@ -200,7 +203,7 @@ class Trainer:
         model.init(torch.Generator(device=self.device).manual_seed(seed))
         self.params = dict(model.named_parameters())
         self._step_fn = make_train_step(model, self.opt, tcfg.accum_steps,
-                                        mesh=mesh)
+                                        mesh=mesh, fsdp=fsdp)
         self._rows = (None if mesh is None else
                       rank_rows(shape_cfg.global_batch, tcfg.accum_steps,
                                 mesh))
@@ -215,7 +218,8 @@ class Trainer:
                 # on a mesh each rank places only its shards on its device
                 self.load_state_dict(
                     self.ckpt.restore(latest, like) if mesh is None else
-                    restore_onto_mesh(self.ckpt, latest, like, mesh))
+                    restore_onto_mesh(self.ckpt, latest, like, mesh,
+                                      fsdp=fsdp))
                 self.start_step = latest
 
     def state_dict(self) -> Dict[str, torch.Tensor]:

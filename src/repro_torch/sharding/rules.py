@@ -109,9 +109,15 @@ def _expert(ndim: int, tp, dp, swap: bool = False) -> P:
     return P(*pad, tp, None, dp) if swap else P(*pad, tp, dp, None)
 
 
-def params_pspecs(params: Mapping[str, object]) -> Dict[str, P]:
-    """Specs of a state dict, FSDP on ``data``."""
-    return {k: param_pspec(k, v) for k, v in params.items()}
+def params_pspecs(params: Mapping[str, object], fsdp="data"
+                  ) -> Dict[str, P]:
+    """Specs of a state dict, FSDP on ``fsdp``: an axis name, or a tuple
+    such as ``("data", "pod")`` for cross-pod ZeRO (state-dominated
+    giants); :func:`sanitize_pspec` drops the axes a mesh lacks.  Within
+    one tensor dim the shards follow DTensor's order (the earlier mesh
+    axis is the major one), whatever the tuple's order: the per-rank bytes
+    are the same."""
+    return {k: param_pspec(k, v, dp=fsdp) for k, v in params.items()}
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
