@@ -243,7 +243,7 @@
    reference, then 3 ``Trainer`` steps at 8 x 448 tokens (72 SpMM
    launches a step with remat, 24 transposed, all tc), the kernel vs
    plain at the encoder's 12000 training rows, forward and dx.
-13. The sharded runtime ([dist], last): one process in an NCCL group of
+13. The sharded runtime ([dist]): one process in an NCCL group of
    world size 1 (``init_process_group`` on a free local port, destroyed at
    the end of the phase); granite-3-8b at full width with its depth cut 40
    -> ``DIST_LAYERS`` layers (sparse FFN, remat) on 8 x 256 tokens with
@@ -266,19 +266,42 @@
    trainer's tensors, bf16 and fp32, along a non-leading dim of a
    non-contiguous view: each result equals its input bit for bit.  Last,
    the SpMM kernel vs plain at the trainer's N = 1024, forward and dx.
-14. The dry run ([dryrun], after [dist] has closed its group):
+13b. Tensor parallel ([tp], after [dist]): two processes of this script
+   (``--tp-rank``) on the one card, a gloo group (gloo stages CUDA tensors
+   through the host; NCCL refuses two ranks on one device) and a (1, 2)
+   ``(data, model)`` mesh.  RecurrentGemma-9B at published width cut to
+   ``TP_LAYERS`` = 3 layers (one ``(rec, rec, local)`` unit, the
+   block-sparse FFN, remat) on 1 x 4096 tokens: rank 0 first runs it at
+   world size 1 (one gradient step, then ``TP_STEPS`` ``Trainer``
+   steps), then both ranks run it split (``build_model(cfg, mesh=)``):
+   the loss and gradient norm of every step (``LOSS_RTOL``,
+   ``GNORM_RTOL``) and every parameter's gradient, its slices gathered
+   (``GRAD_RTOL``, norm-relative), against world size 1; each rank's
+   exact launches per path (``rg_lru`` and ``rg_lru_bwd`` on ``tile``
+   over 2048 channels, ``flash_attention`` and its backward on ``tc``
+   with 8 query heads on one KV head, the replicated sparse FFN's SpMM
+   on the tensor cores) equal to world size 1's; each split parameter
+   half of its full tensor; each kernel against its plain version on
+   random inputs at the local shapes; peak memory per rank.  Step times
+   are printed as information only.
+14. The dry run ([dryrun], after [tp]):
    ``repro_torch.launch.dryrun.run_cell`` traces ``DRYRUN_CELLS`` on fake
-   CUDA tensors in a fake process group of 256 ranks (``pod_16x16``):
+   CUDA tensors in a fake process group of 256 ranks (``pod_16x16``),
+   the model split tensor parallel over the 16 ``model`` ranks:
    granite-3-8b's train_4k, prefill_32k and decode_32k and
    RecurrentGemma-9B's train_4k (the cell whose fake rules are the
    attention's and the RG-LRU's, forward and backward).  Each cell's
    per-rank bytes by MemTracker category, FLOPs, bytes, collective bytes
    by opcode, roofline terms, fit against the card's memory and
-   ``useful_flops_ratio`` printed; each must complete, and its
-   ``Parameter`` and ``Optstate`` bytes must equal the closed form of the
-   rules' shard sizes (every rank holds the full fp32 parameters; the
-   AdamW moments are its shards; each storage rounded to the allocator's
-   512 bytes).  Then the dry run's predictions against two steps that
+   ``useful_flops_ratio`` printed; each must complete with
+   ``tensor_parallel`` true, the training cells' ``useful_flops_ratio``
+   at least ``DRYRUN_USEFUL_MIN``, the parameters at least
+   ``DRYRUN_PARAM_CUT`` times under the gathered layout's, and its
+   ``Parameter`` and ``Optstate`` bytes equal to the closed form of the
+   rules' shard sizes (each rank holds its split parameters' 1/16 and
+   the others whole; the AdamW moments are its shards; each storage
+   rounded to the allocator's 512 bytes).  Then the dry run's predictions
+   against two steps that
    really run on the card (``DRYRUN_REAL``): [dist]'s granite-3-8b at 8
    layers (sparse FFN, 8 x 256 tokens, accum 2, one rank: SpMM on ``tc``)
    and [hybrid_train]'s RecurrentGemma-9B at 6 layers (1 x 4096 tokens:
@@ -295,8 +318,8 @@ started under another), so the suite's matrices are the same in every run.
 Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
 the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``,
-``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec,dist``)
-builds no 40-layer granite model.
+``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec,dist,tp,
+dryrun``) builds no 40-layer granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -307,6 +330,7 @@ import gc
 import importlib
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4897,25 +4921,332 @@ def phase_dist(dev):
         dist.destroy_process_group()
 
 
+# [tp]: RecurrentGemma-9B at published width, its depth cut 38 -> 3 (one
+# (rec, rec, local) unit, the block-sparse FFN, remat), on 1 x 4096 tokens:
+# two gloo ranks on the one card, tensor parallel on a (1, 2) mesh, against
+# a world-size-1 run of the same model and batch
+TP_LAYERS = 3
+TP_T = 4096
+TP_STEPS = 2
+TP_WORLD = 2
+TP_TIMEOUT = 600               # seconds for both ranks, the model builds in
+
+
+def tp_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("recurrentgemma-9b"), dtype="bfloat16",
+        n_layers=TP_LAYERS, ffn_block_sparse=True, ffn_block=64,
+        ffn_density=0.25)
+
+
+def _tp_run(model, cfg, dev, mesh=None):
+    """One gradient step (loss, gradients off the parameters; the launches
+    it makes are not counted), then ``TP_STEPS`` ``Trainer`` steps from
+    the same initial state with their launch counts, step times and peak
+    memory above what was allocated before."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    shape = ShapeConfig("tp", "train", TP_T, 1)
+    trainer = Trainer(model, cfg, shape, TrainerConfig(
+        steps=TP_STEPS, log_every=1, warmup=1), mesh=mesh, seed=SEED)
+    loss, grads = _grads_on(model, trainer._batch(0), "cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    hist = trainer.run()["history"]
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    return trainer, loss, grads, hist, counts, peak
+
+
+def _tp_kernels(model, dev):
+    """Each kernel of the split step against its plain version on random
+    inputs at the shapes a rank gives it (one launch each, on the path the
+    step takes): ``rg_lru`` and ``rg_lru_bwd`` over (1, 4096, 2048),
+    ``flash_attention`` and its backward with 8 query heads on one KV head
+    (D = 256, window 2048), the replicated sparse FFN's SpMM at N = 4096,
+    forward and ``transpose_lhs``.  Returns ``{kernel: (path, rel err)}``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rg_lru import (choose_bwd_path, choose_path,
+                                            rg_lru, rg_lru_bwd,
+                                            rg_lru_bwd_plain, rg_lru_plain)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    cfg = model.cfg
+    rec = next(b.rec for b in model.layers if hasattr(b, "rec"))
+    attn = next(b.attn for b in model.layers if hasattr(b, "attn"))
+    d = rec.a_param.shape[0] // rec.tp.size
+    out = {}
+
+    def rand(*shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    bf = torch.bfloat16
+    x, ag, xg = (rand(1, TP_T, d, dt=bf) for _ in range(3))
+    a_param, h0 = rand(d), torch.zeros(1, d, device=dev)
+    _zero_counts()
+    got = rg_lru(x, ag, xg, a_param, h0, ct=TP_T)
+    c = _counts()
+    want = rg_lru_plain(x, ag, xg, a_param, h0)
+    path = choose_path(1, TP_T, d, bf, bf, bf)
+    check(c["rg_lru"] == 1 and c["rg_lru_tile"] == int(path == "tile"),
+          f"[tp] rg_lru launches {c}")
+    errs = [_rel(g, w)[0] for g, w in zip(got, want)]
+    check(max(errs[0] / BF16_RTOL, errs[1] / KERNEL_RTOL) <= 1,
+          f"[tp] rg_lru kernel vs plain {errs}")
+    out["rg_lru"] = (path, errs)
+    with torch.no_grad():
+        hs, _ = rg_lru(x.float(), ag, xg, a_param, h0, ct=TP_T)
+    args = (x, ag, xg, a_param, h0, hs, rand(1, TP_T, d, dt=bf), rand(1, d))
+    _zero_counts()
+    got = rg_lru_bwd(*args)
+    c = _counts()
+    want = rg_lru_bwd_plain(*args)
+    path = choose_bwd_path(d, (bf,) * 3)
+    check(c["rg_lru_bwd"] == 1 and c["rg_lru_bwd_tile"] == int(
+        path == "tile"), f"[tp] rg_lru_bwd launches {c}")
+    errs = [_rel(g, w)[0] for g, w in zip(got, want)]
+    for g, e in zip(got, errs):
+        check(e <= (KERNEL_RTOL if g.dtype == torch.float32 else BF16_RTOL),
+              f"[tp] rg_lru_bwd kernel vs plain {errs}")
+    out["rg_lru_bwd"] = (path, errs)
+    h, hkv, hd = attn.n_heads, attn.n_kv, attn.head_dim
+    q = rand(1, TP_T, h, hd, dt=bf, scale=0.5)
+    k, v = (rand(1, TP_T, hkv, hd, dt=bf, scale=0.5) for _ in range(2))
+    qh, kh, vh, kw = ops.stack_heads(q, k, v)
+    kw.update(causal=True, window=cfg.local_window)
+    _zero_counts()
+    o, stats = fa._forward(qh, kh, vh, kw, bf, None, stats=True)
+    c = _counts()
+    wo, wstats = fa.flash_attention_plain(qh, kh, vh, out_dtype=bf,
+                                          stats=True, **kw)
+    check(c["flash"] == 1 and c["flash_tc"] == 1,
+          f"[tp] flash_attention launches {c}")
+    errs = [_rel(o, wo)[0], _rel(stats, wstats)[0]]
+    check(errs[0] <= BF16_RTOL and errs[1] <= KERNEL_RTOL,
+          f"[tp] flash_attention kernel vs plain {errs}")
+    out["flash_attention"] = ("tc", errs)
+    args = (qh, kh, vh, o, rand(*o.shape, dt=bf), stats)
+    _zero_counts()
+    got = fa.flash_attention_bwd(*args, **kw)
+    c = _counts()
+    want = fa.flash_attention_bwd_plain(*args, **kw)
+    check(c["flash_bwd"] == 1 and c["flash_bwd_tc"] == 1,
+          f"[tp] flash_attention_bwd launches {c}")
+    errs = [_rel(g, w)[0] for g, w in zip(got, want)]
+    check(max(errs) <= BF16_RTOL,
+          f"[tp] flash_attention_bwd kernel vs plain {errs}")
+    out["flash_attention_bwd"] = ("tc", errs)
+    mlp = next(b.mlp for b in model.layers if hasattr(b, "attn"))
+    b_in = rand(cfg.d_model, TP_T, dt=bf)
+    plan = mlp.up.plan.with_values(mlp.up.blocks.data)
+    fwd = kernel_case("sparse FFN up", plan, b_in, library=False, tag="tp")
+    b_dx = rand(cfg.d_ff, TP_T, dt=bf)
+    dx = kernel_case("sparse FFN up dx", plan, b_dx, transpose=True,
+                     library=False, tag="tp")
+    out["segment_spmm"] = (fwd["path"], [fwd["rel_err"]])
+    out["segment_spmm.transpose_lhs"] = (dx["path"], [dx["rel_err"]])
+    return out
+
+
+def tp_rank(rank, port, out_dir, dev=None):
+    """One rank of [tp] (``chip_smoke.py --tp-rank R``): rank 0 first runs
+    the model at world size 1 while rank 1 waits; then both run it split
+    on the (1, 2) mesh.  Rank 0 holds the split run to the world-size-1
+    one and checks the kernels at the local shapes; each rank writes its
+    numbers to ``out_dir/r<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.tensor_parallel import gather_full
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=TP_WORLD, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    cfg = tp_config()
+    res = {"rank": rank}
+    if rank == 0:
+        model = build_model(cfg, device=dev)
+        trainer, loss, grads, hist, counts, peak = _tp_run(model, cfg, dev)
+        one = {"loss": loss, "hist": hist, "counts": counts, "peak": peak,
+               "grads": {k: g.cpu() for k, g in grads.items()}}
+        del model, trainer, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[tp] world size 1: loss {loss:.5f}; steps " + ", ".join(
+            f"{h['loss']:.5f} / {h['grad_norm']:.5f} / {h['ms']:.1f} ms"
+            for h in hist) + f"; peak {peak / 2**30:.2f} GiB; launches "
+            f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    dist.barrier()
+    mesh = make_mesh((1, TP_WORLD), ("data", "model"), device=dev.type)
+    model = build_model(cfg, device=dev, mesh=mesh)
+    check(model.tp.size == TP_WORLD and not model.tp_gathered,
+          f"[tp] rank {rank}: split {model.tp}, gathered "
+          f"{model.tp_gathered}")
+    trainer, loss, grads, hist, counts, peak = _tp_run(model, cfg, dev,
+                                                       mesh)
+    split = model.tp_local_params()
+    errs = {}
+    for k in sorted(grads):
+        g = (gather_full(grads[k], split[k][0], model.tp) if k in split
+             else grads[k])
+        if rank == 0:
+            errs[k] = _fro(g, one["grads"][k].to(dev))
+    res.update(loss=loss, hist=hist, counts=counts, peak=peak,
+               local={k: [list(model.get_parameter(k).shape), list(full)]
+                      for k, (_, full) in split.items()})
+    if rank == 0:
+        del one["grads"]
+        res["one"] = one
+        res["grad_errs"] = errs
+    del grads, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        res["kernels"] = _tp_kernels(model, dev)
+    dist.barrier()
+    with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_tp(dev):
+    """[tp]: two processes on the one card (gloo with CUDA tensors; NCCL
+    refuses two ranks on one device), RecurrentGemma-9B at published width
+    and 3 layers split tensor parallel on a (1, 2) mesh, 2 ``Trainer``
+    steps on 1 x 4096 tokens, against a world-size-1 run of the same model
+    and batch: loss, norm and every gradient within the training gates,
+    each rank's exact launches per path (``rg_lru`` on ``tile`` over 2048
+    channels, ``flash_attention`` on ``tc`` with 8 query heads on 1 KV
+    head, both backward kernels, the replicated sparse FFN's SpMM as at
+    world size 1), each kernel against its plain version at the local
+    shapes, peak memory per rank.  The step times are printed as
+    information only: two ranks share one card and gloo stages every
+    collective through the host."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+             str(r), "--tp-port", str(port), "--tp-out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(TP_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=TP_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines():
+                print(f"[tp r{r}] {line}")
+            check(p.returncode == 0, f"[tp] rank {r} exited with "
+                                     f"{p.returncode}")
+        ranks = [json.load(open(os.path.join(out, f"r{r}.json")))
+                 for r in range(TP_WORLD)]
+    _tp_report(ranks)
+    print(f"[tp] phase {time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def _tp_report(ranks):
+    """[tp]'s gates over the ranks' numbers (see :func:`phase_tp`)."""
+    cfg = tp_config()
+    one = ranks[0]["one"]
+    kinds = tuple(cfg.layer_kind(i) for i in range(cfg.n_layers))
+    n_rec, n_local = kinds.count("rec"), kinds.count("local")
+    per_step = dict(rg_lru=2 * n_rec, rg_lru_tile=2 * n_rec,
+                    rg_lru_bwd=n_rec, rg_lru_bwd_tile=n_rec,
+                    flash=2 * n_local, flash_tc=2 * n_local,
+                    flash_bwd=n_local, flash_bwd_tc=n_local,
+                    spmm=3 * n_local * 3, spmm_tc=3 * n_local * 3,
+                    spmm_t=3 * n_local)
+    want = {k: v * TP_STEPS for k, v in per_step.items()}
+    for r, res in enumerate(ranks):
+        bad = {k: (res["counts"][k], v) for k, v in want.items()
+               if res["counts"][k] != v}
+        check(not bad and res["counts"] == one["counts"],
+              f"[tp] rank {r}: launches (got, expected) {bad}; world size "
+              f"1 {one['counts']}")
+        for name, (shape, full) in res["local"].items():
+            check(sum(a != b for a, b in zip(shape, full)) == 1 and
+                  math.prod(shape) * TP_WORLD == math.prod(full),
+                  f"[tp] rank {r}: {name} local {shape} of {full}")
+        for h, w in zip(res["hist"], one["hist"]):
+            le = abs(h["loss"] - w["loss"]) / abs(w["loss"])
+            ne = abs(h["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+            print(f"[tp] rank {r} step {h['step']}: loss {h['loss']:.5f} "
+                  f"(world size 1 {w['loss']:.5f}, err {le:.2e}), grad norm "
+                  f"{h['grad_norm']:.5f} ({w['grad_norm']:.5f}, err "
+                  f"{ne:.2e}), {h['ms']:.1f} ms (world size 1 "
+                  f"{w['ms']:.1f} ms; information only)")
+            check(le <= LOSS_RTOL and ne <= GNORM_RTOL,
+                  f"[tp] rank {r} step {h['step']}: loss err {le:.3g}, "
+                  f"norm err {ne:.3g}")
+        print(f"[tp] rank {r}: peak {res['peak'] / 2**30:.2f} GiB above "
+              f"its model (world size 1 {one['peak'] / 2**30:.2f} GiB); "
+              f"{len(res['local'])} split parameters; launches per step "
+              f"{ {k: v // TP_STEPS for k, v in res['counts'].items() if v} }")
+    le = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    check(le <= LOSS_RTOL, f"[tp] gradient step loss err {le:.3g}")
+    errs = ranks[0]["grad_errs"]
+    worst = max(errs, key=errs.get)
+    print(f"[tp] gradients vs world size 1 (norm-relative, tol {GRAD_RTOL}):"
+          f" {len(errs)} parameters, worst {worst} {errs[worst]:.3e}; "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items())
+                      if k.startswith("layers.2.") or "embed" in k))
+    check(errs[worst] <= GRAD_RTOL, f"[tp] {worst} gradient err "
+                                    f"{errs[worst]:.3g}")
+    for name, (path, e) in ranks[0]["kernels"].items():
+        print(f"[tp] {name} at the local shapes on {path}: kernel vs plain "
+              + ", ".join(f"{x:.2e}" for x in e))
+    print(f"[tp] summary: {cfg.name} full width, {cfg.n_layers} layers, "
+          f"1 x {TP_T} tokens, (1, {TP_WORLD}) mesh on one card over gloo")
+
+
 # [dryrun]: the production cells traced on fake CUDA tensors (pod_16x16)
 DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("granite-3-8b", "prefill_32k"),
                 ("granite-3-8b", "decode_32k"),
                 ("recurrentgemma-9b", "train_4k"))
 # the predicted peak against max_memory_allocated over the same real step
 DRYRUN_PEAK_RTOL = 0.10
+# the split step's gates: useful FLOPs of a training cell, and the
+# parameter bytes a rank against each arch's whole fp32 parameters (the
+# gathered layout's ``Parameter`` bytes a rank, 1e9-byte GB: 32.69 and
+# 37.58 when every rank held the whole fp32 model)
+DRYRUN_USEFUL_MIN = 0.5
+DRYRUN_PARAM_CUT = 12
+DRYRUN_GATHERED_PARAMS = {"granite-3-8b": 32.69e9,
+                          "recurrentgemma-9b": 37.58e9}
 
 
 def _closed_form_state(cfg, shape, arch):
     """(parameter bytes, optimizer bytes) one rank holds in a dry-run cell
-    on ``pod_16x16``, from the rules: the full fp32 parameters, and for a
+    on ``pod_16x16``, from the rules: the fp32 parameters of the model
+    split over 16 ``model`` ranks (``Transformer.shard_`` on the meta
+    device: each split parameter's 1/16, the others whole), and for a
     training cell the two AdamW moments over this rank's shard of each
     (its spec sanitized on the mesh), each storage rounded up to 512
     bytes as the caching allocator (and MemTracker) round it."""
     import types
 
     from repro_torch.launch import dryrun
-    from repro_torch.models import abstract_params
+    from repro_torch.models import Transformer
     from repro_torch.sharding import param_pspec, sanitize_pspec
+    from repro_torch.sharding.tensor_parallel import TP
 
     def rounded(n):
         return -(-n // 512) * 512
@@ -4925,11 +5256,14 @@ def _closed_form_state(cfg, shape, arch):
                                  shape=tuple(sizes.values()))
     fsdp = ("data", "pod") if arch in dryrun.CROSS_POD_FSDP else "data"
     item = 2 if arch in dryrun.BF16_OPT else 4
+    model = Transformer(cfg, device="meta").shard_(tp=TP(0, sizes["model"]))
+    full = model.full_shapes()
     params = opt = 0
-    for k, t in abstract_params(cfg).items():
-        params += rounded(t.numel() * 4)
+    for k, p in model.named_parameters():
+        params += rounded(p.numel() * 4)
         if shape.kind != "train":
             continue
+        t = torch.empty(full[k], device="meta")
         spec = sanitize_pspec(mesh, param_pspec(k, t.shape, dp=fsdp),
                               t.shape)
         div = 1
@@ -5035,6 +5369,25 @@ def phase_dryrun(dev):
                   f"closed form {want}")
             check(got == want, f"[dryrun] {arch} {shape_name}: parameter / "
                                f"optimizer bytes {got} != {want}")
+            # tensor parallel on model: every block split, a training
+            # step's useful FLOPs at least half of what it runs, the
+            # parameters at least 12 x under the gathered layout's
+            check(res["tensor_parallel"] and not res["tp_gathered"],
+                  f"[dryrun] {arch} {shape_name}: tensor_parallel "
+                  f"{res['tensor_parallel']}, gathered {res['tp_gathered']}")
+            if shape_name == "train_4k":
+                check(res["useful_flops_ratio"] >= DRYRUN_USEFUL_MIN,
+                      f"[dryrun] {arch} {shape_name}: useful_flops_ratio "
+                      f"{res['useful_flops_ratio']:.4f} < "
+                      f"{DRYRUN_USEFUL_MIN}")
+            gathered = DRYRUN_GATHERED_PARAMS[arch]
+            print(f"[dryrun]   parameters {got[0] / 1e9:.2f} GB a rank, "
+                  f"{gathered / got[0]:.1f} x under the gathered "
+                  f"{gathered / 1e9:.2f} GB")
+            check(got[0] * DRYRUN_PARAM_CUT <= gathered,
+                  f"[dryrun] {arch} {shape_name}: parameters "
+                  f"{got[0] / 1e9:.2f} GB, not {DRYRUN_PARAM_CUT} x under "
+                  f"{gathered / 1e9:.2f} GB")
     granite = dataclasses.replace(
         get_config("granite-3-8b"), ffn_block_sparse=True, ffn_block=64,
         ffn_density=0.25, dtype="bfloat16", n_layers=DIST_LAYERS)
@@ -5053,7 +5406,8 @@ def phase_dryrun(dev):
 
 PHASES = ("spgemm", "ops", "tune", "kernel", "crossover", "edges", "serve",
           "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "mixed",
-          "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist", "dryrun")
+          "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist", "tp",
+          "dryrun")
 # the phases that need granite-3-8b built (``--only spgemm,ops,tune``,
 # ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
 GRANITE_PHASES = PHASES[3:PHASES.index("hybrid")]
@@ -5071,7 +5425,11 @@ def main():
         "--only", default=",".join(PHASES),
         help="comma-separated phases to run (default: all; the kernel JSON "
              "line and the ok line are printed only when all run)")
-    only = parser.parse_args().only.split(",")
+    parser.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-out", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    only = args.only.split(",")
     bad = sorted(set(only) - set(PHASES))
     if bad:
         parser.error(f"unknown phases {bad}; choose from {PHASES}")
@@ -5080,6 +5438,11 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.tp_rank is not None:     # one rank of [tp], started by phase_tp
+        tp_rank(args.tp_rank, args.tp_port, args.tp_out)
+        return
     from repro_torch.api import clear_plan_cache
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -5176,6 +5539,10 @@ def main():
         torch.cuda.empty_cache()
     if "dist" in only:
         dist_counts, dist_recs = phase_dist(dev)
+    if "tp" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_tp(dev)
     if "dryrun" in only:
         gc.collect()
         torch.cuda.empty_cache()

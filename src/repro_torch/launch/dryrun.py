@@ -21,13 +21,22 @@ The step runs under ``torch.distributed._tools.mem_tracker.MemTracker``,
 operators whose fake rules allocate what their launches allocate on the
 card (:mod:`repro_torch.kernels.fake`).
 
-Two facts of the port are recorded in each result rather than hidden:
+The step is the port's tensor-parallel one: the model is built split over
+the mesh's ``model`` axis (``Transformer(cfg, mesh=)``), so each rank holds
+and computes its share of the attention heads, the dense SwiGLU's hidden
+units, the RG-LRU channels and the vocabulary, and the fake rules of the
+kernels see the local shapes.  Two facts are recorded in each result
+rather than hidden:
 
-* ``"tensor_parallel": false``: the ranks along ``model`` compute the full
-  step on full tensors (the rules shard storage on ``model``, not compute),
-  so ``useful_flops_ratio`` counts that redundancy.  Prefill and decode
-  cells trace the parameters gathered on each rank, with the batch and the
-  cache split over the dp axes only.
+* ``"tensor_parallel"``: true when every block of the model is split (or
+  replicated by ``repro``'s rules, as the block-sparse FFN is);
+  ``"tp_gathered"`` names what still computes on full tensors on every
+  rank along ``model``: the MoE experts (expert parallelism), RWKV-6
+  (head parallelism), the modality frontend, and an attention whose heads
+  do not split over the 16 ranks (Whisper's 6, Qwen1.5's 20, Maverick's
+  40).  Prefill and decode cells split the batch and the cache over the dp
+  axes; a decode cell's KV cache holds each rank's KV heads (not
+  ``repro``'s time axis on ``model``).
 * ``seq_shard`` (:data:`CELL_OVERRIDES`) has no effect: the port's
   ``act_constrain`` moves only DTensors, and the step's activations are
   plain tensors.
@@ -94,43 +103,34 @@ CELL_OVERRIDES = {
 }
 # cells whose per-rank peak exceeds the card's memory in the port, with
 # what puts them over (its own --all run on the card's machine, fake CUDA
-# tensors; per-rank GB, 1e9 bytes, by MemTracker category).  Each rank
-# holds the full working parameters in fp32 (ROADMAP §1 item 6), so their
-# memory does not shrink with the mesh; a training step adds their full
-# gradients before the reduce-scatter (MemTracker files some of those
-# under Temp); a decode cell's KV cache is split over the dp axes only.
+# tensors; per-rank GB, 1e9 bytes, by MemTracker category).  The split
+# step holds 1/16 of each split parameter, so what stays over computes
+# gathered: the MoE experts of Maverick and Phi-3.5-MoE (whole fp32
+# parameters, and in training their whole gradients before the
+# reduce-scatter), and Qwen1.5's attention, whose 20 heads do not split
+# over 16 ranks, so its decode cache holds all 20 KV heads split over the
+# dp axes only.
 _P = "pod_16x16"
 EXPECTED_OVER_HBM: Dict[tuple, str] = {
-    ("phi3-mini-3.8b", "decode_32k", _P):
-        "124.52 GB: KV cache 103.08 (32 KV heads), parameters 14.89",
     ("qwen1.5-4b", "decode_32k", _P):
-        "127.05 GB: KV cache 107.37 (20 KV heads), parameters 14.25",
-    ("granite-3-8b", "decode_32k", _P):
-        "88.62 GB: KV cache 42.95, parameters 32.69, activations 12.99",
-    ("command-r-plus-104b", "train_4k", _P):
-        "859.11 GB: parameters 415.24, gradients 402.66, temp 37.95",
-    ("command-r-plus-104b", "prefill_32k", _P):
-        "531.74 GB: parameters 415.24, activations 116.50",
-    ("command-r-plus-104b", "decode_32k", _P):
-        "522.92 GB: parameters 415.24, KV cache 68.72, activations 38.96",
-    ("recurrentgemma-9b", "train_4k", _P):
-        "129.79 GB: temp (gradients) 67.11, parameters 37.58, "
-        "activations 24.80",
+        "117.63 GB: KV cache 107.37 (20 KV heads, gathered attention), "
+        "activations 5.43, parameters 4.82",
     ("llama4-maverick-400b-a17b", "train_4k", _P):
-        "3187.22 GB: parameters 1574.55, gradients 1574.55",
+        "3156.81 GB: parameters 1559.35, gradients 1559.35 (gathered "
+        "experts)",
     ("llama4-maverick-400b-a17b", "train_4k", "multipod_2x16x16"):
-        "3188.97 GB: parameters 1574.55, gradients 1574.55 (cross-pod "
+        "3158.56 GB: parameters 1559.35, gradients 1559.35 (cross-pod "
         "FSDP halves only the optimizer state: 6.15 -> 3.08)",
     ("llama4-maverick-400b-a17b", "prefill_32k", _P):
-        "1623.29 GB: parameters 1574.55, activations 48.74",
+        "1608.09 GB: parameters 1559.35, activations 48.74",
     ("llama4-maverick-400b-a17b", "decode_32k", _P):
-        "1658.37 GB: parameters 1574.55, KV cache 51.54",
+        "1643.16 GB: parameters 1559.35, KV cache 51.54, activations 32.27",
     ("phi3.5-moe-42b-a6.6b", "train_4k", _P):
-        "348.76 GB: parameters 166.97, gradients 161.24",
+        "328.26 GB: parameters 161.44, gradients 156.36 (gathered experts)",
     ("phi3.5-moe-42b-a6.6b", "prefill_32k", _P):
-        "206.03 GB: parameters 166.97, activations 39.06",
+        "173.80 GB: parameters 161.44, activations 12.36",
     ("phi3.5-moe-42b-a6.6b", "decode_32k", _P):
-        "214.31 GB: parameters 166.97, KV cache 34.36",
+        "168.26 GB: parameters 161.44, KV cache 4.29, activations 2.53",
 }
 
 
@@ -379,7 +379,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *, dev,
     traced = TRACED_MICROBATCHES if fold else accum
     try:
         with fake_mode():
-            model = Transformer(cfg, device=dev)
+            model = Transformer(cfg, device=dev, mesh=mesh)
             if serve_params_dtype is not None and shape.kind != "train":
                 model.to(serve_params_dtype)
             fn, external, opt = make_step(cfg, shape, model, mesh, dp,
@@ -391,6 +391,9 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *, dev,
     if fold:
         res = unfold(res, accum)
     res["dp"] = dp
+    res["tp"] = model.tp.size
+    res["tp_gathered"] = sorted({f"{name.split('.')[-1]}: {why}" for name, why
+                                 in model.tp_gathered.items()})
     return res
 
 
@@ -526,7 +529,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "chips": chips, "ok": True, "device": dev.type,
         "trace_s": round(res["trace_s"], 1), "accum": accum,
         "fsdp": fsdp if isinstance(fsdp, str) else list(fsdp),
-        "tensor_parallel": False, "seq_shard": cfg.seq_shard,
+        "tensor_parallel": res["tp"] > 1 and not res["tp_gathered"],
+        "tp": res["tp"], "tp_gathered": res["tp_gathered"],
+        "seq_shard": cfg.seq_shard,
         "seq_shard_effect": False,
         "traced": dict(res.get("traced", {}), microbatches=res.get(
             "microbatches_traced", accum)),
@@ -565,7 +570,11 @@ def summary(res: dict) -> str:
             f" bytes/dev {res['cost']['bytes_per_device']:.4g}, collectives "
             f"{res['collectives_bytes_per_device']}; dominant "
             f"{terms['dominant']} {terms['bound_s']:.4g} s; useful "
-            f"{res['useful_flops_ratio']:.4g}; traced in {res['trace_s']} s")
+            f"{res['useful_flops_ratio']:.4g}; tensor parallel "
+            f"{res['tensor_parallel']} (tp {res['tp']}"
+            + (f", gathered: {'; '.join(res['tp_gathered'])}"
+               if res["tp_gathered"] else "")
+            + f"); traced in {res['trace_s']} s")
 
 
 def over_hbm(res: dict) -> Optional[str]:

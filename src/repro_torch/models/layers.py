@@ -17,8 +17,16 @@ buffer of ``window`` slots (:func:`ring_cache_write`,
 ``flash_attention`` kernel through :func:`repro_torch.kernels.ops.flash_mha`
 (the ``"reference"`` backend keeps ``repro``'s :func:`chunked_attention`),
 which records gradients through the kernel's backward pass.
-The sharding hints of ``repro`` (``act_constrain``) have no
-meaning on one device and are dropped.
+``repro``'s sharding hints (``act_constrain``) become computed tensor
+parallelism on the mesh's ``model`` axis
+(:mod:`repro_torch.sharding.tensor_parallel`): ``tensor_parallel_(tp)``
+turns :class:`Attention` (this rank's query heads and the KV heads they
+read; ``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel),
+:class:`SwiGLU` (``gate``/``up`` column-, ``down`` row-parallel) and
+:class:`Embedding` (vocab-parallel lookup and head; the logits stay split
+over the vocabulary) into modules over local shards with explicit
+collectives.  A module left as built (one rank, or a module outside that
+list) computes on full tensors.
 """
 from __future__ import annotations
 
@@ -31,6 +39,10 @@ from torch import nn
 
 from repro_torch.api.backends import default_backend
 from repro_torch.kernels.ops import flash_mha
+from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
+                                                  TensorParallelError,
+                                                  copy_in, gather, local,
+                                                  reduce_out, vocab_embed)
 
 Pos = Union[int, torch.Tensor]
 
@@ -46,6 +58,11 @@ def dense_apply(w: torch.Tensor, x: torch.Tensor,
 
 
 class Dense(nn.Module):
+    """``x @ w (+ b)``.  After :meth:`tensor_parallel_` ``w`` is this
+    rank's columns (``"col"``: the output split over ``model``; a bias is
+    kept whole and sliced in the forward) or rows (``"row"``: a partial
+    sum the caller reduces)."""
+
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  device=None):
         super().__init__()
@@ -53,14 +70,39 @@ class Dense(nn.Module):
         self.w = nn.Parameter(torch.empty(d_in, d_out, device=device))
         self.b = (nn.Parameter(torch.empty(d_out, device=device))
                   if bias else None)
+        self.tp, self.split = NO_TP, None
+        #: ``{param name: (its dim local on model, its full shape)}``
+        self.tp_local: dict = {}
+
+    def tensor_parallel_(self, tp: TP, split: str) -> None:
+        """Keep this rank's slice of ``w``: its columns (``"col"``) or
+        rows (``"row"``)."""
+        if not tp.on:
+            return
+        if split == "row" and self.b is not None:
+            raise TensorParallelError("a row-parallel Dense has no bias")
+        dim = 1 if split == "col" else 0
+        shape = tuple(self.w.shape)
+        self.w = nn.Parameter(local(self.w.detach(), dim, tp).clone())
+        self.tp, self.split = tp, split
+        self.tp_local = {"w": (dim, shape)}
 
     def init_(self, gen: torch.Generator) -> None:
-        self.w.normal_(generator=gen).mul_(1.0 / math.sqrt(self.d_in))
+        if self.tp_local:          # the full draw, then this rank's slice
+            dim, shape = self.tp_local["w"]
+            full = torch.empty(shape, device=self.w.device)
+            full.normal_(generator=gen).mul_(1.0 / math.sqrt(self.d_in))
+            self.w.copy_(local(full, dim, self.tp))
+        else:
+            self.w.normal_(generator=gen).mul_(1.0 / math.sqrt(self.d_in))
         if self.b is not None:
             self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense_apply(self.w, x, self.b)
+        b = self.b
+        if b is not None and self.split == "col":     # this rank's outputs'
+            b = local(copy_in(b, self.tp), 0, self.tp)
+        return dense_apply(self.w, x, b)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -278,7 +320,16 @@ def kv_cache_write(buf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
 
 class Attention(nn.Module):
     """GQA self-attention with RoPE and an optional in-place KV cache;
-    bidirectional (``causal=False``) or cross attention (``kv_ctx``)."""
+    bidirectional (``causal=False``) or cross attention (``kv_ctx``).
+
+    After :meth:`tensor_parallel_` it runs this rank's ``n_heads / tp``
+    query heads against the KV heads they read (``kv_span``, global
+    indices): ``wq`` column-parallel, ``wo`` row-parallel then all-reduced;
+    ``wk``/``wv`` column-parallel when the KV heads split over the ranks,
+    else gathered along ``model`` in the forward (their stored shard may be
+    part of a head) and sliced to ``kv_span``, their gradient summed back
+    by the gather's reduce-scatter.  ``n_heads``/``n_kv`` are then the
+    local counts, which a KV cache holds."""
 
     def __init__(self, d_model, n_heads, n_kv, head_dim, *, qkv_bias=False,
                  device=None):
@@ -289,6 +340,48 @@ class Attention(nn.Module):
         self.wk = Dense(d_model, n_kv * head_dim, bias=qkv_bias, device=device)
         self.wv = Dense(d_model, n_kv * head_dim, bias=qkv_bias, device=device)
         self.wo = Dense(n_heads * head_dim, d_model, device=device)
+        self.tp = NO_TP
+        self.kv_span = (0, n_kv)
+        self.kv_gather = False
+
+    def tensor_parallel_(self, tp: TP) -> None:
+        """Keep this rank's heads (see the class docstring); raises
+        :class:`TensorParallelError` when the query heads do not split over
+        the ranks or a rank's heads would read KV heads in unequal
+        groups."""
+        if not tp.on:
+            return
+        h, kv, hd = self.n_heads, self.n_kv, self.head_dim
+        if h % tp.size:
+            raise TensorParallelError(
+                f"{h} query heads do not split over {tp.size} model ranks")
+        rep, mine = h // kv, h // tp.size
+        if mine % rep and rep % mine:
+            raise TensorParallelError(
+                f"{mine} query heads a rank read KV groups of {rep} "
+                f"unevenly")
+        lo, hi = tp.span(h)
+        self.kv_span = (lo // rep, (hi - 1) // rep + 1)
+        self.kv_gather = kv % tp.size != 0
+        self.wq.tensor_parallel_(tp, "col")
+        self.wo.tensor_parallel_(tp, "row")
+        for w in (self.wk, self.wv):
+            # stored as the rules shard it, where model divides it
+            if (kv * hd) % tp.size == 0:
+                w.tensor_parallel_(tp, "col")
+        self.tp = tp
+        self.n_heads, self.n_kv = mine, self.kv_span[1] - self.kv_span[0]
+
+    def _kv(self, dense: Dense, src: torch.Tensor) -> torch.Tensor:
+        """``src`` through ``wk`` or ``wv``: the columns of ``kv_span``."""
+        if not self.kv_gather:
+            return dense(src)
+        tp, hd = self.tp, self.head_dim
+        lo, hi = self.kv_span[0] * hd, self.kv_span[1] * hd
+        w = (gather(dense.w, 1, tp, grad="sum") if dense.tp_local
+             else copy_in(dense.w, tp))
+        b = None if dense.b is None else copy_in(dense.b, tp)[lo:hi]
+        return dense_apply(w[:, lo:hi], src, b)
 
     def forward(self, x, *, positions, rope_theta=10000.0, cache=None,
                 cache_pos: Pos = 0, chunk=1024, window=None, ring=False,
@@ -305,10 +398,13 @@ class Attention(nn.Module):
         ``"reference"`` backend).  ``kv_ctx`` (B, Tk, D): cross attention,
         keys and values projected from it, no rope and no mask."""
         b, t, _ = x.shape
-        src = x if kv_ctx is None else kv_ctx
+        x = copy_in(x, self.tp)
+        src = x if kv_ctx is None else copy_in(kv_ctx, self.tp)
         q = self.wq(x).reshape(b, t, self.n_heads, self.head_dim)
-        k = self.wk(src).reshape(b, src.shape[1], self.n_kv, self.head_dim)
-        v = self.wv(src).reshape(b, src.shape[1], self.n_kv, self.head_dim)
+        k = self._kv(self.wk, src).reshape(b, src.shape[1], self.n_kv,
+                                           self.head_dim)
+        v = self._kv(self.wv, src).reshape(b, src.shape[1], self.n_kv,
+                                           self.head_dim)
         if kv_ctx is None and rope_theta:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
@@ -354,7 +450,9 @@ class Attention(nn.Module):
             out = chunked_attention(q, k, v,
                                     causal=causal and kv_ctx is None,
                                     window=window, q_offset=0, chunk=chunk)
-        return self.wo(out.reshape(b, t, self.n_heads * self.head_dim))
+        return reduce_out(
+            self.wo(out.reshape(b, t, self.n_heads * self.head_dim)),
+            self.tp)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -364,30 +462,66 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class SwiGLU(nn.Module):
-    """Dense SwiGLU MLP (``ffn_block_sparse=False``)."""
+    """Dense SwiGLU MLP (``ffn_block_sparse=False``); after
+    :meth:`tensor_parallel_` over this rank's ``d_ff / tp`` hidden units."""
 
     def __init__(self, d_model, d_ff, *, device=None):
         super().__init__()
         self.up = Dense(d_model, d_ff, device=device)
         self.gate = Dense(d_model, d_ff, device=device)
         self.down = Dense(d_ff, d_model, device=device)
+        self.tp = NO_TP
+
+    def tensor_parallel_(self, tp: TP) -> None:
+        """``gate``/``up`` column-parallel, ``down`` row-parallel."""
+        if not tp.on:
+            return
+        tp.span(self.down.d_in)             # raises unless d_ff splits
+        self.up.tensor_parallel_(tp, "col")
+        self.gate.tensor_parallel_(tp, "col")
+        self.down.tensor_parallel_(tp, "row")
+        self.tp = tp
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        x = copy_in(x, self.tp)
+        return reduce_out(self.down(F.silu(self.gate(x)) * self.up(x)),
+                          self.tp)
 
 
 class Embedding(nn.Module):
-    """Token table ``(vocab, d)``; also the tied or untied LM head."""
+    """Token table ``(vocab, d)``; also the tied or untied LM head.  After
+    :meth:`tensor_parallel_` the table is this rank's ``vocab / tp`` rows:
+    the lookup sums the ranks' rows, the head gives this rank's logits."""
 
     def __init__(self, vocab, d_model, *, device=None):
         super().__init__()
         self.table = nn.Parameter(torch.empty(vocab, d_model, device=device))
+        self.tp = NO_TP
+        self.tp_local: dict = {}
+
+    def tensor_parallel_(self, tp: TP) -> None:
+        if not tp.on:
+            return
+        shape = tuple(self.table.shape)
+        self.table = nn.Parameter(local(self.table.detach(), 0, tp).clone())
+        self.tp = tp
+        self.tp_local = {"table": (0, shape)}
 
     def init_(self, gen: torch.Generator) -> None:
-        self.table.normal_(generator=gen).mul_(0.02)
+        if self.tp_local:          # the full draw, then this rank's rows
+            full = torch.empty(self.tp_local["table"][1],
+                               device=self.table.device)
+            full.normal_(generator=gen).mul_(0.02)
+            self.table.copy_(local(full, 0, self.tp))
+        else:
+            self.table.normal_(generator=gen).mul_(0.02)
 
     def forward(self, tokens):
-        return self.table[tokens]
+        return vocab_embed(self.table, tokens, self.tp)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, D) → this rank's logits (B, T, vocab / tp)."""
+        return lm_head_apply(self.table, copy_in(x, self.tp))
 
 
 def lm_head_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,15 @@ from .transformer import FfnPatterns, Transformer, act_dtype
 
 
 def build_model(cfg: ModelConfig, *, device=None,
-                ffn_patterns: Optional[FfnPatterns] = None) -> Transformer:
+                ffn_patterns: Optional[FfnPatterns] = None,
+                mesh=None) -> Transformer:
     """The model of ``cfg`` with its parameters allocated on ``device``
-    (``None`` means the card; raises when there is none).  Weights are
-    uninitialized: call ``model.init(generator)`` or load a state dict."""
+    (``None`` means the card; raises when there is none), split over
+    ``mesh``'s ``model`` axis when one is given (``Transformer.shard_``).
+    Weights are uninitialized: call ``model.init(generator)`` or load a
+    state dict (full tensors are sliced on a split model)."""
     return Transformer(cfg, device=resolve_device(device),
-                       ffn_patterns=ffn_patterns)
+                       ffn_patterns=ffn_patterns, mesh=mesh)
 
 
 def _abstract_device(device) -> torch.device:

@@ -11,7 +11,9 @@ call, as ``repro`` computes it outside any Pallas kernel), so gradients
 flow through it.  Each token gathers its expert's row back and weighs it
 by the softmax of its top-k logits.  The Switch load-balance loss
 ``E · Σ_e mean_prob_e · share_of_first_choices_e`` is taken over every
-token.
+token.  On a mesh the experts are not split: every rank along ``model``
+computes the whole layer on full tensors (expert parallelism is not
+ported; ``Transformer.tp_gathered`` names each such layer).
 """
 from __future__ import annotations
 

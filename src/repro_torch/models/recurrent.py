@@ -12,6 +12,9 @@ backend), and ``out`` projects ``h ⊙ gelu(gb)``.  Decode carries the
 conv's last 3 inputs (activation dtype) and h (fp32) as state.  Under
 autograd the kernel's backward is a kernel too (``rg_lru_bwd``); the
 ``"reference"`` backend's oracle is differentiated by torch, step by step.
+:meth:`RGLRUBlock.tensor_parallel_` splits the block's channels over the
+mesh's ``model`` axis.  RWKV-6 has no split yet: on a mesh it computes on
+full tensors on every rank.
 
 RWKV-6 (:class:`RWKVBlock`): a token shift mixes each input with the one
 before it (``mix``, five rows: r, k, v, w, g), the decay is data-dependent
@@ -34,6 +37,8 @@ from torch import nn
 from repro_torch.api.backends import default_backend
 from repro_torch.kernels import ref
 from repro_torch.kernels.rg_lru import rg_lru
+from repro_torch.sharding.tensor_parallel import (NO_TP, TP, copy_in, gather,
+                                                  local, reduce_out)
 
 from . import layers
 
@@ -75,7 +80,16 @@ def rglru_scan(xb, ag, xg, a_param, h0, c: float = 8.0):
 
 class RGLRUBlock(nn.Module):
     """Parameters under ``repro``'s names: ``in_x``, ``in_g``, ``conv`` (4,
-    D), ``a_gate``, ``x_gate``, ``a_param`` (D,), ``out``."""
+    D), ``a_gate``, ``x_gate``, ``a_param`` (D,), ``out``.
+
+    After :meth:`tensor_parallel_` the block runs this rank's ``D / tp``
+    channels: ``in_x``/``in_g`` column-parallel, ``conv`` and ``a_param``
+    kept whole and sliced to the channels (their gradient summed over the
+    ranks), ``xb`` all-gathered along ``model`` once for ``a_gate`` and
+    ``x_gate`` (column-parallel: dense (D, D) gates read every channel;
+    its backward reduce-scatters), the ``rg_lru`` kernel over (B, T, D /
+    tp), ``out`` row-parallel then all-reduced.  The decode state is then
+    this rank's channels."""
 
     def __init__(self, d_model: int, *, device=None):
         super().__init__()
@@ -87,6 +101,16 @@ class RGLRUBlock(nn.Module):
         self.x_gate = layers.Dense(d, d, device=device)
         self.a_param = nn.Parameter(torch.empty(d, device=device))
         self.out = layers.Dense(d, d, device=device)
+        self.tp = NO_TP
+
+    def tensor_parallel_(self, tp: TP) -> None:
+        if not tp.on:
+            return
+        tp.span(self.a_param.shape[0])       # raises unless D splits
+        for dense in (self.in_x, self.in_g, self.a_gate, self.x_gate):
+            dense.tensor_parallel_(tp, "col")
+        self.out.tensor_parallel_(tp, "row")
+        self.tp = tp
 
     def init_(self, gen: torch.Generator) -> None:
         """conv ~ N(0, 0.2²), a_param ~ U(0.5, 2) (the projections are
@@ -98,16 +122,24 @@ class RGLRUBlock(nn.Module):
                 c: float = 8.0) -> Tuple[torch.Tensor, State]:
         """x: (B, T, D); state: dict(conv, h) for decode.  Returns
         ``(out, new state)``."""
+        tp = self.tp
+        x = copy_in(x, tp)
         xb = self.in_x(x)
         gb = self.in_g(x)
-        xb, conv = causal_conv(xb, self.conv,
-                               None if state is None else state["conv"])
+        conv, a_param = self.conv, self.a_param
+        if tp.on:
+            conv = local(copy_in(conv, tp), 1, tp)
+            a_param = local(copy_in(a_param, tp), 0, tp)
+        xb, conv_state = causal_conv(
+            xb, conv, None if state is None else state["conv"])
         h0 = (state["h"] if state is not None else
-              torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+              torch.zeros((x.shape[0], xb.shape[2]), dtype=torch.float32,
                           device=x.device))
-        hs, h_t = rglru_scan(xb, self.a_gate(xb), self.x_gate(xb),
-                             self.a_param, h0, c)
-        return self.out(hs * layers.gelu(gb)), {"conv": conv, "h": h_t}
+        xg = gather(xb, -1, tp, grad="sum")
+        hs, h_t = rglru_scan(xb, self.a_gate(xg), self.x_gate(xg), a_param,
+                             h0, c)
+        out = reduce_out(self.out(hs * layers.gelu(gb)), tp)
+        return out, {"conv": conv_state, "h": h_t}
 
 
 def rglru_block_state(b: int, d_model: int, dtype=torch.float32,

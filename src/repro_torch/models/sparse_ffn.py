@@ -137,7 +137,10 @@ class SparseLinear(nn.Module):
 
 
 class SparseMLP(nn.Module):
-    """SwiGLU MLP with block-sparse up/gate/down projections."""
+    """SwiGLU MLP with block-sparse up/gate/down projections.  On a mesh
+    it is replicated along ``model`` (every rank runs every block), as
+    ``repro``'s rules replicate the blocks: the schedule indexes the whole
+    block list."""
 
     def __init__(self, up: SparseLinear, gate: SparseLinear,
                  down: SparseLinear):

@@ -46,6 +46,16 @@ each block's forward again.  The hybrid family trains too: its RG-LRU and
 local-attention kernels record gradients through their autograd Functions,
 whose backward passes are kernels of their own (``rg_lru_bwd``,
 ``flash_attention_bwd``).
+
+Tensor parallelism: ``Transformer(cfg, mesh=)`` (or :meth:`Transformer.
+shard_`) splits the attention heads, the dense SwiGLU's hidden units, the
+RG-LRU channels and the vocabulary over the mesh's ``model`` axis
+(:mod:`repro_torch.sharding.tensor_parallel`); ``forward`` then returns
+this rank's share of the vocabulary, ``loss_fn`` takes the vocab-parallel
+cross entropy and ``decode_step`` gathers the whole vocabulary.  The MoE
+experts, RWKV-6 and the frontend still compute on full tensors on every
+rank (:attr:`Transformer.tp_gathered`); the block-sparse FFN is
+replicated, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -59,6 +69,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import BSR
+from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
+                                                  TensorParallelError,
+                                                  gather, local, tp_group,
+                                                  vocab_cross_entropy)
 
 from . import layers
 from .moe import MoE, moe_apply
@@ -262,7 +276,7 @@ class Transformer(nn.Module):
     ``device``; call :meth:`init` or load a state dict."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 ffn_patterns: Optional[FfnPatterns] = None):
+                 ffn_patterns: Optional[FfnPatterns] = None, mesh=None):
         super().__init__()
         if cfg.family == "enc_dec":
             enc_kinds = ("attn_bidir",) * cfg.enc_layers
@@ -301,6 +315,98 @@ class Transformer(nn.Module):
         groups = [_cache_group(k) for k in kinds]
         self._cache_index = [groups[:i].count(g) for i, g in enumerate(groups)]
         self._cache_keys = [_cache_keys(g, groups) for g in groups]
+        self.tp = NO_TP
+        #: module name → why it computes on full tensors under TP
+        self.tp_gathered: Dict[str, str] = {}
+        if mesh is not None:
+            self.shard_(mesh)
+
+    def shard_(self, mesh=None, *, tp: Optional[TP] = None) -> "Transformer":
+        """Split compute over ``mesh``'s ``model`` axis (or ``tp``), in
+        place: each attention, dense SwiGLU, RG-LRU block and the
+        embedding / head keep this rank's shards (their modules'
+        ``tensor_parallel_``).  Built whole first: the full tensors are
+        freed as the shards replace them.  One rank on ``model`` changes
+        nothing.
+
+        Computed on full tensors on every rank, and named in
+        :attr:`tp_gathered`: the MoE experts (expert parallelism), RWKV-6
+        layers (head parallelism), the frontend, and an attention or FFN
+        whose heads or width do not split over the ranks.  The block-sparse
+        FFN is replicated, as ``repro``'s rules replicate its blocks."""
+        tp = tp_group(mesh) if tp is None else tp
+        if self.tp.on:
+            if (tp.rank, tp.size) != (self.tp.rank, self.tp.size):
+                raise TensorParallelError(
+                    f"the model is split over {self.tp.size} model ranks; "
+                    f"build it again for {tp.size}")
+            return self
+        if not tp.on:
+            return self
+        gathered: Dict[str, str] = {}
+
+        def split(name, mod):
+            try:
+                mod.tensor_parallel_(tp)
+            except TensorParallelError as e:
+                gathered[name] = str(e)
+
+        split("embed", self.embed)
+        if self.lm_head is not None:
+            split("lm_head", self.lm_head)
+        if self.frontend is not None:
+            gathered["frontend"] = "the modality frontend is replicated"
+        for prefix, blocks in (("enc", self.enc or ()),
+                               ("layers", self.layers)):
+            for i, blk in enumerate(blocks):
+                name = f"{prefix}.{i}"
+                for attr in ("attn", "xattn", "rec"):
+                    mod = getattr(blk, attr, None)
+                    if mod is not None:
+                        split(f"{name}.{attr}", mod)
+                if isinstance(getattr(blk, "mlp", None), layers.SwiGLU):
+                    split(f"{name}.mlp", blk.mlp)
+                if isinstance(blk, MoEBlock):
+                    gathered[f"{name}.moe"] = \
+                        "MoE experts (expert parallelism: a later slice)"
+                if isinstance(blk, RWKVLayer):
+                    gathered[f"{name}.rwkv"] = \
+                        "RWKV-6 (head parallelism: a later slice)"
+        self.tp, self.tp_gathered = tp, gathered
+        return self
+
+    def tp_local_params(self) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
+        """``{parameter name: (its dim local on model, its full shape)}``
+        of each parameter that holds this rank's slice (none at one
+        rank)."""
+        out = {}
+        for mname, mod in self.named_modules():
+            if mod is self:
+                continue
+            for pname, spec in getattr(mod, "tp_local", {}).items():
+                out[f"{mname}.{pname}"] = spec
+        return out
+
+    def full_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Each parameter's full shape (a local slice's whole tensor)."""
+        split = self.tp_local_params()
+        return {k: split[k][1] if k in split else tuple(p.shape)
+                for k, p in self.named_parameters()}
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """``nn.Module.load_state_dict``; on a split model an entry of a
+        local parameter may also be the full tensor (a single process's
+        state dict), of which this rank's slice is loaded."""
+        split = self.tp_local_params()
+        if split:
+            state_dict = dict(state_dict)
+            for k, (dim, shape) in split.items():
+                t = state_dict.get(k)
+                if t is not None and tuple(t.shape) == shape:
+                    state_dict[k] = local(t, dim, self.tp)
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
 
     @property
     def device(self) -> torch.device:
@@ -361,8 +467,14 @@ class Transformer(nn.Module):
             children["enc"] = frozen(self.enc)
         return _sharing_copy(self, **children)
 
-    def _head(self) -> torch.Tensor:
-        return (self.lm_head or self.embed).table
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return (self.lm_head or self.embed).head(x)
+
+    def full_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward`'s logits over the whole vocabulary: on a split
+        model each rank's share all-gathered (backward: this rank's
+        slice); the logits themselves at one rank."""
+        return gather(logits, -1, self.tp)
 
     def _run(self, blocks, x, positions, enc_out=None):
         """The blocks over x, rematerialized under ``cfg.remat`` when
@@ -399,7 +511,10 @@ class Transformer(nn.Module):
         0 without MoE layers).  ``vis_embeds`` (B, Nv, D): a prefix through
         the frontend (``vlm``; T = Nv + T_text, positions over the whole
         sequence); ``enc_embeds`` (B, T_enc, D): the encoder's input
-        (``enc_dec``, required there)."""
+        (``enc_dec``, required there).  On a split model the logits are
+        this rank's share of the vocabulary (B, T, padded_vocab / tp), as
+        ``repro``'s prefill output is sharded on ``model``
+        (:meth:`full_logits` gathers them)."""
         dt = act_dtype(self.cfg)
         x = self.embed(tokens).to(dt)
         if vis_embeds is not None:
@@ -414,7 +529,7 @@ class Transformer(nn.Module):
         positions = torch.arange(t, device=x.device).expand(b, t)
         x, aux = self._run(self.layers, x, positions, enc_out)
         x = self.final_norm(x, self.cfg.norm_eps)
-        logits = layers.lm_head_apply(self._head(), x)
+        logits = self._logits(x)
         return (logits, aux) if return_aux else logits
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]):
@@ -429,7 +544,11 @@ class Transformer(nn.Module):
         n_prefix = logits.shape[1] - targets.shape[1]
         if n_prefix > 0:
             logits = logits[:, n_prefix:]
-        loss = layers.cross_entropy(logits, targets, batch.get("mask"))
+        if self.tp.on:
+            loss = vocab_cross_entropy(logits, targets, batch.get("mask"),
+                                       self.tp)
+        else:
+            loss = layers.cross_entropy(logits, targets, batch.get("mask"))
         return loss + 0.01 * aux, {"loss": loss.detach(),
                                    "aux": aux.detach()}
 
@@ -439,9 +558,17 @@ class Transformer(nn.Module):
         positions, local layers a ring of ``min(max_len, local_window)``,
         as ``repro``'s per-layer caches do.  Raises ``ValueError`` for an
         int8 KV cache over local layers: the ring has no int8 mode
-        (``repro``'s ring write drops the scales)."""
+        (``repro``'s ring write drops the scales).
+
+        On a split model each rank's cache holds the KV heads its query
+        heads read (``Attention.kv_span``: one KV head shared by several
+        ranks is held by each of them) and the RG-LRU channels it runs.
+        That is not ``repro``'s layout, which shards the cache's time axis
+        on ``model`` (``cache_pspec``)."""
         cfg = self.cfg
         dev, dt = self.device, act_dtype(cfg)
+        n_kv = next((m.n_kv for m in self.modules()
+                     if isinstance(m, layers.Attention)), cfg.n_kv)
         groups = [_cache_group(k) for k in self.layer_kinds]
         cache = {}
         for group, t_len in (("attn", max_len),
@@ -450,7 +577,7 @@ class Transformer(nn.Module):
             if not n:
                 continue
             keys = _cache_keys(group, groups)
-            shape = (n, batch_size, t_len, cfg.n_kv, cfg.hd)
+            shape = (n, batch_size, t_len, n_kv, cfg.hd)
             if cfg.kv_cache_dtype == "int8":
                 if group == "local":
                     raise ValueError(
@@ -472,6 +599,8 @@ class Transformer(nn.Module):
         d = cfg.d_model
         n_rec = groups.count("rec")
         if n_rec:
+            d = next(m.a_param.shape[0] // m.tp.size for m in self.modules()
+                     if isinstance(m, RGLRUBlock))
             cache.update(
                 conv=torch.zeros((n_rec, batch_size, 3, d), dtype=dt,
                                  device=dev),
@@ -479,8 +608,8 @@ class Transformer(nn.Module):
                               device=dev))
         n_rwkv = groups.count("rwkv")
         if n_rwkv:
-            st = rwkv_block_state(n_rwkv * batch_size, d, cfg.n_heads or 32,
-                                  dt, dev)
+            st = rwkv_block_state(n_rwkv * batch_size, cfg.d_model,
+                                  cfg.n_heads or 32, dt, dev)
             cache.update({k: v.reshape(n_rwkv, batch_size, *v.shape[1:])
                           for k, v in st.items()})
         return cache
@@ -497,7 +626,8 @@ class Transformer(nn.Module):
 
         Writes the new keys and values (and the recurrent state) into
         ``cache`` in place and returns ``(logits (B, padded_vocab),
-        cache)``."""
+        cache)``: the whole vocabulary on a split model too (each rank's
+        share all-gathered)."""
         x = self.embed(token).to(act_dtype(self.cfg))
         b, t, _ = x.shape
         steps = torch.arange(t, device=x.device)
@@ -519,4 +649,4 @@ class Transformer(nn.Module):
         else:
             idx = torch.as_tensor(logit_idx, device=x.device).long().expand(b)
             x = x[torch.arange(b, device=x.device), idx][:, None]
-        return layers.lm_head_apply(self._head(), x)[:, 0], cache
+        return self.full_logits(self._logits(x))[:, 0], cache

@@ -16,23 +16,32 @@ with a checkpoint directory always resumes from its latest checkpoint
 ``resume``.
 
 **On a mesh** (``mesh=``, a ``DeviceMesh`` with ``data`` and ``model``
-axes, one process a device): the master parameters and the AdamW moments
-live sharded by ``repro_torch.sharding``'s rules; the master shards are
-views into the model's parameters, which each step all-gathers, so the
-model and its kernels see full tensors.  Each dp rank computes its rows of
-each microbatch (microbatch *i* is rows ``[i·B/accum, (i+1)·B/accum)``,
-split over dp, as ``repro`` splits it); the ranks along ``model`` compute
-the same rows.  Each microbatch's gradients are reduce-scattered (mean over
-dp) into the parameter layout, the clip's global norm counts each element
-once, and AdamW runs on the shards.  At one rank every shard is the
-parameter itself.
+axes, one process a device): the model is split tensor parallel over
+``model`` (``Transformer.shard_``): each attention runs this rank's heads,
+each dense SwiGLU its hidden units, each RG-LRU block its channels, the
+embedding and head its rows of the vocabulary, with the all-reduces and
+all-gathers of :mod:`repro_torch.sharding.tensor_parallel` between them.
+The MoE experts, RWKV-6 layers and the frontend still compute on full
+tensors on every rank along ``model`` (``Transformer.tp_gathered``), and
+the block-sparse FFN is replicated, as ``repro``'s rules replicate its
+blocks.  The master parameters and the AdamW moments live sharded by
+``repro_torch.sharding``'s rules; the master shards are views into the
+model's parameters (this rank's ``model`` slice of a split parameter, the
+full tensor of another), which each step all-gathers over the dp axes
+(and over ``model`` for a parameter the model holds whole).  Each dp rank
+computes its rows of each microbatch (microbatch *i* is rows
+``[i·B/accum, (i+1)·B/accum)``, split over dp, as ``repro`` splits it).
+Each microbatch's gradients are reduce-scattered (mean over dp) into the
+parameter layout, the clip's global norm counts each element once over
+``model`` and dp, and AdamW runs on the shards.  At one rank on ``model``
+nothing is split, and at one rank every shard is the parameter itself.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -46,6 +55,7 @@ from repro_torch.optim import AdamW, AdamWState, cosine_with_warmup
 from repro_torch.runtime.elastic import restore_onto_mesh
 from repro_torch.sharding import (constrain_like_params, dp_axes,
                                   global_norm, make_shardings, params_pspecs)
+from repro_torch.sharding.tensor_parallel import gather_full
 
 
 @dataclasses.dataclass
@@ -72,14 +82,19 @@ class TrainStep:
         self.model, self.opt = model, opt
         self.accum_steps, self.accum_dtype = accum_steps, accum_dtype
         self.mesh = mesh
+        if mesh is not None:
+            model.shard_(mesh)
         self.params = dict(model.named_parameters())
         if mesh is None:
             self.shardings = None
             self.master = self.params
         else:
+            split = model.tp_local_params()
+            full = model.full_shapes()
             self.shardings = make_shardings(
-                mesh, params_pspecs(self.params, fsdp=fsdp), self.params)
-            self.master = {k: self.shardings[k].shard(p.detach())
+                mesh, params_pspecs(full, fsdp=fsdp), full,
+                {k: dim for k, (dim, _) in split.items()})
+            self.master = {k: self.shardings[k].master_of(p.detach())
                            for k, p in self.params.items()}
 
     def _grads(self, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -126,11 +141,36 @@ class TrainStep:
 
     @torch.no_grad()
     def gather_(self) -> None:
-        """All-gather the master shards into the model's parameters."""
+        """All-gather the master shards into the model's parameters (a
+        split parameter over the dp axes only)."""
         for k, sh in (self.shardings or {}).items():
             full = sh.gather(self.master[k])
             if full is not self.master[k]:
                 self.params[k].copy_(full)
+
+
+class FullParams(Mapping):
+    """The model's parameters by name as full tensors: one the model holds
+    as this rank's ``model`` slice is all-gathered at each read (a
+    collective: every rank of the ``model`` group reads the same names in
+    the same order), the others are the parameters themselves."""
+
+    def __init__(self, model):
+        self._params = dict(model.named_parameters())
+        self._split = model.tp_local_params()
+        self._tp = model.tp
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        p = self._params[name]
+        if name not in self._split:
+            return p
+        return gather_full(p.detach(), self._split[name][0], self._tp)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._params)
+
+    def __len__(self) -> int:
+        return len(self._params)
 
 
 def _dp_mean(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -181,9 +221,10 @@ def rank_rows(global_batch: int, accum_steps: int, mesh) -> np.ndarray:
 
 
 class Trainer:
-    """Trainer on one GPU, or on ``mesh`` (one process a device, FSDP on
-    ``fsdp``; see the module docstring): initializes ``model`` from
-    ``seed``, builds AdamW
+    """Trainer on one GPU, or on ``mesh`` (one process a device, tensor
+    parallel on ``model``, FSDP on ``fsdp``; see the module docstring):
+    splits ``model`` over the mesh, initializes it from ``seed`` (the same
+    values as one process draws), builds AdamW
     with ``repro``'s cosine schedule, and resumes from ``tcfg.ckpt_dir``'s
     latest checkpoint when there is one (``repro``'s ``resume="auto"``).
     The model's parameters live on its device; batches are moved there."""
@@ -200,10 +241,14 @@ class Trainer:
         self.data = SyntheticDataset(model_cfg, shape_cfg, seed=seed + 1)
         self.opt = AdamW(lr=cosine_with_warmup(tcfg.peak_lr, tcfg.warmup,
                                                tcfg.steps))
-        model.init(torch.Generator(device=self.device).manual_seed(seed))
-        self.params = dict(model.named_parameters())
+        # the step splits the model over the mesh first: init then draws
+        # the full tensors and keeps this rank's slices (views the master
+        # shards see)
         self._step_fn = make_train_step(model, self.opt, tcfg.accum_steps,
                                         mesh=mesh, fsdp=fsdp)
+        model.init(torch.Generator(device=self.device).manual_seed(seed))
+        #: the parameters by name as full tensors (``FullParams``)
+        self.params = FullParams(model)
         self._rows = (None if mesh is None else
                       rank_rows(shape_cfg.global_batch, tcfg.accum_steps,
                                 mesh))

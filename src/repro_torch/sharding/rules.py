@@ -18,6 +18,12 @@ and the DTensor placements it gives, with the collectives the trainer
 needs (the local shard, the all-gather, the reduce-scatter of gradients
 into the parameter layout).  Within one tensor dim sharded over several
 mesh axes the earlier mesh axis is the major one, as in DTensor.
+
+The specs are the storage layout.  Where the model computes tensor
+parallel (:mod:`.tensor_parallel`), a parameter the rules shard on
+``model`` is held by the model as this rank's ``model`` slice
+(``Sharding.local_dim``): it is gathered over the dp axes only, and its
+gradient, already local, is reduced over the dp axes only.
 """
 from __future__ import annotations
 
@@ -185,45 +191,60 @@ def _placements(mesh: DeviceMesh, spec: P) -> Tuple[Placement, ...]:
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """A tensor's layout on ``mesh``: ``spec`` and its DTensor
-    ``placements`` (one a mesh dim)."""
+    ``placements`` (one a mesh dim); ``local_dim``: the dim along which
+    the model's parameter is this rank's ``model`` slice (tensor
+    parallel), else ``None`` (the model holds the full tensor)."""
     mesh: DeviceMesh
     spec: P
     placements: Tuple[Placement, ...]
+    local_dim: Optional[int] = None
 
-    def _sharded(self):
+    def _sharded(self, model: bool = True):
         """``(mesh dim, tensor dim, size, this rank's coordinate)`` of each
         mesh dim of more than one rank that shards the tensor, in mesh
-        order (the major one first)."""
+        order (the major one first); without the ``model`` axis unless
+        ``model``."""
         coord = self.mesh.get_coordinate()
         if coord is None:
             raise RuntimeError("this rank is not in the mesh")
         return [(i, pl.dim, self.mesh.size(i), coord[i])
                 for i, pl in enumerate(self.placements)
-                if isinstance(pl, Shard) and self.mesh.size(i) > 1]
+                if isinstance(pl, Shard) and self.mesh.size(i) > 1
+                and (model or self.mesh.mesh_dim_names[i] != "model")]
 
-    def shard(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of ``full``: a view, and ``full`` itself when
-        nothing is sharded."""
-        t = full
-        for _, d, n, c in self._sharded():
+    def _narrow(self, t: torch.Tensor, model: bool) -> torch.Tensor:
+        for _, d, n, c in self._sharded(model):
             step = t.shape[d] // n
             t = t.narrow(d, c * step, step)
         return t
 
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``full``: a view, and ``full`` itself when
+        nothing is sharded."""
+        return self._narrow(full, model=True)
+
+    def master_of(self, param: torch.Tensor) -> torch.Tensor:
+        """This rank's shard as a view of the model's parameter: of the
+        full tensor, or of this rank's ``model`` slice (``local_dim``)."""
+        return self._narrow(param, model=self.local_dim is None)
+
     def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The full tensor from every rank's shard (all-gathers, minor mesh
-        dim first); ``local`` itself when nothing is sharded."""
+        """The model's parameter from every rank's shard (all-gathers,
+        minor mesh dim first): the full tensor, or with ``local_dim`` this
+        rank's ``model`` slice (over the dp axes only); ``local`` itself
+        when nothing is to gather."""
         t = local
-        for i, d, n, _ in reversed(self._sharded()):
+        for i, d, n, _ in reversed(self._sharded(self.local_dim is None)):
             t = _all_gather(t, d, n, self.mesh.get_group(i))
         return t
 
     def reduce_scatter(self, grad: torch.Tensor) -> torch.Tensor:
-        """The mean over the dp axes of each rank's full gradient, in this
-        rank's layout: reduce-scattered over a dp axis that shards the
-        tensor, all-reduced over one that does not; sliced along a model
-        axis (its ranks computed the same gradient).  ``grad`` itself at
-        one rank."""
+        """The mean over the dp axes of each rank's gradient of the model's
+        parameter, in this rank's layout: reduce-scattered over a dp axis
+        that shards the tensor, all-reduced over one that does not; a full
+        gradient is sliced along a model axis (its ranks computed the same
+        gradient), a ``local_dim`` one is already this rank's.  ``grad``
+        itself at one rank."""
         dp = dp_axes(self.mesh)
         coord = self.mesh.get_coordinate()
         t, n_dp = grad, 1
@@ -233,7 +254,7 @@ class Sharding:
             if n == 1:
                 continue
             if axis not in dp:
-                if isinstance(pl, Shard):
+                if isinstance(pl, Shard) and self.local_dim is None:
                     step = t.shape[pl.dim] // n
                     t = t.narrow(pl.dim, coord[i] * step, step)
                 continue
@@ -273,15 +294,26 @@ def _reduce_scatter(t: torch.Tensor, dim: int, n: int,
 
 
 def make_shardings(mesh: DeviceMesh, pspecs: Mapping[str, P],
-                   leaves: Optional[Mapping[str, object]] = None
+                   leaves: Optional[Mapping[str, object]] = None,
+                   local_dims: Optional[Mapping[str, int]] = None
                    ) -> Dict[str, Sharding]:
-    """A :class:`Sharding` a name; with ``leaves`` (tensors or shapes) each
-    spec is sanitized against its shape first."""
+    """A :class:`Sharding` a name; with ``leaves`` (tensors or full
+    shapes) each spec is sanitized against its shape first.
+    ``local_dims``: ``{name: dim}`` of the parameters the model holds as
+    this rank's ``model`` slice along ``dim``; the spec must shard that
+    dim on ``model`` (a ``ValueError`` otherwise)."""
     out = {}
     for k, spec in pspecs.items():
         if leaves is not None:
             spec = sanitize_pspec(mesh, spec, leaves[k])
-        out[k] = Sharding(mesh, spec, _placements(mesh, spec))
+        dim = (local_dims or {}).get(k)
+        if dim is not None:
+            e = spec[dim] if dim < len(spec) else None
+            if "model" not in (e if isinstance(e, tuple) else (e,)):
+                raise ValueError(
+                    f"{k}: the model holds its model slice along dim {dim}, "
+                    f"which the rules' spec {spec} does not shard on model")
+        out[k] = Sharding(mesh, spec, _placements(mesh, spec), dim)
     return out
 
 
