@@ -284,10 +284,29 @@
    half of its full tensor; each kernel against its plain version on
    random inputs at the local shapes; peak memory per rank.  Step times
    are printed as information only.
-14. The dry run ([dryrun], after [tp]):
+13c. Expert parallelism and ZeRO-3 ([zero3], after [tp]): four processes
+   of this script (``--zero3-rank``, builds one rank at a time, each
+   process's allocator on ``expandable_segments``) on a (2, 2)
+   ``(data, model)`` gloo mesh.  Phi-3.5-MoE at published widths cut to
+   ``ZERO3_LAYERS`` = 2 layers, fp32, remat, 2 x 1024 tokens (one row a
+   dp rank): rank 0 first runs it at world size 1, then all four run it
+   with the experts split over ``model`` and every parameter held as its
+   rule shard, gathered a unit at a time: the loss and norm of
+   ``ZERO3_STEPS`` ``Trainer`` steps and every gradient (reduced into its
+   shard, then gathered full) against world size 1 under [tp]'s gates;
+   each rank's experts (8 of 16) and only the routers whole; its
+   parameter bytes between steps equal to the sum of its rule shards;
+   its allocator peak, printed beside every unit held at once; its
+   all-gathers and reduce-scatters in the steps equal to the units'
+   count; no kernel launch in the step (einsum experts, chunked
+   attention); ``flash_attention`` (``tc``) and its backward at a rank's
+   heads (16 query heads on 4 KV heads, D = 128) against their plain
+   versions.  Step times are information only.
+14. The dry run ([dryrun], after [zero3]):
    ``repro_torch.launch.dryrun.run_cell`` traces ``DRYRUN_CELLS`` on fake
    CUDA tensors in a fake process group of 256 ranks (``pod_16x16``),
-   the model split tensor parallel over the 16 ``model`` ranks:
+   the model split tensor parallel over the 16 ``model`` ranks, its
+   parameters held as shards and gathered a unit at a time:
    granite-3-8b's train_4k, prefill_32k and decode_32k and
    RecurrentGemma-9B's train_4k (the cell whose fake rules are the
    attention's and the RG-LRU's, forward and backward).  Each cell's
@@ -298,9 +317,10 @@
    at least ``DRYRUN_USEFUL_MIN``, the parameters at least
    ``DRYRUN_PARAM_CUT`` times under the gathered layout's, and its
    ``Parameter`` and ``Optstate`` bytes equal to the closed form of the
-   rules' shard sizes (each rank holds its split parameters' 1/16 and
-   the others whole; the AdamW moments are its shards; each storage
-   rounded to the allocator's 512 bytes).  Then the dry run's predictions
+   rules' shard sizes (each rank's masters are its rule shards, plus the
+   one unit gathered at the peak, its split parameters at 1/16; the AdamW
+   moments are its shards; each storage rounded to the allocator's 512
+   bytes).  Then the dry run's predictions
    against two steps that
    really run on the card (``DRYRUN_REAL``): [dist]'s granite-3-8b at 8
    layers (sparse FFN, 8 x 256 tokens, accum 2, one rank: SpMM on ``tc``)
@@ -319,7 +339,7 @@ Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
 the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``,
 ``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec,dist,tp,
-dryrun``) builds no 40-layer granite model.
+zero3,dryrun``) builds no 40-layer granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -4968,11 +4988,9 @@ def _tp_kernels(model, dev):
     ``flash_attention`` and its backward with 8 query heads on one KV head
     (D = 256, window 2048), the replicated sparse FFN's SpMM at N = 4096,
     forward and ``transpose_lhs``.  Returns ``{kernel: (path, rel err)}``."""
-    from repro_torch.kernels import ops
     from repro_torch.kernels.rg_lru import (choose_bwd_path, choose_path,
                                             rg_lru, rg_lru_bwd,
                                             rg_lru_bwd_plain, rg_lru_plain)
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
     cfg = model.cfg
     rec = next(b.rec for b in model.layers if hasattr(b, "rec"))
@@ -5013,33 +5031,8 @@ def _tp_kernels(model, dev):
         check(e <= (KERNEL_RTOL if g.dtype == torch.float32 else BF16_RTOL),
               f"[tp] rg_lru_bwd kernel vs plain {errs}")
     out["rg_lru_bwd"] = (path, errs)
-    h, hkv, hd = attn.n_heads, attn.n_kv, attn.head_dim
-    q = rand(1, TP_T, h, hd, dt=bf, scale=0.5)
-    k, v = (rand(1, TP_T, hkv, hd, dt=bf, scale=0.5) for _ in range(2))
-    qh, kh, vh, kw = ops.stack_heads(q, k, v)
-    kw.update(causal=True, window=cfg.local_window)
-    _zero_counts()
-    o, stats = fa._forward(qh, kh, vh, kw, bf, None, stats=True)
-    c = _counts()
-    wo, wstats = fa.flash_attention_plain(qh, kh, vh, out_dtype=bf,
-                                          stats=True, **kw)
-    check(c["flash"] == 1 and c["flash_tc"] == 1,
-          f"[tp] flash_attention launches {c}")
-    errs = [_rel(o, wo)[0], _rel(stats, wstats)[0]]
-    check(errs[0] <= BF16_RTOL and errs[1] <= KERNEL_RTOL,
-          f"[tp] flash_attention kernel vs plain {errs}")
-    out["flash_attention"] = ("tc", errs)
-    args = (qh, kh, vh, o, rand(*o.shape, dt=bf), stats)
-    _zero_counts()
-    got = fa.flash_attention_bwd(*args, **kw)
-    c = _counts()
-    want = fa.flash_attention_bwd_plain(*args, **kw)
-    check(c["flash_bwd"] == 1 and c["flash_bwd_tc"] == 1,
-          f"[tp] flash_attention_bwd launches {c}")
-    errs = [_rel(g, w)[0] for g, w in zip(got, want)]
-    check(max(errs) <= BF16_RTOL,
-          f"[tp] flash_attention_bwd kernel vs plain {errs}")
-    out["flash_attention_bwd"] = ("tc", errs)
+    out.update(_attn_local_kernels(attn.n_heads, attn.n_kv, attn.head_dim,
+                                   TP_T, cfg.local_window, dev, gen, "tp"))
     mlp = next(b.mlp for b in model.layers if hasattr(b, "attn"))
     b_in = rand(cfg.d_model, TP_T, dt=bf)
     plan = mlp.up.plan.with_values(mlp.up.blocks.data)
@@ -5049,6 +5042,50 @@ def _tp_kernels(model, dev):
                      library=False, tag="tp")
     out["segment_spmm"] = (fwd["path"], [fwd["rel_err"]])
     out["segment_spmm.transpose_lhs"] = (dx["path"], [dx["rel_err"]])
+    return out
+
+
+def _attn_local_kernels(h, hkv, hd, t, window, dev, gen, tag):
+    """``flash_attention`` (``tc``, with its row statistics) and its
+    backward on random bf16 inputs at one rank's heads (``h`` query heads
+    on ``hkv`` KV heads, head dim ``hd``, 1 x ``t`` tokens, causal within
+    ``window``), one launch each, held against their plain versions.
+    Returns ``{kernel: (path, rel errs)}``."""
+    from repro_torch.kernels import ops
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(bf)
+
+    out = {}
+    q = rand(1, t, h, hd)
+    k, v = (rand(1, t, hkv, hd) for _ in range(2))
+    qh, kh, vh, kw = ops.stack_heads(q, k, v)
+    kw.update(causal=True, window=window)
+    _zero_counts()
+    o, stats = fa._forward(qh, kh, vh, kw, bf, None, stats=True)
+    c = _counts()
+    wo, wstats = fa.flash_attention_plain(qh, kh, vh, out_dtype=bf,
+                                          stats=True, **kw)
+    check(c["flash"] == 1 and c["flash_tc"] == 1,
+          f"[{tag}] flash_attention launches {c}")
+    errs = [_rel(o, wo)[0], _rel(stats, wstats)[0]]
+    check(errs[0] <= BF16_RTOL and errs[1] <= KERNEL_RTOL,
+          f"[{tag}] flash_attention kernel vs plain {errs}")
+    out["flash_attention"] = ("tc", errs)
+    args = (qh, kh, vh, o, rand(*o.shape, scale=1.0), stats)
+    _zero_counts()
+    got = fa.flash_attention_bwd(*args, **kw)
+    c = _counts()
+    want = fa.flash_attention_bwd_plain(*args, **kw)
+    check(c["flash_bwd"] == 1 and c["flash_bwd_tc"] == 1,
+          f"[{tag}] flash_attention_bwd launches {c}")
+    errs = [_rel(g, w)[0] for g, w in zip(got, want)]
+    check(max(errs) <= BF16_RTOL,
+          f"[{tag}] flash_attention_bwd kernel vs plain {errs}")
+    out["flash_attention_bwd"] = ("tc", errs)
     return out
 
 
@@ -5217,6 +5254,337 @@ def _tp_report(ranks):
           f"1 x {TP_T} tokens, (1, {TP_WORLD}) mesh on one card over gloo")
 
 
+# [zero3]: Phi-3.5-MoE at its published widths, its depth cut 32 -> 2, on a
+# (2, 2) data x model mesh of four gloo ranks sharing the card: experts
+# split over model, every parameter held as its rule shard and gathered a
+# unit at a time; one row of 1024 tokens a dp rank.  In fp32: in bf16 the
+# split's other rounding moves some tokens' top-2 choices, and the
+# world-size-1 comparison then sees the routing, not the sharding (bf16,
+# step 1: loss 1.46e-3 and norm 9.39e-3 off world size 1)
+ZERO3_LAYERS = 2
+ZERO3_T = 1024
+ZERO3_STEPS = 2
+ZERO3_SIZES = (2, 2)
+ZERO3_WORLD = ZERO3_SIZES[0] * ZERO3_SIZES[1]
+ZERO3_TIMEOUT = 900            # seconds for all ranks, the models build in
+
+
+def zero3_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                               n_layers=ZERO3_LAYERS, dtype="float32")
+
+
+def _zero3_trainer(model, cfg, mesh=None):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    shape = ShapeConfig("zero3", "train", ZERO3_T, ZERO3_SIZES[0])
+    return Trainer(model, cfg, shape, TrainerConfig(
+        steps=ZERO3_STEPS, log_every=1, warmup=1), mesh=mesh, seed=SEED)
+
+
+def _zero3_grads(trainer):
+    """One gradient step on the trainer's step-0 batch: the loss (the mean
+    over dp) and ``{name: (full gradient, reduced)}`` read one parameter
+    at a time through ``yield``: on a mesh each gradient is the mean over
+    dp reduced into its shard as autograd accumulates it, then gathered
+    full (a collective every rank makes in the same order)."""
+    from repro_torch.runtime.train_loop import _dp_mean
+    model = trainer.model
+    z = model.zero3
+    batch = trainer._batch(0)
+    if z is None:
+        loss, grads = _grads_on(model, batch, "cuda")
+        return loss, ((k, grads[k]) for k in sorted(grads))
+    shards = {}
+    z.on_grad = shards.__setitem__
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    z.on_grad = None
+    z.after_backward()
+    loss = float(_dp_mean(loss.detach(), trainer.mesh))
+    return loss, ((k, z.shardings[k].gather_full(shards.pop(k)))
+                  for k in sorted(z.master))
+
+
+def _rule_shard_bytes(z):
+    """This rank's parameter bytes by the rules: each parameter's full
+    size over the mesh sizes its spec shards it on."""
+    full = z.model.full_shapes()
+    total = 0
+    for k, sh in z.shardings.items():
+        div = math.prod(n for _, _, n, _ in sh._sharded(True))
+        total += math.prod(full[k]) // div * z.params[k].element_size()
+    return total
+
+
+def zero3_rank(rank, port, out_dir, dev=None):
+    """One rank of [zero3] (``chip_smoke.py --zero3-rank R``): rank 0
+    first runs the model at world size 1 while the others wait, keeping
+    its gradients on the host; then all four run it on the (2, 2) mesh.
+    Rank 0 holds each gathered gradient to world size 1's and checks the
+    attention kernels at a rank's local shapes; each rank writes its
+    numbers to ``out_dir/r<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.roofline import CommRecorder
+    from repro_torch.sharding.zero3 import unit_of
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=ZERO3_WORLD,
+        timeout=datetime.timedelta(seconds=ZERO3_TIMEOUT))
+    cfg = zero3_config()
+    res = {"rank": rank}
+    if rank == 0:
+        trainer = _zero3_trainer(build_model(cfg, device=dev), cfg)
+        loss, grads = _zero3_grads(trainer)
+        one_grads = {k: g.cpu() for k, g in grads}
+        del grads
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        hist = trainer.run()["history"]
+        peak = torch.cuda.max_memory_allocated()
+        res["one"] = {"loss": loss, "hist": hist, "peak": peak,
+                      "base": base}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[zero3] world size 1: loss {loss:.5f}; steps " + ", ".join(
+            f"{h['loss']:.5f} / {h['grad_norm']:.5f} / {h['ms']:.1f} ms"
+            for h in hist) + f"; peak {peak / 2**30:.2f} GiB", flush=True)
+    dist.barrier()
+    mesh = make_mesh(ZERO3_SIZES, ("data", "model"), device=dev.type)
+    t0 = time.perf_counter()
+    # each rank builds the whole model on the card before splitting it:
+    # one rank at a time, its freed blocks handed back before the next
+    for r in range(ZERO3_WORLD):
+        if r == rank:
+            model = build_model(cfg, device=dev, mesh=mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    trainer = _zero3_trainer(model, cfg, mesh)
+    z = model.zero3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    print(f"[zero3] rank {rank}: built in {res['build_s']:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved",
+          flush=True)
+    res["experts"] = [list(b.moe.expert_span()) for b in model.layers]
+    res["gathered"] = sorted(model.tp_gathered)
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = _zero3_grads(trainer)
+    errs = {}
+    for k, g in grads:
+        if rank == 0:
+            errs[k] = _fro(g, one_grads.pop(k).to(dev))
+        del g
+    res["grad_loss"] = loss
+    print(f"[zero3] rank {rank}: gradient step, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    if rank == 0:
+        res["grad_errs"] = errs
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    res["between"] = z.param_bytes()
+    res["rule_shards"] = _rule_shard_bytes(z)
+    torch.cuda.reset_peak_memory_stats()
+    z.log = []
+    _zero_counts()
+    with CommRecorder() as comm:
+        hist = trainer.run()["history"]
+    torch.cuda.synchronize()
+    res["counts"] = _counts()
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["base"] = base
+    res["after"] = z.param_bytes()
+    res["held_after"] = [k for k in z.axes
+                         if z.params[k].untyped_storage().nbytes()]
+    ops = [op for op, _ in comm.records]
+    res["ops"] = {op: ops.count(op) for op in set(ops)}
+    res["want_gathers"] = sum(z.gather_counts(u) for u, _ in z.log)
+    res["log"] = z.log[:len(z.log) // ZERO3_STEPS]
+    res["want_scatters"] = z.reduce_scatters() * ZERO3_STEPS
+    res["reserved_peak"] = torch.cuda.max_memory_reserved()
+    res["units"] = {u: z.unit_bytes(u) for u in z.units}
+    res["hist"] = hist
+    res["held_units"] = sorted({unit_of(k) for k in z.axes})
+    del trainer, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+        tp = ZERO3_SIZES[1]
+        res["kernels"] = _attn_local_kernels(
+            cfg.n_heads // tp, cfg.n_kv // tp, cfg.hd, ZERO3_T, None, dev,
+            gen, "zero3")
+    dist.barrier()
+    with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_zero3(dev):
+    """[zero3]: four processes on the one card (gloo with CUDA tensors),
+    Phi-3.5-MoE at published widths and 2 layers (fp32) on a (2, 2)
+    data x model mesh, 2 ``Trainer`` steps on 2 x 1024 tokens (one row a
+    dp rank, remat), against a world-size-1 run of the same model and
+    batch: loss, norm and every gradient (gathered full) under [tp]'s
+    gates; each
+    rank's experts (8 of 16); its parameter bytes between steps equal to
+    the sum of its rule shards; its allocator peak beside what holding
+    every unit gathered at once would add; its all-gathers and
+    reduce-scatters in a step against the count the units give;
+    ``flash_attention`` (``tc``) and its backward at a rank's heads (16
+    query heads on 4 KV heads, D = 128) against their plain versions.  The
+    step times are information only: four ranks share one card and gloo
+    stages every collective through the host."""
+    import tempfile
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[zero3] card memory before the ranks start: {free / 1e9:.2f} of "
+          f"{total / 1e9:.2f} GB free; this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
+    held = sorted((t.untyped_storage().nbytes(), tuple(t.shape), t.dtype)
+                  for t in gc.get_objects()
+                  if type(t) in (torch.Tensor, torch.nn.Parameter)
+                  and t.is_cuda)[::-1][:6]
+    print("[zero3] this process's largest live card tensors: " + ", ".join(
+        f"{tuple(shape)} {str(dt)[6:]} {n / 1e9:.3f} GB"
+        for n, shape, dt in held))
+    with tempfile.TemporaryDirectory() as out:
+        port = _free_port()
+        # four processes share the card's memory: segments that grow in
+        # place keep each one's cache from holding blocks the others need
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--zero3-rank",
+             str(r), "--zero3-port", str(port), "--zero3-out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for r in range(ZERO3_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=ZERO3_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                print(f"[zero3 r{r}] {line}")
+        for r, p in enumerate(procs):
+            tail = "\n".join(logs[r].splitlines()[-8:])
+            check(p.returncode == 0, f"[zero3] rank {r} exited with "
+                                     f"{p.returncode}; its last lines:\n"
+                                     f"{tail}")
+        ranks = [json.load(open(os.path.join(out, f"r{r}.json")))
+                 for r in range(ZERO3_WORLD)]
+    _zero3_report(ranks)
+    print(f"[zero3] phase {time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def _zero3_report(ranks):
+    """[zero3]'s gates over the ranks' numbers (see :func:`phase_zero3`)."""
+    from repro_torch.sharding.rules import BUCKET_BYTES
+    cfg = zero3_config()
+    one = ranks[0]["one"]
+    e_loc = cfg.n_experts // ZERO3_SIZES[1]
+    gb = 1e9
+    for r, res in enumerate(ranks):
+        m = r % ZERO3_SIZES[1]               # the model coordinate
+        check(res["experts"] == [[m * e_loc, (m + 1) * e_loc]] * ZERO3_LAYERS,
+              f"[zero3] rank {r}: experts {res['experts']}")
+        check(all(k.endswith(".moe.router") for k in res["gathered"]),
+              f"[zero3] rank {r}: computed whole {res['gathered']}")
+        check(res["between"] == res["after"] == res["rule_shards"]
+              and not res["held_after"],
+              f"[zero3] rank {r}: parameter bytes between steps "
+              f"{res['between']} / {res['after']}, rule shards "
+              f"{res['rule_shards']}, held {res['held_after'][:4]}")
+        units = res["units"]
+        largest = max(units.values())
+        total = sum(units.values())
+        peak = res["peak"]
+        gather_all = peak - largest + total
+        sizes = ", ".join(f"{u} {b / gb:.2f}"
+                          for u, b in sorted(units.items()))
+        print(f"[zero3] rank {r}: experts {res['experts'][0]} of "
+              f"{cfg.n_experts}; parameter bytes between steps "
+              f"{res['between']} = the sum of its rule shards "
+              f"{res['rule_shards']}; allocator peak {peak / gb:.2f} GB "
+              f"({res['base'] / gb:.2f} GB resident between steps: masters "
+              f"and moments; {res['reserved_peak'] / gb:.2f} GB reserved at "
+              f"most); units {sizes} GB (sum {total / gb:.2f}); "
+              f"every unit gathered at once "
+              f"{gather_all / gb:.2f} GB; built in {res['build_s']:.1f} s")
+        check(peak < gather_all, f"[zero3] rank {r}: peak {peak} not below "
+                                 f"{gather_all}")
+        steps = len(res["hist"])
+        rs_want = res["want_scatters"]
+        ag = res["ops"].get("all-gather", 0)
+        print(f"[zero3] rank {r}: collectives in {steps} steps "
+              f"{res['ops']}; all-gathers {ag} (the units give "
+              f"{res['want_gathers']}: {[u for u, _ in res['log']]} a "
+              f"step), reduce-scatters {res['ops'].get('reduce-scatter', 0)}"
+              f" (a data-sharded gradient's slices of at most "
+              f"{BUCKET_BYTES >> 20} MiB each, in {steps} steps: {rs_want})")
+        check(ag == res["want_gathers"]
+              and res["ops"].get("reduce-scatter", 0) == rs_want,
+              f"[zero3] rank {r}: collectives {res['ops']}")
+        for h, w in zip(res["hist"], one["hist"]):
+            le = abs(h["loss"] - w["loss"]) / abs(w["loss"])
+            ne = abs(h["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+            print(f"[zero3] rank {r} step {h['step']}: loss {h['loss']:.5f} "
+                  f"(world size 1 {w['loss']:.5f}, err {le:.2e}), grad norm "
+                  f"{h['grad_norm']:.5f} ({w['grad_norm']:.5f}, err "
+                  f"{ne:.2e}), {h['ms']:.1f} ms (world size 1 "
+                  f"{w['ms']:.1f} ms; information only)")
+            check(le <= LOSS_RTOL and ne <= GNORM_RTOL,
+                  f"[zero3] rank {r} step {h['step']}: loss err {le:.3g}, "
+                  f"norm err {ne:.3g}")
+        check(not any(res["counts"].values()),
+              f"[zero3] rank {r}: kernel launches {res['counts']} (the "
+              f"MoE model's step runs einsum experts and chunked attention)")
+    le = abs(ranks[0]["grad_loss"] - one["loss"]) / abs(one["loss"])
+    check(le <= LOSS_RTOL, f"[zero3] gradient step loss err {le:.3g}")
+    errs = ranks[0]["grad_errs"]
+    worst = max(errs, key=errs.get)
+    print(f"[zero3] gradients vs world size 1 (norm-relative, tol "
+          f"{GRAD_RTOL}): {len(errs)} parameters, worst {worst} "
+          f"{errs[worst]:.3e}; " + ", ".join(
+              f"{k} {v:.2e}" for k, v in sorted(errs.items())
+              if k.startswith("layers.1.") or "embed" in k))
+    check(errs[worst] <= GRAD_RTOL, f"[zero3] {worst} gradient err "
+                                    f"{errs[worst]:.3g}")
+    for name, (path, e) in ranks[0]["kernels"].items():
+        print(f"[zero3] {name} at a rank's heads on {path}: kernel vs plain "
+              + ", ".join(f"{x:.2e}" for x in e))
+    print(f"[zero3] summary: {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{ZERO3_SIZES[0]} x {ZERO3_T} tokens, {ZERO3_SIZES} mesh on one "
+          f"card over gloo; world size 1 peak {one['peak'] / gb:.2f} GB")
+
+
 # [dryrun]: the production cells traced on fake CUDA tensors (pod_16x16)
 DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("granite-3-8b", "prefill_32k"),
                 ("granite-3-8b", "decode_32k"),
@@ -5234,12 +5602,13 @@ DRYRUN_GATHERED_PARAMS = {"granite-3-8b": 32.69e9,
 
 
 def _closed_form_state(cfg, shape, arch):
-    """(parameter bytes, optimizer bytes) one rank holds in a dry-run cell
-    on ``pod_16x16``, from the rules: the fp32 parameters of the model
+    """(master bytes, ``{unit: gathered bytes}``, optimizer bytes) one rank
+    holds in a dry-run cell on ``pod_16x16``, from the rules: the model
     split over 16 ``model`` ranks (``Transformer.shard_`` on the meta
-    device: each split parameter's 1/16, the others whole), and for a
-    training cell the two AdamW moments over this rank's shard of each
-    (its spec sanitized on the mesh), each storage rounded up to 512
+    device), each fp32 parameter held as its rule shard (its spec
+    sanitized on the mesh), a unit's parameters gathered (the split ones
+    to their ``model`` slice) only while it runs, and for a training cell
+    the two AdamW moments over each shard; each storage rounded up to 512
     bytes as the caching allocator (and MemTracker) round it."""
     import types
 
@@ -5247,6 +5616,7 @@ def _closed_form_state(cfg, shape, arch):
     from repro_torch.models import Transformer
     from repro_torch.sharding import param_pspec, sanitize_pspec
     from repro_torch.sharding.tensor_parallel import TP
+    from repro_torch.sharding.zero3 import unit_of
 
     def rounded(n):
         return -(-n // 512) * 512
@@ -5258,20 +5628,23 @@ def _closed_form_state(cfg, shape, arch):
     item = 2 if arch in dryrun.BF16_OPT else 4
     model = Transformer(cfg, device="meta").shard_(tp=TP(0, sizes["model"]))
     full = model.full_shapes()
-    params = opt = 0
+    masters = opt = 0
+    units: dict = {}
     for k, p in model.named_parameters():
-        params += rounded(p.numel() * 4)
-        if shape.kind != "train":
-            continue
-        t = torch.empty(full[k], device="meta")
-        spec = sanitize_pspec(mesh, param_pspec(k, t.shape, dp=fsdp),
-                              t.shape)
+        spec = sanitize_pspec(mesh, param_pspec(k, full[k], dp=fsdp),
+                              full[k])
         div = 1
         for axes in spec:
             for a in (axes if isinstance(axes, tuple) else (axes,)):
                 div *= sizes.get(a, 1)
-        opt += 2 * rounded(t.numel() // div * item)
-    return params, opt
+        shard = math.prod(full[k]) // div
+        masters += rounded(shard * 4)
+        if shard < p.numel():
+            units[unit_of(k)] = (units.get(unit_of(k), 0)
+                                 + rounded(p.numel() * 4))
+        if shape.kind == "train":
+            opt += 2 * rounded(shard * item)
+    return masters, units, opt
 
 
 def _dryrun_real(tag, cfg, shape, accum, dev):
@@ -5362,13 +5735,22 @@ def phase_dryrun(dev):
             print(f"[dryrun] {dryrun.summary(res)}")
             print(f"[dryrun]   roofline {json.dumps(res['roofline'])}")
             cfg = dryrun.cell_config(arch, SHAPES[shape_name])
-            want = _closed_form_state(cfg, SHAPES[shape_name], arch)
+            masters, units, opt = _closed_form_state(
+                cfg, SHAPES[shape_name], arch)
             cats = res["memory"]["peak_by_category"]
             got = (cats.get("Parameter", 0), cats.get("Optstate", 0))
+            # at the peak: the masters and the one unit gathered then
+            held = {b: u for u, b in units.items()}.get(got[0] - masters,
+                                                      "none")
             print(f"[dryrun]   parameter / optimizer bytes a rank {got}, "
-                  f"closed form {want}")
-            check(got == want, f"[dryrun] {arch} {shape_name}: parameter / "
-                               f"optimizer bytes {got} != {want}")
+                  f"closed form: masters {masters} + the unit gathered at "
+                  f"the peak ({held}: {got[0] - masters}; largest "
+                  f"{max(units.values())}), optimizer {opt}")
+            check(got[1] == opt and (got[0] == masters or
+                                     got[0] - masters in units.values()),
+                  f"[dryrun] {arch} {shape_name}: parameter / optimizer "
+                  f"bytes {got}, masters {masters}, units {units}, "
+                  f"optimizer {opt}")
             # tensor parallel on model: every block split, a training
             # step's useful FLOPs at least half of what it runs, the
             # parameters at least 12 x under the gathered layout's
@@ -5407,7 +5789,7 @@ def phase_dryrun(dev):
 PHASES = ("spgemm", "ops", "tune", "kernel", "crossover", "edges", "serve",
           "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "mixed",
           "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist", "tp",
-          "dryrun")
+          "zero3", "dryrun")
 # the phases that need granite-3-8b built (``--only spgemm,ops,tune``,
 # ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
 GRANITE_PHASES = PHASES[3:PHASES.index("hybrid")]
@@ -5428,6 +5810,9 @@ def main():
     parser.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--tp-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--tp-out", help=argparse.SUPPRESS)
+    parser.add_argument("--zero3-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--zero3-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--zero3-out", help=argparse.SUPPRESS)
     args = parser.parse_args()
     only = args.only.split(",")
     bad = sorted(set(only) - set(PHASES))
@@ -5442,6 +5827,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if args.tp_rank is not None:     # one rank of [tp], started by phase_tp
         tp_rank(args.tp_rank, args.tp_port, args.tp_out)
+        return
+    if args.zero3_rank is not None:  # one rank of [zero3]
+        zero3_rank(args.zero3_rank, args.zero3_port, args.zero3_out)
         return
     from repro_torch.api import clear_plan_cache
     from repro_torch.configs import get_config
@@ -5543,6 +5931,10 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         phase_tp(dev)
+    if "zero3" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_zero3(dev)
     if "dryrun" in only:
         gc.collect()
         torch.cuda.empty_cache()

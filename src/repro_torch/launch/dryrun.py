@@ -21,22 +21,26 @@ The step runs under ``torch.distributed._tools.mem_tracker.MemTracker``,
 operators whose fake rules allocate what their launches allocate on the
 card (:mod:`repro_torch.kernels.fake`).
 
-The step is the port's tensor-parallel one: the model is built split over
-the mesh's ``model`` axis (``Transformer(cfg, mesh=)``), so each rank holds
+The step is the port's sharded one: the model is built split over the
+mesh's ``model`` axis (``Transformer(cfg, mesh=)``), so each rank holds
 and computes its share of the attention heads, the dense SwiGLU's hidden
-units, the RG-LRU channels and the vocabulary, and the fake rules of the
-kernels see the local shapes.  Two facts are recorded in each result
-rather than hidden:
+units, the RG-LRU channels, the MoE experts and the vocabulary, and the
+fake rules of the kernels see the local shapes; every parameter is held
+as this rank's rule shard and gathered a unit at a time
+(``Transformer.zero3_``: the trainer's on its FSDP axes, and the same for
+a prefill or decode cell), so the ``Parameter`` bytes at the peak are the
+shards plus the unit gathered then.  Two facts are recorded in each
+result rather than hidden:
 
 * ``"tensor_parallel"``: true when every block of the model is split (or
   replicated by ``repro``'s rules, as the block-sparse FFN is);
   ``"tp_gathered"`` names what still computes on full tensors on every
-  rank along ``model``: the MoE experts (expert parallelism), RWKV-6
-  (head parallelism), the modality frontend, and an attention whose heads
-  do not split over the 16 ranks (Whisper's 6, Qwen1.5's 20, Maverick's
-  40).  Prefill and decode cells split the batch and the cache over the dp
-  axes; a decode cell's KV cache holds each rank's KV heads (not
-  ``repro``'s time axis on ``model``).
+  rank along ``model``: the MoE router (its top-k reads every expert's
+  logit), RWKV-6 (head parallelism), the modality frontend, and an
+  attention whose heads do not split over the 16 ranks (Whisper's 6,
+  Qwen1.5's 20, Maverick's 40).  Prefill and decode cells split the batch
+  and the cache over the dp axes; a decode cell's KV cache holds each
+  rank's KV heads (not ``repro``'s time axis on ``model``).
 * ``seq_shard`` (:data:`CELL_OVERRIDES`) has no effect: the port's
   ``act_constrain`` moves only DTensors, and the step's activations are
   plain tensors.
@@ -103,34 +107,17 @@ CELL_OVERRIDES = {
 }
 # cells whose per-rank peak exceeds the card's memory in the port, with
 # what puts them over (its own --all run on the card's machine, fake CUDA
-# tensors; per-rank GB, 1e9 bytes, by MemTracker category).  The split
-# step holds 1/16 of each split parameter, so what stays over computes
-# gathered: the MoE experts of Maverick and Phi-3.5-MoE (whole fp32
-# parameters, and in training their whole gradients before the
-# reduce-scatter), and Qwen1.5's attention, whose 20 heads do not split
-# over 16 ranks, so its decode cache holds all 20 KV heads split over the
-# dp axes only.
+# tensors; per-rank GB, 1e9 bytes, by MemTracker category).  The step
+# holds every parameter as its rule shard, gathers one unit at a time and
+# splits the MoE experts over model, so the parameters are no cell's
+# cause: what stays over is Qwen1.5's attention, whose 20 heads do not
+# split over 16 ranks, so its decode cache holds all 20 KV heads split
+# over the dp axes only (sequence-parallel decode splits it).
 _P = "pod_16x16"
 EXPECTED_OVER_HBM: Dict[tuple, str] = {
     ("qwen1.5-4b", "decode_32k", _P):
-        "117.63 GB: KV cache 107.37 (20 KV heads, gathered attention), "
-        "activations 5.43, parameters 4.82",
-    ("llama4-maverick-400b-a17b", "train_4k", _P):
-        "3156.81 GB: parameters 1559.35, gradients 1559.35 (gathered "
-        "experts)",
-    ("llama4-maverick-400b-a17b", "train_4k", "multipod_2x16x16"):
-        "3158.56 GB: parameters 1559.35, gradients 1559.35 (cross-pod "
-        "FSDP halves only the optimizer state: 6.15 -> 3.08)",
-    ("llama4-maverick-400b-a17b", "prefill_32k", _P):
-        "1608.09 GB: parameters 1559.35, activations 48.74",
-    ("llama4-maverick-400b-a17b", "decode_32k", _P):
-        "1643.16 GB: parameters 1559.35, KV cache 51.54, activations 32.27",
-    ("phi3.5-moe-42b-a6.6b", "train_4k", _P):
-        "328.26 GB: parameters 161.44, gradients 156.36 (gathered experts)",
-    ("phi3.5-moe-42b-a6.6b", "prefill_32k", _P):
-        "173.80 GB: parameters 161.44, activations 12.36",
-    ("phi3.5-moe-42b-a6.6b", "decode_32k", _P):
-        "168.26 GB: parameters 161.44, KV cache 4.29, activations 2.53",
+        "112.98 GB: KV cache 107.37 (20 KV heads, gathered attention), "
+        "activations 5.43, parameters 0.18",
 }
 
 
@@ -201,6 +188,21 @@ def _step_tracker():
             for t in tensors:
                 self._update_and_maybe_create_winfos(t, _MemRefType.OPT)
 
+        def track_params(self, tensors):
+            """A sharded model's master shards under ``Parameter``."""
+            for t in tensors:
+                self._update_and_maybe_create_winfos(t, _MemRefType.PARAM)
+
+        def _update_and_maybe_create_winfos(self, t, reftype,
+                                            update_existing=False):
+            # a sharded model's gradient hook takes ``p.grad`` (reduced
+            # into its shard) before MemTracker's post-accumulate hook
+            # reads it
+            if t is None:
+                return set()
+            return super()._update_and_maybe_create_winfos(
+                t, reftype, update_existing)
+
         def _pre_fw_hook(self, module, inputs):
             name = self._mod_tracker.get_known_fqn(module)
             if (module in self.memory_tracking and not self._mod_tracker.is_bw
@@ -247,6 +249,9 @@ def measure(fn: Callable[[], object], external: Iterable,
     records)`` each time its forward starts (once a microbatch)."""
     mt = _step_tracker()
     mt.track_external(*external)
+    for obj in external:
+        if getattr(obj, "zero3", None) is not None:
+            mt.track_params(obj.zero3.master.values())
     mt.track_optimizer_state(optimizer_state)
     cost, comm = CostCounter(), CommRecorder()
     marks = []
@@ -382,6 +387,10 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *, dev,
             model = Transformer(cfg, device=dev, mesh=mesh)
             if serve_params_dtype is not None and shape.kind != "train":
                 model.to(serve_params_dtype)
+            if mesh is not None and shape.kind != "train":
+                # serving holds the parameters sharded too (the trainer
+                # shards them on its FSDP axes itself)
+                model.zero3_(mesh, fsdp)
             fn, external, opt = make_step(cfg, shape, model, mesh, dp,
                                           accum=accum, fsdp=fsdp, dev=dev,
                                           traced=traced)

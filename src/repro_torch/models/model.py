@@ -15,14 +15,21 @@ from .transformer import FfnPatterns, Transformer, act_dtype
 
 def build_model(cfg: ModelConfig, *, device=None,
                 ffn_patterns: Optional[FfnPatterns] = None,
-                mesh=None) -> Transformer:
+                mesh=None, fsdp="data") -> Transformer:
     """The model of ``cfg`` with its parameters allocated on ``device``
-    (``None`` means the card; raises when there is none), split over
-    ``mesh``'s ``model`` axis when one is given (``Transformer.shard_``).
-    Weights are uninitialized: call ``model.init(generator)`` or load a
-    state dict (full tensors are sliced on a split model)."""
-    return Transformer(cfg, device=resolve_device(device),
-                       ffn_patterns=ffn_patterns, mesh=mesh)
+    (``None`` means the card; raises when there is none).  On ``mesh`` it
+    is split over the ``model`` axis (``Transformer.shard_``) and every
+    parameter is held as this rank's shard of the rules, FSDP on ``fsdp``,
+    gathered a unit at a time as the model runs (``Transformer.zero3_``):
+    the forward-only model of a sharded prefill or decode, which a mesh
+    ``Trainer`` takes as it is.  Weights are uninitialized: call
+    ``model.init(generator)`` or load a state dict (full tensors are
+    sliced, or sharded, on a split model)."""
+    model = Transformer(cfg, device=resolve_device(device),
+                        ffn_patterns=ffn_patterns, mesh=mesh)
+    if mesh is not None:
+        model.zero3_(mesh, fsdp)
+    return model
 
 
 def _abstract_device(device) -> torch.device:

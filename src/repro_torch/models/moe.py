@@ -11,9 +11,22 @@ call, as ``repro`` computes it outside any Pallas kernel), so gradients
 flow through it.  Each token gathers its expert's row back and weighs it
 by the softmax of its top-k logits.  The Switch load-balance loss
 ``E · Σ_e mean_prob_e · share_of_first_choices_e`` is taken over every
-token.  On a mesh the experts are not split: every rank along ``model``
-computes the whole layer on full tensors (expert parallelism is not
-ported; ``Transformer.tp_gathered`` names each such layer).
+token of the microbatch: on a mesh that splits the rows over dp ranks
+(``MoE.dp``, set by ``Transformer.zero3_``) the two per-expert means are
+averaged over those ranks when gradients are recorded, as ``repro``
+takes them over its global batch (a forward without gradients, which
+reads no aux loss, keeps its rank's own).
+
+Expert parallelism (:meth:`MoE.tensor_parallel_`): on a mesh the expert
+stacks split over the ``model`` ranks, experts ``[r·E/tp, (r+1)·E/tp)`` on
+rank r, as ``repro``'s rules shard them (``P(model, ...)``).  The router
+stays whole (its top-k reads every expert's logit) and routes on every
+rank alike, with the global E and capacity; each rank runs its experts'
+slice of the dispatch buffers, each token takes the row of a choice that
+falls in this rank's experts (else 0), and the fp32 outputs are summed
+over ``model`` before the cast.  With at most two choices a token, at most
+two nonzero terms meet in that sum, so the split layer's forward equals
+the unsplit one's.
 """
 from __future__ import annotations
 
@@ -24,17 +37,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
+                                                  TensorParallelError,
+                                                  all_mean, copy_in, local,
+                                                  reduce_out)
+
 from . import layers
 
 
 class MoE(nn.Module):
     """``router`` (D → E, fp32 logits) and the expert stacks ``gate``/``up``
     (E, D, d_ff) and ``down`` (E, d_ff, D), under ``repro``'s names; run by
-    :func:`moe_apply`."""
+    :func:`moe_apply`.  After :meth:`tensor_parallel_` the stacks hold
+    this rank's ``E / tp`` experts."""
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int, *,
                  device=None):
         super().__init__()
+        self.n_experts = n_experts
         self.router = layers.Dense(d_model, n_experts, device=device)
         self.gate = nn.Parameter(torch.empty(n_experts, d_model, d_ff,
                                              device=device))
@@ -42,14 +62,47 @@ class MoE(nn.Module):
                                            device=device))
         self.down = nn.Parameter(torch.empty(n_experts, d_ff, d_model,
                                              device=device))
+        self.tp = NO_TP
+        #: ``(group, size)`` of each dp axis the batch rows split over
+        self.dp: tuple = ()
+        #: ``{param name: (its dim local on model, its full shape)}``
+        self.tp_local: dict = {}
+
+    def tensor_parallel_(self, tp: TP) -> None:
+        """Keep this rank's experts of ``gate``, ``up`` and ``down``;
+        raises :class:`TensorParallelError` when the experts do not split
+        over the ranks (the layer then computes whole)."""
+        if not tp.on:
+            return
+        if self.n_experts % tp.size:
+            raise TensorParallelError(
+                f"{self.n_experts} experts do not split over {tp.size} "
+                f"model ranks")
+        for name in ("gate", "up", "down"):
+            w = getattr(self, name)
+            self.tp_local[name] = (0, tuple(w.shape))
+            setattr(self, name,
+                    nn.Parameter(local(w.detach(), 0, tp).clone()))
+        self.tp = tp
+
+    def expert_span(self) -> Tuple[int, int]:
+        """This rank's experts ``[lo, hi)`` (all of them unsplit)."""
+        return self.tp.span(self.n_experts) if self.tp.on \
+            else (0, self.n_experts)
 
     def init_(self, gen: torch.Generator) -> None:
         """gate, up ~ N(0, 1/D); down ~ N(0, 1/d_ff) (the router draws its
-        own)."""
+        own); a split layer draws the full stacks and keeps its experts."""
         d_model, d_ff = self.gate.shape[1:]
-        self.gate.normal_(generator=gen).mul_(1.0 / math.sqrt(d_model))
-        self.up.normal_(generator=gen).mul_(1.0 / math.sqrt(d_model))
-        self.down.normal_(generator=gen).mul_(1.0 / math.sqrt(d_ff))
+        for name, fan_in in (("gate", d_model), ("up", d_model),
+                             ("down", d_ff)):
+            w = getattr(self, name)
+            if name in self.tp_local:
+                full = torch.empty(self.tp_local[name][1], device=w.device)
+                full.normal_(generator=gen).mul_(1.0 / math.sqrt(fan_in))
+                w.copy_(local(full, 0, self.tp))
+            else:
+                w.normal_(generator=gen).mul_(1.0 / math.sqrt(fan_in))
 
 
 def capacity(t: int, n_exp: int, capacity_factor: float) -> int:
@@ -90,9 +143,16 @@ def dispatch_batched(x: torch.Tensor, expert: torch.Tensor, n_exp: int,
 def moe_apply(moe: MoE, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, D) → ``(out (B, T, D) in x's dtype, aux loss, fp32)``."""
+    """x: (B, T, D) → ``(out (B, T, D) in x's dtype, aux loss, fp32)``.
+
+    On a split layer the routing (logits, gates, aux) runs on ``x`` alike
+    on every rank; the experts read ``copy_in(x)`` and the gate weights
+    through ``copy_in`` too, so the backward sums over ``model`` what each
+    rank's experts contribute to dx and to the gates, and the router's
+    gradient is the same on every rank."""
     b, t, d = x.shape
-    n_exp = moe.router.w.shape[1]
+    n_exp = moe.n_experts
+    tp = moe.tp
     cap = capacity(t, n_exp, capacity_factor)
     logits = moe.router(x.float())                                # (B,T,E)
     probs = torch.softmax(logits, dim=-1)
@@ -106,20 +166,38 @@ def moe_apply(moe: MoE, x: torch.Tensor, *, top_k: int,
     first = top_idx[..., 0].reshape(-1)
     ce = torch.zeros(n_exp, dtype=torch.float32, device=x.device).index_add_(
         0, first, torch.ones(first.shape, device=x.device)) / (b * t)
+    if torch.is_grad_enabled():          # over the whole microbatch
+        me, ce = all_mean(me, moe.dp), all_mean(ce, moe.dp)
     aux = n_exp * torch.sum(me * ce)
 
+    xe, gates = copy_in(x, tp), copy_in(gates, tp)
+    lo, hi = moe.expert_span()
+    n_loc = hi - lo
+    # only this rank's experts are cast to the activation dtype
     w_gate, w_up, w_down = (w.to(x.dtype) for w in
                             (moe.gate, moe.up, moe.down))
-    out = torch.zeros((b, t, d), dtype=torch.float32, device=x.device)
+    bufs, slots, keeps = [], [], []
     for j in range(top_k):
-        buf, slot, keep = dispatch_batched(x, top_idx[..., j], n_exp, cap)
-        h = (F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
-             * torch.einsum("becd,edf->becf", buf, w_up))
-        y = torch.einsum("becf,efd->becd", h, w_down).reshape(
-            b, n_exp * cap, d)
-        idx = slot.clamp_max(n_exp * cap - 1)
+        buf, slot, keep = dispatch_batched(xe, top_idx[..., j], n_exp, cap)
+        if n_loc < n_exp:                # this rank's experts' rows
+            buf = buf[:, lo:hi]
+            slot = slot - lo * cap
+            keep = keep & (slot >= 0) & (slot < n_loc * cap)
+        bufs.append(buf)
+        slots.append(slot)
+        keeps.append(keep)
+    # every choice's rows in one product a weight: each weight's gradient
+    # is made once, not summed over the choices in buffers of its size
+    buf = bufs[0] if top_k == 1 else torch.cat(bufs, dim=2)
+    h = (F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
+         * torch.einsum("becd,edf->becf", buf, w_up))
+    y_all = torch.einsum("becf,efd->becd", h, w_down)   # (B, E, k·cap, D)
+    out = torch.zeros((b, t, d), dtype=torch.float32, device=x.device)
+    for j, (slot, keep) in enumerate(zip(slots, keeps)):
+        y = y_all[:, :, j * cap:(j + 1) * cap].reshape(b, n_loc * cap, d)
+        idx = slot.clamp(0, n_loc * cap - 1)
         vals = torch.gather(y, 1, idx[..., None].expand(b, t, d))
         y_tok = torch.where(keep[..., None], vals,
                             torch.zeros((), dtype=y.dtype, device=y.device))
         out = out + y_tok.float() * gates[..., j][..., None]
-    return out.to(x.dtype), aux
+    return reduce_out(out, tp).to(x.dtype), aux

@@ -49,13 +49,19 @@ whose backward passes are kernels of their own (``rg_lru_bwd``,
 
 Tensor parallelism: ``Transformer(cfg, mesh=)`` (or :meth:`Transformer.
 shard_`) splits the attention heads, the dense SwiGLU's hidden units, the
-RG-LRU channels and the vocabulary over the mesh's ``model`` axis
-(:mod:`repro_torch.sharding.tensor_parallel`); ``forward`` then returns
-this rank's share of the vocabulary, ``loss_fn`` takes the vocab-parallel
-cross entropy and ``decode_step`` gathers the whole vocabulary.  The MoE
-experts, RWKV-6 and the frontend still compute on full tensors on every
-rank (:attr:`Transformer.tp_gathered`); the block-sparse FFN is
-replicated, as in ``repro``.
+RG-LRU channels, the MoE experts and the vocabulary over the mesh's
+``model`` axis (:mod:`repro_torch.sharding.tensor_parallel`); ``forward``
+then returns this rank's share of the vocabulary, ``loss_fn`` takes the
+vocab-parallel cross entropy and ``decode_step`` gathers the whole
+vocabulary.  The MoE router, RWKV-6 and the frontend still compute on full
+tensors on every rank (:attr:`Transformer.tp_gathered`); the block-sparse
+FFN is replicated, as in ``repro``.
+
+Sharded parameters: :meth:`Transformer.zero3_` (called by the mesh
+trainer and by ``build_model(mesh=)``) holds every parameter as this
+rank's rule shard and gathers each unit's (a layer, the embedding with
+the head and the final norm, the frontend) just before it runs
+(:mod:`repro_torch.sharding.zero3`).
 """
 from __future__ import annotations
 
@@ -318,22 +324,25 @@ class Transformer(nn.Module):
         self.tp = NO_TP
         #: module name → why it computes on full tensors under TP
         self.tp_gathered: Dict[str, str] = {}
+        #: the per-unit gather of the sharded parameters (:meth:`zero3_`)
+        self.zero3 = None
         if mesh is not None:
             self.shard_(mesh)
 
     def shard_(self, mesh=None, *, tp: Optional[TP] = None) -> "Transformer":
         """Split compute over ``mesh``'s ``model`` axis (or ``tp``), in
-        place: each attention, dense SwiGLU, RG-LRU block and the
-        embedding / head keep this rank's shards (their modules'
-        ``tensor_parallel_``).  Built whole first: the full tensors are
-        freed as the shards replace them.  One rank on ``model`` changes
-        nothing.
+        place: each attention, dense SwiGLU, RG-LRU block, MoE expert stack
+        (expert parallelism) and the embedding / head keep this rank's
+        shards (their modules' ``tensor_parallel_``).  Built whole first:
+        the full tensors are freed as the shards replace them.  One rank on
+        ``model`` changes nothing.
 
         Computed on full tensors on every rank, and named in
-        :attr:`tp_gathered`: the MoE experts (expert parallelism), RWKV-6
-        layers (head parallelism), the frontend, and an attention or FFN
-        whose heads or width do not split over the ranks.  The block-sparse
-        FFN is replicated, as ``repro``'s rules replicate its blocks."""
+        :attr:`tp_gathered`: the MoE router (its top-k reads every
+        expert's logit), RWKV-6 layers (head parallelism), the frontend,
+        and an attention, FFN or MoE whose heads, width or experts do not
+        split over the ranks.  The block-sparse FFN is replicated, as
+        ``repro``'s rules replicate its blocks."""
         tp = tp_group(mesh) if tp is None else tp
         if self.tp.on:
             if (tp.rank, tp.size) != (self.tp.rank, self.tp.size):
@@ -343,6 +352,8 @@ class Transformer(nn.Module):
             return self
         if not tp.on:
             return self
+        if self.zero3 is not None:
+            raise TensorParallelError("split the model before zero3_")
         gathered: Dict[str, str] = {}
 
         def split(name, mod):
@@ -367,13 +378,53 @@ class Transformer(nn.Module):
                 if isinstance(getattr(blk, "mlp", None), layers.SwiGLU):
                     split(f"{name}.mlp", blk.mlp)
                 if isinstance(blk, MoEBlock):
-                    gathered[f"{name}.moe"] = \
-                        "MoE experts (expert parallelism: a later slice)"
+                    split(f"{name}.moe", blk.moe)
+                    gathered[f"{name}.moe.router"] = \
+                        "the MoE router (top-k reads every expert's logit)"
                 if isinstance(blk, RWKVLayer):
                     gathered[f"{name}.rwkv"] = \
                         "RWKV-6 (head parallelism: a later slice)"
         self.tp, self.tp_gathered = tp, gathered
         return self
+
+    def zero3_(self, mesh, fsdp="data"):
+        """Hold every parameter as this rank's shard of ``params_pspecs``
+        (FSDP on ``fsdp``) and gather each unit's just before it runs
+        (:class:`~repro_torch.sharding.zero3.Zero3`, returned and kept at
+        :attr:`zero3`); on an already split model (:meth:`shard_`).  Again
+        with the same mesh and ``fsdp``: the same manager; with others a
+        ``ValueError`` (build the model again)."""
+        from repro_torch.sharding import (dp_axes, make_shardings,
+                                          params_pspecs)
+        from repro_torch.sharding.zero3 import Zero3
+        z = self.zero3
+        if z is not None:
+            if z.mesh is not mesh or z.fsdp != fsdp:
+                raise ValueError(
+                    f"the parameters are sharded with fsdp={z.fsdp!r} on "
+                    f"another mesh or axes; build the model again for "
+                    f"fsdp={fsdp!r}")
+            return z
+        split = self.tp_local_params()
+        full = self.full_shapes()
+        shardings = make_shardings(mesh, params_pspecs(full, fsdp=fsdp),
+                                   full, {k: dim for k, (dim, _)
+                                          in split.items()})
+        self.zero3 = Zero3(self, shardings, fsdp)
+        dp = tuple((mesh.get_group(i), mesh.size(i))
+                   for i, a in enumerate(mesh.mesh_dim_names)
+                   if a in dp_axes(mesh) and mesh.size(i) > 1)
+        for mod in self.modules():
+            if isinstance(mod, MoE):
+                mod.dp = dp
+        return self.zero3
+
+    def _call(self, unit: str, fn, *args, backward: bool = True, **kw):
+        """``fn(*args, **kw)``, with ``unit``'s parameters gathered around
+        it when they are sharded (:meth:`Zero3.call`)."""
+        if self.zero3 is None:
+            return fn(*args, **kw)
+        return self.zero3.call(unit, fn, *args, backward=backward, **kw)
 
     def tp_local_params(self) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
         """``{parameter name: (its dim local on model, its full shape)}``
@@ -397,16 +448,32 @@ class Transformer(nn.Module):
                         assign: bool = False):
         """``nn.Module.load_state_dict``; on a split model an entry of a
         local parameter may also be the full tensor (a single process's
-        state dict), of which this rank's slice is loaded."""
-        split = self.tp_local_params()
-        if split:
-            state_dict = dict(state_dict)
-            for k, (dim, shape) in split.items():
-                t = state_dict.get(k)
-                if t is not None and tuple(t.shape) == shape:
-                    state_dict[k] = local(t, dim, self.tp)
-        return super().load_state_dict(state_dict, strict=strict,
-                                       assign=assign)
+        state dict), of which this rank's slice is loaded.  On a model
+        with sharded parameters (:meth:`zero3_`) the entry of a sharded
+        one is written into this rank's shard."""
+        state_dict = dict(state_dict)
+        sharded = []
+        if self.zero3 is not None:
+            sharded = [k for k in self.zero3.axes if k in state_dict]
+            for k in sharded:
+                self.zero3.load_(k, state_dict.pop(k))
+        for k, (dim, shape) in self.tp_local_params().items():
+            t = state_dict.get(k)
+            if t is not None and tuple(t.shape) == shape:
+                state_dict[k] = local(t, dim, self.tp)
+        if not sharded:
+            return super().load_state_dict(state_dict, strict=strict,
+                                           assign=assign)
+        res = super().load_state_dict(state_dict, strict=False,
+                                      assign=assign)
+        res.missing_keys[:] = [k for k in res.missing_keys
+                               if k not in sharded]
+        if strict and (res.missing_keys or res.unexpected_keys):
+            raise RuntimeError(
+                f"Error(s) in loading state_dict for {type(self).__name__}:"
+                f" missing keys {res.missing_keys}, unexpected keys "
+                f"{res.unexpected_keys}")
+        return res
 
     @property
     def device(self) -> torch.device:
@@ -417,11 +484,18 @@ class Transformer(nn.Module):
         """Random weights from ``gen`` (a generator on the model's device):
         N(0, 0.02²) embeddings, N(0, 1/d_in) dense, sparse and expert
         weights, unit norm scales, the recurrent blocks' own draws."""
+        z = self.zero3
+        names = {id(p): k for k, p in self.named_parameters()}
         for mod in self.modules():
             if isinstance(mod, (layers.Dense, layers.RMSNorm,
                                 layers.Embedding, SparseLinear, RGLRUBlock,
                                 RWKVBlock, MoE)):
-                mod.init_(gen)
+                if z is None:
+                    mod.init_(gen)
+                    continue
+                # a sharded parameter is drawn whole, then its shard kept
+                with z.materialize(names[id(p)] for p in mod.parameters()):
+                    mod.init_(gen)
         return self
 
     def _blocks(self) -> List[nn.Module]:
@@ -476,19 +550,22 @@ class Transformer(nn.Module):
         slice); the logits themselves at one rank."""
         return gather(logits, -1, self.tp)
 
-    def _run(self, blocks, x, positions, enc_out=None):
-        """The blocks over x, rematerialized under ``cfg.remat`` when
-        gradients are recorded.  Returns ``(x, summed aux loss)``."""
+    def _run(self, blocks, x, positions, enc_out=None, prefix="layers"):
+        """The blocks over x (units ``<prefix>.<i>``), rematerialized under
+        ``cfg.remat`` when gradients are recorded.  Returns ``(x, summed
+        aux loss)``."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), device=x.device)
-        for blk in blocks:
+        for i, blk in enumerate(blocks):
             if remat:
                 # the blocks draw no random numbers: no RNG state to keep
-                x, a = checkpoint(blk, x, positions=positions,
-                                  enc_out=enc_out, use_reentrant=False,
+                x, a = self._call(f"{prefix}.{i}", checkpoint, blk, x,
+                                  positions=positions, enc_out=enc_out,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = blk(x, positions=positions, enc_out=enc_out)
+                x, a = self._call(f"{prefix}.{i}", blk, x,
+                                  positions=positions, enc_out=enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -497,10 +574,11 @@ class Transformer(nn.Module):
         """The encoder's output (no final norm) over ``enc_embeds`` (B,
         T_enc, D) through the frontend: what the decoder's cross attention
         reads (``enc_dec`` only)."""
-        e = self.frontend(enc_embeds.to(act_dtype(self.cfg)))
+        e = self._call("frontend", self.frontend,
+                       enc_embeds.to(act_dtype(self.cfg)))
         b, t, _ = e.shape
         positions = torch.arange(t, device=e.device).expand(b, t)
-        return self._run(self.enc, e, positions)[0]
+        return self._run(self.enc, e, positions, prefix="enc")[0]
 
     def forward(self, tokens: torch.Tensor,
                 vis_embeds: Optional[torch.Tensor] = None,
@@ -516,9 +594,11 @@ class Transformer(nn.Module):
         ``repro``'s prefill output is sharded on ``model``
         (:meth:`full_logits` gathers them)."""
         dt = act_dtype(self.cfg)
-        x = self.embed(tokens).to(dt)
+        # the lookup's backward reads only the indices: no gather for it
+        x = self._call("embed", self.embed, tokens, backward=False).to(dt)
         if vis_embeds is not None:
-            x = torch.cat([self.frontend(vis_embeds.to(dt)), x], dim=1)
+            x = torch.cat([self._call("frontend", self.frontend,
+                                      vis_embeds.to(dt)), x], dim=1)
         enc_out = None
         if self.enc is not None:
             if enc_embeds is None:
@@ -528,9 +608,12 @@ class Transformer(nn.Module):
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
         x, aux = self._run(self.layers, x, positions, enc_out)
-        x = self.final_norm(x, self.cfg.norm_eps)
-        logits = self._logits(x)
+        logits = self._call("embed", self._head, x)
         return (logits, aux) if return_aux else logits
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the head."""
+        return self._logits(self.final_norm(x, self.cfg.norm_eps))
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]):
         """batch: dict(tokens (B, T), targets (B, T)[, vis_embeds,
@@ -628,25 +711,33 @@ class Transformer(nn.Module):
         ``cache`` in place and returns ``(logits (B, padded_vocab),
         cache)``: the whole vocabulary on a split model too (each rank's
         share all-gathered)."""
-        x = self.embed(token).to(act_dtype(self.cfg))
+        x = self._call("embed", self.embed, token,
+                       backward=False).to(act_dtype(self.cfg))
         b, t, _ = x.shape
         steps = torch.arange(t, device=x.device)
         if isinstance(pos, int) or pos.ndim == 0:
             positions = (int(pos) + steps).expand(b, t)
         else:
             positions = pos.long()[:, None] + steps
-        for blk, keys, i in zip(self.layers, self._cache_keys,
-                                self._cache_index):
+        for j, (blk, keys, i) in enumerate(zip(self.layers, self._cache_keys,
+                                               self._cache_index)):
             mine = {name: cache[key][i] for name, key in keys.items()
                     if key in cache}
-            x, _ = blk(x, positions=positions, cache=mine, cache_pos=pos,
-                       enc_out=enc_out)
+            x, _ = self._call(f"layers.{j}", blk, x, positions=positions,
+                              cache=mine, cache_pos=pos, enc_out=enc_out)
+        logits = self._call("embed", self._decode_head, x, logit_idx)
+        return self.full_logits(logits)[:, 0], cache
+
+    def _decode_head(self, x: torch.Tensor,
+                     logit_idx: Optional[torch.Tensor]) -> torch.Tensor:
+        """The final norm, then the head at each row's output position."""
         x = self.final_norm(x, self.cfg.norm_eps)
         # gather each row's output position before the head, so the
         # (B, T, vocab) prefill logits never materialize
+        b = x.shape[0]
         if logit_idx is None:
             x = x[:, -1:]
         else:
             idx = torch.as_tensor(logit_idx, device=x.device).long().expand(b)
             x = x[torch.arange(b, device=x.device), idx][:, None]
-        return self.full_logits(self._logits(x))[:, 0], cache
+        return self._logits(x)

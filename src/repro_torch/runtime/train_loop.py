@@ -18,21 +18,24 @@ with a checkpoint directory always resumes from its latest checkpoint
 **On a mesh** (``mesh=``, a ``DeviceMesh`` with ``data`` and ``model``
 axes, one process a device): the model is split tensor parallel over
 ``model`` (``Transformer.shard_``): each attention runs this rank's heads,
-each dense SwiGLU its hidden units, each RG-LRU block its channels, the
-embedding and head its rows of the vocabulary, with the all-reduces and
-all-gathers of :mod:`repro_torch.sharding.tensor_parallel` between them.
-The MoE experts, RWKV-6 layers and the frontend still compute on full
-tensors on every rank along ``model`` (``Transformer.tp_gathered``), and
-the block-sparse FFN is replicated, as ``repro``'s rules replicate its
-blocks.  The master parameters and the AdamW moments live sharded by
-``repro_torch.sharding``'s rules; the master shards are views into the
-model's parameters (this rank's ``model`` slice of a split parameter, the
-full tensor of another), which each step all-gathers over the dp axes
-(and over ``model`` for a parameter the model holds whole).  Each dp rank
-computes its rows of each microbatch (microbatch *i* is rows
+each dense SwiGLU its hidden units, each RG-LRU block its channels, each
+MoE layer its experts (the router whole), the embedding and head its rows
+of the vocabulary, with the all-reduces and all-gathers of
+:mod:`repro_torch.sharding.tensor_parallel` between them.  The MoE
+router, RWKV-6 layers and the frontend still compute on full tensors on
+every rank along ``model`` (``Transformer.tp_gathered``), and the
+block-sparse FFN is replicated, as ``repro``'s rules replicate its
+blocks.  Every parameter lives as this rank's shard of
+``repro_torch.sharding``'s rules (``Transformer.zero3_``): the shards are
+the master parameters AdamW updates, beside AdamW's moments in the same
+layout, and each unit of the model (a layer, the embedding with the head
+and the final norm, the frontend) gathers its parameters just before it
+runs and frees them after (:mod:`repro_torch.sharding.zero3`).  Each dp
+rank computes its rows of each microbatch (microbatch *i* is rows
 ``[i·B/accum, (i+1)·B/accum)``, split over dp, as ``repro`` splits it).
-Each microbatch's gradients are reduce-scattered (mean over dp) into the
-parameter layout, the clip's global norm counts each element once over
+Each parameter's gradient is reduce-scattered (mean over dp) into its
+shard as soon as autograd has accumulated it and summed over the
+microbatches there; the clip's global norm counts each element once over
 ``model`` and dp, and AdamW runs on the shards.  At one rank on ``model``
 nothing is split, and at one rank every shard is the parameter itself.
 """
@@ -53,9 +56,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data import SyntheticDataset
 from repro_torch.optim import AdamW, AdamWState, cosine_with_warmup
 from repro_torch.runtime.elastic import restore_onto_mesh
-from repro_torch.sharding import (constrain_like_params, dp_axes,
-                                  global_norm, make_shardings, params_pspecs)
-from repro_torch.sharding.tensor_parallel import gather_full
+from repro_torch.sharding import dp_axes, global_norm
 
 
 @dataclasses.dataclass
@@ -74,103 +75,99 @@ class TrainStep:
     parameters and ``opt_state`` in place (see :func:`make_train_step`).
 
     ``master``: the tensors AdamW updates (and ``opt_state`` must be built
-    over): the model's parameters, or on a mesh this rank's shards of them;
-    ``shardings``: each parameter's ``Sharding``, or ``None``."""
+    over): the model's parameters, or on a mesh this rank's shards of them
+    (``Transformer.zero3_``); ``shardings``: each parameter's ``Sharding``,
+    or ``None``."""
 
     def __init__(self, model, opt: AdamW, accum_steps: int,
                  accum_dtype: torch.dtype, mesh, fsdp="data"):
         self.model, self.opt = model, opt
         self.accum_steps, self.accum_dtype = accum_steps, accum_dtype
         self.mesh = mesh
-        if mesh is not None:
-            model.shard_(mesh)
-        self.params = dict(model.named_parameters())
+        self.zero3 = None
         if mesh is None:
             self.shardings = None
-            self.master = self.params
+            self.master = dict(model.named_parameters())
         else:
-            split = model.tp_local_params()
-            full = model.full_shapes()
-            self.shardings = make_shardings(
-                mesh, params_pspecs(full, fsdp=fsdp), full,
-                {k: dim for k, (dim, _) in split.items()})
-            self.master = {k: self.shardings[k].master_of(p.detach())
-                           for k, p in self.params.items()}
+            model.shard_(mesh)
+            self.zero3 = model.zero3_(mesh, fsdp)
+            self.shardings = self.zero3.shardings
+            self.master = self.zero3.master
 
-    def _grads(self, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Backward; the gradients in the master layout (on a mesh the
-        reduce-scatter, mean over dp)."""
-        loss.backward()
-        grads = {k: p.grad for k, p in self.params.items()}
-        for p in self.params.values():
-            p.grad = None
-        if self.mesh is not None:
-            grads = constrain_like_params(grads, self.shardings)
-        return grads
+    def _backward(self, loss: torch.Tensor, sink) -> None:
+        """Backward of ``loss``; each parameter's gradient, in the master
+        layout (on a mesh reduce-scattered as it is accumulated), to
+        ``sink(name, grad)``."""
+        if self.zero3 is None:
+            loss.backward()
+            for k, p in self.master.items():
+                g, p.grad = p.grad, None
+                sink(k, g)
+            return
+        self.zero3.on_grad = sink
+        try:
+            loss.backward()
+        finally:
+            self.zero3.on_grad = None
+            self.zero3.after_backward()
 
     def __call__(self, opt_state: AdamWState,
                  batch: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         accum = self.accum_steps
+        grads: Dict[str, torch.Tensor] = {}
         if accum > 1:
             micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                      for k, v in batch.items()}
             grads = {k: torch.zeros(p.shape, dtype=self.accum_dtype,
                                     device=p.device)
                      for k, p in self.master.items()}
+
+            def add(k, g):
+                grads[k].copy_(grads[k].float() + g.float() / accum)
             loss = torch.zeros((), device=self.model.device)
             for i in range(accum):
                 mb_loss, _ = self.model.loss_fn(
                     {k: v[i] for k, v in micro.items()})
-                for k, g in self._grads(mb_loss).items():
-                    grads[k].copy_(grads[k].float() + g.float() / accum)
+                self._backward(mb_loss, add)
                 loss = loss + mb_loss.detach()
             loss = loss / accum
         else:
             loss, _ = self.model.loss_fn(batch)
-            grads = self._grads(loss)
+            self._backward(loss, grads.__setitem__)
             loss = loss.detach()
+        missing = set(self.master) - set(grads)
+        if missing:
+            raise RuntimeError(f"no gradient reached {sorted(missing)}")
+        grads = {k: grads[k] for k in self.master}
         gnorm = None
         if self.mesh is not None:
             loss = _dp_mean(loss, self.mesh)
             gnorm = global_norm(grads, self.shardings)
         metrics = self.opt.update(grads, opt_state, self.master,
                                   grad_norm=gnorm)
-        if self.mesh is not None:
-            self.gather_()
         return {"loss": loss, **metrics}
-
-    @torch.no_grad()
-    def gather_(self) -> None:
-        """All-gather the master shards into the model's parameters (a
-        split parameter over the dp axes only)."""
-        for k, sh in (self.shardings or {}).items():
-            full = sh.gather(self.master[k])
-            if full is not self.master[k]:
-                self.params[k].copy_(full)
 
 
 class FullParams(Mapping):
-    """The model's parameters by name as full tensors: one the model holds
-    as this rank's ``model`` slice is all-gathered at each read (a
-    collective: every rank of the ``model`` group reads the same names in
-    the same order), the others are the parameters themselves."""
+    """The model's parameters by name as full tensors: on a mesh each one
+    all-gathered from every rank's shard at each read (a collective:
+    every rank of the mesh reads the same names in the same order); the
+    parameters themselves without one."""
 
-    def __init__(self, model):
-        self._params = dict(model.named_parameters())
-        self._split = model.tp_local_params()
-        self._tp = model.tp
+    def __init__(self, step: TrainStep):
+        self._step = step
 
     def __getitem__(self, name: str) -> torch.Tensor:
-        p = self._params[name]
-        if name not in self._split:
-            return p
-        return gather_full(p.detach(), self._split[name][0], self._tp)
+        step = self._step
+        if step.zero3 is None:
+            return step.master[name]
+        return step.zero3.full(name)
 
     def __iter__(self) -> Iterator[str]:
-        return iter(self._params)
+        return iter(self._step.master)
 
     def __len__(self) -> int:
-        return len(self._params)
+        return len(self._step.master)
 
 
 def _dp_mean(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -242,13 +239,12 @@ class Trainer:
         self.opt = AdamW(lr=cosine_with_warmup(tcfg.peak_lr, tcfg.warmup,
                                                tcfg.steps))
         # the step splits the model over the mesh first: init then draws
-        # the full tensors and keeps this rank's slices (views the master
-        # shards see)
+        # the full tensors and keeps this rank's shards
         self._step_fn = make_train_step(model, self.opt, tcfg.accum_steps,
                                         mesh=mesh, fsdp=fsdp)
         model.init(torch.Generator(device=self.device).manual_seed(seed))
         #: the parameters by name as full tensors (``FullParams``)
-        self.params = FullParams(model)
+        self.params = FullParams(self._step_fn)
         self._rows = (None if mesh is None else
                       rank_rows(shape_cfg.global_batch, tcfg.accum_steps,
                                 mesh))
@@ -308,8 +304,6 @@ class Trainer:
         step = sd["opt/step"]
         self.opt_state.step = int(step.to_local() if isinstance(step, DTensor)
                                   else step)
-        if self.mesh is not None:
-            self._step_fn.gather_()
 
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device)

@@ -15,9 +15,13 @@ The port's per-layer tensors have no stacked layer axis, so each spec is
 
 A :class:`Sharding` is ``repro``'s ``NamedSharding``: the sanitized spec
 and the DTensor placements it gives, with the collectives the trainer
-needs (the local shard, the all-gather, the reduce-scatter of gradients
-into the parameter layout).  Within one tensor dim sharded over several
-mesh axes the earlier mesh axis is the major one, as in DTensor.
+needs (the local shard, the all-gathers that make the model's parameter,
+which :mod:`.zero3` runs a unit at a time, the reduce-scatter of
+gradients into the shard).  Within one tensor dim sharded over several
+mesh axes the earlier mesh axis is the major one, as in DTensor.  A
+collective of the sharded runtime moves at most :data:`BUCKET_BYTES`: a
+larger tensor goes in slices along a dim it is not split on
+(:func:`slices`).
 
 The specs are the storage layout.  Where the model computes tensor
 parallel (:mod:`.tensor_parallel`), a parameter the rules shard on
@@ -179,6 +183,29 @@ def sanitize_pspec(mesh, spec: P, shape) -> P:
     return P(*new)
 
 
+#: the most bytes one all-gather fills or one reduce-scatter reads: a
+#: larger tensor goes in slices (:func:`slices`), so that a collective's
+#: send, receive and staging buffers stay small beside the tensors it
+#: fills
+BUCKET_BYTES = 256 << 20
+
+
+def slices(shape, dim: int, itemsize: int):
+    """A tensor of ``shape`` split for the collectives along ``dim``:
+    ``[(j, start, length), ...]`` along its first dim ``j`` other than
+    ``dim`` that has more than one index, each slice of at most
+    :data:`BUCKET_BYTES` (or one index of ``j``); ``[None]``, the whole
+    tensor, when it is at most that or no such ``j`` exists."""
+    bound = BUCKET_BYTES
+    size = math.prod(shape) * itemsize
+    j = next((i for i, s in enumerate(shape) if i != dim and s > 1), None)
+    if size <= bound or j is None:
+        return [None]
+    step = max(1, bound // (size // shape[j]))
+    return [(j, a, min(step, shape[j] - a))
+            for a in range(0, shape[j], step)]
+
+
 def _placements(mesh: DeviceMesh, spec: P) -> Tuple[Placement, ...]:
     out = []
     for axis in mesh.mesh_dim_names:
@@ -228,15 +255,22 @@ class Sharding:
         full tensor, or of this rank's ``model`` slice (``local_dim``)."""
         return self._narrow(param, model=self.local_dim is None)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The model's parameter from every rank's shard (all-gathers,
-        minor mesh dim first): the full tensor, or with ``local_dim`` this
-        rank's ``model`` slice (over the dp axes only); ``local`` itself
-        when nothing is to gather."""
-        t = local
-        for i, d, n, _ in reversed(self._sharded(self.local_dim is None)):
+    def gather_full(self, shard: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's shard (all-gathers over every
+        mesh dim that shards it, ``model`` included, minor first);
+        ``shard`` itself when nothing is sharded."""
+        t = shard
+        for i, d, n, _ in reversed(self._sharded(True)):
             t = _all_gather(t, d, n, self.mesh.get_group(i))
         return t
+
+    def gather_axes(self) -> list:
+        """``(mesh dim, tensor dim, size, coordinate)`` of each all-gather
+        that makes the model's parameter from this rank's shard, the major
+        mesh dim first: over every mesh dim that shards it, or with
+        ``local_dim`` over the dp axes only (the model holds this rank's
+        ``model`` slice)."""
+        return self._sharded(self.local_dim is None)
 
     def reduce_scatter(self, grad: torch.Tensor) -> torch.Tensor:
         """The mean over the dp axes of each rank's gradient of the model's
@@ -244,28 +278,56 @@ class Sharding:
         that shards the tensor, all-reduced over one that does not; a full
         gradient is sliced along a model axis (its ranks computed the same
         gradient), a ``local_dim`` one is already this rank's.  ``grad``
-        itself at one rank."""
+        itself at one rank.  A reduce-scatter of more than
+        :data:`BUCKET_BYTES` goes in :func:`slices` (one collective each).
+
+        The dp axes reduce minor first (``data`` before ``pod``): where
+        several shard one dim, each reduce-scatter takes this rank's
+        chunks of every major coordinate still to reduce, so no
+        intermediate is larger than ``grad`` over the first axis's size."""
         dp = dp_axes(self.mesh)
         coord = self.mesh.get_coordinate()
+        names = self.mesh.mesh_dim_names
         t, n_dp = grad, 1
-        for i, (axis, pl) in enumerate(zip(self.mesh.mesh_dim_names,
-                                           self.placements)):
-            n = self.mesh.size(i)
+        for i in reversed(range(self.mesh.ndim)):
+            pl, n = self.placements[i], self.mesh.size(i)
             if n == 1:
                 continue
-            if axis not in dp:
+            # the major mesh axes that also shard this dim, still to come
+            major = (math.prod(
+                self.mesh.size(j) for j in range(i)
+                if isinstance(self.placements[j], Shard)
+                and self.placements[j].dim == pl.dim
+                and (names[j] in dp or self.local_dim is None))
+                if isinstance(pl, Shard) else 1)
+            if names[i] not in dp:
                 if isinstance(pl, Shard) and self.local_dim is None:
-                    step = t.shape[pl.dim] // n
-                    t = t.narrow(pl.dim, coord[i] * step, step)
+                    t = _chunk_within(t, pl.dim, n, major, coord[i])
                 continue
             n_dp *= n
             group = self.mesh.get_group(i)
             if isinstance(pl, Shard):
-                t = _reduce_scatter(t, pl.dim, n, group)
+                t = _sliced_reduce_scatter(t, pl.dim, n, major, group)
             else:                    # a copy: the caller's grad stays
                 t = t.clone(memory_format=torch.contiguous_format)
                 dist.all_reduce(t, group=group)
         return t if n_dp == 1 else t / n_dp
+
+    def reduce_scatters(self, shape, itemsize: int) -> int:
+        """The reduce-scatters :meth:`reduce_scatter` makes for a gradient
+        of ``shape`` and ``itemsize`` (at one rank, none)."""
+        dp = dp_axes(self.mesh)
+        shape, count = list(shape), 0
+        for i in reversed(range(self.mesh.ndim)):
+            pl, n = self.placements[i], self.mesh.size(i)
+            if n == 1 or not isinstance(pl, Shard):
+                continue
+            if self.mesh.mesh_dim_names[i] in dp:
+                count += len(slices(shape, pl.dim, itemsize))
+                shape[pl.dim] //= n
+            elif self.local_dim is None:
+                shape[pl.dim] //= n
+        return count
 
     def counts_in_norm(self) -> bool:
         """True on the one rank of each replica group whose copy a global
@@ -291,6 +353,53 @@ def _reduce_scatter(t: torch.Tensor, dim: int, n: int,
                       dtype=src.dtype, device=src.device)
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim)
+
+
+def _chunk_within(t: torch.Tensor, dim: int, n: int, major: int,
+                  c: int) -> torch.Tensor:
+    """Chunk ``c`` of every one of ``major`` blocks of ``n`` chunks along
+    ``dim`` (a view when ``major`` is 1)."""
+    if major == 1:
+        step = t.shape[dim] // n
+        return t.narrow(dim, c * step, step)
+    shape = tuple(t.shape)
+    rest = shape[dim] // (major * n)
+    return t.reshape(*shape[:dim], major, n, rest, *shape[dim + 1:]) \
+        .select(dim + 1, c).reshape(*shape[:dim], major * rest,
+                                    *shape[dim + 1:])
+
+
+def _reduce_scatter_within(t: torch.Tensor, dim: int, n: int, major: int,
+                           group) -> torch.Tensor:
+    """Reduce-scatter over ``n`` ranks along ``dim``, which holds ``major``
+    blocks (the coordinates of the major mesh axes still to reduce) of
+    ``n`` chunks each: this rank keeps its chunk of every block."""
+    if major == 1:
+        return _reduce_scatter(t, dim, n, group)
+    shape = tuple(t.shape)
+    rest = shape[dim] // (major * n)
+    src = t.reshape(*shape[:dim], major, n, rest, *shape[dim + 1:]) \
+        .movedim(dim + 1, 0).contiguous()
+    out = torch.empty(src.shape[1:], dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src.view(-1, *src.shape[2:]),
+                               group=group)
+    return out.reshape(*shape[:dim], major * rest, *shape[dim + 1:])
+
+
+def _sliced_reduce_scatter(t: torch.Tensor, dim: int, n: int, major: int,
+                           group) -> torch.Tensor:
+    """:func:`_reduce_scatter_within` of each of ``t``'s :func:`slices`,
+    written into one result."""
+    parts = slices(t.shape, dim, t.element_size())
+    if parts == [None]:
+        return _reduce_scatter_within(t, dim, n, major, group)
+    shape = list(t.shape)
+    shape[dim] //= n
+    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    for j, a, k in parts:
+        out.narrow(j, a, k).copy_(_reduce_scatter_within(
+            t.narrow(j, a, k), dim, n, major, group))
+    return out
 
 
 def make_shardings(mesh: DeviceMesh, pspecs: Mapping[str, P],

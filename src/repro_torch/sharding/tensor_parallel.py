@@ -132,6 +132,33 @@ class _Gather(torch.autograd.Function):
         return out, None, None, None
 
 
+class _AllMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _mean_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mean_over(g, ctx.groups), None
+
+
+def _mean_over(t: torch.Tensor, groups) -> torch.Tensor:
+    n = 1
+    for group, size in groups:
+        t = _all_reduce(t, group)
+        n *= size
+    return t / n
+
+
+def all_mean(x: torch.Tensor, groups) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``groups`` (``(group, size)``
+    pairs, e.g. the dp axes), forward and backward: a statistic of every
+    rank's tokens (the MoE aux loss's) that each rank's loss holds alike.
+    ``x`` itself without groups."""
+    return _AllMean.apply(x, tuple(groups)) if groups else x
+
+
 def copy_in(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """Identity forward, all-reduce (sum over ``model``) backward."""
     return _CopyIn.apply(x, tp.group) if tp.on else x

@@ -284,12 +284,14 @@ def test_dryrun_cell_small_mesh():
     Phi-3.5-MoE on a fake 4 × 2 world (rank 0's step traced on fake CPU
     tensors).  Each rank's AdamW moments, and the master shards the
     optimizer updates, are ``repro``'s per-device shard bytes of
-    ``make_shardings`` for the same specs; the parameters themselves are
-    what the split model holds (its attention and the vocabulary split
-    over ``model``, the experts whole; the port gathers them over the dp
-    axes each step); the step's
-    collectives are one reduce-scatter per FSDP-sharded tensor a
-    microbatch and one all-gather each into the working parameters."""
+    ``make_shardings`` for the same specs; the parameter peak is those
+    shards plus the largest unit's gathered working set (a layer: its
+    attention split over ``model``, its experts split E/tp, the router
+    whole), as each unit gathers its parameters just before it runs and
+    frees them after; the step's collectives are one reduce-scatter per
+    FSDP-sharded tensor a microbatch and each unit's all-gathers (one a
+    mesh dim it gathers over) at each forward call and in its
+    backward."""
     from repro_torch.launch.mesh import make_test_mesh
     cfg = reduced_config(REGISTRY["phi3.5-moe-42b-a6.6b"])
     jcfg = jax_reduced(JAX_REGISTRY["phi3.5-moe-42b-a6.6b"])
@@ -317,15 +319,40 @@ def test_dryrun_cell_small_mesh():
                                  [model, *batch.values()],
                                  [*state.m.values(), *state.v.values()])
     full = sum(p.numel() * 4 for p in model.parameters())
+    z = model.zero3
+    units = {u: z.unit_bytes(u) for u in z.units}
     assert master == want < full
     assert res["peak"]["Optstate"] == 2 * want
-    assert res["peak"]["Parameter"] == full
+    assert model.layers[0].moe.gate.shape[0] == cfg.n_experts // 2
+    assert max(units, key=units.get).startswith("layers.")
+    assert res["peak"]["Parameter"] == want + max(units.values())
     ops = [op for op, _ in res["records"]]
     on_data = sum(1 for s in step.shardings.values()
                   if any(mesh.mesh_dim_names[i] == "data"
                          for i, _, _, _ in s._sharded()))
     assert ops.count("reduce-scatter") == 2 * on_data
-    assert ops.count("all-gather") >= on_data
+    per = {u: z.gather_counts(u) for u in z.units}
+    layers = sum(per[f"layers.{i}"] for i in range(cfg.n_layers))
+    assert ops.count("all-gather") == 2 * (3 * per["embed"] + 2 * layers)
+
+
+def test_dryrun_moe_decode_fits_the_card():
+    """Phi-3.5-MoE's ``decode_32k`` cell at published widths on the fake
+    ``pod_16x16`` world (fake CPU tensors): with the experts split over
+    16 ``model`` ranks and the parameters held as their shards, gathered a
+    layer at a time, one rank's peak fits an H100's memory; its parameter
+    bytes are the fp32 masters (the whole model over 256 ranks) plus one
+    layer's working set, far below the whole model."""
+    from repro_torch.roofline import H100_SXM
+    with tempfile.TemporaryDirectory() as out:
+        res = dryrun.run_cell("phi3.5-moe-42b-a6.6b", "decode_32k",
+                              out_dir=out, device="cpu")
+    cats = res["memory"]["peak_by_category"]
+    whole = REGISTRY["phi3.5-moe-42b-a6.6b"].param_count() * 4
+    assert res["fit"] and res["memory"]["peak_bytes"] <= H100_SXM.hbm_bytes
+    assert whole / 256 < cats["Parameter"] < whole / 64
+    assert res["tp_gathered"] == [
+        "router: the MoE router (top-k reads every expert's logit)"]
 
 
 def test_command_line_at_a_reduced_size(monkeypatch):
