@@ -302,13 +302,32 @@
    attention); ``flash_attention`` (``tc``) and its backward at a rank's
    heads (16 query heads on 4 KV heads, D = 128) against their plain
    versions.  Step times are information only.
-14. The dry run ([dryrun], after [zero3]):
+13d. Sequence parallelism ([seq], after [zero3]): three processes of this
+   script (``--seq-rank``) on a (1, 3) ``(data, model)`` gloo mesh.
+   Qwen1.5-4B at published widths cut to ``SEQ_LAYERS`` = 2 layers, the
+   block-sparse FFN, fp32, remat: its 20 heads do not split over 3 ranks,
+   so its attention runs whole on every rank.  Rank 0 first runs it at
+   world size 1, then all three run it split: ``SEQ_STEPS`` ``Trainer``
+   steps on 1 x ``SEQ_T`` = 3072 tokens with ``seq_shard`` (each block's
+   input holds 1024 rows a rank, checked by a hook) under [tp]'s gates
+   and every gradient; a chunked prefill (``SEQ_CHUNKS``, the second
+   across a shard edge) and ``SEQ_DECODE`` greedy steps over the KV cache
+   split on time (256 of ``SEQ_MAX_LEN`` = 768 positions a rank, its
+   bytes exactly a third of world size 1's): the same tokens on every
+   rank, logits within ``LOGIT_RTOL``; each rank's exact ``segment_spmm``
+   launches (all ``simt``: fp32 B) equal to world size 1's; the kernel
+   against its plain version at a rank's 1024 rows (forward and
+   ``transpose_lhs``) and at the decode's 2 rows; peak memory per rank.
+   Before each phase that starts ranks ([tp], [zero3], [seq]), the parent
+   drops its plan cache and prints the card's free memory and what it
+   still holds (``free_parent``).
+14. The dry run ([dryrun], after [seq]):
    ``repro_torch.launch.dryrun.run_cell`` traces ``DRYRUN_CELLS`` on fake
    CUDA tensors in a fake process group of 256 ranks (``pod_16x16``),
    the model split tensor parallel over the 16 ``model`` ranks, its
    parameters held as shards and gathered a unit at a time:
-   granite-3-8b's train_4k, prefill_32k and decode_32k and
-   RecurrentGemma-9B's train_4k (the cell whose fake rules are the
+   granite-3-8b's train_4k and decode_32k and RecurrentGemma-9B's
+   train_4k (the cell whose fake rules are the
    attention's and the RG-LRU's, forward and backward).  Each cell's
    per-rank bytes by MemTracker category, FLOPs, bytes, collective bytes
    by opcode, roofline terms, fit against the card's memory and
@@ -320,7 +339,9 @@
    rules' shard sizes (each rank's masters are its rule shards, plus the
    one unit gathered at the peak, its split parameters at 1/16; the AdamW
    moments are its shards; each storage rounded to the allocator's 512
-   bytes).  Then the dry run's predictions
+   bytes).  Qwen1.5-4B's decode_32k (its attention whole on every rank)
+   must fit the card with its KV cache split on time, and
+   ``EXPECTED_OVER_HBM`` must be empty.  Then the dry run's predictions
    against two steps that
    really run on the card (``DRYRUN_REAL``): [dist]'s granite-3-8b at 8
    layers (sparse FFN, 8 x 256 tokens, accum 2, one rank: SpMM on ``tc``)
@@ -339,7 +360,7 @@ Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
 the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``,
 ``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec,dist,tp,
-zero3,dryrun``) builds no 40-layer granite model.
+zero3,seq,dryrun``) builds no 40-layer granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -4935,9 +4956,13 @@ def phase_dist(dev):
                             transpose=True, tag="dist")]
         check(all(r["path"] == "tc" for r in recs),
               f"[dist] kernel paths {[r['path'] for r in recs]}")
-        del plain, sharded, blocks, state, up
+        # nothing of granite's stays on the card after the phase: the
+        # collectives' inputs and outputs went through NCCL's streams
+        del plain, sharded, blocks, state, up, outs, x, r, out, seq, xs, \
+            xk, dy, mlp, master
         return c_sharded, recs
     finally:
+        torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
@@ -4960,16 +4985,16 @@ def tp_config():
         ffn_density=0.25)
 
 
-def _tp_run(model, cfg, dev, mesh=None):
+def _tp_run(model, cfg, dev, mesh=None, t=TP_T, steps=TP_STEPS):
     """One gradient step (loss, gradients off the parameters; the launches
-    it makes are not counted), then ``TP_STEPS`` ``Trainer`` steps from
-    the same initial state with their launch counts, step times and peak
-    memory above what was allocated before."""
+    it makes are not counted), then ``steps`` ``Trainer`` steps on 1 x
+    ``t`` tokens from the same initial state with their launch counts,
+    step times and peak memory above what was allocated before."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.runtime import Trainer, TrainerConfig
-    shape = ShapeConfig("tp", "train", TP_T, 1)
+    shape = ShapeConfig("tp", "train", t, 1)
     trainer = Trainer(model, cfg, shape, TrainerConfig(
-        steps=TP_STEPS, log_every=1, warmup=1), mesh=mesh, seed=SEED)
+        steps=steps, log_every=1, warmup=1), mesh=mesh, seed=SEED)
     loss, grads = _grads_on(model, trainer._batch(0), "cuda")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -5154,6 +5179,30 @@ def tp_rank(rank, port, out_dir, dev=None):
     with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+def free_parent(tag):
+    """Before a phase whose ranks share the card: the plan cache dropped,
+    garbage collected and the allocator's cache emptied; prints the card's
+    free memory, what this process still holds and its largest live
+    tensors."""
+    from repro_torch.api import clear_plan_cache
+    clear_plan_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = sorted((t.untyped_storage().nbytes(), tuple(t.shape), t.dtype)
+                  for t in gc.get_objects()
+                  if type(t) in (torch.Tensor, torch.nn.Parameter)
+                  and t.is_cuda)[::-1][:4]
+    print(f"[{tag}] card memory before the ranks start: {free / 1e9:.2f} of "
+          f"{total / 1e9:.2f} GB free; this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; its "
+          f"largest live tensors: " + (", ".join(
+              f"{shape} {str(dt)[6:]} {n / 1e9:.3f} GB"
+              for n, shape, dt in held) or "none"))
 
 
 def phase_tp(dev):
@@ -5457,18 +5506,6 @@ def phase_zero3(dev):
     stages every collective through the host."""
     import tempfile
     t0 = time.perf_counter()
-    free, total = torch.cuda.mem_get_info(dev)
-    print(f"[zero3] card memory before the ranks start: {free / 1e9:.2f} of "
-          f"{total / 1e9:.2f} GB free; this process holds "
-          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
-          f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
-    held = sorted((t.untyped_storage().nbytes(), tuple(t.shape), t.dtype)
-                  for t in gc.get_objects()
-                  if type(t) in (torch.Tensor, torch.nn.Parameter)
-                  and t.is_cuda)[::-1][:6]
-    print("[zero3] this process's largest live card tensors: " + ", ".join(
-        f"{tuple(shape)} {str(dt)[6:]} {n / 1e9:.3f} GB"
-        for n, shape, dt in held))
     with tempfile.TemporaryDirectory() as out:
         port = _free_port()
         # four processes share the card's memory: segments that grow in
@@ -5585,9 +5622,295 @@ def _zero3_report(ranks):
           f"card over gloo; world size 1 peak {one['peak'] / gb:.2f} GB")
 
 
+# [seq]: Qwen1.5-4B at its published widths (d_model 2560, 20 heads of 128
+# with QKV bias, d_ff 6912, vocab 151936 padded to 152064), its depth cut
+# 40 -> 2, the block-sparse FFN (64 x 64 blocks at 25 %), fp32 (greedy
+# tokens must match world size 1 exactly): three gloo ranks on the one card
+# on a (1, 3) mesh, where the 20 heads do not split, so the attention runs
+# whole on every rank and its KV cache splits on time, and ``seq_shard``
+# splits the residual stream's T; against a world-size-1 run of the same
+# model from the same seed
+SEQ_LAYERS = 2
+SEQ_WORLD = 3
+SEQ_T = 3072                   # training tokens: 1024 rows a rank
+SEQ_STEPS = 2
+SEQ_BATCH = 2                  # decode rows
+SEQ_MAX_LEN = 768              # 256 positions a rank
+SEQ_CHUNKS = (160, 160)        # prefill chunks: the second crosses 256
+SEQ_DECODE = 16                # greedy steps after the prefill
+SEQ_TIMEOUT = 600
+
+
+def seq_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("qwen1.5-4b"), n_layers=SEQ_LAYERS, dtype="float32",
+        ffn_block_sparse=True, ffn_block=64, ffn_density=0.25,
+        seq_shard=True)
+
+
+def _seq_decode(model, dev):
+    """Chunked prefill of ``SEQ_BATCH`` random prompts (``SEQ_CHUNKS``,
+    the second across a shard edge of the split cache), then
+    ``SEQ_DECODE`` greedy steps, through ``decode_step``: every call's
+    logits and tokens (on the host), the launch counts of the run, its
+    time and the KV cache's bytes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    cfg = model.cfg
+    prompt = torch.randint(0, cfg.vocab, (SEQ_BATCH, sum(SEQ_CHUNKS)),
+                           generator=gen, device=dev)
+    cache = model.init_cache(SEQ_BATCH, SEQ_MAX_LEN)
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("k", "v"))
+    logits, tokens = [], []
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pos = 0
+        for c in SEQ_CHUNKS:
+            out, _ = model.decode_step(cache, prompt[:, pos:pos + c], pos)
+            pos += c
+        for i in range(SEQ_DECODE):
+            tok = out.argmax(-1)
+            logits.append(out.cpu())
+            tokens.append(tok.cpu())
+            out, _ = model.decode_step(cache, tok[:, None], pos + i)
+    counts = _counts()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (torch.stack(logits), torch.stack(tokens), counts, ms, kv_bytes,
+            list(cache["k"].shape))
+
+
+def _seq_kernels(model, dev):
+    """``segment_spmm`` against its plain version at the shapes a rank
+    gives it on [seq]'s path (layer 0's up plan with random blocks, fp32
+    B, so the ``"simt"`` path): forward and ``transpose_lhs`` at a rank's
+    ``SEQ_T / SEQ_WORLD`` rows of the training step, forward at the
+    decode step's ``SEQ_BATCH`` rows.  Returns the records."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    cfg = model.cfg
+    mlp = model.layers[0].mlp
+    plan = mlp.up.plan
+    plan = plan.with_values(torch.randn(
+        plan.lhs_blocks.shape, generator=gen, device=dev) / cfg.d_model ** 0.5)
+    n = SEQ_T // SEQ_WORLD
+    recs = [
+        kernel_case("up, a rank's rows", plan, torch.randn(
+            cfg.d_model, n, generator=gen, device=dev), tag="seq"),
+        kernel_case("up dx, a rank's rows", plan, torch.randn(
+            cfg.d_ff, n, generator=gen, device=dev), transpose=True,
+            tag="seq"),
+        kernel_case("up, decode", plan, torch.randn(
+            cfg.d_model, SEQ_BATCH, generator=gen, device=dev), tag="seq")]
+    check(all(r["path"] == "simt" for r in recs),
+          f"[seq] kernel paths {[r['path'] for r in recs]}")
+    return recs
+
+
+def seq_rank(rank, port, out_dir, dev=None):
+    """One rank of [seq] (``chip_smoke.py --seq-rank R``): rank 0 first
+    runs the model at world size 1 (training and decode) while the others
+    wait; then all three run it on the (1, 3) mesh.  Rank 0 holds the split
+    runs to world size 1's and checks the kernels at a rank's shapes; each
+    rank writes its numbers to ``out_dir/r<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.tensor_parallel import gather_full
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=SEQ_WORLD, timeout=datetime.timedelta(seconds=SEQ_TIMEOUT))
+    cfg = seq_config()
+    res = {"rank": rank}
+    if rank == 0:
+        model = build_model(cfg, device=dev)
+        trainer, loss, grads, hist, counts, peak = _tp_run(
+            model, cfg, dev, t=SEQ_T, steps=SEQ_STEPS)
+        one_logits, tokens, d_counts, d_ms, kv, kshape = _seq_decode(model,
+                                                                     dev)
+        one = {"loss": loss, "hist": hist, "counts": counts, "peak": peak,
+               "decode_counts": d_counts, "decode_ms": d_ms, "kv": kv,
+               "kshape": kshape, "tokens": tokens.tolist(),
+               "grads": {k: g.cpu() for k, g in grads.items()}}
+        del model, trainer, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[seq] world size 1: loss {loss:.5f}; steps " + ", ".join(
+            f"{h['loss']:.5f} / {h['grad_norm']:.5f} / {h['ms']:.1f} ms"
+            for h in hist) + f"; peak {peak / 2**30:.2f} GiB; decode "
+            f"{d_ms:.1f} ms; KV cache {kv / 1e6:.1f} MB {kshape}",
+            flush=True)
+    dist.barrier()
+    mesh = make_mesh((1, SEQ_WORLD), ("data", "model"), device="cuda")
+    model = build_model(cfg, device=dev, mesh=mesh)
+    gathered = sorted(model.tp_gathered)
+    check(model.tp.size == SEQ_WORLD and gathered == [
+        f"layers.{i}.attn" for i in range(SEQ_LAYERS)],
+        f"[seq] rank {rank}: split {model.tp}, gathered {gathered}")
+    if rank == 0:
+        res["kernels"] = _seq_kernels(model, dev)
+    rows = []
+    hooks = [blk.register_forward_pre_hook(
+        lambda m, a: rows.append(a[0].shape[1])) for blk in model.layers]
+    trainer, loss, grads, hist, counts, peak = _tp_run(
+        model, cfg, dev, mesh, t=SEQ_T, steps=SEQ_STEPS)
+    for h in hooks:
+        h.remove()
+    split = model.tp_local_params()
+    errs = {}
+    for k in sorted(grads):
+        g = (gather_full(grads[k], split[k][0], model.tp) if k in split
+             else grads[k])
+        if rank == 0:
+            errs[k] = _fro(g, one["grads"][k].to(dev))
+    del grads
+    logits, tokens, d_counts, d_ms, kv, kshape = _seq_decode(model, dev)
+    res.update(loss=loss, hist=hist, counts=counts, peak=peak, rows=rows,
+               decode_counts=d_counts, decode_ms=d_ms, kv=kv, kshape=kshape,
+               max_allocated=torch.cuda.max_memory_allocated(),
+               max_reserved=torch.cuda.max_memory_reserved(),
+               seq=model.seq_parallel(SEQ_T).size,
+               tokens=tokens.tolist())
+    if rank == 0:
+        del one["grads"]
+        res["one"] = one
+        res["grad_errs"] = errs
+        res["logit_err"] = _rel(logits, one_logits)[0]
+    dist.barrier()
+    with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_seq(dev):
+    """[seq]: three processes on the one card (gloo with CUDA tensors),
+    Qwen1.5-4B at published widths and 2 layers (fp32, block-sparse FFN)
+    on a (1, 3) mesh: its 20 heads do not split, so the attention runs
+    whole on every rank.  Against a world-size-1 run of the same model:
+    2 ``Trainer`` steps on 1 x 3072 tokens with ``seq_shard`` (each
+    block's input holds 1024 rows a rank) within the training gates, and
+    every gradient; a chunked prefill across a shard edge of the KV cache
+    split on time (256 of 768 positions a rank, its bytes exactly a third)
+    and 16 greedy steps, the same tokens and logits within the decode
+    gate; each rank's exact launches of ``segment_spmm``, equal to world
+    size 1's; the kernel against its plain version at a rank's shapes;
+    peak memory per rank.  Times are information only: three ranks share
+    one card and gloo stages every collective through the host."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        port = _free_port()
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seq-rank",
+             str(r), "--seq-port", str(port), "--seq-out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for r in range(SEQ_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SEQ_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                print(f"[seq r{r}] {line}")
+        for r, p in enumerate(procs):
+            tail = "\n".join(logs[r].splitlines()[-8:])
+            check(p.returncode == 0, f"[seq] rank {r} exited with "
+                                     f"{p.returncode}; its last lines:\n"
+                                     f"{tail}")
+        ranks = [json.load(open(os.path.join(out, f"r{r}.json")))
+                 for r in range(SEQ_WORLD)]
+    _seq_report(ranks)
+    print(f"[seq] phase {time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def _seq_report(ranks):
+    """[seq]'s gates over the ranks' numbers (see :func:`phase_seq`)."""
+    cfg = seq_config()
+    one = ranks[0]["one"]
+    L = cfg.n_layers
+    calls = len(SEQ_CHUNKS) + SEQ_DECODE
+    # a step: each layer's three projections forward, again in the remat
+    # recompute, and their dx (transposed); fp32 B: every call on simt
+    want = {"train": dict(spmm=9 * L * SEQ_STEPS, spmm_t=3 * L * SEQ_STEPS,
+                          spmm_tc=0, spmm_split=0, flash=0, rg_lru=0),
+            "decode": dict(spmm=3 * L * calls, spmm_t=0, spmm_tc=0,
+                           spmm_split=0, flash=0, rg_lru=0)}
+    gb = 1e9
+    for r, res in enumerate(ranks):
+        for run, key in (("train", "counts"), ("decode", "decode_counts")):
+            bad = {k: (res[key][k], v) for k, v in want[run].items()
+                   if res[key][k] != v}
+            check(not bad and res[key] == one[key],
+                  f"[seq] rank {r} {run}: launches (got, expected) {bad}; "
+                  f"world size 1 {one[key]}")
+        check(res["seq"] == SEQ_WORLD and len(res["rows"]) >= L and
+              set(res["rows"]) == {SEQ_T // SEQ_WORLD},
+              f"[seq] rank {r}: residual rows {sorted(set(res['rows']))} "
+              f"over {len(res['rows'])} block calls, split {res['seq']}")
+        check(res["kshape"][2] * SEQ_WORLD == one["kshape"][2] == SEQ_MAX_LEN
+              and res["kv"] * SEQ_WORLD == one["kv"],
+              f"[seq] rank {r}: KV cache {res['kshape']} {res['kv']} B, "
+              f"world size 1 {one['kshape']} {one['kv']} B")
+        check(res["tokens"] == one["tokens"],
+              f"[seq] rank {r}: greedy tokens differ from world size 1")
+        for h, w in zip(res["hist"], one["hist"]):
+            le = abs(h["loss"] - w["loss"]) / abs(w["loss"])
+            ne = abs(h["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+            print(f"[seq] rank {r} step {h['step']}: loss {h['loss']:.5f} "
+                  f"(world size 1 {w['loss']:.5f}, err {le:.2e}), grad norm "
+                  f"{h['grad_norm']:.5f} ({w['grad_norm']:.5f}, err "
+                  f"{ne:.2e}), {h['ms']:.1f} ms (world size 1 "
+                  f"{w['ms']:.1f} ms; information only)")
+            check(le <= LOSS_RTOL and ne <= GNORM_RTOL,
+                  f"[seq] rank {r} step {h['step']}: loss err {le:.3g}, "
+                  f"norm err {ne:.3g}")
+        print(f"[seq] rank {r}: residual {SEQ_T // SEQ_WORLD} of {SEQ_T} "
+              f"rows at every block; KV cache {res['kshape']} "
+              f"{res['kv'] / 1e6:.1f} MB (world size 1 {one['kshape']} "
+              f"{one['kv'] / 1e6:.1f} MB); training peak "
+              f"{res['peak'] / gb:.2f} GB above its model (world size 1 "
+              f"{one['peak'] / gb:.2f} GB); peak allocated "
+              f"{res['max_allocated'] / gb:.2f} GB, reserved "
+              f"{res['max_reserved'] / gb:.2f} GB; decode {res['decode_ms']:.1f}"
+              f" ms (world size 1 {one['decode_ms']:.1f} ms; information "
+              f"only); launches train {res['counts']['spmm']}, decode "
+              f"{res['decode_counts']['spmm']}")
+    le = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    check(le <= LOSS_RTOL, f"[seq] gradient step loss err {le:.3g}")
+    errs = ranks[0]["grad_errs"]
+    worst = max(errs, key=errs.get)
+    print(f"[seq] gradients vs world size 1 (norm-relative, tol {GRAD_RTOL}):"
+          f" {len(errs)} parameters, worst {worst} {errs[worst]:.3e}")
+    check(errs[worst] <= GRAD_RTOL, f"[seq] {worst} gradient err "
+                                    f"{errs[worst]:.3g}")
+    le = ranks[0]["logit_err"]
+    print(f"[seq] decode: {len(SEQ_CHUNKS)} prefill chunks {SEQ_CHUNKS} and "
+          f"{SEQ_DECODE} greedy steps, tokens equal on every rank, logits vs "
+          f"world size 1 {le:.2e} (tol {LOGIT_RTOL})")
+    check(le <= LOGIT_RTOL, f"[seq] decode logits err {le:.3g}")
+    print(f"[seq] summary: {cfg.name} full width, {L} layers, fp32, "
+          f"(1, {SEQ_WORLD}) mesh on one card over gloo; attention whole on "
+          f"every rank, KV cache split on time, residual split on T")
+
+
 # [dryrun]: the production cells traced on fake CUDA tensors (pod_16x16)
-DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("granite-3-8b", "prefill_32k"),
-                ("granite-3-8b", "decode_32k"),
+# (granite's prefill_32k, ~45 s, is left to ``dryrun --all``: its forward
+# is the training cell's, without the backward)
+DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("granite-3-8b", "decode_32k"),
                 ("recurrentgemma-9b", "train_4k"))
 # the predicted peak against max_memory_allocated over the same real step
 DRYRUN_PEAK_RTOL = 0.10
@@ -5770,6 +6093,17 @@ def phase_dryrun(dev):
                   f"[dryrun] {arch} {shape_name}: parameters "
                   f"{got[0] / 1e9:.2f} GB, not {DRYRUN_PARAM_CUT} x under "
                   f"{gathered / 1e9:.2f} GB")
+        # Qwen1.5's 20 heads do not split over 16 ranks: its attention runs
+        # whole on every rank, so its decode cell's KV cache splits on time
+        res = dryrun.run_cell("qwen1.5-4b", "decode_32k", out_dir=out,
+                              device=dev)
+        print(f"[dryrun] {dryrun.summary(res)}")
+        check(res["fit"] and res["kv_split_on_time"]
+              and res["tp_gathered"] and not dryrun.EXPECTED_OVER_HBM,
+              f"[dryrun] qwen1.5-4b decode_32k: fit {res['fit']}, split on "
+              f"time {res['kv_split_on_time']}, gathered "
+              f"{res['tp_gathered']}, expected over "
+              f"{dryrun.EXPECTED_OVER_HBM}")
     granite = dataclasses.replace(
         get_config("granite-3-8b"), ffn_block_sparse=True, ffn_block=64,
         ffn_density=0.25, dtype="bfloat16", n_layers=DIST_LAYERS)
@@ -5789,7 +6123,7 @@ def phase_dryrun(dev):
 PHASES = ("spgemm", "ops", "tune", "kernel", "crossover", "edges", "serve",
           "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "mixed",
           "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist", "tp",
-          "zero3", "dryrun")
+          "zero3", "seq", "dryrun")
 # the phases that need granite-3-8b built (``--only spgemm,ops,tune``,
 # ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
 GRANITE_PHASES = PHASES[3:PHASES.index("hybrid")]
@@ -5813,6 +6147,9 @@ def main():
     parser.add_argument("--zero3-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--zero3-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--zero3-out", help=argparse.SUPPRESS)
+    parser.add_argument("--seq-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--seq-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--seq-out", help=argparse.SUPPRESS)
     args = parser.parse_args()
     only = args.only.split(",")
     bad = sorted(set(only) - set(PHASES))
@@ -5830,6 +6167,9 @@ def main():
         return
     if args.zero3_rank is not None:  # one rank of [zero3]
         zero3_rank(args.zero3_rank, args.zero3_port, args.zero3_out)
+        return
+    if args.seq_rank is not None:    # one rank of [seq]
+        seq_rank(args.seq_rank, args.seq_port, args.seq_out)
         return
     from repro_torch.api import clear_plan_cache
     from repro_torch.configs import get_config
@@ -5927,14 +6267,16 @@ def main():
         torch.cuda.empty_cache()
     if "dist" in only:
         dist_counts, dist_recs = phase_dist(dev)
+    # the phases below start ranks of their own, which share the card
     if "tp" in only:
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_parent("tp")
         phase_tp(dev)
     if "zero3" in only:
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_parent("zero3")
         phase_zero3(dev)
+    if "seq" in only:
+        free_parent("seq")
+        seq_ranks = phase_seq(dev)
     if "dryrun" in only:
         gc.collect()
         torch.cuda.empty_cache()
@@ -6166,7 +6508,27 @@ def main():
                 one(dist_recs, mode="forward")),
                ("segment_spmm.transpose_lhs", "tc: granite-3-8b, 8 layers, "
                 "sharded Trainer dx", "dist-train", dist_counts["spmm_t"],
-                one(dist_recs, mode="transpose_lhs")))]}))
+                one(dist_recs, mode="transpose_lhs")))]
+        # [seq]: the three ranks' launches on the (1, 3) mesh (fp32 B, so
+        # simt), training with seq_shard and decode over the KV cache split
+        # on time, each timed at a rank's shape
+        + [entry(name, mode, path, sum(n(r) for r in seq_ranks),
+                 one(seq_recs, case=case), [one(seq_recs, case=case)])
+           for seq_recs in (seq_ranks[0]["kernels"],)
+           for name, mode, path, n, case in (
+               ("segment_spmm.simt", "simt: fp32 B, Qwen1.5-4B, 2 layers, "
+                "seq_shard Trainer forward at a rank's 1024 of 3072 rows, "
+                "(1, 3) mesh", "seq-train",
+                lambda r: r["counts"]["spmm"] - r["counts"]["spmm_t"],
+                "up, a rank's rows"),
+               ("segment_spmm.transpose_lhs", "simt: fp32 B, Qwen1.5-4B, 2 "
+                "layers, seq_shard Trainer dx at a rank's 1024 rows",
+                "seq-train", lambda r: r["counts"]["spmm_t"],
+                "up dx, a rank's rows"),
+               ("segment_spmm.simt", "simt: fp32 B, Qwen1.5-4B decode (2 "
+                "rows) over the KV cache split on time, (1, 3) mesh",
+                "seq-decode", lambda r: r["decode_counts"]["spmm"],
+                "up, decode"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

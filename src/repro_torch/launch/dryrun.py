@@ -39,11 +39,14 @@ result rather than hidden:
   logit), RWKV-6 (head parallelism), the modality frontend, and an
   attention whose heads do not split over the 16 ranks (Whisper's 6,
   Qwen1.5's 20, Maverick's 40).  Prefill and decode cells split the batch
-  and the cache over the dp axes; a decode cell's KV cache holds each
-  rank's KV heads (not ``repro``'s time axis on ``model``).
-* ``seq_shard`` (:data:`CELL_OVERRIDES`) has no effect: the port's
-  ``act_constrain`` moves only DTensors, and the step's activations are
-  plain tensors.
+  and the cache over the dp axes.  A decode cell's KV cache holds each
+  rank's KV heads where the attention splits by heads, and where it runs
+  whole on every rank its timeline split over ``model``, as ``repro``'s
+  ``cache_pspec`` shards it (``"kv_split_on_time"``): 1/16 of every head's
+  32768 positions a rank.
+* ``"seq_shard_effect"``: true where ``seq_shard`` (:data:`CELL_OVERRIDES`)
+  split the residual stream's T over ``model`` between blocks
+  (``Transformer.seq_parallel``; a training or prefill cell).
 
 Two of ``repro``'s keys are absent: ``cpu_artifact_bytes`` and
 ``fit_bytes_tpu`` (the correction for XLA-CPU's fp32 copies of a bf16
@@ -106,19 +109,12 @@ CELL_OVERRIDES = {
     "command-r-plus-104b": {"seq_shard": True},
 }
 # cells whose per-rank peak exceeds the card's memory in the port, with
-# what puts them over (its own --all run on the card's machine, fake CUDA
-# tensors; per-rank GB, 1e9 bytes, by MemTracker category).  The step
-# holds every parameter as its rule shard, gathers one unit at a time and
-# splits the MoE experts over model, so the parameters are no cell's
-# cause: what stays over is Qwen1.5's attention, whose 20 heads do not
-# split over 16 ranks, so its decode cache holds all 20 KV heads split
-# over the dp axes only (sequence-parallel decode splits it).
-_P = "pod_16x16"
-EXPECTED_OVER_HBM: Dict[tuple, str] = {
-    ("qwen1.5-4b", "decode_32k", _P):
-        "112.98 GB: KV cache 107.37 (20 KV heads, gathered attention), "
-        "activations 5.43, parameters 0.18",
-}
+# what puts them over ((arch, shape, mesh) → why).  None: the step holds
+# every parameter as its rule shard, gathers one unit at a time and splits
+# the MoE experts over model, and a decode cell whose attention runs whole
+# on every rank (Qwen1.5's 20 heads, Whisper's 6, Maverick's 40 over 16
+# ranks) splits its KV cache's timeline over model
+EXPECTED_OVER_HBM: Dict[tuple, str] = {}
 
 
 def mesh_tag(multi_pod: bool) -> str:
@@ -397,6 +393,13 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *, dev,
             res = measure(fn, external, opt, model=model)
     finally:
         clear_plan_cache()
+    specs = input_specs(cfg, shape)
+    t = sum(specs[k].shape[1] for k in ("tokens", "vis_embeds")
+            if k in specs)
+    res["seq_shard_effect"] = (shape.kind != "decode"
+                               and model.seq_parallel(t).on)
+    res["kv_split_on_time"] = (shape.kind == "decode"
+                               and model.kv_split_on_time(shape.seq_len))
     if fold:
         res = unfold(res, accum)
     res["dp"] = dp
@@ -541,7 +544,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "tensor_parallel": res["tp"] > 1 and not res["tp_gathered"],
         "tp": res["tp"], "tp_gathered": res["tp_gathered"],
         "seq_shard": cfg.seq_shard,
-        "seq_shard_effect": False,
+        "seq_shard_effect": res["seq_shard_effect"],
+        "kv_split_on_time": res["kv_split_on_time"],
         "traced": dict(res.get("traced", {}), microbatches=res.get(
             "microbatches_traced", accum)),
         "memory": {"argument_bytes": res["argument"].get("Total", 0),
@@ -583,7 +587,9 @@ def summary(res: dict) -> str:
             f"{res['tensor_parallel']} (tp {res['tp']}"
             + (f", gathered: {'; '.join(res['tp_gathered'])}"
                if res["tp_gathered"] else "")
-            + f"); traced in {res['trace_s']} s")
+            + f"); seq_shard_effect {res['seq_shard_effect']}, "
+            f"kv_split_on_time {res['kv_split_on_time']}; traced in "
+            f"{res['trace_s']} s")
 
 
 def over_hbm(res: dict) -> Optional[str]:

@@ -26,7 +26,14 @@ read; ``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel),
 :class:`Embedding` (vocab-parallel lookup and head; the logits stay split
 over the vocabulary) into modules over local shards with explicit
 collectives.  A module left as built (one rank, or a module outside that
-list) computes on full tensors.
+list) computes on full tensors.  Under sequence parallelism (``seq=``, the
+model's ``model`` axis when ``cfg.seq_shard`` splits the residual stream's
+T) each module's forward takes and returns this rank's rows of T
+(:func:`~repro_torch.sharding.tensor_parallel.seq_enter` /
+``seq_exit``).  An attention that runs whole on every rank of a split
+model decodes over a KV cache split on time (``kv_shard=``): each rank
+writes and attends over its positions, and the softmax's max and sum and
+the P·V products are reduced over ``model``.
 """
 from __future__ import annotations
 
@@ -41,8 +48,9 @@ from repro_torch.api.backends import default_backend
 from repro_torch.kernels.ops import flash_mha
 from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
                                                   TensorParallelError,
-                                                  copy_in, gather, local,
-                                                  reduce_out, vocab_embed)
+                                                  all_reduce, copy_in, gather,
+                                                  local, seq_enter, seq_exit,
+                                                  vocab_embed)
 
 Pos = Union[int, torch.Tensor]
 
@@ -120,8 +128,11 @@ class RMSNorm(nn.Module):
     def init_(self, gen: torch.Generator) -> None:
         self.scale.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-        return rmsnorm(x, self.scale, eps)
+    def forward(self, x: torch.Tensor, eps: float = 1e-6,
+                seq: TP = NO_TP) -> torch.Tensor:
+        """``seq``: ``x`` holds this rank's rows of T, so the scale's
+        gradient is summed over the ranks."""
+        return rmsnorm(x, copy_in(self.scale, seq), eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -146,18 +157,22 @@ def _per_row(v: Pos, b: int, device) -> torch.Tensor:
 
 
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset: Pos = 0,
-                      kv_len: Optional[Pos] = None, chunk=1024):
+                      kv_len: Optional[Pos] = None, chunk=1024,
+                      shard: TP = NO_TP):
     """q: (B, Tq, H, D); k/v: (B, Tk, Hkv, D) → (B, Tq, H, D).
 
     Online softmax over KV chunks, fp32 accumulation.  ``q_offset`` is the
     absolute position of q[0] and ``kv_len`` masks padded keys; both take a
-    shared scalar or a per-row ``(B,)`` vector.
+    shared scalar or a per-row ``(B,)`` vector.  ``shard``: k/v are this
+    rank's positions ``[rank·Tk, (rank+1)·Tk)`` of a cache split on time;
+    the ranks' running max, sum and products are combined over ``model``.
     """
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
     dev = q.device
-    kv_len = _per_row(tk if kv_len is None else kv_len, b, dev)
+    k0 = shard.rank * tk
+    kv_len = _per_row(k0 + tk if kv_len is None else kv_len, b, dev)
     chunk = min(chunk, tk)
     qf = q.float() * (1.0 / math.sqrt(d))
     q_pos = _per_row(q_offset, b, dev)[:, None] + torch.arange(tq, device=dev)
@@ -171,7 +186,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset: Pos = 0,
             k_c = k_c.repeat_interleave(rep, dim=2)
             v_c = v_c.repeat_interleave(rep, dim=2)
         s = torch.einsum("bqhd,bkhd->bhqk", qf, k_c.float())
-        k_pos = c0 + torch.arange(width, device=dev)
+        k_pos = k0 + c0 + torch.arange(width, device=dev)
         mask = k_pos[None, None, :] < kv_len[:, None, None]   # (B, 1, C)
         if causal:
             mask = mask & (k_pos[None, None, :] <= q_pos[..., None])
@@ -185,17 +200,25 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset: Pos = 0,
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
                                                     v_c.float())
         m = m_new
+    if shard.on:
+        # a shard with no live key for a row holds m = -1e30: its terms
+        # scale by exp(-1e30 - max) = 0
+        m_all = all_reduce(m, shard, "max")
+        alpha = torch.exp(m - m_all)
+        l = all_reduce(l * alpha, shard)
+        acc = all_reduce(acc * alpha[..., None], shard)
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
 
 def _decode_mask(b, tq, tk, *, q_offset: Pos, kv_len: Pos, causal, window,
-                 device):
+                 device, k_offset: int = 0):
     """(B, Tq, Tk) validity mask; ``q_offset``/``kv_len`` may be shared
-    scalars or per-row ``(B,)`` vectors."""
+    scalars or per-row ``(B,)`` vectors; ``k_offset``: the absolute
+    position of the first key (a shard of a cache split on time)."""
     q_pos = (_per_row(q_offset, b, device)[:, None]
              + torch.arange(tq, device=device))
-    k_pos = torch.arange(tk, device=device)
+    k_pos = k_offset + torch.arange(tk, device=device)
     mask = k_pos[None, None, :] < _per_row(kv_len, b, device)[:, None, None]
     if causal:
         mask = mask & (k_pos[None, None, :] <= q_pos[..., None])
@@ -204,11 +227,26 @@ def _decode_mask(b, tq, tk, *, q_offset: Pos, kv_len: Pos, causal, window,
     return mask
 
 
+def _softmax(s: torch.Tensor, shard: TP) -> torch.Tensor:
+    """Softmax over the last axis; with ``shard`` on, over every rank's
+    keys: the max and the sum of ``exp`` all-reduced over ``model``, as
+    ``repro``'s compiled softmax reduces scores sharded on T
+    (``act_constrain(s, "scores_t")``).  A rank whose keys a row masks
+    (-1e30) adds ``exp(-1e30 - max)`` = 0."""
+    if not shard.on:
+        return torch.softmax(s, dim=-1)
+    m = all_reduce(s.amax(dim=-1, keepdim=True), shard, "max")
+    e = torch.exp(s - m)
+    return e / all_reduce(e.sum(dim=-1, keepdim=True), shard)
+
+
 def _direct_attention(q, k, v, *, q_offset: Pos, kv_len: Pos, causal,
-                      window):
+                      window, shard: TP = NO_TP):
     """Unchunked masked attention (decode path, Tq ≤ 8).  Products of the
     cache-dtype operands are summed in fp32, as JAX's
-    ``preferred_element_type=float32`` does."""
+    ``preferred_element_type=float32`` does.  ``shard``: k/v are this
+    rank's positions of a cache split on time (:func:`_softmax`; the P·V
+    products summed over ``model``)."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -218,22 +256,23 @@ def _direct_attention(q, k, v, *, q_offset: Pos, kv_len: Pos, causal,
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(k.dtype).float(),
                      k.float()) / math.sqrt(d)
     mask = _decode_mask(b, tq, tk, q_offset=q_offset, kv_len=kv_len,
-                        causal=causal, window=window, device=q.device)
+                        causal=causal, window=window, device=q.device,
+                        k_offset=shard.rank * tk)
     s = torch.where(mask[:, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s, shard)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    return all_reduce(out, shard).to(q.dtype)
 
 
 def _direct_attention_q8(q, kq, ks, vq, vs, *, q_offset: Pos, kv_len: Pos,
-                         causal, window):
+                         causal, window, shard: TP = NO_TP):
     """Decode attention over an int8 KV cache with factored scales.
 
     q: (B, t, H, D); kq/vq: (B, T, Hkv, D) int8; ks/vs: (B, T, Hkv) fp32.
     ``s = (q·kqᵀ) ⊙ ks`` and ``out = (p ⊙ vs)·vq``: the int8 values feed the
     products as bf16 (exact) with fp32 sums, as ``repro``'s bf16 einsums
     with ``preferred_element_type=float32`` do; no dequantized copy of the
-    cache is made."""
+    cache is made.  ``shard`` as in :func:`_direct_attention`."""
     b, tq, h, d = q.shape
     tk, hkv = kq.shape[1], kq.shape[2]
     rep = h // hkv
@@ -246,12 +285,13 @@ def _direct_attention_q8(q, kq, ks, vq, vs, *, q_offset: Pos, kv_len: Pos,
                      kq.float()) / math.sqrt(d)
     s = s * ks.permute(0, 2, 1)[:, :, None, :]       # column-wise dequant
     mask = _decode_mask(b, tq, tk, q_offset=q_offset, kv_len=kv_len,
-                        causal=causal, window=window, device=q.device)
+                        causal=causal, window=window, device=q.device,
+                        k_offset=shard.rank * tk)
     s = torch.where(mask[:, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s, shard)
     p = p * vs.permute(0, 2, 1)[:, :, None, :]        # v scales folded into p
     out = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), vq.float())
-    return out.to(q.dtype)
+    return all_reduce(out, shard).to(q.dtype)
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -316,6 +356,34 @@ def kv_cache_write(buf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
     rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
     cols = pos.long()[:, None] + torch.arange(t, device=buf.device)
     buf[rows, cols] = new
+
+
+def kv_cache_shard_write(buf: torch.Tensor, new: torch.Tensor, pos: Pos,
+                         start: int) -> None:
+    """:func:`kv_cache_write` into a shard of a cache split on time:
+    ``buf`` (B, L, …) holds positions ``[start, start + L)``, and of the
+    new tokens at ``pos`` (shared or per-row) only those in that range are
+    written, in place; a chunk may straddle the shard's edges."""
+    t, span = new.shape[1], buf.shape[1]
+    if isinstance(pos, int) or pos.ndim == 0:
+        p = int(pos) - start
+        lo, hi = max(p, 0), min(p + t, span)
+        if lo < hi:
+            buf[:, lo:hi] = new[:, lo - p:hi - p]
+        return
+    if t > span:                 # pieces of at most L tokens
+        for i in range(0, t, span):
+            kv_cache_shard_write(buf, new[:, i:i + span], pos + i, start)
+        return
+    dev = buf.device
+    rows = torch.arange(buf.shape[0], device=dev)[:, None]
+    cols = pos.long()[:, None] - start + torch.arange(t, device=dev)
+    inside = ((cols >= 0) & (cols < span)).reshape(
+        *cols.shape, *(1,) * (new.ndim - 2))
+    # t <= L consecutive positions fall on distinct slots mod L: a token
+    # outside the shard rewrites its slot's own value
+    cols = cols % span
+    buf[rows, cols] = torch.where(inside, new, buf[rows, cols])
 
 
 class Attention(nn.Module):
@@ -385,7 +453,8 @@ class Attention(nn.Module):
 
     def forward(self, x, *, positions, rope_theta=10000.0, cache=None,
                 cache_pos: Pos = 0, chunk=1024, window=None, ring=False,
-                causal=True, kv_ctx: Optional[torch.Tensor] = None):
+                causal=True, kv_ctx: Optional[torch.Tensor] = None,
+                seq: TP = NO_TP, kv_shard: TP = NO_TP):
         """``cache``: optional dict of ``k``/``v`` (B, T_max, n_kv, hd),
         written in place at ``cache_pos`` (shared scalar or per-row
         ``(B,)``); the queries then attend over the whole cache, masked to
@@ -396,9 +465,16 @@ class Attention(nn.Module):
         ``x`` (causal unless ``causal=False``), within ``window`` when it is
         given (then on the ``flash_attention`` kernel, except on the
         ``"reference"`` backend).  ``kv_ctx`` (B, Tk, D): cross attention,
-        keys and values projected from it, no rope and no mask."""
+        keys and values projected from it, no rope and no mask.
+
+        ``seq``: ``x`` and the output are this rank's rows of T (sequence
+        parallelism; ``positions`` cover the whole sequence).
+        ``kv_shard``: the cache (not a ring) holds this rank's positions
+        ``[rank·L, (rank+1)·L)`` of a timeline split on ``model``: the new
+        keys land on the ranks that hold their positions and the
+        attention is reduced over the ranks."""
+        x = seq_enter(x, self.tp, seq)
         b, t, _ = x.shape
-        x = copy_in(x, self.tp)
         src = x if kv_ctx is None else copy_in(kv_ctx, self.tp)
         q = self.wq(x).reshape(b, t, self.n_heads, self.head_dim)
         k = self._kv(self.wk, src).reshape(b, src.shape[1], self.n_kv,
@@ -422,37 +498,47 @@ class Attention(nn.Module):
                     f"(t <= 8), got t={t}; chunk the prefill (Engine does "
                     f"this via prefill_buckets) or use the bf16 cache for "
                     f"long queries")
+            write = self._writer(cache["k"], kv_shard)
             for name, val in (("k", k), ("v", v)):
                 qv, scale = _quantize_kv(val)
-                kv_cache_write(cache[name], qv, cache_pos)
-                kv_cache_write(cache[name + "_s"], scale, cache_pos)
+                write(cache[name], qv, cache_pos)
+                write(cache[name + "_s"], scale, cache_pos)
             out = _direct_attention_q8(
                 q, cache["k"], cache["k_s"], cache["v"], cache["v_s"],
                 q_offset=cache_pos, kv_len=cache_pos + t, causal=causal,
-                window=window)
+                window=window, shard=kv_shard)
         elif cache is not None:
             ck, cv = cache["k"], cache["v"]
-            kv_cache_write(ck, k.to(ck.dtype), cache_pos)
-            kv_cache_write(cv, v.to(cv.dtype), cache_pos)
+            write = self._writer(ck, kv_shard)
+            write(ck, k.to(ck.dtype), cache_pos)
+            write(cv, v.to(cv.dtype), cache_pos)
             kv_len = cache_pos + t
             if t <= 8:
                 out = _direct_attention(q, ck, cv, q_offset=cache_pos,
                                         kv_len=kv_len, causal=causal,
-                                        window=window)
+                                        window=window, shard=kv_shard)
             else:
                 out = chunked_attention(q, ck, cv, causal=causal,
                                         window=window,
                                         q_offset=cache_pos, kv_len=kv_len,
-                                        chunk=chunk)
+                                        chunk=chunk, shard=kv_shard)
         elif window is not None and default_backend() != "reference":
             out = flash_mha(q, k, v, causal=True, window=window)
         else:
             out = chunked_attention(q, k, v,
                                     causal=causal and kv_ctx is None,
                                     window=window, q_offset=0, chunk=chunk)
-        return reduce_out(
+        return seq_exit(
             self.wo(out.reshape(b, t, self.n_heads * self.head_dim)),
-            self.tp)
+            self.tp, seq)
+
+    @staticmethod
+    def _writer(buf: torch.Tensor, kv_shard: TP):
+        """The cache write: whole, or into this rank's time shard."""
+        if not kv_shard.on:
+            return kv_cache_write
+        start = kv_shard.rank * buf.shape[1]
+        return lambda b, new, pos: kv_cache_shard_write(b, new, pos, start)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -482,10 +568,11 @@ class SwiGLU(nn.Module):
         self.down.tensor_parallel_(tp, "row")
         self.tp = tp
 
-    def forward(self, x):
-        x = copy_in(x, self.tp)
-        return reduce_out(self.down(F.silu(self.gate(x)) * self.up(x)),
-                          self.tp)
+    def forward(self, x, seq: TP = NO_TP):
+        """``seq``: ``x`` and the output are this rank's rows of T."""
+        x = seq_enter(x, self.tp, seq)
+        return seq_exit(self.down(F.silu(self.gate(x)) * self.up(x)),
+                        self.tp, seq)
 
 
 class Embedding(nn.Module):
@@ -516,12 +603,20 @@ class Embedding(nn.Module):
         else:
             self.table.normal_(generator=gen).mul_(0.02)
 
-    def forward(self, tokens):
-        return vocab_embed(self.table, tokens, self.tp)
+    def forward(self, tokens, seq: TP = NO_TP):
+        """``seq``: this rank's rows of T (B, T / tp, D): the split
+        lookup's sum reduce-scattered along T, or a whole table's rows of
+        this rank's tokens (its gradient summed over the ranks)."""
+        if not seq.on:
+            return vocab_embed(self.table, tokens, self.tp)
+        if self.tp.on:
+            return vocab_embed(self.table, tokens, self.tp, seq=True)
+        return copy_in(self.table, seq)[local(tokens, 1, seq)]
 
-    def head(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, T, D) → this rank's logits (B, T, vocab / tp)."""
-        return lm_head_apply(self.table, copy_in(x, self.tp))
+    def head(self, x: torch.Tensor, seq: TP = NO_TP) -> torch.Tensor:
+        """x (B, T, D) → this rank's logits (B, T, vocab / tp); ``seq``:
+        ``x`` is this rank's rows of T, all-gathered first."""
+        return lm_head_apply(self.table, seq_enter(x, self.tp, seq))
 
 
 def lm_head_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

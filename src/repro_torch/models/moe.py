@@ -39,8 +39,8 @@ from torch import nn
 
 from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
                                                   TensorParallelError,
-                                                  all_mean, copy_in, local,
-                                                  reduce_out)
+                                                  all_mean, copy_in, gather,
+                                                  local, seq_exit)
 
 from . import layers
 
@@ -141,7 +141,7 @@ def dispatch_batched(x: torch.Tensor, expert: torch.Tensor, n_exp: int,
 
 
 def moe_apply(moe: MoE, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25, seq: TP = NO_TP
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) → ``(out (B, T, D) in x's dtype, aux loss, fp32)``.
 
@@ -149,7 +149,12 @@ def moe_apply(moe: MoE, x: torch.Tensor, *, top_k: int,
     on every rank; the experts read ``copy_in(x)`` and the gate weights
     through ``copy_in`` too, so the backward sums over ``model`` what each
     rank's experts contribute to dx and to the gates, and the router's
-    gradient is the same on every rank."""
+    gradient is the same on every rank.  ``seq``: ``x`` and ``out`` are
+    this rank's rows of T; a row routes over all of T, so the rows are
+    all-gathered first (every rank then routes alike: the backward keeps
+    this rank's rows) and the output is reduce-scattered along T."""
+    if seq.on:
+        x = gather(x, 1, seq)
     b, t, d = x.shape
     n_exp = moe.n_experts
     tp = moe.tp
@@ -200,4 +205,4 @@ def moe_apply(moe: MoE, x: torch.Tensor, *, top_k: int,
         y_tok = torch.where(keep[..., None], vals,
                             torch.zeros((), dtype=y.dtype, device=y.device))
         out = out + y_tok.float() * gates[..., j][..., None]
-    return reduce_out(out, tp).to(x.dtype), aux
+    return seq_exit(out, tp, seq).to(x.dtype), aux

@@ -38,7 +38,7 @@ from repro_torch.api.backends import default_backend
 from repro_torch.kernels import ref
 from repro_torch.kernels.rg_lru import rg_lru
 from repro_torch.sharding.tensor_parallel import (NO_TP, TP, copy_in, gather,
-                                                  local, reduce_out)
+                                                  local, seq_enter, seq_exit)
 
 from . import layers
 
@@ -89,7 +89,10 @@ class RGLRUBlock(nn.Module):
     ``x_gate`` (column-parallel: dense (D, D) gates read every channel;
     its backward reduce-scatters), the ``rg_lru`` kernel over (B, T, D /
     tp), ``out`` row-parallel then all-reduced.  The decode state is then
-    this rank's channels."""
+    this rank's channels.  Under sequence parallelism (``seq``) the input
+    and output are this rank's rows of T; the scan reads every row, so the
+    block all-gathers T on entry and reduce-scatters T on exit (or, left
+    whole, keeps its rows of the output)."""
 
     def __init__(self, d_model: int, *, device=None):
         super().__init__()
@@ -119,11 +122,12 @@ class RGLRUBlock(nn.Module):
         self.a_param.uniform_(0.5, 2.0, generator=gen)
 
     def forward(self, x: torch.Tensor, state: Optional[State] = None,
-                c: float = 8.0) -> Tuple[torch.Tensor, State]:
+                c: float = 8.0, seq: TP = NO_TP
+                ) -> Tuple[torch.Tensor, State]:
         """x: (B, T, D); state: dict(conv, h) for decode.  Returns
         ``(out, new state)``."""
         tp = self.tp
-        x = copy_in(x, tp)
+        x = seq_enter(x, tp, seq)
         xb = self.in_x(x)
         gb = self.in_g(x)
         conv, a_param = self.conv, self.a_param
@@ -138,7 +142,7 @@ class RGLRUBlock(nn.Module):
         xg = gather(xb, -1, tp, grad="sum")
         hs, h_t = rglru_scan(xb, self.a_gate(xg), self.x_gate(xg), a_param,
                              h0, c)
-        out = reduce_out(self.out(hs * layers.gelu(gb)), tp)
+        out = seq_exit(self.out(hs * layers.gelu(gb)), tp, seq)
         return out, {"conv": conv_state, "h": h_t}
 
 

@@ -29,6 +29,7 @@ from torch import nn
 
 from repro_torch.api import SegmentPlan, apply_plan, plan_matmul
 from repro_torch.core.formats import BSR, QUANT_DTYPES, quantize_blocks
+from repro_torch.sharding.tensor_parallel import NO_TP, TP, copy_in
 
 Seed = Union[int, np.random.Generator]
 
@@ -130,9 +131,11 @@ class SparseLinear(nn.Module):
     def init_(self, gen: torch.Generator) -> None:
         self.blocks.normal_(generator=gen).mul_(1.0 / math.sqrt(self.d_in))
 
-    def forward(self, x2d: torch.Tensor) -> torch.Tensor:
-        """x2d: (T, d_in) → (T, d_out), in x2d's dtype."""
-        return apply_plan(self.plan, x2d.T, blocks=self.blocks,
+    def forward(self, x2d: torch.Tensor, seq: TP = NO_TP) -> torch.Tensor:
+        """x2d: (T, d_in) → (T, d_out), in x2d's dtype.  ``seq``: the rows
+        are this rank's share of the sequence, so the blocks' gradient is
+        summed over the ranks."""
+        return apply_plan(self.plan, x2d.T, blocks=copy_in(self.blocks, seq),
                           scales=self.scales).T
 
 
@@ -140,7 +143,8 @@ class SparseMLP(nn.Module):
     """SwiGLU MLP with block-sparse up/gate/down projections.  On a mesh
     it is replicated along ``model`` (every rank runs every block), as
     ``repro``'s rules replicate the blocks: the schedule indexes the whole
-    block list."""
+    block list.  Under sequence parallelism (``seq``) it runs on this
+    rank's rows of T, so each SpMM sees N = B·T / tp."""
 
     def __init__(self, up: SparseLinear, gate: SparseLinear,
                  down: SparseLinear):
@@ -167,9 +171,10 @@ class SparseMLP(nn.Module):
         return SparseMLP(self.up.quantize(mode), self.gate.quantize(mode),
                          self.down.quantize(mode))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq: TP = NO_TP) -> torch.Tensor:
         shape = x.shape
         x2 = x.reshape(-1, shape[-1])
-        h = (torch.nn.functional.silu(self.gate(x2)) * self.up(x2))
-        y = self.down(h.to(x.dtype))
+        h = (torch.nn.functional.silu(self.gate(x2, seq))
+             * self.up(x2, seq))
+        y = self.down(h.to(x.dtype), seq)
         return y.reshape(*shape[:-1], -1).to(x.dtype)

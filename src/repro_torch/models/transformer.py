@@ -55,7 +55,13 @@ then returns this rank's share of the vocabulary, ``loss_fn`` takes the
 vocab-parallel cross entropy and ``decode_step`` gathers the whole
 vocabulary.  The MoE router, RWKV-6 and the frontend still compute on full
 tensors on every rank (:attr:`Transformer.tp_gathered`); the block-sparse
-FFN is replicated, as in ``repro``.
+FFN is replicated, as in ``repro``.  An attention that runs whole on every
+rank keeps its full-attention KV cache split on time over ``model``
+(``repro``'s ``cache_pspec``): each rank holds ``max_len / tp`` positions
+and decode reduces the attention over the ranks.  With ``cfg.seq_shard``
+a forward without a cache splits the residual stream's T over ``model``
+between blocks (:meth:`Transformer.seq_parallel`; Megatron's sequence
+parallelism, ``repro``'s ``act_constrain(x, "seq")``).
 
 Sharded parameters: :meth:`Transformer.zero3_` (called by the mesh
 trainer and by ``build_model(mesh=)``) holds every parameter as this
@@ -77,7 +83,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import BSR
 from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
                                                   TensorParallelError,
-                                                  gather, local, tp_group,
+                                                  gather, local, split,
+                                                  tp_group,
                                                   vocab_cross_entropy)
 
 from . import layers
@@ -181,19 +188,22 @@ class Block(nn.Module):
         self.mlp = mlp
 
     def forward(self, x, *, positions, cache=None, cache_pos=0,
-                enc_out=None):
+                enc_out=None, seq: TP = NO_TP, kv_shard: TP = NO_TP):
+        """``seq``: ``x`` is this rank's rows of T (sequence parallelism);
+        ``kv_shard``: the cache holds this rank's share of the timeline."""
         cfg = self.cfg
-        x = x + self.attn(self.norm1(x, cfg.norm_eps), positions=positions,
-                          rope_theta=cfg.rope_theta, cache=cache,
-                          cache_pos=cache_pos, chunk=cfg.attn_chunk,
-                          window=self.window, ring=self.window is not None,
-                          causal=self.causal)
+        x = x + self.attn(self.norm1(x, cfg.norm_eps, seq),
+                          positions=positions, rope_theta=cfg.rope_theta,
+                          cache=cache, cache_pos=cache_pos,
+                          chunk=cfg.attn_chunk, window=self.window,
+                          ring=self.window is not None, causal=self.causal,
+                          seq=seq, kv_shard=kv_shard)
         if self.xattn is not None:
-            x = x + self.xattn(self.norm_x(x, cfg.norm_eps),
+            x = x + self.xattn(self.norm_x(x, cfg.norm_eps, seq),
                                positions=positions, rope_theta=0.0,
                                causal=False, kv_ctx=enc_out,
-                               chunk=cfg.attn_chunk)
-        return x + self.mlp(self.norm2(x, cfg.norm_eps)), None
+                               chunk=cfg.attn_chunk, seq=seq)
+        return x + self.mlp(self.norm2(x, cfg.norm_eps, seq), seq=seq), None
 
 
 class MoEBlock(nn.Module):
@@ -210,14 +220,15 @@ class MoEBlock(nn.Module):
         self.moe = MoE(d, cfg.d_ff, cfg.n_experts, device=device)
 
     def forward(self, x, *, positions, cache=None, cache_pos=0,
-                enc_out=None):
+                enc_out=None, seq: TP = NO_TP, kv_shard: TP = NO_TP):
         cfg = self.cfg
-        x = x + self.attn(self.norm1(x, cfg.norm_eps), positions=positions,
-                          rope_theta=cfg.rope_theta, cache=cache,
-                          cache_pos=cache_pos, chunk=cfg.attn_chunk)
-        h, aux = moe_apply(self.moe, self.norm2(x, cfg.norm_eps),
+        x = x + self.attn(self.norm1(x, cfg.norm_eps, seq),
+                          positions=positions, rope_theta=cfg.rope_theta,
+                          cache=cache, cache_pos=cache_pos,
+                          chunk=cfg.attn_chunk, seq=seq, kv_shard=kv_shard)
+        h, aux = moe_apply(self.moe, self.norm2(x, cfg.norm_eps, seq),
                            top_k=cfg.top_k,
-                           capacity_factor=cfg.moe_capacity_factor)
+                           capacity_factor=cfg.moe_capacity_factor, seq=seq)
         return x + h, aux
 
 
@@ -235,16 +246,17 @@ class RecBlock(nn.Module):
         self.mlp = layers.SwiGLU(d, cfg.d_ff, device=device)
 
     def forward(self, x, *, positions=None, cache=None, cache_pos=0,
-                enc_out=None):
+                enc_out=None, seq: TP = NO_TP):
         """``cache``: optional dict of ``conv`` (B, 3, D) and ``h`` (B, D),
         read as the state and overwritten in place with the new one."""
         cfg = self.cfg
-        h, state = self.rec(self.norm1(x, cfg.norm_eps), state=cache)
+        h, state = self.rec(self.norm1(x, cfg.norm_eps, seq), state=cache,
+                            seq=seq)
         if cache is not None:
             for k in STATE_KEYS["rec"]:
                 cache[k].copy_(state[k])
         x = x + h
-        return x + self.mlp(self.norm2(x, cfg.norm_eps)), None
+        return x + self.mlp(self.norm2(x, cfg.norm_eps, seq), seq=seq), None
 
 
 class RWKVLayer(nn.Module):
@@ -260,9 +272,14 @@ class RWKVLayer(nn.Module):
         self.rwkv = RWKVBlock(d, self.n_heads, cfg.d_ff, device=device)
 
     def forward(self, x, *, positions=None, cache=None, cache_pos=0,
-                enc_out=None):
+                enc_out=None, seq: TP = NO_TP):
         """``cache``: optional dict of ``shift``, ``S`` and ``cm_shift``,
-        read as the state and overwritten in place with the new one."""
+        read as the state and overwritten in place with the new one.
+        ``seq``: ``x`` is this rank's rows of T; the layer runs whole on
+        every rank over all rows (gathered) and keeps its own."""
+        if seq.on:
+            out, _ = self(gather(x, 1, seq), positions=positions)
+            return split(out, 1, seq), None
         cfg = self.cfg
         st = cache if cache is not None else rwkv_block_state(
             x.shape[0], cfg.d_model, self.n_heads, x.dtype, x.device)
@@ -319,8 +336,12 @@ class Transformer(nn.Module):
         # each layer's index along the layer axis of its cache entries, and
         # the cache keys it reads them from
         groups = [_cache_group(k) for k in kinds]
+        self._cache_groups = groups
         self._cache_index = [groups[:i].count(g) for i, g in enumerate(groups)]
         self._cache_keys = [_cache_keys(g, groups) for g in groups]
+        #: a full-attention cache's length a rank → split on time or not
+        #: (the layout :meth:`init_cache` made it in)
+        self._kv_split: Dict[int, bool] = {}
         self.tp = NO_TP
         #: module name → why it computes on full tensors under TP
         self.tp_gathered: Dict[str, str] = {}
@@ -550,10 +571,21 @@ class Transformer(nn.Module):
         slice); the logits themselves at one rank."""
         return gather(logits, -1, self.tp)
 
-    def _run(self, blocks, x, positions, enc_out=None, prefix="layers"):
-        """The blocks over x (units ``<prefix>.<i>``), rematerialized under
-        ``cfg.remat`` when gradients are recorded.  Returns ``(x, summed
-        aux loss)``."""
+    def seq_parallel(self, t: int) -> TP:
+        """The ``model`` axis whose ranks each hold ``t / tp`` rows of the
+        residual stream in a forward of ``t`` positions without a cache:
+        the model's, with ``cfg.seq_shard`` on a split model where tp
+        divides ``t`` (``repro``'s ``act_constrain(x, "seq")``), else
+        :data:`NO_TP`."""
+        tp = self.tp
+        return (tp if self.cfg.seq_shard and tp.on and t % tp.size == 0
+                else NO_TP)
+
+    def _run(self, blocks, x, positions, enc_out=None, prefix="layers",
+             seq: TP = NO_TP):
+        """The blocks over x (units ``<prefix>.<i>``; ``seq``: x is this
+        rank's rows of T), rematerialized under ``cfg.remat`` when
+        gradients are recorded.  Returns ``(x, summed aux loss)``."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), device=x.device)
         for i, blk in enumerate(blocks):
@@ -561,11 +593,12 @@ class Transformer(nn.Module):
                 # the blocks draw no random numbers: no RNG state to keep
                 x, a = self._call(f"{prefix}.{i}", checkpoint, blk, x,
                                   positions=positions, enc_out=enc_out,
-                                  use_reentrant=False,
+                                  seq=seq, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 x, a = self._call(f"{prefix}.{i}", blk, x,
-                                  positions=positions, enc_out=enc_out)
+                                  positions=positions, enc_out=enc_out,
+                                  seq=seq)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -578,7 +611,12 @@ class Transformer(nn.Module):
                        enc_embeds.to(act_dtype(self.cfg)))
         b, t, _ = e.shape
         positions = torch.arange(t, device=e.device).expand(b, t)
-        return self._run(self.enc, e, positions, prefix="enc")[0]
+        seq = self.seq_parallel(t)
+        x = self._run(self.enc, split(e, 1, seq), positions, prefix="enc",
+                      seq=seq)[0]
+        # every decoder block reads all of it (the backward: this rank's
+        # rows of the gradient, the same on every rank)
+        return gather(x, 1, seq)
 
     def forward(self, tokens: torch.Tensor,
                 vis_embeds: Optional[torch.Tensor] = None,
@@ -592,28 +630,39 @@ class Transformer(nn.Module):
         (``enc_dec``, required there).  On a split model the logits are
         this rank's share of the vocabulary (B, T, padded_vocab / tp), as
         ``repro``'s prefill output is sharded on ``model``
-        (:meth:`full_logits` gathers them)."""
+        (:meth:`full_logits` gathers them).  Under sequence parallelism
+        (:meth:`seq_parallel`) the blocks run on this rank's rows of T and
+        the head on all of them."""
         dt = act_dtype(self.cfg)
+        t = tokens.shape[1] + (0 if vis_embeds is None else
+                               vis_embeds.shape[1])
+        seq = self.seq_parallel(t)
         # the lookup's backward reads only the indices: no gather for it
-        x = self._call("embed", self.embed, tokens, backward=False).to(dt)
-        if vis_embeds is not None:
-            x = torch.cat([self._call("frontend", self.frontend,
-                                      vis_embeds.to(dt)), x], dim=1)
+        if vis_embeds is None:
+            x = self._call("embed", self.embed, tokens, seq,
+                           backward=False).to(dt)
+        else:
+            x = self._call("embed", self.embed, tokens, backward=False).to(dt)
+            x = split(torch.cat([self._call("frontend", self.frontend,
+                                            vis_embeds.to(dt)), x], dim=1),
+                      1, seq)
         enc_out = None
         if self.enc is not None:
             if enc_embeds is None:
                 raise ValueError(f"{self.cfg.name}: the encoder-decoder "
                                  f"forward needs enc_embeds")
             enc_out = self.encode(enc_embeds)
-        b, t, _ = x.shape
+        b = x.shape[0]
         positions = torch.arange(t, device=x.device).expand(b, t)
-        x, aux = self._run(self.layers, x, positions, enc_out)
-        logits = self._call("embed", self._head, x)
+        x, aux = self._run(self.layers, x, positions, enc_out, seq=seq)
+        logits = self._call("embed", self._head, x, seq)
         return (logits, aux) if return_aux else logits
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        """The final norm and the head."""
-        return self._logits(self.final_norm(x, self.cfg.norm_eps))
+    def _head(self, x: torch.Tensor, seq: TP = NO_TP) -> torch.Tensor:
+        """The final norm and the head (``seq``: on this rank's rows of T,
+        then the head on all of them)."""
+        return (self.lm_head or self.embed).head(
+            self.final_norm(x, self.cfg.norm_eps, seq), seq)
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]):
         """batch: dict(tokens (B, T), targets (B, T)[, vis_embeds,
@@ -635,6 +684,20 @@ class Transformer(nn.Module):
         return loss + 0.01 * aux, {"loss": loss.detach(),
                                    "aux": aux.detach()}
 
+    def _attention(self) -> Optional[layers.Attention]:
+        return next((m for m in self.modules()
+                     if isinstance(m, layers.Attention)), None)
+
+    def kv_split_on_time(self, max_len: int) -> bool:
+        """True when :meth:`init_cache` splits the full-attention KV cache
+        of ``max_len`` positions on time over ``model``: a split model
+        whose attention runs whole on every rank, where tp divides
+        ``max_len``."""
+        attn, tp = self._attention(), self.tp
+        return (tp.on and attn is not None and not attn.tp.on
+                and "attn" in self._cache_groups
+                and max_len % tp.size == 0)
+
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Zero cache for ``batch_size`` slots of ``max_len`` positions (the
         decoder's layers only).  Full-attention layers get ``max_len``
@@ -643,18 +706,33 @@ class Transformer(nn.Module):
         int8 KV cache over local layers: the ring has no int8 mode
         (``repro``'s ring write drops the scales).
 
-        On a split model each rank's cache holds the KV heads its query
+        On a split model each rank's cache holds the RG-LRU channels it
+        runs, and for an attention split by heads the KV heads its query
         heads read (``Attention.kv_span``: one KV head shared by several
-        ranks is held by each of them) and the RG-LRU channels it runs.
-        That is not ``repro``'s layout, which shards the cache's time axis
-        on ``model`` (``cache_pspec``)."""
+        ranks is held by each of them).  An attention that runs whole on
+        every rank (heads that do not split over ``model``) keeps its
+        full-attention cache split on time where tp divides ``max_len``,
+        as ``repro``'s ``cache_pspec`` shards it: rank r holds positions
+        ``[r·max_len/tp, (r+1)·max_len/tp)`` of every head (int8 scales
+        with their values), and :meth:`decode_step` reduces the attention
+        over the ranks.  Elsewhere it stays whole, as ``repro``'s rule
+        falls back to replication; rings stay whole."""
         cfg = self.cfg
         dev, dt = self.device, act_dtype(cfg)
-        n_kv = next((m.n_kv for m in self.modules()
-                     if isinstance(m, layers.Attention)), cfg.n_kv)
-        groups = [_cache_group(k) for k in self.layer_kinds]
+        attn = self._attention()
+        n_kv = cfg.n_kv if attn is None else attn.n_kv
+        groups = self._cache_groups
+        split_t = self.kv_split_on_time(max_len)
+        full_len = max_len // self.tp.size if split_t else max_len
+        if "attn" in groups:
+            if self._kv_split.get(full_len, split_t) != split_t:
+                raise ValueError(
+                    f"a cache of {full_len} positions a rank was made "
+                    f"{'whole' if split_t else 'split on time'} before; "
+                    f"this one would be the other layout")
+            self._kv_split[full_len] = split_t
         cache = {}
-        for group, t_len in (("attn", max_len),
+        for group, t_len in (("attn", full_len),
                              ("local", min(max_len, cfg.local_window))):
             n = groups.count(group)
             if not n:
@@ -710,7 +788,11 @@ class Transformer(nn.Module):
         Writes the new keys and values (and the recurrent state) into
         ``cache`` in place and returns ``(logits (B, padded_vocab),
         cache)``: the whole vocabulary on a split model too (each rank's
-        share all-gathered)."""
+        share all-gathered).  A cache split on time (:meth:`init_cache`)
+        takes the new keys on the ranks that hold their positions."""
+        kv_shard = NO_TP
+        if "k" in cache and self._kv_split.get(cache["k"].shape[2]):
+            kv_shard = self.tp
         x = self._call("embed", self.embed, token,
                        backward=False).to(act_dtype(self.cfg))
         b, t, _ = x.shape
@@ -723,8 +805,11 @@ class Transformer(nn.Module):
                                                self._cache_index)):
             mine = {name: cache[key][i] for name, key in keys.items()
                     if key in cache}
+            kw = ({"kv_shard": kv_shard}
+                  if self._cache_groups[j] == "attn" else {})
             x, _ = self._call(f"layers.{j}", blk, x, positions=positions,
-                              cache=mine, cache_pos=pos, enc_out=enc_out)
+                              cache=mine, cache_pos=pos, enc_out=enc_out,
+                              **kw)
         logits = self._call("embed", self._decode_head, x, logit_idx)
         return self.full_logits(logits)[:, 0], cache
 

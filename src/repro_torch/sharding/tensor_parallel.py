@@ -20,6 +20,19 @@ They call ``dist.all_reduce`` / ``all_gather_into_tensor`` /
 ``reduce_scatter_tensor``, which ``roofline.CommRecorder`` records.  With
 one rank on ``model`` (or no mesh) each is the identity and moves nothing.
 
+Sequence parallelism (``cfg.seq_shard``, Megatron's): between blocks the
+residual stream holds this rank's ``T / tp`` rows.  A block then enters
+with :func:`seq_enter` and leaves with :func:`seq_exit`: a split module
+all-gathers T (backward: reduce-scatter) in place of ``copy_in`` and
+reduce-scatters T (backward: all-gather) in place of ``reduce_out``; a
+module that computes whole on every rank (heads that do not split)
+all-gathers T (backward: this rank's slice, every rank's gradient being
+the same) and keeps its rows of the output (:func:`split`; backward:
+all-gather).  Position-wise work on the local rows (norms, the replicated
+block-sparse FFN) reads its replicated parameters through ``copy_in``, so
+their gradient is summed over the ranks' rows.  Decode over a KV cache
+split on time reduces with the plain :func:`all_reduce` (no autograd).
+
 The vocabulary is split too: :func:`vocab_embed` looks up this rank's rows
 of the table and all-reduces; :func:`vocab_cross_entropy` takes the max and
 the sum of exponentials over the split vocabulary by all-reduce and the
@@ -132,6 +145,28 @@ class _Gather(torch.autograd.Function):
         return out, None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _reduce_scatter(x, dim, tp.size, tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.tp.size, ctx.tp.group), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return local(x, dim, tp).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.tp.size, ctx.tp.group), None, None
+
+
 class _AllMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, groups):
@@ -181,6 +216,48 @@ def gather(x: torch.Tensor, dim: int, tp: TP,
     return _Gather.apply(x, dim % x.ndim, tp, grad)
 
 
+def reduce_scatter(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
+    """The sum of every rank's ``x``, this rank's slice along ``dim``;
+    backward: the all-gather of the ranks' gradients."""
+    return _ReduceScatter.apply(x, dim % x.ndim, tp) if tp.on else x
+
+
+def split(x: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
+    """This rank's slice of ``x`` (the same on every rank) along ``dim``;
+    backward: the all-gather of the ranks' gradients."""
+    return _Split.apply(x, dim % x.ndim, tp) if tp.on else x
+
+
+def seq_enter(x: torch.Tensor, tp: TP, seq: TP) -> torch.Tensor:
+    """A block's input: ``copy_in(x, tp)``, or under sequence parallelism
+    (``seq`` on: ``x`` holds this rank's rows of T, dim 1) every rank's
+    rows gathered, whose backward reduce-scatters the split module's
+    partial gradients (``tp`` on) or keeps this rank's rows of the
+    gradient a whole computation makes alike on every rank."""
+    if not seq.on:
+        return copy_in(x, tp)
+    return gather(x, 1, seq, grad="sum" if tp.on else "slice")
+
+
+def seq_exit(y: torch.Tensor, tp: TP, seq: TP) -> torch.Tensor:
+    """A block's output: ``reduce_out(y, tp)``, or under sequence
+    parallelism this rank's rows of T: the reduce-scatter of the split
+    module's partial sums, or the slice of a whole one's output."""
+    if not seq.on:
+        return reduce_out(y, tp)
+    return reduce_scatter(y, 1, seq) if tp.on else split(y, 1, seq)
+
+
+@torch.no_grad()
+def all_reduce(t: torch.Tensor, tp: TP, op: str = "sum") -> torch.Tensor:
+    """The sum (``"sum"``) or max (``"max"``) of ``t`` over ``model``, as
+    a new tensor (no autograd: decode over a cache split on time)."""
+    if not tp.on:
+        return t
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+    return _all_reduce(t, tp.group, ops[op])
+
+
 @torch.no_grad()
 def gather_full(t: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
     """The full tensor from each rank's slice along ``dim`` (no autograd)."""
@@ -188,18 +265,20 @@ def gather_full(t: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
-                tp: TP) -> torch.Tensor:
+                tp: TP, seq: bool = False) -> torch.Tensor:
     """Rows ``tokens`` of a table whose rows are split over ``model``
     (``table``: this rank's ``(vocab / tp, d)``): each rank looks up the
-    tokens in its range, zeros the rest, and the ranks' rows are summed."""
+    tokens in its range, zeros the rest, and the ranks' rows are summed;
+    with ``seq`` reduce-scattered along T (dim 1), so each rank keeps its
+    rows of the sequence."""
     if not tp.on:
         return table[tokens]
     n = table.shape[0]
     lo = tp.rank * n
     idx = tokens.long() - lo
     mine = (idx >= 0) & (idx < n)
-    rows = table[idx.clamp(0, n - 1)]
-    return reduce_out(torch.where(mine[..., None], rows, 0.0), tp)
+    rows = torch.where(mine[..., None], table[idx.clamp(0, n - 1)], 0.0)
+    return reduce_scatter(rows, 1, tp) if seq else reduce_out(rows, tp)
 
 
 def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
@@ -121,9 +122,18 @@ class Zero3:
         self.on_grad: Optional[Callable[[str, torch.Tensor], None]] = None
         #: ``(unit, "forward" | "backward")`` of every gather, when a list
         self.log: Optional[list] = None
+        # the hooks live on the parameters' C++ side, which the garbage
+        # collector does not see: a hook that held this manager would keep
+        # it, the model and every parameter alive for good
+        ref = weakref.ref(self)
+
+        def grad_ready(p):
+            z = ref()
+            if z is not None:
+                z._grad_ready(p)
         for p in self.params.values():
             if p.requires_grad:
-                p.register_post_accumulate_grad_hook(self._grad_ready)
+                p.register_post_accumulate_grad_hook(grad_ready)
 
     # --- gather and free ----------------------------------------------------
 

@@ -464,3 +464,58 @@ def test_folded_length_equals_a_direct_trace(kind, monkeypatch):
     else:
         err = abs(folded["peak"]["Total"] / whole["peak"]["Total"] - 1)
         assert err <= 0.02, err
+
+
+def test_gathered_decode_cell_splits_its_cache_on_time():
+    """Reduced Qwen1.5 with 3 heads, which do not split over 2 ``model``
+    ranks, in a decode cell on a fake 1 × 2 world (fake CPU tensors): the
+    attention is named gathered, the full-attention KV cache is split on
+    time (``kv_split_on_time``), its bytes a rank exactly half of the
+    unsplit layout's, and the traced step's peak lower than at one
+    rank."""
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = dataclasses.replace(reduced_config(REGISTRY["qwen1.5-4b"]),
+                              n_heads=3, n_kv=3, head_dim=16)
+    shape = ShapeConfig("d", "decode", 64, 4)
+    with dryrun.fake_world(2):
+        mesh = make_test_mesh(1, 2, device="cpu")
+        split = dryrun.trace_cell(cfg, shape, mesh, dev="cpu")
+        whole = dryrun.trace_cell(cfg, shape, None, dev="cpu")
+        nbytes = {}
+        for name, m in (("split", mesh), ("whole", None)):
+            with dryrun.fake_mode():
+                model = Transformer(cfg, device="cpu", mesh=m)
+                cache = model.init_cache(4, 64)
+                nbytes[name] = sum(t.numel() * t.element_size()
+                                   for t in cache.values())
+                assert cache["k"].shape[2] == (32 if m else 64)
+    assert split["kv_split_on_time"] and not whole["kv_split_on_time"]
+    assert split["tp_gathered"] and split["tp"] == 2
+    assert 2 * nbytes["split"] == nbytes["whole"] > 0
+    assert split["peak"]["Total"] < whole["peak"]["Total"]
+    assert {op for op, _ in split["records"]} == {"all-reduce",
+                                                  "all-gather"}
+
+
+def test_seq_shard_train_cell_takes_effect():
+    """Reduced granite (remat) in a training cell on a fake 1 × 2 world,
+    with and without ``seq_shard``: the flag takes effect
+    (``seq_shard_effect``), the activation bytes at the peak fall (the
+    remat-saved block inputs hold T / 2 rows), and the step all-gathers
+    and reduce-scatters T where it all-reduced."""
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = dataclasses.replace(reduced_config(REGISTRY["granite-3-8b"]),
+                              remat=True)
+    shape = ShapeConfig("t", "train", 64, 8)
+    res = {}
+    with dryrun.fake_world(2):
+        mesh = make_test_mesh(1, 2, device="cpu")
+        for seq in (False, True):
+            res[seq] = dryrun.trace_cell(
+                dataclasses.replace(cfg, seq_shard=seq), shape, mesh,
+                dev="cpu", accum=2)
+    assert res[True]["seq_shard_effect"] and not res[False]["seq_shard_effect"]
+    assert res[True]["peak"]["Activation"] < res[False]["peak"]["Activation"]
+    assert {op for op, _ in res[False]["records"]} == {"all-reduce"}
+    assert {"all-gather", "reduce-scatter"} <= {
+        op for op, _ in res[True]["records"]}

@@ -558,3 +558,30 @@ def test_sliced_reduce_scatter_matches_whole(bucket_ranks):
         assert res["pod_small"]["w"] == res["pod_whole"]["w"]
         assert res["pod_whole"]["calls"] == res["pod_whole"]["want"] == 2
         assert res["pod_small"]["calls"] == res["pod_small"]["want"] == 5
+
+
+def test_mesh_trainer_is_freed_after_use():
+    """A ``Trainer(mesh=)`` (its model held as rule shards by a ``Zero3``
+    manager whose gradient hooks sit on the parameters) leaves nothing
+    alive once the caller drops it: the model and the manager are
+    collected, so a process that trains on a mesh and moves on frees the
+    card (one gloo rank, a (1, 1) mesh, one step)."""
+    from test_torch_distributed import TRAIN, TRAIN_SHAPE
+    with tempfile.TemporaryDirectory() as out:
+        got = _gloo(_src(f"""
+        TRAIN, TRAIN_SHAPE = {TRAIN!r}, dict({TRAIN_SHAPE!r})
+        TRAIN["steps"] = 1
+        """, STEP_SETUP, """
+        import gc, weakref
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+
+
+        def run():
+            t = trainer("granite-3-8b", dict(dtype="float32"), mesh, None)
+            t.run()
+            return weakref.ref(t.model), weakref.ref(t._step_fn.zero3)
+        refs = run()
+        gc.collect()
+        emit([r() is None for r in refs])
+        """), 1, out)
+    assert got == [[True, True]]
