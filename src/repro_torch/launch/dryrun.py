@@ -24,7 +24,8 @@ card (:mod:`repro_torch.kernels.fake`).
 The step is the port's sharded one: the model is built split over the
 mesh's ``model`` axis (``Transformer(cfg, mesh=)``), so each rank holds
 and computes its share of the attention heads, the dense SwiGLU's hidden
-units, the RG-LRU channels, the MoE experts and the vocabulary, and the
+units, the RG-LRU channels, RWKV-6's heads and hidden units, the MoE
+experts and the vocabulary, and the
 fake rules of the kernels see the local shapes; every parameter is held
 as this rank's rule shard and gathered a unit at a time
 (``Transformer.zero3_``: the trainer's on its FSDP axes, and the same for
@@ -36,14 +37,15 @@ result rather than hidden:
   replicated by ``repro``'s rules, as the block-sparse FFN is);
   ``"tp_gathered"`` names what still computes on full tensors on every
   rank along ``model``: the MoE router (its top-k reads every expert's
-  logit), RWKV-6 (head parallelism), the modality frontend, and an
-  attention whose heads do not split over the 16 ranks (Whisper's 6,
-  Qwen1.5's 20, Maverick's 40).  Prefill and decode cells split the batch
-  and the cache over the dp axes.  A decode cell's KV cache holds each
-  rank's KV heads where the attention splits by heads, and where it runs
-  whole on every rank its timeline split over ``model``, as ``repro``'s
-  ``cache_pspec`` shards it (``"kv_split_on_time"``): 1/16 of every head's
-  32768 positions a rank.
+  logit), the modality frontend, and an attention whose heads do not
+  split over the 16 ranks (Whisper's 6, Qwen1.5's 20, Maverick's 40).
+  Prefill and decode cells split the batch and the cache over the dp
+  axes; RWKV-6's wkv state holds each rank's 2 of 32 heads.  A decode
+  cell's KV cache holds each rank's KV heads where the attention splits
+  by heads, and where it runs whole on every rank its timeline split
+  over ``model``, as ``repro``'s ``cache_pspec`` shards it
+  (``"kv_split_on_time"``): 1/16 of every head's 32768 positions a
+  rank.
 * ``"seq_shard_effect"``: true where ``seq_shard`` (:data:`CELL_OVERRIDES`)
   split the residual stream's T over ``model`` between blocks
   (``Transformer.seq_parallel``; a training or prefill cell).

@@ -49,7 +49,8 @@ from repro_torch.kernels.ops import flash_mha
 from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
                                                   TensorParallelError,
                                                   all_reduce, copy_in, gather,
-                                                  local, seq_enter, seq_exit,
+                                                  local, reduce_stat,
+                                                  seq_enter, seq_exit,
                                                   vocab_embed)
 
 Pos = Union[int, torch.Tensor]
@@ -114,9 +115,14 @@ class Dense(nn.Module):
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+            eps: float = 1e-6, tp: TP = NO_TP) -> torch.Tensor:
+    """``tp``: the last axis of ``x`` (and ``scale``) is this rank's share
+    of the channels; their sum of squares is summed over ``model``
+    (:func:`~repro_torch.sharding.tensor_parallel.reduce_stat`) and
+    divided by the full width."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = reduce_stat((xf * xf).sum(dim=-1, keepdim=True),
+                      tp) / (xf.shape[-1] * tp.size)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
@@ -129,9 +135,15 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor, eps: float = 1e-6,
-                seq: TP = NO_TP) -> torch.Tensor:
+                seq: TP = NO_TP, tp: TP = NO_TP) -> torch.Tensor:
         """``seq``: ``x`` holds this rank's rows of T, so the scale's
-        gradient is summed over the ranks."""
+        gradient is summed over the ranks.  ``tp``: ``x`` holds this
+        rank's share of the channels (RWKV-6's ``ln_x`` over heads split
+        on ``model``): the scale is read as its slice, its gradient summed
+        over the ranks, and the mean square is taken over every rank's
+        channels."""
+        if tp.on:
+            return rmsnorm(x, local(copy_in(self.scale, tp), 0, tp), eps, tp)
         return rmsnorm(x, copy_in(self.scale, seq), eps)
 
 

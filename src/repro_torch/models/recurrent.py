@@ -13,8 +13,7 @@ conv's last 3 inputs (activation dtype) and h (fp32) as state.  Under
 autograd the kernel's backward is a kernel too (``rg_lru_bwd``); the
 ``"reference"`` backend's oracle is differentiated by torch, step by step.
 :meth:`RGLRUBlock.tensor_parallel_` splits the block's channels over the
-mesh's ``model`` axis.  RWKV-6 has no split yet: on a mesh it computes on
-full tensors on every rank.
+mesh's ``model`` axis.
 
 RWKV-6 (:class:`RWKVBlock`): a token shift mixes each input with the one
 before it (``mix``, five rows: r, k, v, w, g), the decay is data-dependent
@@ -24,7 +23,9 @@ S is :func:`repro_torch.kernels.ref.rwkv6_ref`, a torch loop over T (the
 counterpart of ``repro``'s ``lax.scan``; neither package has a kernel for
 it).  The channel mix is a token-shifted squared-ReLU MLP.  Decode carries
 the two shifts (activation dtype) and S as state, so one call over T tokens
-equals T calls of one token.
+equals T calls of one token.  :meth:`RWKVBlock.tensor_parallel_` splits the
+time mix by heads and the channel mix by hidden units over ``model``, as
+``repro``'s rules lay the layer out; S then holds this rank's heads.
 """
 from __future__ import annotations
 
@@ -176,7 +177,24 @@ class RWKVBlock(nn.Module):
     ``repro``'s names: ``mix`` (5, D), ``wr``/``wk``/``wv``/``wg``/``wo``,
     ``w_lora_a`` (D, lora), ``w_lora_b`` (lora, D), ``w_bias`` (D,), ``u``
     (H, hd), ``ln_x``, ``cm_mix`` (2, D), ``cm_k`` (D → d_ff), ``cm_v``
-    (d_ff → D); lora is ``max(32, D // 16)`` wide."""
+    (d_ff → D); lora is ``max(32, D // 16)`` wide.
+
+    After :meth:`tensor_parallel_` the block runs this rank's ``H / tp``
+    heads in the time mix and ``d_ff / tp`` hidden units in the channel
+    mix (``repro``'s rules: ``wr``/``wk``/``wv``/``wg`` and ``cm_k``
+    column-parallel, ``wo`` and ``cm_v`` row-parallel, ``w_lora_b``'s D
+    columns on ``model``).  ``w_lora_b`` is held as this rank's columns
+    (``tp_local`` dim 1, which ZeRO-3's shardings take from
+    ``Transformer.tp_local_params``), so the data-dependent decay is this
+    rank's channels with no collective.  ``mix``, ``cm_mix`` and
+    ``w_lora_a`` are kept whole and feed rank-local compute, and ``u``,
+    ``w_bias`` and ``ln_x.scale`` are kept whole and read as this rank's
+    heads or channels: each is read through ``copy_in``, so its gradient
+    is summed over ``model`` once, as are the input and the input shift
+    states' (``seq_enter``, ``copy_in``).  ``ln_x`` normalizes over all D
+    channels: its sum of squares is all-reduced (``RMSNorm(tp=)``).  The
+    token shifts act on the full (replicated) input, so the ``shift``
+    states stay (B, D) on every rank; S is (B, H / tp, hd, hd)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *,
                  device=None):
@@ -199,59 +217,103 @@ class RWKVBlock(nn.Module):
         self.cm_mix = nn.Parameter(torch.empty(2, d, device=device))
         self.cm_k = layers.Dense(d, d_ff, device=device)
         self.cm_v = layers.Dense(d_ff, d, device=device)
+        self.tp = NO_TP
+        #: ``{param name: (its dim local on model, its full shape)}``
+        self.tp_local: dict = {}
+
+    def tensor_parallel_(self, tp: TP) -> None:
+        """Split over ``tp``'s ranks (see the class docstring); raises
+        ``TensorParallelError`` unless the heads and d_ff split evenly."""
+        if not tp.on:
+            return
+        tp.span(self.n_heads)                # raises unless H splits
+        tp.span(self.cm_k.w.shape[1])        # and d_ff
+        for dense in (self.wr, self.wk, self.wv, self.wg, self.cm_k):
+            dense.tensor_parallel_(tp, "col")
+        for dense in (self.wo, self.cm_v):
+            dense.tensor_parallel_(tp, "row")
+        shape = tuple(self.w_lora_b.shape)
+        self.w_lora_b = nn.Parameter(
+            local(self.w_lora_b.detach(), 1, tp).clone())
+        self.tp_local = {"w_lora_b": (1, shape)}
+        self.tp = tp
 
     def init_(self, gen: torch.Generator) -> None:
         """mix, cm_mix ~ U(0, 1); lora ~ N(0, 0.01²); w_bias = -4 (a slow
-        decay); u ~ N(0, 0.1²) (the projections draw their own)."""
+        decay); u ~ N(0, 0.1²) (the projections draw their own).  A split
+        ``w_lora_b`` is drawn whole and this rank's columns kept, so a
+        split block holds one process's values."""
         self.mix.uniform_(0.0, 1.0, generator=gen)
         self.w_lora_a.normal_(generator=gen).mul_(0.01)
-        self.w_lora_b.normal_(generator=gen).mul_(0.01)
+        if self.tp_local:
+            full = torch.empty(self.tp_local["w_lora_b"][1],
+                               device=self.w_lora_b.device)
+            full.normal_(generator=gen).mul_(0.01)
+            self.w_lora_b.copy_(local(full, 1, self.tp))
+        else:
+            self.w_lora_b.normal_(generator=gen).mul_(0.01)
         self.w_bias.fill_(-4.0)
         self.u.normal_(generator=gen).mul_(0.1)
         self.cm_mix.uniform_(0.0, 1.0, generator=gen)
 
 
-def rwkv_time_mix(block: RWKVBlock, x: torch.Tensor, state: State
-                  ) -> Tuple[torch.Tensor, State]:
-    """x: (B, T, D); state: dict(shift (B, D), S (B, H, hd, hd) fp32).
+def rwkv_time_mix(block: RWKVBlock, x: torch.Tensor, state: State,
+                  seq: TP = NO_TP) -> Tuple[torch.Tensor, State]:
+    """x: (B, T, D); state: dict(shift (B, D), S (B, H, hd, hd) fp32; this
+    rank's heads on a split block).  ``seq``: x is this rank's rows of T
+    (gathered on entry, the output reduce-scattered back to them).
     Returns ``(out, {"shift", "S"})``."""
-    b, t, d = x.shape
-    h = block.n_heads
-    xs = token_shift(x, state["shift"])
-    mix = block.mix.to(x.dtype)
-    r = block.wr(_mixed(x, xs, mix[0])).reshape(b, t, h, d // h)
-    k = block.wk(_mixed(x, xs, mix[1])).reshape(b, t, h, d // h)
-    v = block.wv(_mixed(x, xs, mix[2])).reshape(b, t, h, d // h)
+    tp = block.tp
+    x = seq_enter(x, tp, seq)
+    b, t, _ = x.shape
+    hd = block.u.shape[1]
+    xs = token_shift(x, copy_in(state["shift"], tp))
+    mix = copy_in(block.mix, tp).to(x.dtype)
+    r = block.wr(_mixed(x, xs, mix[0]))
+    h = r.shape[-1] // hd                    # this rank's heads
+    r = r.reshape(b, t, h, hd)
+    k = block.wk(_mixed(x, xs, mix[1])).reshape(b, t, h, hd)
+    v = block.wv(_mixed(x, xs, mix[2])).reshape(b, t, h, hd)
     g = block.wg(_mixed(x, xs, mix[4]))
+    w_bias, u = block.w_bias, block.u
+    if tp.on:
+        w_bias = local(copy_in(w_bias, tp), 0, tp)
+        u = local(copy_in(u, tp), 0, tp)
     # data-dependent decay in (0, 1): exp(-softplus(w_raw)), in fp32
-    w_raw = (block.w_bias.float()
+    w_raw = (w_bias.float()
              + torch.tanh(_mixed(x, xs, mix[3]).float()
-                          @ block.w_lora_a.float())
+                          @ copy_in(block.w_lora_a, tp).float())
              @ block.w_lora_b.float())
-    log_w = -ref.softplus(w_raw).reshape(b, t, h, d // h)
-    outs, s_t = ref.rwkv6_ref(r, k, v, log_w, block.u, state["S"])
-    outs = outs.reshape(b, t, d).to(x.dtype)
-    out = block.wo(block.ln_x(outs) * F.silu(g))
-    return out, {"shift": x[:, -1], "S": s_t}
+    log_w = -ref.softplus(w_raw).reshape(b, t, h, hd)
+    outs, s_t = ref.rwkv6_ref(r, k, v, log_w, u, state["S"])
+    outs = outs.reshape(b, t, h * hd).to(x.dtype)
+    out = block.wo(block.ln_x(outs, tp=tp) * F.silu(g))
+    return seq_exit(out, tp, seq), {"shift": x[:, -1], "S": s_t}
 
 
 def rwkv_channel_mix(block: RWKVBlock, x: torch.Tensor,
-                     shift: torch.Tensor
+                     shift: torch.Tensor, seq: TP = NO_TP
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The token-shifted squared-ReLU MLP; ``shift`` (B, D) is its state.
-    Returns ``(out, new shift)``."""
-    xs = token_shift(x, shift)
-    xk = _mixed(x, xs, block.cm_mix.to(x.dtype)[0])
-    return block.cm_v(torch.square(F.relu(block.cm_k(xk)))), x[:, -1]
+    """The token-shifted squared-ReLU MLP; ``shift`` (B, D) is its state
+    (``seq`` as in :func:`rwkv_time_mix`).  Returns ``(out, new
+    shift)``."""
+    tp = block.tp
+    x = seq_enter(x, tp, seq)
+    xs = token_shift(x, copy_in(shift, tp))
+    xk = _mixed(x, xs, copy_in(block.cm_mix, tp).to(x.dtype)[0])
+    out = block.cm_v(torch.square(F.relu(block.cm_k(xk))))
+    return seq_exit(out, tp, seq), x[:, -1]
 
 
 def rwkv_block_state(b: int, d_model: int, n_heads: int,
-                     dtype=torch.float32, device=None) -> State:
+                     dtype=torch.float32, device=None,
+                     tp: TP = NO_TP) -> State:
     """Zero decode state: ``shift``/``cm_shift`` (B, D) in the activation
-    dtype, ``S`` (B, H, hd, hd) fp32."""
+    dtype, ``S`` (B, H / tp, hd, hd) fp32 (``tp``: a split block's
+    ranks)."""
     hd = d_model // n_heads
     return {"shift": torch.zeros((b, d_model), dtype=dtype, device=device),
-            "S": torch.zeros((b, n_heads, hd, hd), dtype=torch.float32,
-                             device=device),
+            "S": torch.zeros((b, n_heads // tp.size, hd, hd),
+                             dtype=torch.float32, device=device),
             "cm_shift": torch.zeros((b, d_model), dtype=dtype,
                                     device=device)}

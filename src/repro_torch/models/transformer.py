@@ -30,7 +30,8 @@ scales ``k_s``/``v_s``) and ``(n_local, B, min(max_len, local_window),
 n_kv, hd)`` rings over the ``local`` layers, at ``k``/``v`` when no layer
 has full attention and at ``k_local``/``v_local`` beside them, ``conv`` ``(n_rec, B, 3, D)`` and ``h`` ``(n_rec, B, D)``
 fp32 over the RG-LRU layers, ``shift``/``cm_shift`` ``(n_rwkv, B, D)`` and
-``S`` ``(n_rwkv, B, H, hd, hd)`` fp32 over the RWKV layers.
+``S`` ``(n_rwkv, B, H, hd, hd)`` fp32 over the RWKV layers (``H / tp``
+heads a rank on a split model).
 :meth:`Transformer.decode_step` writes every entry in place.
 
 Quantized serving: :meth:`Transformer.quantize` returns a model whose
@@ -49,12 +50,13 @@ whose backward passes are kernels of their own (``rg_lru_bwd``,
 
 Tensor parallelism: ``Transformer(cfg, mesh=)`` (or :meth:`Transformer.
 shard_`) splits the attention heads, the dense SwiGLU's hidden units, the
-RG-LRU channels, the MoE experts and the vocabulary over the mesh's
-``model`` axis (:mod:`repro_torch.sharding.tensor_parallel`); ``forward``
-then returns this rank's share of the vocabulary, ``loss_fn`` takes the
-vocab-parallel cross entropy and ``decode_step`` gathers the whole
-vocabulary.  The MoE router, RWKV-6 and the frontend still compute on full
-tensors on every rank (:attr:`Transformer.tp_gathered`); the block-sparse
+RG-LRU channels, RWKV-6's heads (time mix) and hidden units (channel mix),
+the MoE experts and the vocabulary over the mesh's ``model`` axis
+(:mod:`repro_torch.sharding.tensor_parallel`); ``forward`` then returns
+this rank's share of the vocabulary, ``loss_fn`` takes the vocab-parallel
+cross entropy and ``decode_step`` gathers the whole vocabulary.  The MoE
+router and the frontend still compute on full tensors on every rank
+(:attr:`Transformer.tp_gathered`); the block-sparse
 FFN is replicated, as in ``repro``.  An attention that runs whole on every
 rank keeps its full-attention KV cache split on time over ``model``
 (``repro``'s ``cache_pspec``): each rank holds ``max_len / tp`` positions
@@ -275,18 +277,17 @@ class RWKVLayer(nn.Module):
                 enc_out=None, seq: TP = NO_TP):
         """``cache``: optional dict of ``shift``, ``S`` and ``cm_shift``,
         read as the state and overwritten in place with the new one.
-        ``seq``: ``x`` is this rank's rows of T; the layer runs whole on
-        every rank over all rows (gathered) and keeps its own."""
-        if seq.on:
-            out, _ = self(gather(x, 1, seq), positions=positions)
-            return split(out, 1, seq), None
+        ``seq``: ``x`` is this rank's rows of T; the time and channel mix
+        gather every row on entry and hand back this rank's."""
         cfg = self.cfg
         st = cache if cache is not None else rwkv_block_state(
-            x.shape[0], cfg.d_model, self.n_heads, x.dtype, x.device)
-        h, tm = rwkv_time_mix(self.rwkv, self.norm1(x, cfg.norm_eps), st)
+            x.shape[0], cfg.d_model, self.n_heads, x.dtype, x.device,
+            self.rwkv.tp)
+        h, tm = rwkv_time_mix(self.rwkv, self.norm1(x, cfg.norm_eps, seq),
+                              st, seq)
         x = x + h
-        h, cm_shift = rwkv_channel_mix(self.rwkv, self.norm2(x, cfg.norm_eps),
-                                       st["cm_shift"])
+        h, cm_shift = rwkv_channel_mix(
+            self.rwkv, self.norm2(x, cfg.norm_eps, seq), st["cm_shift"], seq)
         if cache is not None:
             cache["shift"].copy_(tm["shift"])
             cache["S"].copy_(tm["S"])
@@ -352,17 +353,18 @@ class Transformer(nn.Module):
 
     def shard_(self, mesh=None, *, tp: Optional[TP] = None) -> "Transformer":
         """Split compute over ``mesh``'s ``model`` axis (or ``tp``), in
-        place: each attention, dense SwiGLU, RG-LRU block, MoE expert stack
-        (expert parallelism) and the embedding / head keep this rank's
-        shards (their modules' ``tensor_parallel_``).  Built whole first:
+        place: each attention, dense SwiGLU, RG-LRU block, RWKV-6 block
+        (heads and hidden units), MoE expert stack (expert parallelism)
+        and the embedding / head keep this rank's shards (their modules'
+        ``tensor_parallel_``).  Built whole first:
         the full tensors are freed as the shards replace them.  One rank on
         ``model`` changes nothing.
 
         Computed on full tensors on every rank, and named in
         :attr:`tp_gathered`: the MoE router (its top-k reads every
-        expert's logit), RWKV-6 layers (head parallelism), the frontend,
-        and an attention, FFN or MoE whose heads, width or experts do not
-        split over the ranks.  The block-sparse FFN is replicated, as
+        expert's logit), the frontend, and an attention, FFN, RWKV-6 block
+        or MoE whose heads, width or experts do not split over the
+        ranks.  The block-sparse FFN is replicated, as
         ``repro``'s rules replicate its blocks."""
         tp = tp_group(mesh) if tp is None else tp
         if self.tp.on:
@@ -392,7 +394,7 @@ class Transformer(nn.Module):
                                ("layers", self.layers)):
             for i, blk in enumerate(blocks):
                 name = f"{prefix}.{i}"
-                for attr in ("attn", "xattn", "rec"):
+                for attr in ("attn", "xattn", "rec", "rwkv"):
                     mod = getattr(blk, attr, None)
                     if mod is not None:
                         split(f"{name}.{attr}", mod)
@@ -402,9 +404,6 @@ class Transformer(nn.Module):
                     split(f"{name}.moe", blk.moe)
                     gathered[f"{name}.moe.router"] = \
                         "the MoE router (top-k reads every expert's logit)"
-                if isinstance(blk, RWKVLayer):
-                    gathered[f"{name}.rwkv"] = \
-                        "RWKV-6 (head parallelism: a later slice)"
         self.tp, self.tp_gathered = tp, gathered
         return self
 
@@ -706,8 +705,9 @@ class Transformer(nn.Module):
         int8 KV cache over local layers: the ring has no int8 mode
         (``repro``'s ring write drops the scales).
 
-        On a split model each rank's cache holds the RG-LRU channels it
-        runs, and for an attention split by heads the KV heads its query
+        On a split model each rank's cache holds the RG-LRU channels and
+        the RWKV-6 heads (``S``) it runs, and for an attention split by
+        heads the KV heads its query
         heads read (``Attention.kv_span``: one KV head shared by several
         ranks is held by each of them).  An attention that runs whole on
         every rank (heads that do not split over ``model``) keeps its
@@ -769,8 +769,10 @@ class Transformer(nn.Module):
                               device=dev))
         n_rwkv = groups.count("rwkv")
         if n_rwkv:
+            rwkv = next(m for m in self.modules()
+                        if isinstance(m, RWKVBlock))
             st = rwkv_block_state(n_rwkv * batch_size, cfg.d_model,
-                                  cfg.n_heads or 32, dt, dev)
+                                  cfg.n_heads or 32, dt, dev, rwkv.tp)
             cache.update({k: v.reshape(n_rwkv, batch_size, *v.shape[1:])
                           for k, v in st.items()})
         return cache

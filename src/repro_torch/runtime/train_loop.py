@@ -19,11 +19,12 @@ with a checkpoint directory always resumes from its latest checkpoint
 axes, one process a device): the model is split tensor parallel over
 ``model`` (``Transformer.shard_``): each attention runs this rank's heads,
 each dense SwiGLU its hidden units, each RG-LRU block its channels, each
-MoE layer its experts (the router whole), the embedding and head its rows
-of the vocabulary, with the all-reduces and all-gathers of
+RWKV-6 block its heads and hidden units, each MoE layer its experts (the
+router whole), the embedding and head its rows of the vocabulary, with
+the all-reduces and all-gathers of
 :mod:`repro_torch.sharding.tensor_parallel` between them.  The MoE
-router, RWKV-6 layers and the frontend still compute on full tensors on
-every rank along ``model`` (``Transformer.tp_gathered``), and the
+router and the frontend still compute on full tensors on every rank
+along ``model`` (``Transformer.tp_gathered``), and the
 block-sparse FFN is replicated, as ``repro``'s rules replicate its
 blocks.  Every parameter lives as this rank's shard of
 ``repro_torch.sharding``'s rules (``Transformer.zero3_``): the shards are

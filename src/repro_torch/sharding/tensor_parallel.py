@@ -14,7 +14,11 @@ three autograd collectives over the ``model`` group join them:
 * :func:`gather`: all-gather forward; backward the slice of this rank
   (``grad="slice"``: the consumer is replicated) or the reduce-scatter
   of every rank's gradient (``grad="sum"``: each rank consumes a different
-  part).
+  part);
+* :func:`reduce_stat`: all-reduce forward and backward (a statistic over
+  every rank's share, such as the sum of squares of a norm over channels
+  split by heads, that each rank's own compute then reads: the gradient of
+  the total is the sum of the ranks' partial gradients).
 
 They call ``dist.all_reduce`` / ``all_gather_into_tensor`` /
 ``reduce_scatter_tensor``, which ``roofline.CommRecorder`` records.  With
@@ -129,6 +133,17 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
+class _ReduceStat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, tp, grad):
@@ -202,6 +217,13 @@ def copy_in(x: torch.Tensor, tp: TP) -> torch.Tensor:
 def reduce_out(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """All-reduce (sum over ``model``) forward, identity backward."""
     return _ReduceOut.apply(x, tp.group) if tp.on else x
+
+
+def reduce_stat(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """All-reduce (sum over ``model``) forward and backward: the total of
+    each rank's partial statistic, read by rank-local compute, so each
+    rank's gradient of the total is partial and the ranks' are summed."""
+    return _ReduceStat.apply(x, tp.group) if tp.on else x
 
 
 def gather(x: torch.Tensor, dim: int, tp: TP,

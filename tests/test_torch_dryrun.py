@@ -436,14 +436,19 @@ def test_folded_microbatches_give_the_whole_step(monkeypatch):
     assert sorted(folded["records"]) == sorted(whole["records"])
 
 
-@pytest.mark.parametrize("kind", ["train", "prefill"])
-def test_folded_length_equals_a_direct_trace(kind, monkeypatch):
+@pytest.mark.parametrize("kind,sizes", [
+    ("train", (2, 1)), ("prefill", (2, 1)), ("train", (1, 2)),
+    ("prefill", (1, 2))], ids=["train", "prefill", "train-1x2",
+                               "prefill-1x2"])
+def test_folded_length_equals_a_direct_trace(kind, sizes, monkeypatch):
     """RWKV-6 (no attention) traced at 1 and 2 layers over 8, 16 and 24
     positions and extended to 3 layers over 32: FLOPs, bytes and
     collective bytes equal a direct trace of 3 layers over 32 exactly, and
     so does every category of the peak in training; in prefill the
     peak's total lies within 2 % (its largest point still moves at these
-    lengths: measured 1.2 %) (reduced widths, a fake 2 × 1 world)."""
+    lengths: measured 1.2 %) (reduced widths, a fake 2 × 1 world, and a
+    fake 1 × 2 one whose two ``model`` ranks split each RWKV layer by
+    heads: its collectives grow with T too)."""
     from repro_torch.launch.mesh import make_test_mesh
     monkeypatch.setattr(dryrun, "FOLD_SEQ", (8, 16, 24))
     cfg = dataclasses.replace(reduced_config(REGISTRY["rwkv6-1.6b"]),
@@ -451,9 +456,10 @@ def test_folded_length_equals_a_direct_trace(kind, monkeypatch):
     shape = ShapeConfig("t", kind, 32, 2)
     assert dryrun.host_loop(cfg, shape)
     with dryrun.fake_world(2):
-        mesh = make_test_mesh(2, 1, device="cpu")
+        mesh = make_test_mesh(*sizes, device="cpu")
         folded = dryrun.trace_folded(cfg, shape, mesh, dev="cpu")
         whole = dryrun.trace_cell(cfg, shape, mesh, dev="cpu")
+    assert whole["tp"] == sizes[1] and not whole["tp_gathered"]
     from repro_torch.roofline import collective_bytes
     assert folded["collectives"] == collective_bytes(whole["records"])
     for key in ("flops", "bytes", "argument"):
@@ -464,6 +470,31 @@ def test_folded_length_equals_a_direct_trace(kind, monkeypatch):
     else:
         err = abs(folded["peak"]["Total"] / whole["peak"]["Total"] - 1)
         assert err <= 0.02, err
+
+
+def test_rwkv_cells_are_tensor_parallel(monkeypatch):
+    """RWKV-6's four cells (train, prefill, decode, long context) through
+    the command line on the 16 x 16 fake mesh, its config cut to a CPU
+    size with 16 heads so that they split over the 16 ``model`` ranks as
+    rwkv6-1.6b's 32 do: each reports ``tensor_parallel`` true and nothing
+    gathered, and its collectives all-reduce (the split blocks' outputs
+    and ``ln_x``'s statistic)."""
+    small = dataclasses.replace(reduced_config(REGISTRY["rwkv6-1.6b"]),
+                                n_heads=16)
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: small)
+    monkeypatch.setattr(dryrun, "SHAPES", {
+        k: dataclasses.replace(v, seq_len=32) for k, v in SHAPES.items()})
+    shapes = [s for s in SHAPES if cell_is_live("rwkv6-1.6b", s)]
+    assert shapes == ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+    with tempfile.TemporaryDirectory() as out:
+        for shape in shapes:
+            dryrun.main(["--arch", "rwkv6-1.6b", "--shape", shape,
+                         "--device", "cpu", "--out", out])
+            res = json.load(open(os.path.join(
+                out, f"rwkv6-1.6b__{shape}__pod_16x16.json")))
+            assert res["tensor_parallel"] and res["tp"] == 16, shape
+            assert res["tp_gathered"] == [], shape
+            assert res["collectives_bytes_per_device"]["all-reduce"] > 0
 
 
 def test_gathered_decode_cell_splits_its_cache_on_time():
