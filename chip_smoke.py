@@ -87,6 +87,19 @@
    ``SparseLinear.from_pattern(policy="auto")`` forward and backward vs
    the reference backend, its search counted once, then answered from
    the cache.
+3c. Check ([check], before the model exists): the kernel analyzers
+   (``repro_torch.analysis``: index-range, parallel-race, ring-slot-war,
+   sem-balance, the order rules, vmem-budget) over the checked build of
+   the kernels (``-DREPRO_CHECKED``, built beside the release libraries in
+   step 1).  The faulty toys of ``csrc/check_toys.cu`` run in a child
+   process, each caught by exactly its rule, the correct ring and the
+   vmem toy at the default limit clean; then every shipped path at small
+   shapes (SpMM split / simt / tc in both directions and five storage
+   modes, a ``cross_pass`` plan, SpGEMM tc / simt, attention splitkv / tc
+   / simt causal and windowed with GQA, the grouped GEMM on both kernels
+   with live rows, the RG-LRU on both paths, and both backward kernels on
+   both paths through autograd): no finding, every event kind its kernels
+   log present, each output equal to the release kernels' bit for bit.
 4. Kernel vs plain version: the Segment SpMM kernels on the shapes the
    main paths give them (granite-3-8b's up/gate and down FFN patterns at
    N = 4, 16, 64, B in bf16 and fp32; the training width N = 2048; a
@@ -380,8 +393,8 @@ zero3,seq,dryrun,rwkv_tp``) builds no 40-layer granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
+import atexit
 import contextlib
-import ctypes
 import dataclasses
 import gc
 import importlib
@@ -531,7 +544,16 @@ def device_ms(fn, reps=20, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
-def phase_card():
+# the checked build ([check]), started during [build]
+CHECKED_BUILD = None
+
+
+def phase_card(checked=False):
+    """Card, versions, and the release build; with ``checked`` the checked
+    build starts once the release build's runs hold at most half the
+    cores, at a lower priority, and overlaps the phases before [check],
+    which waits for it."""
+    global CHECKED_BUILD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -542,9 +564,20 @@ def phase_card():
           f"count {torch.cuda.device_count()}")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build_all()
+    job = build.start_build()
+    if checked:
+        # once the release build holds at most half the cores (its short
+        # libraries done, ~35 s), the checked one takes the rest
+        while job.running() > (os.cpu_count() or 8) // 2:
+            time.sleep(0.2)
+        CHECKED_BUILD = build.start_build(release=False, checked=True,
+                                          nice=CHECKED_BUILD_NICE)
+        atexit.register(CHECKED_BUILD.stop)   # a failed phase leaves none
+    libs = job.wait()
     print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; per library "
+          + " ".join(f"{Path(k).stem} {v:.0f}" for k, v in
+                     sorted(job.seconds.items(), key=lambda kv: -kv[1])))
     for src, lib in libs.items():
         log = Path(str(lib) + ".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -4206,6 +4239,75 @@ TUNE_SLOWDOWN = 1.10
 TUNE_ROUNDS = 3
 
 
+# [check]: the toys' child process gets this long (each toy is milliseconds;
+# a toy that stalled an mbarrier would trap after ~9 s)
+CHECK_TOY_TIMEOUT = 180
+# the checked build's niceness: it runs beside the release build and
+# [spgemm], [ops] and [tune] (whose measurements are device times), and
+# yields the host to them
+CHECKED_BUILD_NICE = 10
+
+
+def phase_check(dev):
+    """[check]: the kernel analyzers over the checked build.  The faulty
+    toys of ``csrc/check_toys.cu`` in a child process, each caught by
+    exactly its rule (the correct ring and the vmem toy at the default
+    limit clean); every shipped path
+    (``analysis.jaxpr_lint.shipped_paths``) clean, each holding at least
+    one event of every kind its kernels log, its output equal to the
+    release kernels' on the same inputs bit for bit."""
+    from repro_torch.analysis import jaxpr_lint
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    job = CHECKED_BUILD or build.start_build(release=False, checked=True)
+    job.wait()
+    print(f"[clock] checked build ({' '.join(build.CHECKED_FLAGS)}, "
+          f"{len(build.CHECKED_SOURCES)} libraries): "
+          f"{max(job.seconds.values(), default=0.0):.1f} s from its start "
+          f"in [build], in the background; [check] waited "
+          f"{time.perf_counter() - t0:.1f} s for it; per library "
+          + " ".join(f"{Path(k.split()[0]).stem} {v:.0f}" for k, v in
+                     sorted(job.seconds.items(), key=lambda kv: -kv[1])))
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.toys"], env=env,
+        capture_output=True, text=True, timeout=CHECK_TOY_TIMEOUT)
+    toys = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    for r in toys:
+        print(f"[check toy] {r['toy']:<20} rules {r['rules']} (want "
+              f"{r['want']}) events {r['events']}"
+              + (f": {r['messages'][0]}" if r["messages"] else ""))
+    check(proc.returncode == 0 and len(toys) == 9
+          and all(r["ok"] for r in toys),
+          f"[check] toys: rc {proc.returncode}, {len(toys)} results, "
+          f"stderr {proc.stderr[-2000:]}")
+    t_toys = time.perf_counter() - t0
+    reports = jaxpr_lint.analyze_paths(jaxpr_lint.shipped_paths(dev),
+                                       compare=True)
+    launches = 0
+    for r in reports:
+        launches += len(r.launches)
+        names = sorted({l.name.split(":", 1)[1] for l in r.launches})
+        print(f"[check path] {r.label:<26} {len(r.launches)} launch(es) "
+              f"{names} events {dict(sorted(r.events.items()))} findings "
+              f"{len(r.findings)} release-equal {r.equal}")
+        for f in r.findings[:3]:
+            print(f"[check path]   {f}")
+    bad = [f for r in reports for f in r.findings]
+    check(not bad, f"[check] {len(bad)} finding(s) over the shipped paths: "
+                   f"{[str(f) for f in bad[:5]]}")
+    differ = [(r.label, r.max_diff) for r in reports if not r.equal]
+    check(not differ, f"[check] checked outputs differ from the release "
+                      f"kernels': {differ}")
+    print(f"[check] {len(toys)} toys each caught by exactly its rule "
+          f"({t_toys:.1f} s, child process); {len(reports)} shipped paths, "
+          f"{launches} checked launches, no finding, every output equal "
+          f"to the release kernels' bit for bit")
+
+
 def _granite_ffn():
     """Granite-3-8b's up and down projection patterns at full width, with
     random values, from ``SEED`` and ``SEED + 1``."""
@@ -4216,26 +4318,6 @@ def _granite_ffn():
                                (4096, 12800), (64, 64), 0.25)}
 
 
-def _smem_exports():
-    """The four SpMM/SpGEMM libraries' shared-memory exports, typed."""
-    from repro_torch.kernels import build
-    i = ctypes.c_int
-    out = {}
-    for src, name, n in (("segment_spmm.cu", "segment_spmm_smem_bytes", 5),
-                         ("segment_spmm.cu", "segment_spmm_split_smem_bytes",
-                          3),
-                         ("segment_spmm_tc.cu", "segment_spmm_tc_smem_bytes",
-                          3),
-                         ("segment_spgemm.cu", "segment_spgemm_smem_bytes", 5),
-                         ("segment_spgemm_tc.cu",
-                          "segment_spgemm_tc_smem_bytes", 2)):
-        fn = getattr(build.load(src), name)
-        fn.argtypes = [i] * n
-        fn.restype = ctypes.c_longlong
-        out[name] = fn
-    return out
-
-
 def tune_budget(dev, up):
     """The closed forms of ``analysis.budget`` against every compiled
     launcher's own number, exactly, over every instantiation the launchers
@@ -4243,7 +4325,7 @@ def tune_budget(dev, up):
     launch, and the same plan at the default limit running."""
     from repro_torch import api
     from repro_torch.analysis import budget
-    ex = _smem_exports()
+    ex = budget.smem_exports()
     modes = ((0, 0), (1, 1), (1, 2), (2, 1), (2, 2))
     rows = []
     for p, s in modes:
@@ -6359,13 +6441,13 @@ def phase_dryrun(dev):
                      1, dev)]
 
 
-PHASES = ("spgemm", "ops", "tune", "kernel", "crossover", "edges", "serve",
-          "qkernel", "qserve", "qgrad", "train", "verify", "hybrid", "mixed",
-          "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist", "tp",
-          "zero3", "seq", "dryrun", "rwkv_tp")
-# the phases that need granite-3-8b built (``--only spgemm,ops,tune``,
+PHASES = ("spgemm", "ops", "tune", "check", "kernel", "crossover", "edges",
+          "serve", "qkernel", "qserve", "qgrad", "train", "verify", "hybrid",
+          "mixed", "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist",
+          "tp", "zero3", "seq", "dryrun", "rwkv_tp")
+# the phases that need granite-3-8b built (``--only spgemm,ops,tune,check``,
 # ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
-GRANITE_PHASES = PHASES[3:PHASES.index("hybrid")]
+GRANITE_PHASES = PHASES[PHASES.index("kernel"):PHASES.index("hybrid")]
 
 
 # the function one rank of each multi-rank phase runs
@@ -6422,7 +6504,7 @@ def main():
               f"(at {now - marks['start']:.1f} s)")
         marks["last"] = now
 
-    smi = phase_card()
+    smi = phase_card(checked="check" in only)
     clock("card")
     if "spgemm" in only:
         (spgemm_recs, spgemm_launches, spgemm_quantized,
@@ -6438,6 +6520,11 @@ def main():
     if "tune" in only:
         tune_counts, tune_tc_rec, tune_g_rec = phase_tune(dev)
         clock("tune")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "check" in only:
+        phase_check(dev)
+        clock("check")
         gc.collect()
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()   # [memory] reads the model's peak

@@ -36,12 +36,24 @@ not depend on ``unroll`` or ``pipeline`` (the kernels read neither), so
 those keywords are accepted and ignored.  Block shapes no CUDA path takes
 (16×16, say) are priced with the CUDA-core kernels' formulas, which is what
 those kernels would ask for at that shape.
+
+The ``vmem-budget`` rule of the kernel analyzers reads a checked launch:
+:func:`kernel_vmem_bytes` is its static shared memory plus its dynamic
+request, as the card reports them to the kernel (``%total_smem_size``,
+``%dynamic_smem_size``; the dynamic request is the launcher's
+``*_smem_bytes`` export, :func:`smem_exports`), and
+:func:`check_vmem_budget` flags a launch over the limit.
+
+Rule id: ``vmem-budget``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.kernels.segment_spmm import TC_MIN_N, _split_tile_n, _tile_n
+
+RULE = "vmem-budget"
 
 #: the H100's opt-in dynamic shared memory of one thread block (227 KiB)
 SMEM_OPT_IN = 232448
@@ -318,3 +330,54 @@ def check_plan_vmem(plan, *, bn: int = 512, n_cols: Optional[int] = None,
             f"dtype={plan.block_dtype}); choose a "
             f"smaller block or raise vmem_limit_bytes")
     return total
+
+
+# ---------------------------------------------------------------------------
+# the compiled numbers, and the rule over a checked launch
+# ---------------------------------------------------------------------------
+
+#: each launcher's shared-memory export: (source, name, int arguments)
+SMEM_EXPORTS = (("segment_spmm.cu", "segment_spmm_smem_bytes", 5),
+                ("segment_spmm.cu", "segment_spmm_split_smem_bytes", 3),
+                ("segment_spmm_tc.cu", "segment_spmm_tc_smem_bytes", 3),
+                ("segment_spgemm.cu", "segment_spgemm_smem_bytes", 5),
+                ("segment_spgemm_tc.cu", "segment_spgemm_tc_smem_bytes", 2))
+
+
+def smem_exports() -> Dict[str, object]:
+    """The release libraries' ``*_smem_bytes`` exports, typed, by name:
+    the dynamic shared memory each launcher asks for (-1 where it refuses
+    the arguments).  Builds the libraries on first use."""
+    from repro_torch.kernels import build
+    out = {}
+    for src, name, n in SMEM_EXPORTS:
+        fn = getattr(build.load(src, checked=False), name)
+        fn.argtypes = [ctypes.c_int] * n
+        fn.restype = ctypes.c_longlong
+        out[name] = fn
+    return out
+
+
+def kernel_vmem_bytes(launch) -> Dict[str, int]:
+    """Shared memory of one checked launch (an
+    :class:`~repro_torch.analysis.trace.Launch`): ``static`` (the compiled
+    kernel's), ``dynamic`` (the launch's request) and ``total``."""
+    return {"static": int(launch.static_smem),
+            "dynamic": int(launch.dynamic_smem),
+            "total": int(launch.static_smem + launch.dynamic_smem)}
+
+
+def check_vmem_budget(launch, vmem_limit: int = DEFAULT_VMEM_LIMIT_BYTES
+                      ) -> List:
+    """The ``vmem-budget`` rule: a finding when the launch's static and
+    dynamic shared memory together exceed ``vmem_limit`` bytes."""
+    from .jaxpr_lint import LintFinding
+    b = kernel_vmem_bytes(launch)
+    if b["total"] <= vmem_limit:
+        return []
+    return [LintFinding(
+        rule=RULE,
+        message=(f"shared memory {b['total']} bytes (static {b['static']}, "
+                 f"dynamic {b['dynamic']}) exceeds the {vmem_limit}-byte "
+                 f"limit"),
+        kernel=launch.name)]

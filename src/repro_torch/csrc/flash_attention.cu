@@ -113,6 +113,13 @@ constexpr int kMaxDevices = 64;
 constexpr float kMasked = -1e30f;    // repro's finite "minus infinity"
 constexpr float kAbsent = -3e38f;    // a key outside every live TPU tile
 constexpr int kSplitUnit = 64;       // split_keys is a multiple of this
+// the checked build's operands and rings (check.cuh)
+enum CkOp {
+  kOpQ = 0, kOpK, kOpV, kOpOut, kOpWork, kOpCounters, kOpParts, kOpStats
+};
+constexpr int kRingKV = 0;   // simt / splitkv: a stage holds K's and V's tile
+constexpr int kRingQ = 1;    // tc: Q's parts, loaded once
+constexpr int kRingTC = 2;   // tc: a slot holds K's or V's parts of a tile
 
 using bf16 = __nv_bfloat16;
 
@@ -251,20 +258,6 @@ __device__ __forceinline__ void store2(void* out, long long off, int out_bf16,
   }
 }
 
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -345,6 +338,19 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
   const int j_hi = min(n_kv, (split + 1) * tiles_per_split);
   const TK* kb = k + bh * p.tk * D;
   const TV* vb = v + bh * p.tk * D;
+  CK_BEGIN();
+  CK(operand, kOpQ, static_cast<const unsigned char*>(q), ck::kInput);
+  CK(operand, kOpK, k, ck::kInput);
+  CK(operand, kOpV, v, ck::kInput);
+  CK(operand, kOpOut, static_cast<const unsigned char*>(out), ck::kOutput);
+  CK(operand, kOpWork, work, ck::kWorkspace);
+  CK(operand, kOpCounters, counters, ck::kCounterOp);
+  CK(operand, kOpStats, p.stats, ck::kOutput);
+  CK(ring, kRingKV, 2, ck::kGroups);
+  CK_IF(t == 0, gread, kOpQ, static_cast<const unsigned char*>(q),
+        static_cast<const unsigned char*>(q) +
+            (bh * p.tq + q0) * D * (p.q_bf16 ? 2 : 4),
+        1, min(BQ, p.tq - q0) * D * (p.q_bf16 ? 2 : 4));
 
   // Q tile to fp32 shared memory (rows past Tq read as 0)
   const long long qoff = bh * p.tq * D;
@@ -368,6 +374,13 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
   };
   auto issue = [&](int j, int s) {
     if (j < j_hi) {
+      // keys past Tk are zeros written by cp.async from 0 source bytes:
+      // only the live rows are read
+      CK_IF(t == 0, issue, kRingKV, s);
+      CK_IF(t == 0, gread, kOpK, k, kb + static_cast<long long>(j) * BKV * D,
+            1, min(BKV, p.tk - j * BKV) * D);
+      CK_IF(t == 0, gread, kOpV, v, vb + static_cast<long long>(j) * BKV * D,
+            1, min(BKV, p.tk - j * BKV) * D);
       TK* ks = reinterpret_cast<TK*>(ring + s * kStage);
       TV* vs = reinterpret_cast<TV*>(ring + s * kStage +
                                      BKV * KPK * int(sizeof(TK)));
@@ -392,7 +405,8 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
                    ok ? 16 : 0);
       }
     }
-    cp_async_commit();   // empty groups keep the wait count uniform
+    // empty groups keep the wait count uniform
+    cp_async_commit(CK_TAG(t == 0, kRingKV, 0, 0));
   };
 
   // per-row state: position, TPU tile start, running max / sum
@@ -421,6 +435,8 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
     issue(jn, s ^ 1);
     cp_async_wait<1>();   // tile j landed (this thread's copies)
     __syncthreads();      // everyone's copies and the Q tile visible
+    CK_IF(t == 0, groups, kRingKV, 1);
+    CK_IF(t == 0, read, kRingKV, s);
     const TK* ks = reinterpret_cast<const TK*>(ring + s * kStage);
     const TV* vs = reinterpret_cast<const TV*>(ring + s * kStage +
                                                BKV * KPK * int(sizeof(TK)));
@@ -509,13 +525,21 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
       }
     }
     __syncthreads();   // stage s and P are free for the next tile
+    CK_IF(t == 0, release, kRingKV, s);
     j = jn;
     jn = j < j_hi ? next_live(j + 1) : j_hi;
     s ^= 1;
   }
   cp_async_wait<0>();
+  CK_IF(t == 0, groups, kRingKV, 0);
 
   if (n_splits == 1) {
+    CK_IF(t == 0 && p.stats, gwrite, kOpStats, p.stats,
+          p.stats + 2 * (bh * p.tq + q0), 1, 2 * min(BQ, p.tq - q0));
+    CK_IF(t == 0, gwrite, kOpOut, static_cast<const unsigned char*>(out),
+          static_cast<const unsigned char*>(out) +
+              (bh * p.tq + q0) * D * (p.out_bf16 ? 2 : 4),
+          1, min(BQ, p.tq - q0) * D * (p.out_bf16 ? 2 : 4));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!rvalid[i]) continue;
@@ -540,6 +564,7 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
   const long long ps_size = static_cast<long long>(BQ) * (D + 2);
   const long long tile = bh * n_qt + qt;
   float* part = work + (tile * n_splits + split) * ps_size;
+  CK_IF(t == 0, gwrite, kOpWork, work, part, 1, static_cast<int>(ps_size));
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i;
@@ -562,6 +587,7 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
   if (t == 0) {
     int* ctr = counters + tile;
     const int done = atomicAdd(ctr, 1);
+    CK(counter, kOpCounters, tile, done, n_splits);
     last = done == n_splits - 1;
     if (last) *ctr = 0;   // ready for the next launch
   }
@@ -569,6 +595,14 @@ __global__ void __launch_bounds__(4 * BQ) attn_simt_kernel(
   if (!last) return;
   __threadfence();
   const float* first = work + tile * n_splits * ps_size;
+  CK_IF(t == 0, gread, kOpWork, work, first, 1,
+        static_cast<int>(n_splits * ps_size));
+  CK_IF(t == 0 && p.stats, gwrite, kOpStats, p.stats,
+        p.stats + 2 * (bh * p.tq + q0), 1, 2 * min(BQ, p.tq - q0));
+  CK_IF(t == 0, gwrite, kOpOut, static_cast<const unsigned char*>(out),
+        static_cast<const unsigned char*>(out) +
+            (bh * p.tq + q0) * D * (p.out_bf16 ? 2 : 4),
+        1, min(BQ, p.tq - q0) * D * (p.out_bf16 ? 2 : 4));
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i;
@@ -702,6 +736,11 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
       ++j;
     return j;
   };
+  CK_BEGIN();
+  CK(operand, kOpOut, static_cast<const unsigned char*>(out), ck::kOutput);
+  CK(operand, kOpStats, p.stats, ck::kOutput);
+  CK(ring, kRingQ, 1, ck::kMbarrier);
+  CK(ring, kRingTC, kSlots, ck::kMbarrier);
 
   if (t >= 128 * WGS) {
     // producer warpgroup: its first thread loads each consumer's Q parts,
@@ -709,24 +748,30 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
     // slot n % kSlots)
     if constexpr (WGS == 2) regs_down<Lay::kProducerRegs>();
     if (t != 128 * WGS) return;
-    mbar_expect_tx(qbar, WGS * PARTS * NCH * Lay::kQChunk);
+    mbar_expect_tx(qbar, WGS * PARTS * NCH * Lay::kQChunk,
+                   CK_TAG(true, kRingQ, 0, 0));
+    // boxes past D and past Tq rely on TMA's zero fill
     for (int w = 0; w < WGS; ++w)
       for (int pt = 0; pt < PARTS; ++pt)
         for (int ch = 0; ch < NCH; ++ch)
           tma_3d(qsm + w * Lay::kQWg + pt * Lay::kQPart + ch * Lay::kQChunk,
-                 &map_q, qbar, 64 * ch, q0 + kWgRows * w, bhi + pt * p.bh);
+                 &map_q, qbar, 64 * ch, q0 + kWgRows * w, bhi + pt * p.bh,
+                 CK_BOX(true, kOpQ, 64, kWgRows, 1, ck::kZeroFill));
     int n = 0;
     for (int j = next_live(0); j < n_kv; j = next_live(j + 1)) {
       for (int op = 0; op < 2; ++op, ++n) {   // K, then V
         const CUtensorMap* map = op ? &map_v : &map_k;
         const int s = n % kSlots;
         mbar_wait(empty(s), ((n / kSlots) & 1) ^ 1);
-        mbar_expect_tx(full(s), PARTS * NCH * Lay::kKVChunk);
+        mbar_expect_tx(full(s), PARTS * NCH * Lay::kKVChunk,
+                       CK_TAG(true, kRingTC, s, 0));
         const uint32_t st = ring + s * Lay::kSlot;
+        // boxes past D and past Tk rely on TMA's zero fill
         for (int pt = 0; pt < PARTS; ++pt)
           for (int ch = 0; ch < NCH; ++ch)
             tma_3d(st + pt * Lay::kKVPart + ch * Lay::kKVChunk, map, full(s),
-                   64 * ch, j * BKV, bhi + pt * p.bh);
+                   64 * ch, j * BKV, bhi + pt * p.bh,
+                   CK_BOX(true, op ? kOpV : kOpK, 64, BKV, 1, ck::kZeroFill));
       }
     }
     return;
@@ -762,7 +807,9 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc[ch][x] = 0.f;
 
-  mbar_wait(qbar, 0);
+  // thread 0 of a warpgroup logs its events (t % 128 == 0)
+  mbar_wait(qbar, 0, CK_TAG(t % 128 == 0, kRingQ, 0, wg + 1));
+  CK_IF(t % 128 == 0, read, kRingQ, 0, wg + 1);
   int n = 0;
   for (int j = next_live(0); j < n_kv; j = next_live(j + 1)) {
     const int sk = n % kSlots;
@@ -774,7 +821,8 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
 
     // S = Q K^T over the passes, in a fresh fragment
     float s[BKV / 2];
-    mbar_wait(full(sk), phk);
+    mbar_wait(full(sk), phk, CK_TAG(t % 128 == 0, kRingTC, sk, wg + 1));
+    CK_IF(t % 128 == 0, read, kRingTC, sk, wg + 1);
     const uint32_t kst = ring + sk * Lay::kSlot;
     wgmma_fence();
 #pragma unroll
@@ -801,7 +849,8 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
 #pragma unroll
     for (int x = 0; x < BKV / 2; ++x) fence_operand(s[x]);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty(sk));
+    if (lane == 0)
+      mbar_arrive(empty(sk), CK_TAG(t % 128 == 0, kRingTC, sk, wg + 1));
 
     // scale, masks, online softmax (rows reduced over the lane quad)
     const bool plain = tile_unmasked(p, r_lo, r_lo + kWgRows - 1, j * BKV,
@@ -864,7 +913,8 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
 
     // acc += P V, 64 columns at a time, each in a fresh fragment added in
     // fp32 (V is MN-major: a k16 step is 16 key rows, 2 KiB, on)
-    mbar_wait(full(sv), phv);
+    mbar_wait(full(sv), phv, CK_TAG(t % 128 == 0, kRingTC, sv, wg + 1));
+    CK_IF(t % 128 == 0, read, kRingTC, sv, wg + 1);
     const uint32_t vst = ring + sv * Lay::kSlot;
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch) {
@@ -892,8 +942,18 @@ __global__ void __launch_bounds__(Layout<DMAX>::kThreads, 1) attn_tc_kernel(
       }
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty(sv));
+    if (lane == 0)
+      mbar_arrive(empty(sv), CK_TAG(t % 128 == 0, kRingTC, sv, wg + 1));
   }
+  CK_IF(t % 128 == 0 && r_lo < p.tq && p.stats, gwrite, kOpStats, p.stats,
+        p.stats + 2 * (static_cast<long long>(bhi) * p.tq + r_lo), 1,
+        2 * min(kWgRows, p.tq - r_lo));
+  CK_IF(t % 128 == 0 && r_lo < p.tq, gwrite, kOpOut,
+        static_cast<const unsigned char*>(out),
+        static_cast<const unsigned char*>(out) +
+            (static_cast<long long>(bhi) * p.tq + r_lo) * p.d *
+                (p.out_bf16 ? 2 : 4),
+        1, min(kWgRows, p.tq - r_lo) * p.d * (p.out_bf16 ? 2 : 4));
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -945,6 +1005,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
   if (static_cast<long long>(p.bh) * n_qt > INT_MAX || n_splits > 65535)
     return -1;
   const dim3 grid(static_cast<unsigned>(p.bh * n_qt), n_splits);
+  CK_LAUNCH("attn_simt_kernel", stream);
   kernel<<<grid, T::kThreads, smem, stream>>>(
       q, static_cast<const TK*>(k), static_cast<const TV*>(v), out, work,
       counters, p, tps);
@@ -1016,6 +1077,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   const long long blocks =
       static_cast<long long>(p.bh) * ((p.tq + Lay::kBQ - 1) / Lay::kBQ);
   if (blocks > INT_MAX) return -1;
+  CK_MAP(kOpQ, p.d, p.tq, static_cast<long long>(PARTS) * p.bh, stream);
+  CK_MAP(kOpK, p.d, p.tk, static_cast<long long>(PARTS) * p.bh, stream);
+  CK_MAP(kOpV, p.d, p.tk, static_cast<long long>(PARTS) * p.bh, stream);
+  CK_LAUNCH("attn_tc_kernel", stream);
   kernel<<<static_cast<unsigned>(blocks), Lay::kThreads, Lay::kSmem,
            stream>>>(maps[0], maps[1], maps[2], out, p);
   return static_cast<int>(cudaGetLastError());
@@ -1033,6 +1098,10 @@ int tc_by_dim(const void* q, const void* k, const void* v, void* out,
 }
 
 }  // namespace
+
+CK_NAMES("op:0:q op:1:k op:2:v op:3:out op:4:work op:5:counters "
+         "op:6:parts op:7:stats ring:0:kv_tiles ring:1:q_parts "
+         "ring:2:kv_parts")
 
 extern "C" {
 

@@ -67,6 +67,15 @@ constexpr int kThreads = 256;
 constexpr int kRows = 32;           // query rows of a tile
 constexpr int kKeys = 32;           // keys of a tile
 constexpr int kPP = kKeys + 1;      // P / dS row stride
+// the checked build's operands (check.cuh); 11-15 are the tc kernel's
+// tensor maps: resident 1 and 2, streamed 1 and 2, the row records
+enum CkOp {
+  kOpOut = 0, kOpDout, kOpStats, kOpInfo, kOpQ, kOpK, kOpV, kOpDq, kOpDk,
+  kOpDv, kOpPart, kOpR1, kOpR2, kOpS1, kOpS2, kOpInfoMap
+};
+// tc's rings: the resident tiles (one fill), the streamed slots, the row
+// records of the dK/dV pass
+constexpr int kRingRes = 0, kRingSlots = 1, kRingInfo = 2;
 
 using bf16 = __nv_bfloat16;
 
@@ -254,6 +263,23 @@ __global__ void delta_kernel(const void* __restrict__ out,
   const long long row = blockIdx.x * static_cast<long long>(kThreads / 32) +
                         threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  CK_BEGIN();
+  CK(operand, kOpOut, static_cast<const unsigned char*>(out), ck::kInput);
+  CK(operand, kOpDout, static_cast<const unsigned char*>(dout), ck::kInput);
+  CK(operand, kOpStats, stats, ck::kInput);
+  CK(operand, kOpInfo, info, ck::kOutput);
+#ifdef REPRO_CHECKED
+  if (threadIdx.x == 0) {   // the block's rows
+    const int n = static_cast<int>(
+        min(static_cast<long long>(kThreads / 32), rows - row));
+    CK(rows, ck::kGRead, kOpOut, out, o_bf16, 0, static_cast<int>(row), n,
+       static_cast<int>(rows), D);
+    CK(rows, ck::kGRead, kOpDout, dout, o_bf16, 0, static_cast<int>(row), n,
+       static_cast<int>(rows), D);
+    CK(gread, kOpStats, stats, stats + row, 1, n);
+    CK(gwrite, kOpInfo, info, info + row, 1, n);
+  }
+#endif
   if (row >= rows) return;
   float acc = 0.f;
   for (int col = 4 * lane; col < D; col += 128) {
@@ -314,6 +340,18 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p,
   const int t = threadIdx.x;
   const int kk = t / 8;
   const int cb = 4 * (t % 8);
+  CK_BEGIN();
+  CK(operand, kOpQ, static_cast<const unsigned char*>(a.q), ck::kInput);
+  CK(operand, kOpK, static_cast<const unsigned char*>(a.k), ck::kInput);
+  CK(operand, kOpV, static_cast<const unsigned char*>(a.v), ck::kInput);
+  CK(operand, kOpDout, static_cast<const unsigned char*>(a.dout), ck::kInput);
+  CK(operand, kOpInfo, a.info, ck::kInput);
+  CK(operand, kOpDk, static_cast<const unsigned char*>(a.dk), ck::kOutput);
+  CK(operand, kOpDv, static_cast<const unsigned char*>(a.dv), ck::kOutput);
+  CK_IF(t == 0, rows, ck::kGRead, kOpK, a.k, p.k_bf16, bh, k0, kKeys, p.tk,
+        p.d);
+  CK_IF(t == 0, rows, ck::kGRead, kOpV, a.v, p.v_bf16, bh, k0, kKeys, p.tk,
+        p.d);
   load_rows(ks, S, a.k, p.k_bf16, bh, k0, kKeys, p.tk, p.d);
   load_rows(vs, S, a.v, p.v_bf16, bh, k0, kKeys, p.tk, p.d);
   float4 dk[NC], dv[NC];
@@ -326,6 +364,12 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p,
   for (int rt = 0; rt < n_rt; ++rt) {
     const int r0 = rt * kRows;
     if (!tile_live(p, r0, r0 + kRows - 1, k0, k0 + kKeys - 1)) continue;
+    CK_IF(t == 0, rows, ck::kGRead, kOpQ, a.q, p.q_bf16, bh, r0, kRows, p.tq,
+          p.d);
+    CK_IF(t == 0, rows, ck::kGRead, kOpDout, a.dout, p.o_bf16, bh, r0, kRows,
+          p.tq, p.d);
+    CK_IF(t == 0, gread, kOpInfo, a.info, a.info + bh * p.tq + r0, 1,
+          min(kRows, p.tq - r0));
     load_rows(qs, S, a.q, p.q_bf16, bh, r0, kRows, p.tq, p.d);
     load_rows(dos, S, a.dout, p.o_bf16, bh, r0, kRows, p.tq, p.d);
     load_stats(p, a, bh, r0, ms, ls, dls);
@@ -346,6 +390,10 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p,
     }
     __syncthreads();   // Q, dO, P and dS are free for the next tile
   }
+  CK_IF(t == 0, rows, ck::kGWrite, kOpDk, a.dk, p.k_bf16, bh, k0, kKeys, p.tk,
+        p.d);
+  CK_IF(t == 0, rows, ck::kGWrite, kOpDv, a.dv, p.v_bf16, bh, k0, kKeys, p.tk,
+        p.d);
   const int key = k0 + kk;
   if (key >= p.tk) return;
   const long long off = (bh * p.tk + key) * p.d;
@@ -382,6 +430,19 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p,
   const int t = threadIdx.x;
   const int rr = t / 8;
   const int cb = 4 * (t % 8);
+  CK_BEGIN();
+  CK(operand, kOpQ, static_cast<const unsigned char*>(a.q), ck::kInput);
+  CK(operand, kOpK, static_cast<const unsigned char*>(a.k), ck::kInput);
+  CK(operand, kOpV, static_cast<const unsigned char*>(a.v), ck::kInput);
+  CK(operand, kOpDout, static_cast<const unsigned char*>(a.dout), ck::kInput);
+  CK(operand, kOpInfo, a.info, ck::kInput);
+  CK(operand, kOpDq, static_cast<const unsigned char*>(a.dq), ck::kOutput);
+  CK_IF(t == 0, rows, ck::kGRead, kOpQ, a.q, p.q_bf16, bh, r0, kRows, p.tq,
+        p.d);
+  CK_IF(t == 0, rows, ck::kGRead, kOpDout, a.dout, p.o_bf16, bh, r0, kRows,
+        p.tq, p.d);
+  CK_IF(t == 0, gread, kOpInfo, a.info, a.info + bh * p.tq + r0, 1,
+        min(kRows, p.tq - r0));
   load_rows(qs, S, a.q, p.q_bf16, bh, r0, kRows, p.tq, p.d);
   load_rows(dos, S, a.dout, p.o_bf16, bh, r0, kRows, p.tq, p.d);
   load_stats(p, a, bh, r0, ms, ls, dls);
@@ -392,6 +453,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kKeys;
     if (!tile_live(p, r0, r0 + kRows - 1, k0, k0 + kKeys - 1)) continue;
+    CK_IF(t == 0, rows, ck::kGRead, kOpK, a.k, p.k_bf16, bh, k0, kKeys, p.tk,
+          p.d);
+    CK_IF(t == 0, rows, ck::kGRead, kOpV, a.v, p.v_bf16, bh, k0, kKeys, p.tk,
+          p.d);
     load_rows(ks, S, a.k, p.k_bf16, bh, k0, kKeys, p.tk, p.d);
     load_rows(vs, S, a.v, p.v_bf16, bh, k0, kKeys, p.tk, p.d);
     __syncthreads();
@@ -407,6 +472,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p,
     }
     __syncthreads();   // K, V, P and dS are free for the next tile
   }
+  CK_IF(t == 0, rows, ck::kGWrite, kOpDq, a.dq, p.q_bf16, bh, r0, kRows, p.tq,
+        p.d);
   const int row = r0 + rr;
   if (row >= p.tq) return;
   const long long off = (bh * p.tq + row) * p.d;
@@ -447,10 +514,12 @@ int launch(const Params& p, const Ptrs& a, cudaStream_t stream) {
   const long long q_blocks =
       static_cast<long long>(p.bh) * ((p.tq + kRows - 1) / kRows);
   if (kv_blocks > INT_MAX || q_blocks > INT_MAX) return -1;
+  CK_LAUNCH("dkv_kernel", stream);
   dkv_kernel<DMAX><<<static_cast<unsigned>(kv_blocks), kThreads, smem,
                      stream>>>(p, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  CK_LAUNCH("dq_kernel", stream);
   dq_kernel<DMAX><<<static_cast<unsigned>(q_blocks), kThreads, smem,
                     stream>>>(p, a);
   return static_cast<int>(cudaGetLastError());
@@ -671,6 +740,14 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
     while (j < hi && !live(j)) ++j;
     return j;
   };
+  CK_BEGIN();
+  CK(operand, kOpPart, part, ck::kWorkspace);
+  CK(operand, KV ? kOpDk : kOpDq, static_cast<const unsigned char*>(o1),
+     ck::kOutput);
+  CK(operand, kOpDv, static_cast<const unsigned char*>(o2), ck::kOutput);
+  CK(ring, kRingRes, 1, ck::kMbarrier);
+  CK(ring, kRingSlots, kSlots, ck::kMbarrier);
+  CK(ring, kRingInfo, 2, ck::kMbarrier);
 
   if (t >= 128 * WGS) {
     // producer: its first thread loads the resident tile (and, for the dQ
@@ -679,29 +756,41 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
     // kSlots)
     if constexpr (C::kRegs) regs_down<C::kProducerRegs>();
     if (t != 128 * WGS) return;
-    mbar_expect_tx(rbar, C::kResAll + (KV ? 0 : C::kInfo));
+    mbar_expect_tx(rbar, C::kResAll + (KV ? 0 : C::kInfo),
+                   CK_TAG(true, kRingRes, 0, 0));
+    // boxes past D and past the operands' rows rely on TMA's zero fill
     for (int op = 0; op < 2; ++op)
       for (int pt = 0; pt < PARTS; ++pt)
         for (int ch = 0; ch < NCH; ++ch)
           tma_3d(res + op * C::kResOp + pt * C::kResPart + ch * C::kResChunk,
-                 op ? &map_r2 : &map_r1, rbar, 64 * ch, o0, bhi + pt * p.bh);
-    if (!KV) tma_3d(info, &map_info, rbar, 0, o0, bhi);
+                 op ? &map_r2 : &map_r1, rbar, 64 * ch, o0, bhi + pt * p.bh,
+                 CK_BOX(true, op ? kOpR2 : kOpR1, 64, kRes, 1,
+                        ck::kZeroFill));
+    if (!KV)
+      tma_3d(info, &map_info, rbar, 0, o0, bhi,
+             CK_BOX(true, kOpInfoMap, 4, kRes, 1, ck::kZeroFill));
     int n = 0, it = 0;
+    // tile it's loads are for consumer warpgroup it % WGS alone
     auto load = [&](const CUtensorMap* map, int ch, int j) {
       const int s = n % kSlots;
       mbar_wait(empty(s), ((n / kSlots) & 1) ^ 1);
-      mbar_expect_tx(full(s), C::kSlot);
+      mbar_expect_tx(full(s), C::kSlot,
+                     CK_TAG_FOR(true, kRingSlots, s, 0, it % WGS + 1));
       for (int pt = 0; pt < PARTS; ++pt)
         tma_3d(ring + s * C::kSlot + pt * C::kSlotPart, map, full(s), 64 * ch,
-               j * R, bhi + pt * p.bh);
+               j * R, bhi + pt * p.bh,
+               CK_BOX(true, map == &map_s1 ? kOpS1 : kOpS2, 64, R, 1,
+                      ck::kZeroFill));
       ++n;
     };
     for (int j = next_live(lo); j < hi; j = next_live(j + 1), ++it) {
       if (KV) {
         const int s = it & 1;
         mbar_wait(iempty(s), ((it >> 1) & 1) ^ 1);
-        mbar_expect_tx(ifull(s), R * 16);
-        tma_3d(info + s * R * 16, &map_info, ifull(s), 0, j * R, bhi);
+        mbar_expect_tx(ifull(s), R * 16,
+                       CK_TAG_FOR(true, kRingInfo, s, 0, it % WGS + 1));
+        tma_3d(info + s * R * 16, &map_info, ifull(s), 0, j * R, bhi,
+               CK_BOX(true, kOpInfoMap, 4, R, 1, ck::kZeroFill));
       }
       for (int ch = 0; ch < NCH; ++ch) {
         load(&map_s1, ch, j);
@@ -736,7 +825,8 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
   for (int cc = 0; cc < NCG; ++cc)
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc1[cc][x] = acc2[cc][x] = 0.f;
-  mbar_wait(rbar, 0);
+  mbar_wait(rbar, 0, CK_TAG(tw == 0, kRingRes, 0, wg + 1));
+  CK_IF(tw == 0, read, kRingRes, 0, wg + 1);
   // the dQ pass: the two resident rows' records
   float4 rin[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
                    make_float4(0.f, 0.f, 0.f, 0.f)};
@@ -756,7 +846,9 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
       const int ch = (m - n0) / 2, op = (m - n0) % 2;
       const bool held = C::kHold && ch >= grp * NCG && ch < grp * NCG + NCG &&
                         (op == 0 || KV);
-      if (!held) mbar_arrive(empty(m % kSlots));
+      if (!held)
+        mbar_arrive(empty(m % kSlots),
+                    CK_TAG(tw == 0, kRingSlots, m % kSlots, wg + 1));
     };
     // S-like X = R1 S1^T and Y = R2 S2^T over the passes, a chunk of D at
     // a time; chunk ch - 1's slots go back once its products are done
@@ -765,8 +857,12 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch) {
       const int s1 = n % kSlots, s2 = (n + 1) % kSlots;
-      mbar_wait(full(s1), (n / kSlots) & 1);
-      mbar_wait(full(s2), ((n + 1) / kSlots) & 1);
+      mbar_wait(full(s1), (n / kSlots) & 1,
+                CK_TAG(tw == 0, kRingSlots, s1, wg + 1));
+      mbar_wait(full(s2), ((n + 1) / kSlots) & 1,
+                CK_TAG(tw == 0, kRingSlots, s2, wg + 1));
+      CK_IF(tw == 0, read, kRingSlots, s1, wg + 1);
+      CK_IF(tw == 0, read, kRingSlots, s2, wg + 1);
       n += 2;
       const uint32_t b1 = ring + s1 * C::kSlot, b2 = ring + s2 * C::kSlot;
       wgmma_fence();
@@ -822,7 +918,9 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
     // through the info ring)
     const float4* rinfo = info_ptr;
     if (KV) {
-      mbar_wait(ifull(it & 1), (it >> 1) & 1);
+      mbar_wait(ifull(it & 1), (it >> 1) & 1,
+                CK_TAG(tw == 0, kRingInfo, it & 1, wg + 1));
+      CK_IF(tw == 0, read, kRingInfo, it & 1, wg + 1);
       rinfo = info_ptr + (it & 1) * R;
     }
     const bool plain =
@@ -854,7 +952,8 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
       }
     if (KV) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(iempty(it & 1));
+      if (lane == 0)
+        mbar_arrive(iempty(it & 1), CK_TAG(tw == 0, kRingInfo, it & 1, wg + 1));
     }
 
     // the output products, one 64-column chunk (one slot) at a time; op:
@@ -886,7 +985,8 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
           return (n0 + 2 * (grp * NCG + cc) + op) % kSlots;
         } else {
           const int s = n % kSlots;
-          mbar_wait(full(s), (n / kSlots) & 1);
+          mbar_wait(full(s), (n / kSlots) & 1,
+                    CK_TAG(tw == 0, kRingSlots, s, wg + 1));
           ++n;
           return s;
         }
@@ -897,6 +997,7 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
 #pragma unroll
       for (int cc = 0; cc < NCG; ++cc) {
         const int s = slot(cc);
+        CK_IF(tw == 0, read, kRingSlots, s, wg + 1);
         const uint32_t b = ring + s * C::kSlot;
         float f[32];
         wgmma_fence();
@@ -918,7 +1019,8 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
           }
         }
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty(s));
+        if (lane == 0)
+          mbar_arrive(empty(s), CK_TAG(tw == 0, kRingSlots, s, wg + 1));
       }
     };
     if constexpr (KV) product(xs, acc1, 1);   // dV += P^T dO
@@ -956,6 +1058,30 @@ __global__ void __launch_bounds__(Cfg<DMAX, PARTS, KV>::kThreads, 1) bwd_tc(
   // partials; the dQ pass writes dQ (o1) of rows o0 + ra + 8 h
   const int lim = KV ? p.tk : p.tq;
   const long long n_all = static_cast<long long>(p.bh) * lim * p.d;
+#ifdef REPRO_CHECKED
+  if (t == 0 && o0 < lim) {   // warpgroup 0 stores the block's tile
+    const int c0 = 64 * grp * NCG;
+    const int rows = min(kRes, lim - o0);
+    const int cols = min(64 * NCG, p.d - c0);
+    const long long at = (static_cast<long long>(bhi) * lim + o0) * p.d + c0;
+    if (KV && n_split > 1) {
+      const float* pk = part + 2 * n_all * split;
+      CK(gwrite, kOpPart, part, pk + at, rows, cols, p.d);
+      CK(gwrite, kOpPart, part, pk + n_all + at, rows, cols, p.d);
+    } else {
+      const int es1 = (KV ? p.k_bf16 : p.q_bf16) ? 2 : 4;
+      const unsigned char* b1 = static_cast<const unsigned char*>(o1);
+      CK(region, ck::kGWrite, KV ? kOpDk : kOpDq, b1, b1 + at * es1, rows,
+         cols * es1, static_cast<long long>(p.d) * es1, 1, 0);
+      if (KV) {
+        const int es2 = p.v_bf16 ? 2 : 4;
+        const unsigned char* b2 = static_cast<const unsigned char*>(o2);
+        CK(region, ck::kGWrite, kOpDv, b2, b2 + at * es2, rows, cols * es2,
+           static_cast<long long>(p.d) * es2, 1, 0);
+      }
+    }
+  }
+#endif
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = o0 + ra + 8 * h;
@@ -991,9 +1117,27 @@ __global__ void reduce_kernel(const float* __restrict__ part,
                               void* __restrict__ dk, void* __restrict__ dv,
                               long long n, int n_split, int k_bf16,
                               int v_bf16) {
+  CK_BEGIN();
+  CK(operand, kOpPart, part, ck::kWorkspace);
+  CK(operand, kOpDk, static_cast<const unsigned char*>(dk), ck::kOutput);
+  CK(operand, kOpDv, static_cast<const unsigned char*>(dv), ck::kOutput);
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+#ifdef REPRO_CHECKED
+    if (threadIdx.x == 0) {   // this step's blockDim.x values
+      const int m = static_cast<int>(
+          min(static_cast<long long>(blockDim.x), n - i));
+      CK(gread, kOpPart, part, part + i, n_split, m, 2 * n);
+      CK(gread, kOpPart, part, part + n + i, n_split, m, 2 * n);
+      CK(region, ck::kGWrite, kOpDk, static_cast<const unsigned char*>(dk),
+         static_cast<const unsigned char*>(dk) + i * (k_bf16 ? 2 : 4), 1,
+         m * (k_bf16 ? 2 : 4), 0, 1, 0);
+      CK(region, ck::kGWrite, kOpDv, static_cast<const unsigned char*>(dv),
+         static_cast<const unsigned char*>(dv) + i * (v_bf16 ? 2 : 4), 1,
+         m * (v_bf16 ? 2 : 4), 0, 1, 0);
+    }
+#endif
     float sk = 0.f, sv = 0.f;
     for (int sp = 0; sp < n_split; ++sp) {
       sk += part[2 * n * sp + i];
@@ -1051,6 +1195,13 @@ int launch_pass(const CUtensorMap (&maps)[4], const float4* info,
                            (((KV ? p.tk : p.tq) + kRes - 1) / kRes) * C::G *
                            (KV ? n_split : 1);
   if (blocks > INT_MAX) return -1;
+  const long long planes = static_cast<long long>(PARTS) * p.bh;
+  CK_MAP(kOpR1, p.d, KV ? p.tk : p.tq, planes, stream);
+  CK_MAP(kOpR2, p.d, KV ? p.tk : p.tq, planes, stream);
+  CK_MAP(kOpS1, p.d, KV ? p.tq : p.tk, planes, stream);
+  CK_MAP(kOpS2, p.d, KV ? p.tq : p.tk, planes, stream);
+  CK_MAP(kOpInfoMap, 4, p.tq, p.bh, stream);
+  CK_LAUNCH(KV ? "bwd_tc<KV>" : "bwd_tc<Q>", stream);
   kernel<<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], mi, p, o1, o2, part, n_split);
   return static_cast<int>(cudaGetLastError());
@@ -1102,6 +1253,7 @@ int launch(const Params& p, const Ptrs& a, bf16* parts, float* part,
   if (rc != 0) return rc;
   if (n_split > 1) {
     const long long b = (nk + 255) / 256;
+    CK_LAUNCH("reduce_kernel", stream);
     reduce_kernel<<<static_cast<unsigned>(b < 8192 ? b : 8192), 256, 0,
                     stream>>>(part, a.dk, a.dv, nk, n_split, p.k_bf16,
                               p.v_bf16);
@@ -1125,6 +1277,11 @@ int by_dim(const Params& p, const Ptrs& a, bf16* parts, float* part,
 }  // namespace tc
 
 }  // namespace
+
+CK_NAMES("op:0:out op:1:dout op:2:stats op:3:info op:4:q op:5:k op:6:v "
+         "op:7:dq op:8:dk op:9:dv op:10:part op:11:resident1 "
+         "op:12:resident2 op:13:streamed1 op:14:streamed2 op:15:records "
+         "ring:0:resident ring:1:slots ring:2:records")
 
 extern "C" {
 
@@ -1164,6 +1321,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   const long long rows = static_cast<long long>(bh) * tq;
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > INT_MAX) return -1;
+  CK_LAUNCH("delta_kernel", s);
   delta_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       out, dout, reinterpret_cast<const float2*>(stats), inf, rows, d,
       o_bf16);

@@ -67,6 +67,10 @@
 
 namespace {
 
+// the checked build's operands and ring (check.cuh)
+enum CkOp { kOpX = 0, kOpW, kOpExpert, kOpLive, kOpOut };
+constexpr int kRingTiles = 0;   // tc: a stage holds x's and w's boxes
+
 // ---------------------------------------------------------------------------
 // simt: the CUDA-core kernel
 // ---------------------------------------------------------------------------
@@ -155,6 +159,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) moe_gemm_kernel(
   const int rows = min(kBM, chunk_rows - mt * kBM);   // rows of the tile
   const long long row0 = static_cast<long long>(chunk) * chunk_rows + mt * kBM;
   const int n0 = blockIdx.y * kBN;
+  CK_BEGIN();
+  CK(operand, kOpX, x, ck::kInput);
+  CK(operand, kOpW, w, ck::kInput);
+  CK(operand, kOpExpert, chunk_expert, ck::kInput);
+  CK(operand, kOpLive, live_rows, ck::kInput);
+  CK(operand, kOpOut, out, ck::kOutput);
+  CK_IF(t == 0 && live_rows, gread, kOpLive, live_rows, live_rows + chunk, 1,
+        1);
+  CK_IF(t == 0, gwrite, kOpOut, out, out + row0 * d_out + n0, rows,
+        min(kBN, d_out - n0), d_out);
   // rows from `live` on are written as zeros and never loaded
   const int live = live_rows
                        ? max(0, min(rows, live_rows[chunk] - mt * kBM))
@@ -168,6 +182,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) moe_gemm_kernel(
   }
   const int e = chunk_expert[chunk];
   const TW* we = w + static_cast<long long>(e) * d_in * d_out;
+  CK_IF(t == 0, gread, kOpExpert, chunk_expert, chunk_expert + chunk, 1, 1);
+  CK_IF(t == 0, gread, kOpX, x, x + row0 * d_in, live, d_in, d_in);
+  CK_IF(t == 0, gread, kOpW, w, we + n0, d_in, min(kBN, d_out - n0), d_out);
 
   // loader roles: x tile 128 rows x 8 k (row t/2, k group (t%2)*4); w tile
   // 8 k x 128 columns (k row t/32, column group (t%32)*4)
@@ -251,6 +268,7 @@ int launch(const void* x, const void* w, const int* chunk_expert,
            int d_in, int d_out, int vec, cudaStream_t stream) {
   const int m_tiles = (chunk_rows + kBM - 1) / kBM;
   const dim3 grid(n_chunks * m_tiles, (d_out + kBN - 1) / kBN);
+  CK_LAUNCH("moe_gemm_kernel", stream);
   auto args = [&](auto kernel) {
     kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const TX*>(x), static_cast<const TW*>(w), chunk_expert,
@@ -311,19 +329,6 @@ constexpr int kBox = 64 * 64 * 2;        // one 64 x 64 bf16 TMA box, 8 KiB
 constexpr int kStageBytes = 4 * kBox;
 constexpr int kSmemBytes = kStages * kStageBytes + 1024   // 1 KiB: alignment
                            + 2 * kStages * 8;              // the mbarriers
-
-// TMA tile loads into shared memory, completing on mbarrier `bar`, with an
-// L2 cache policy from createpolicy.
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1,
-                                       uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "l"(policy)
-      : "memory");
-}
 
 // A (x): K-major, 64 rows of 128 bytes, 8-row groups 1024 bytes apart; the
 // leading offset is unused under the swizzle.  A k16 slice starts 32 bytes
@@ -434,6 +439,11 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gemm_tc(
 
   const int n_k = (d_in + kBK - 1) / kBK;
   const int wg = threadIdx.x / 128;
+  CK_BEGIN();
+  CK(operand, kOpExpert, chunk_expert, ck::kInput);
+  CK(operand, kOpLive, live_rows, ck::kInput);
+  CK(operand, kOpOut, out, ck::kOutput);
+  CK(ring, kRingTiles, kStages, ck::kMbarrier);
 
   if (wg == 0) {
     // producer: one thread keeps the ring full
@@ -449,22 +459,30 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gemm_tc(
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const Tile tl = tile_of(t, n_tiles_n, m_tiles, chunk_rows, live_rows);
+      CK(pass, t, 0);   // a tile is a pass; the ring runs on across them
+      CK_IF(live_rows, gread, kOpLive, live_rows, live_rows + tl.chunk, 1, 1);
       if (tl.live == 0) continue;
+      CK(gread, kOpExpert, chunk_expert, chunk_expert + tl.chunk, 1, 1);
       const int e = __ldg(chunk_expert + tl.chunk);
       const bool x_hi = tl.live > kHalf;           // rows 64-127 live
       const bool w_hi = tl.n0 + 64 < d_out;        // columns 64-127 exist
       const uint32_t bytes = kBox * (2 + x_hi + w_hi);
       for (int kb = 0; kb < n_k; ++kb) {
         mbar_wait(empty(s), phase ^ 1);
-        mbar_expect_tx(full(s), bytes);
+        mbar_expect_tx(full(s), bytes, CK_TAG(true, kRingTiles, s, 0));
         const int k0 = kb * kBK;
-        tma_2d(stage(s, 0), &map_x, full(s), k0, tl.row0, keep);
+        // a box past d_in (the last k step) or past d_out relies on TMA's
+        // zero fill
+        tma_2d(stage(s, 0), &map_x, full(s), k0, tl.row0, keep,
+               CK_BOX(true, kOpX, 64, 64, 1, ck::kZeroFill));
         if (x_hi)
-          tma_2d(stage(s, 1), &map_x, full(s), k0, tl.row0 + kHalf, keep);
-        tma_3d(stage(s, 2), &map_w, full(s), tl.n0, k0, e, stream_once);
+          tma_2d(stage(s, 1), &map_x, full(s), k0, tl.row0 + kHalf, keep,
+                 CK_BOX(true, kOpX, 64, 64, 1, ck::kZeroFill));
+        tma_3d(stage(s, 2), &map_w, full(s), tl.n0, k0, e, stream_once,
+               CK_BOX(true, kOpW, 64, 64, 1, ck::kZeroFill));
         if (w_hi)
           tma_3d(stage(s, 3), &map_w, full(s), tl.n0 + 64, k0, e,
-                 stream_once);
+                 stream_once, CK_BOX(true, kOpW, 64, 64, 1, ck::kZeroFill));
         if (++s == kStages) {
           s = 0;
           phase ^= 1;
@@ -485,12 +503,14 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gemm_tc(
   float part[64];
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const Tile tl = tile_of(t, n_tiles_n, m_tiles, chunk_rows, live_rows);
+    CK_IF(ct == 0, pass, t, wg);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     if (tl.live > 0) {
       const bool mine = tl.live > half * kHalf;   // this half has a live row
       for (int kb = 0; kb < n_k; ++kb) {
-        mbar_wait(full(s), phase);
+        mbar_wait(full(s), phase, CK_TAG(ct == 0, kRingTiles, s, wg));
+        CK_IF(ct == 0 && mine, read, kRingTiles, s, wg);
         if (mine) {
           const uint64_t da = smem_desc(stage(s, half), kLboA, kSboA);
           const uint64_t db = smem_desc(stage(s, 2), kLboB, kSboB);
@@ -508,7 +528,8 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gemm_tc(
           }
         }
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty(s));
+        if (lane == 0)
+          mbar_arrive(empty(s), CK_TAG(ct == 0, kRingTiles, s, wg));
         if (++s == kStages) {
           s = 0;
           phase ^= 1;
@@ -517,6 +538,9 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gemm_tc(
     }
     // epilogue: fragment (i, j) of m64n128 holds row 16 warp + lane/4 (+8
     // for j >= 2), column 8 i + 2 (lane % 4) (+1 for odd j)
+    CK_IF(ct == 0 && half * kHalf < tl.rows, gwrite, kOpOut, out,
+          out + static_cast<long long>(tl.row0 + half * kHalf) * d_out + tl.n0,
+          min(kHalf, tl.rows - half * kHalf), min(kBN, d_out - tl.n0), d_out);
     const int r_lo = half * kHalf + 16 * warp + lane / 4;
 #pragma unroll
     for (int i = 0; i < kBN / 8; ++i) {
@@ -588,6 +612,10 @@ int launch(const void* x, const void* w, const int* ce, const int* live,
       static_cast<long long>(n_chunks) * m_tiles * n_tiles_n;
   if (n_tiles > 0x7fffffff) return -1;
   const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
+  CK_MAP(kOpX, d_in, static_cast<long long>(n_chunks) * chunk_rows, 1,
+         stream);
+  CK_MAP(kOpW, d_out, d_in, n_experts, stream);
+  CK_LAUNCH("moe_gemm_tc", stream);
   moe_gemm_tc<TO><<<grid, kThreads, kSmemBytes, stream>>>(
       map_x, map_w, ce, live, static_cast<TO*>(out), chunk_rows, m_tiles,
       n_tiles_n, static_cast<int>(n_tiles), d_in, d_out);
@@ -612,6 +640,9 @@ int run(const void* x, const void* w, const int* ce, const int* live,
 }  // namespace tc
 
 }  // namespace
+
+CK_NAMES("op:0:x op:1:w op:2:chunk_expert op:3:live_rows op:4:out "
+         "ring:0:tiles")
 
 extern "C" {
 

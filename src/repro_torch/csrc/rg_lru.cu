@@ -85,6 +85,11 @@
 
 namespace {
 
+// the checked build's operands and rings (check.cuh)
+enum CkOp { kOpX = 0, kOpAg, kOpXg, kOpAParam, kOpH0, kOpOut, kOpHT };
+constexpr int kRingIn = 0;     // tile: x, a_gate and x_gate boxes of a tile
+constexpr int kRingGate = 1;   // tile: the (a, xb) pairs of a tile
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -148,6 +153,27 @@ __global__ void __launch_bounds__(kThreads) rg_lru_simt(
     float* __restrict__ h_t, int T, int D, int d_blocks, float c) {
   const int b = blockIdx.x / d_blocks;
   const int d = (blockIdx.x % d_blocks) * kThreads + threadIdx.x;
+  CK_BEGIN();
+  CK(operand, kOpX, x, ck::kInput);
+  CK(operand, kOpAg, a_gate, ck::kInput);
+  CK(operand, kOpXg, x_gate, ck::kInput);
+  CK(operand, kOpAParam, a_param, ck::kInput);
+  CK(operand, kOpH0, h0, ck::kInput);
+  CK(operand, kOpOut, out, ck::kOutput);
+  CK(operand, kOpHT, h_t, ck::kOutput);
+#ifdef REPRO_CHECKED
+  if (threadIdx.x == 0) {   // the block's channels d .. d + nch - 1
+    const long long at = static_cast<long long>(b) * T * D + d;
+    const int nch = min(kThreads, D - d);
+    CK(gread, kOpX, x, x + at, T, nch, D);
+    CK(gread, kOpAg, a_gate, a_gate + at, T, nch, D);
+    CK(gread, kOpXg, x_gate, x_gate + at, T, nch, D);
+    CK(gread, kOpAParam, a_param, a_param + d, 1, nch);
+    CK(gread, kOpH0, h0, h0 + static_cast<long long>(b) * D + d, 1, nch);
+    CK(gwrite, kOpOut, out, out + at, T, nch, D);
+    CK(gwrite, kOpHT, h_t, h_t + static_cast<long long>(b) * D + d, 1, nch);
+  }
+#endif
   if (d >= D) return;
   const long long row = static_cast<long long>(b) * T * D + d;
   const float ncs = neg_c_softplus(a_param[d], c);
@@ -203,6 +229,7 @@ int launch(const void* x, const void* a_gate, const void* x_gate,
            int B, int T, int D, float c, cudaStream_t stream) {
   const int d_blocks = (D + kThreads - 1) / kThreads;
   if (static_cast<long long>(d_blocks) * B > 0x7fffffff) return -1;
+  CK_LAUNCH("rg_lru_simt", stream);
   rg_lru_simt<TX, TA, TG><<<d_blocks * B, kThreads, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TA*>(a_gate),
       static_cast<const TG*>(x_gate), a_param, h0, static_cast<TX*>(out),
@@ -293,6 +320,15 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  // agents: 0 the producer, 1 the gate warps (thread 32 logs), 2 the scan
+  // warp (its lane 0)
+  CK_BEGIN();
+  CK(operand, kOpAParam, a_param, ck::kInput);
+  CK(operand, kOpH0, h0, ck::kInput);
+  CK(operand, kOpOut, out, ck::kOutput);
+  CK(operand, kOpHT, h_t, ck::kOutput);
+  CK(ring, kRingIn, kStages, ck::kMbarrier);
+  CK(ring, kRingGate, kGateStages, ck::kMbarrier);
 
   if (warp == 0) {
     // producer: one thread keeps the input ring full
@@ -303,13 +339,16 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       mbar_wait(in_empty(s), ((i / kStages) & 1) ^ 1);
-      mbar_expect_tx(in_full(s), S::kIn);
+      mbar_expect_tx(in_full(s), S::kIn, CK_TAG(true, kRingIn, s, 0));
       const uint32_t dst = sbase + s * S::kIn;
-      tma_3d(dst, &map_x, in_full(s), c0, i * L, b, stream_once);
+      // steps past T and channels past D are TMA's zeros
+      tma_3d(dst, &map_x, in_full(s), c0, i * L, b, stream_once,
+             CK_BOX(true, kOpX, dt, L, 1, ck::kZeroFill));
       tma_3d(dst + kTileElems * sizeof(TX), &map_ag, in_full(s), c0, i * L,
-             b, stream_once);
+             b, stream_once, CK_BOX(true, kOpAg, dt, L, 1, ck::kZeroFill));
       tma_3d(dst + kTileElems * (sizeof(TX) + sizeof(TA)), &map_xg,
-             in_full(s), c0, i * L, b, stream_once);
+             in_full(s), c0, i * L, b, stream_once,
+             CK_BOX(true, kOpXg, dt, L, 1, ck::kZeroFill));
     }
     return;
   }
@@ -319,6 +358,8 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
     // tile is channel (4 g + j) % dt, the same for every k (dt divides 4 *
     // kGateThreads)
     const int g = threadIdx.x - 32;
+    CK_IF(g == 0, gread, kOpAParam, a_param, a_param + c0, 1,
+          max(0, min(dt, D - c0)));
     float ncs[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -328,7 +369,8 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       const int r = i % kGateStages;
-      mbar_wait(in_full(s), (i / kStages) & 1);
+      mbar_wait(in_full(s), (i / kStages) & 1, CK_TAG(g == 0, kRingIn, s, 1));
+      CK_IF(g == 0, read, kRingIn, s, 1);
       const uint8_t* in = base + s * S::kIn;
       const TX* xs = reinterpret_cast<const TX*>(in);
       const TA* ags = reinterpret_cast<const TA*>(in + kTileElems *
@@ -346,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
         load4(ags + e, av[k]);
         load4(xgs + e, gv[k]);
       }
-      mbar_arrive(in_empty(s));
+      mbar_arrive(in_empty(s), CK_TAG(g == 0, kRingIn, s, 1));
       float a[kGroups][4], xb[kGroups][4];
 #pragma unroll
       for (int k = 0; k < kGroups; ++k)
@@ -354,6 +396,8 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
         for (int j = 0; j < 4; ++j)
           gate(ncs[j], xv[k][j], av[k][j], gv[k][j], a[k][j], xb[k][j]);
       mbar_wait(g_empty(r), ((i / kGateStages) & 1) ^ 1);
+      // the gate warps fill slot r with their own stores
+      CK_IF(g == 0, issue, kRingGate, r, 1);
       float4* gt = reinterpret_cast<float4*>(base + S::kGateBase +
                                              r * S::kGate);
 #pragma unroll
@@ -374,10 +418,15 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
   const bool live = lane < dt && ch < D;
   const long long row = static_cast<long long>(b) * T;
   TX* o = out + row * D + ch;
+  CK_IF(lane == 0, gread, kOpH0, h0, h0 + static_cast<long long>(b) * D + c0,
+        1, min(dt, D - c0));
+  CK_IF(lane == 0, gwrite, kOpOut, out, o, T, min(dt, D - c0), D);
   float h = live ? h0[static_cast<long long>(b) * D + ch] : 0.f;
   for (int i = 0; i < n_tiles; ++i) {
     const int r = i % kGateStages;
-    mbar_wait(g_full(r), (i / kGateStages) & 1);
+    mbar_wait(g_full(r), (i / kGateStages) & 1,
+              CK_TAG(lane == 0, kRingGate, r, 2));
+    CK_IF(lane == 0, read, kRingGate, r, 2);
     const float2* gt = reinterpret_cast<const float2*>(base + S::kGateBase +
                                                        r * S::kGate) + lane;
     const int n = min(L, T - i * L);   // steps of T in this tile
@@ -399,8 +448,10 @@ __global__ void __launch_bounds__(kThreads, 4) rg_lru_tile(
         store_stream(o + static_cast<long long>(i * L + s0) * D, h);
       }
     }
-    mbar_arrive(g_empty(r));
+    mbar_arrive(g_empty(r), CK_TAG(lane == 0, kRingGate, r, 2));
   }
+  CK_IF(lane == 0, gwrite, kOpHT, h_t,
+        h_t + static_cast<long long>(b) * D + c0, 1, min(dt, D - c0));
   if (live) h_t[static_cast<long long>(b) * D + ch] = h;
 }
 
@@ -468,6 +519,10 @@ int launch(const void* x, const void* a_gate, const void* x_gate,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
+  CK_MAP(kOpX, D, T, B, stream);
+  CK_MAP(kOpAg, D, T, B, stream);
+  CK_MAP(kOpXg, D, T, B, stream);
+  CK_LAUNCH("rg_lru_tile", stream);
   rg_lru_tile<TX, TA, TG><<<d_tiles * B, kThreads, S::kBytes, stream>>>(
       mx, ma, mg, static_cast<TX*>(out), a_param, h0, h_t, T, D, dt, d_tiles,
       c);
@@ -519,6 +574,9 @@ int pick_a(const Call& k, int a, int g) {
 }
 
 }  // namespace
+
+CK_NAMES("op:0:x op:1:a_gate op:2:x_gate op:3:a_param op:4:h0 op:5:out "
+         "op:6:h_t ring:0:inputs ring:1:gates")
 
 extern "C" {
 

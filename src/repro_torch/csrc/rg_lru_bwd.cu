@@ -86,6 +86,15 @@
 
 namespace {
 
+// the checked build's operands and rings (check.cuh)
+enum CkOp {
+  kOpX = 0, kOpAg, kOpXg, kOpDout, kOpHs, kOpH0, kOpDhT, kOpAParam, kOpDx,
+  kOpDag, kOpDxg, kOpDh0, kOpPart, kOpDaParam
+};
+// tile: the input boxes of a tile; the (a, dout) pairs the gate warps
+// hand the chain warp; the g the chain warp hands back
+constexpr int kRingIn = 0, kRingChain = 1, kRingGrad = 2;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -176,6 +185,30 @@ __global__ void __launch_bounds__(kThreads) rg_lru_bwd_simt(
   const float ncs = live ? neg_c_softplus(a_param[ch], c) : 0.f;
   float pacc = 0.f;                  // sum of dA a s over the thread's elements
   float carry = (tid < kDt && live) ? dh_t[bd] : 0.f;   // G, chain threads
+  CK_BEGIN();
+  CK(operand_each, kOpX, ck::kInput, x, a_gate, x_gate, dout, hs, h0, dh_t,
+     a_param);
+  CK(operand_each, kOpDx, ck::kOutput, dx, dag, dxg, dh0, part);
+#ifdef REPRO_CHECKED
+  if (tid == 0) {   // the block's channels c0 .. c0 + nch - 1, all T steps
+    const int nch = min(kDt, D - c0);
+    const long long at = static_cast<long long>(b) * T * D + c0;
+    const long long bc = static_cast<long long>(b) * D + c0;
+    CK(gread, kOpX, x, x + at, T, nch, D);
+    CK(gread, kOpAg, a_gate, a_gate + at, T, nch, D);
+    CK(gread, kOpXg, x_gate, x_gate + at, T, nch, D);
+    CK(gread, kOpDout, dout, dout + at, T, nch, D);
+    if (T > 1) CK(gread, kOpHs, hs, hs + at, T - 1, nch, D);
+    CK(gread, kOpH0, h0, h0 + bc, 1, nch);
+    CK(gread, kOpDhT, dh_t, dh_t + bc, 1, nch);
+    CK(gread, kOpAParam, a_param, a_param + c0, 1, nch);
+    CK(gwrite, kOpDx, dx, dx + at, T, nch, D);
+    CK(gwrite, kOpDag, dag, dag + at, T, nch, D);
+    CK(gwrite, kOpDxg, dxg, dxg + at, T, nch, D);
+    CK(gwrite, kOpDh0, dh0, dh0 + bc, 1, nch);
+    CK(gwrite, kOpPart, part, part + bc, 1, nch);
+  }
+#endif
 
   const int n_tiles = (T + kL - 1) / kL;
   for (int it = n_tiles - 1; it >= 0; --it) {
@@ -260,6 +293,7 @@ int launch(const void* x, const void* a_gate, const void* x_gate,
            cudaStream_t stream) {
   const int d_tiles = (D + kDt - 1) / kDt;
   if (static_cast<long long>(d_tiles) * B > 0x7fffffff) return -1;
+  CK_LAUNCH("rg_lru_bwd_simt", stream);
   rg_lru_bwd_simt<TX, TA, TG><<<d_tiles * B, kThreads, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TA*>(a_gate),
       static_cast<const TG*>(x_gate), static_cast<const TX*>(dout), hs, h0,
@@ -373,6 +407,14 @@ __global__ void __launch_bounds__(kThreads, 2) rg_lru_bwd_tile(
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  // agents: 0 the producer, 1 the gate warps (thread 32 logs), 2 the chain
+  // warp (its lane 0)
+  CK_BEGIN();
+  CK(operand_each, kOpH0, ck::kInput, h0, dh_t, a_param);
+  CK(operand_each, kOpDx, ck::kOutput, dx, dag, dxg, dh0, part);
+  CK(ring, kRingIn, kStages, ck::kMbarrier);
+  CK(ring, kRingChain, 2, ck::kMbarrier);
+  CK(ring, kRingGrad, 2, ck::kMbarrier);
 
   if (warp == 0) {
     // producer: one thread keeps the input ring full, last tile first
@@ -384,16 +426,20 @@ __global__ void __launch_bounds__(kThreads, 2) rg_lru_bwd_tile(
       const int s = k % kStages;
       const int t0 = (n - 1 - k) * L;
       mbar_wait(in_empty(s), ((k / kStages) & 1) ^ 1);
-      mbar_expect_tx(in_full(s), S::kIn);
+      mbar_expect_tx(in_full(s), S::kIn, CK_TAG(true, kRingIn, s, 0));
       const uint32_t dst = sbase + s * S::kIn;
-      tma_3d(dst, &map_x, in_full(s), c0, t0, b, stream_once);
+      // steps past T and channels past D are TMA's zeros
+      tma_3d(dst, &map_x, in_full(s), c0, t0, b, stream_once,
+             CK_BOX(true, kOpX, dt, L, 1, ck::kZeroFill));
       tma_3d(dst + S::kOffDout, &map_do, in_full(s), c0, t0, b,
-             stream_once);
-      tma_3d(dst + S::kOffAg, &map_ag, in_full(s), c0, t0, b, stream_once);
-      tma_3d(dst + S::kOffXg, &map_xg, in_full(s), c0, t0, b, stream_once);
+             stream_once, CK_BOX(true, kOpDout, dt, L, 1, ck::kZeroFill));
+      tma_3d(dst + S::kOffAg, &map_ag, in_full(s), c0, t0, b, stream_once,
+             CK_BOX(true, kOpAg, dt, L, 1, ck::kZeroFill));
+      tma_3d(dst + S::kOffXg, &map_xg, in_full(s), c0, t0, b, stream_once,
+             CK_BOX(true, kOpXg, dt, L, 1, ck::kZeroFill));
       // h_{t-1}: the box one step earlier (row -1 is TMA's zero fill)
       tma_3d(dst + S::kOffH, &map_h, in_full(s), c0, t0 - 1, b,
-             stream_once);
+             stream_once, CK_BOX(true, kOpHs, dt, L, 1, ck::kZeroFill));
     }
     return;
   }
@@ -410,12 +456,26 @@ __global__ void __launch_bounds__(kThreads, 2) rg_lru_bwd_tile(
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       ncs[j] = live ? neg_c_softplus(a_param[ch0 + j], c) : 0.f;
+#ifdef REPRO_CHECKED
+    if (g == 0) {   // the block's channels c0 .. c0 + nch - 1, all T steps
+      const int nch = min(dt, D - c0);
+      const long long at = static_cast<long long>(b) * T * D + c0;
+      const long long bc = static_cast<long long>(b) * D + c0;
+      CK(gread, kOpAParam, a_param, a_param + c0, 1, nch);
+      CK(gread, kOpH0, h0, h0 + bc, 1, nch);
+      CK(gwrite, kOpDx, dx, dx + at, T, nch, D);
+      CK(gwrite, kOpDag, dag, dag + at, T, nch, D);
+      CK(gwrite, kOpDxg, dxg, dxg + at, T, nch, D);
+      CK(gwrite, kOpPart, part, part + bc, 1, nch);
+    }
+#endif
 
     // tile k's inputs to registers, the stage back, the gates, (a, dout)
     // to chain buffer k % 2
     auto gates = [&](int k, Kept& kp) {
       const int s = k % kStages;
-      mbar_wait(in_full(s), (k / kStages) & 1);
+      mbar_wait(in_full(s), (k / kStages) & 1, CK_TAG(g == 0, kRingIn, s, 1));
+      CK_IF(g == 0, read, kRingIn, s, 1);
       const uint8_t* in = base + s * S::kIn;
       float xv[4], dv[4], av[4], gv[4], hv[4];
       load4(reinterpret_cast<const TX*>(in) + e0, xv);
@@ -423,9 +483,11 @@ __global__ void __launch_bounds__(kThreads, 2) rg_lru_bwd_tile(
       load4(reinterpret_cast<const TA*>(in + S::kOffAg) + e0, av);
       load4(reinterpret_cast<const TG*>(in + S::kOffXg) + e0, gv);
       load4(reinterpret_cast<const float*>(in + S::kOffH) + e0, hv);
-      mbar_arrive(in_empty(s));
+      mbar_arrive(in_empty(s), CK_TAG(g == 0, kRingIn, s, 1));
       const int t = (n - 1 - k) * L + step;
       const bool in_t = live && t < T;
+      // chain buffer k % 2: this thread's outputs(k - 2) read it last
+      CK_IF(g == 0, issue, kRingChain, k & 1, 1);
       float2* cb = reinterpret_cast<float2*>(base + S::kChainBase +
                                              (k & 1) * S::kChain);
 #pragma unroll
@@ -446,10 +508,13 @@ __global__ void __launch_bounds__(kThreads, 2) rg_lru_bwd_tile(
     };
     // tile k's g from chain buffer k % 2, its gradients streamed out
     auto outputs = [&](int k, const Kept& kp) {
-      mbar_wait(g_full(k & 1), (k >> 1) & 1);
+      mbar_wait(g_full(k & 1), (k >> 1) & 1,
+                CK_TAG(g == 0, kRingGrad, k & 1, 1));
+      CK_IF(g == 0, read, kRingGrad, k & 1, 1);
       const float4* cb4 = reinterpret_cast<const float4*>(
           base + S::kChainBase + (k & 1) * S::kChain) + e0 / 2;
       const float4 p0 = cb4[0], p1 = cb4[1];
+      CK_IF(g == 0, release, kRingGrad, k & 1, 1);
       const float gv[4] = {p0.y, p0.w, p1.y, p1.w};
       const int t = (n - 1 - k) * L + step;
       if (!live || t >= T) return;
@@ -495,9 +560,15 @@ __global__ void __launch_bounds__(kThreads, 2) rg_lru_bwd_tile(
   // the chain warp: lane l walks channel c0 + l, last step first
   const int ch = c0 + lane;
   const bool live = lane < dt && ch < D;
+  CK_IF(lane == 0, gread, kOpDhT, dh_t,
+        dh_t + static_cast<long long>(b) * D + c0, 1, min(dt, D - c0));
+  CK_IF(lane == 0, gwrite, kOpDh0, dh0,
+        dh0 + static_cast<long long>(b) * D + c0, 1, min(dt, D - c0));
   float carry = live ? dh_t[static_cast<long long>(b) * D + ch] : 0.f;
   for (int k = 0; k < n; ++k) {
-    mbar_wait(c_full(k & 1), (k >> 1) & 1);
+    mbar_wait(c_full(k & 1), (k >> 1) & 1,
+              CK_TAG(lane == 0, kRingChain, k & 1, 2));
+    CK_IF(lane == 0, read, kRingChain, k & 1, 2);
     if (lane < dt) {
       float2* cb = reinterpret_cast<float2*>(base + S::kChainBase +
                                              (k & 1) * S::kChain) + lane;
@@ -518,6 +589,9 @@ __global__ void __launch_bounds__(kThreads, 2) rg_lru_bwd_tile(
       }
     }
     __syncwarp();
+    // the chain warp's turn with buffer k % 2 ends: g goes back
+    CK_IF(lane == 0, release, kRingChain, k & 1, 2);
+    CK_IF(lane == 0, issue, kRingGrad, k & 1, 2);
     mbar_arrive(g_full(k & 1));
   }
   if (live) dh0[static_cast<long long>(b) * D + ch] = carry;
@@ -592,6 +666,12 @@ int launch(const void* x, const void* a_gate, const void* x_gate,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
+  CK_MAP(kOpX, D, T, B, stream);
+  CK_MAP(kOpDout, D, T, B, stream);
+  CK_MAP(kOpAg, D, T, B, stream);
+  CK_MAP(kOpXg, D, T, B, stream);
+  CK_MAP(kOpHs, D, T, B, stream);
+  CK_LAUNCH("rg_lru_bwd_tile", stream);
   rg_lru_bwd_tile<TX, TA, TG><<<d_tiles * B, kThreads, S::kBytes, stream>>>(
       mx, md, ma, mg, mh, h0, dh_t, a_param, static_cast<TX*>(dx),
       static_cast<TA*>(dag), static_cast<TG*>(dxg), dh0, part, T, D, dt,
@@ -607,6 +687,16 @@ __global__ void rg_lru_bwd_param(const float* __restrict__ part,
                                  float* __restrict__ da_param, int B, int D,
                                  float c) {
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  CK_BEGIN();
+  CK(operand, kOpPart, part, ck::kInput);
+  CK(operand, kOpAParam, a_param, ck::kInput);
+  CK(operand, kOpDaParam, da_param, ck::kOutput);
+  CK_IF(threadIdx.x == 0, gread, kOpPart, part, part + d, B,
+        min(static_cast<int>(blockDim.x), D - d), D);
+  CK_IF(threadIdx.x == 0, gread, kOpAParam, a_param, a_param + d, 1,
+        min(static_cast<int>(blockDim.x), D - d));
+  CK_IF(threadIdx.x == 0, gwrite, kOpDaParam, da_param, da_param + d, 1,
+        min(static_cast<int>(blockDim.x), D - d));
   if (d >= D) return;
   float sum = 0.f;
   for (int b = 0; b < B; ++b)
@@ -638,6 +728,7 @@ int run(const Call& k) {
                                      k.dxg, k.dh0, k.part, k.B, k.T, k.D,
                                      k.c, k.stream);
   if (rc != 0) return rc;
+  CK_LAUNCH("rg_lru_bwd_param", k.stream);
   rg_lru_bwd_param<<<(k.D + 255) / 256, 256, 0, k.stream>>>(
       k.part, k.a_param, k.da_param, k.B, k.D, k.c);
   return static_cast<int>(cudaGetLastError());
@@ -665,6 +756,10 @@ int pick_a(const Call& k, int a, int g) {
 }
 
 }  // namespace
+
+CK_NAMES("op:0:x op:1:a_gate op:2:x_gate op:3:dout op:4:hs op:5:h0 "
+         "op:6:dh_t op:7:a_param op:8:dx op:9:dag op:10:dxg op:11:dh0 "
+         "op:12:part op:13:da_param ring:0:inputs ring:1:chain ring:2:grads")
 
 extern "C" {
 

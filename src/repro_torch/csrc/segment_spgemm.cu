@@ -62,10 +62,19 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kStages = 3;       // depth of the tile ring
 constexpr int kMaxDevices = 64;
+// the checked build's operands and ring (check.cuh); the schedule arrays
+// are numbered in their argument order from kOpAIdx on
+enum CkOp {
+  kOpA = 0, kOpB, kOpC, kOpAScales, kOpBScales, kOpAIdx, kOpBIdx, kOpCIdx,
+  kOpStart, kOpWrite, kOpPrev, kOpValid, kOpRuns
+};
+constexpr int kRingT = 0;   // a stage: A's tile and B's
 
 enum Payload { kF32 = 0, kI8 = 1, kF8 = 2 };
 enum ScaleMode { kNone = 0, kBlock = 1, kRow = 2 };
@@ -89,19 +98,6 @@ __device__ __forceinline__ float byte_to_f32(unsigned char x) {
     v.__x = x;
     return static_cast<float>(v);
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Shared memory, in bytes: fp32 tiles are A [BM][BK + 4] (padded rows)
@@ -153,6 +149,20 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
   auto c_at = [&](int i, int j) {
     return ct + (ty + QM * i) * BN + 4 * tx + j;
   };
+  CK_BEGIN();
+  CK(operand, kOpA, static_cast<const unsigned char*>(a), ck::kInput);
+  CK(operand, kOpB, static_cast<const unsigned char*>(b), ck::kInput);
+  CK(operand, kOpC, c, ck::kOutput);
+  CK(operand, kOpAScales, a_scales, ck::kInput);
+  CK(operand, kOpBScales, b_scales, ck::kInput);
+  CK(operand_each, kOpAIdx, ck::kInput, a_idx, b_idx, c_idx, seg_start,
+     seg_write, accum_prev, valid);
+  CK(operand, kOpRuns, run_off, ck::kInput);
+  CK(ring, kRingT, kStages, ck::kGroups);
+  CK_IF(t == 0, gread, kOpRuns, run_off, run_off + blockIdx.x, 1, 2);
+  CK_IF(t == 0, gread, kOpCIdx, c_idx, c_idx + lo, 1, 1);
+  CK_IF(t == 0, gread_each, kOpAIdx, lo, hi - lo, a_idx, b_idx, c_idx,
+        seg_start, seg_write, accum_prev, valid);
 
   auto issue = [&](int it) {
     if (it < hi && valid[it]) {
@@ -161,6 +171,11 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
                                 static_cast<long long>(a_idx[it]) * A_BYTES;
       const unsigned char* sb = static_cast<const unsigned char*>(b) +
                                 static_cast<long long>(b_idx[it]) * B_BYTES;
+      CK_IF(t == 0, issue, kRingT, (it - lo) % kStages);
+      CK_IF(t == 0, gread, kOpA, static_cast<const unsigned char*>(a), sa, 1,
+            A_BYTES);
+      CK_IF(t == 0, gread, kOpB, static_cast<const unsigned char*>(b), sb, 1,
+            B_BYTES);
       for (int idx = t; idx < A_BYTES / 16; idx += THREADS) {
         if constexpr (PAY == kF32) {
           const int r = idx / (BK / 4);
@@ -175,13 +190,18 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
       for (int idx = t; idx < B_BYTES / 16; idx += THREADS)
         cp_async16(sbt + idx * 16, sb + idx * 16);
     }
-    cp_async_commit();  // empty groups keep the wait count uniform
+    // empty groups keep the wait count uniform
+    cp_async_commit(CK_TAG(t == 0, kRingT, 0, 0));
   };
 
   // 1-byte payloads: the 16-element chunks this thread copied, to fp32
   // (times their row's scale in the rowwise mode)
   auto dequant = [&](int it) {
     const unsigned char* st = smem + ((it - lo) % kStages) * STAGE;
+    CK_IF(t == 0 && SCALE == kRow, gread, kOpAScales, a_scales,
+          a_scales + static_cast<long long>(a_idx[it]) * BM, 1, BM);
+    CK_IF(t == 0 && SCALE == kRow, gread, kOpBScales, b_scales,
+          b_scales + static_cast<long long>(b_idx[it]) * BK, 1, BK);
     for (int idx = t; idx < A_BYTES / 16; idx += THREADS) {
       const int e0 = idx * 16;
       const int r = e0 / BK;
@@ -231,8 +251,12 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
     cp_async_wait<kStages - 2>();  // this thread's copies of item `it` landed
     __syncthreads();               // everyone's copies visible; item it-1's
                                    // ring slot and fp32 tiles are free again
+    CK_IF(t == 0, groups, kRingT, kStages - 2);
+    CK_IF(t == 0 && it > lo && valid[it - 1], release, kRingT,
+          (it - 1 - lo) % kStages);
     issue(it + kStages - 1);
     const bool live = valid[it] != 0;
+    CK_IF(t == 0 && live, read, kRingT, (it - lo) % kStages);
     const float* at;
     const float* bt;
     if constexpr (PAY == kF32) {
@@ -246,6 +270,7 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
     }
 
     if (seg_start[it]) {
+      CK_IF(t == 0 && accum_prev[it], gread, kOpC, c, ct, 1, BM * BN);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -289,6 +314,8 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
       }
       float sa = 1.f, sb = 1.f;
       if constexpr (SCALE == kBlock) {
+        CK_IF(t == 0, gread, kOpAScales, a_scales, a_scales + a_idx[it], 1, 1);
+        CK_IF(t == 0, gread, kOpBScales, b_scales, b_scales + b_idx[it], 1, 1);
         sa = a_scales[a_idx[it]];
         sb = b_scales[b_idx[it]];
       }
@@ -301,6 +328,7 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
           acc[i][j] += v;
         }
     }
+    CK_IF(t == 0 && seg_write[it], gwrite, kOpC, c, ct, 1, BM * BN);
     if (seg_write[it]) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -315,6 +343,7 @@ __global__ void __launch_bounds__(BM * BN / 16) segment_spgemm_kernel(
     }
   }
   cp_async_wait<0>();
+  CK_IF(t == 0, groups, kRingT, 0);
 }
 
 struct Args {
@@ -353,6 +382,7 @@ int launch(const Args& x) {
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set[dev] = true;
   }
+  CK_LAUNCH("segment_spgemm_kernel", x.stream);
   kernel<<<x.n_runs, BM * BN / 16, smem, x.stream>>>(
       x.a, x.b, static_cast<TO*>(x.c), x.a_scales, x.b_scales, x.a_idx,
       x.b_idx, x.c_idx, x.seg_start, x.seg_write, x.accum_prev, x.valid,
@@ -421,6 +451,10 @@ long long smem_by_bk(int bk, int bn, int payload) {
 }
 
 }  // namespace
+
+CK_NAMES("op:0:a op:1:b op:2:c op:3:a_scales op:4:b_scales op:5:a_idx "
+         "op:6:b_idx op:7:c_idx op:8:seg_start op:9:seg_write "
+         "op:10:accum_prev op:11:valid op:12:runs ring:0:tiles")
 
 extern "C" {
 

@@ -109,6 +109,12 @@ constexpr int kRows = 16;                // depth of a pipeline's row ring
 // C block, flags
 constexpr int kRow5 = 5;
 constexpr int kMeta = (2 * kMaxStages + 2 * kRows) * 8 + kRows * kRow5 * 4;
+// the checked build's operands (check.cuh); pipeline p's tile ring is ring
+// 2 p, its row ring 2 p + 1; agent 0 is its producer, 1 its consumer
+enum CkOp {
+  kOpA = 0, kOpB, kOpC, kOpAScales, kOpBScales, kOpRunSteps, kOpSteps,
+  kOpNext
+};
 
 template <int PAY, int SCALE>
 struct Layout {
@@ -146,17 +152,6 @@ __host__ __device__ constexpr int pass_b(int ps) {
                                                  : ps == 4 ? 1 : 0;
   if constexpr (SCALE == kRow) return 2 - ps;
   return 0;
-}
-
-// `bytes` contiguous bytes from global to shared memory, completing on
-// mbarrier `bar` (both addresses and the size multiples of 16).
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // the 128 threads of pipeline `pipe`'s consumer warpgroup
@@ -340,6 +335,19 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  CK_BEGIN();
+  CK(operand, kOpA, a, ck::kInput);
+  CK(operand, kOpB, b, ck::kInput);
+  CK(operand, kOpC, c, ck::kOutput);
+  CK(operand, kOpAScales, a_scales, ck::kInput);
+  CK(operand, kOpBScales, b_scales, ck::kInput);
+  CK(operand, kOpRunSteps, run_steps, ck::kInput);
+  CK(operand, kOpSteps, steps, ck::kInput);
+  CK(operand, kOpNext, next_run, ck::kCounterOp);
+  for (int p = 0; p < kPipes; ++p) {
+    CK(ring, 2 * p, kStages, ck::kMbarrier);
+    CK(ring, 2 * p + 1, kRows, ck::kMbarrier);
+  }
 
   if (threadIdx.x >= 128 * kPipes) {
     // producer (lane 0 of warp 4 kPipes + pipe): takes the next run from
@@ -352,7 +360,8 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
     auto load = [&](const uint8_t* src, const float* sc) {
       const int s = n % kStages;
       mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);
-      mbar_expect_tx(full(s), Lay::kRawBytes + (sc ? Lay::kScaleBytes : 0));
+      mbar_expect_tx(full(s), Lay::kRawBytes + (sc ? Lay::kScaleBytes : 0),
+                     CK_TAG(true, 2 * pipe, s, 0));
       bulk_copy(pbase + slot(s), src, Lay::kRawBytes, full(s));
       if (sc) bulk_copy(pbase + slot(s) + Lay::kRawBytes, sc, Lay::kScaleBytes,
                         full(s));
@@ -363,6 +372,7 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
       mbar_wait(row_empty(q), ((e / kRows) & 1) ^ 1);
 #pragma unroll
       for (int i = 0; i < kRow5; ++i) rows[q * kRow5 + i] = r[i];
+      CK(issue, 2 * pipe + 1, q, 0);
       mbar_arrive(row_full(q));   // releases the row to the consumer
       ++e;
     };
@@ -372,7 +382,9 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
     auto next = [&]() {
       while (st >= end) {
         const int r = atomicAdd(next_run, 1);
+        CK(counter, kOpNext, 0, r, 0);
         if (r >= n_runs) return -1;
+        CK(gread, kOpRunSteps, run_steps, run_steps + r, 1, 2);
         st = run_steps[r];
         end = run_steps[r + 1];
       }
@@ -380,6 +392,7 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
     };
     auto fetch = [&](int at) {
       const int* sp = steps + static_cast<long long>(at) * kRow5;
+      CK(gread, kOpSteps, steps, sp, 1, kRow5);
 #pragma unroll
       for (int i = 0; i < kRow5; ++i) nxt[i] = sp[i];
     };
@@ -392,8 +405,12 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
       if (cur >= 0) fetch(cur);   // a row ahead of its use
       push(row);
       if (row[0] < 0) continue;   // an item that is not valid loads nothing
+      CK(gread, kOpA, a, a + static_cast<long long>(row[0]) * Lay::kRawBytes,
+         1, Lay::kRawBytes);
       load(a + static_cast<long long>(row[0]) * Lay::kRawBytes, nullptr);
       const long long bi = row[2];
+      CK(gread, kOpB, b, b + bi * Lay::kRawBytes, 1, Lay::kRawBytes);
+      CK_IF(kRowwise, gread, kOpBScales, b_scales, b_scales + bi * kT, 1, kT);
       load(b + bi * Lay::kRawBytes, kRowwise ? b_scales + bi * kT : nullptr);
     }
 #pragma unroll
@@ -421,16 +438,20 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
   for (int e = 0;; ++e) {
     int row[kRow5];
     const int q = e % kRows;
-    mbar_wait(row_full(q), (e / kRows) & 1);
+    mbar_wait(row_full(q), (e / kRows) & 1,
+              CK_TAG(t == 0, 2 * pipe + 1, q, 1));
+    CK_IF(t == 0, read, 2 * pipe + 1, q, 1);
 #pragma unroll
     for (int i = 0; i < kRow5; ++i) row[i] = rows[q * kRow5 + i];
     __syncwarp();
-    if (lane == 0) mbar_arrive(row_empty(q));
+    if (lane == 0)
+      mbar_arrive(row_empty(q), CK_TAG(t == 0, 2 * pipe + 1, q, 1));
     const int a_tile = row[0], fl = row[4];
     if (a_tile == -2) break;
     TO* ct = c + static_cast<long long>(row[3]) * (kT * kT);
     if (fl & kStart) {
       if (fl & kPrev) {
+        CK_IF(t == 0, gread, kOpC, c, ct, 1, kT * kT);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -447,19 +468,27 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
     if (a_tile >= 0) {   // a valid item: its A and B tiles are in the ring
       float sa[2] = {1.f, 1.f}, sb = 1.f;
       if constexpr (SCALE == kBlock) {
+        CK_IF(t == 0, gread, kOpAScales, a_scales, a_scales + a_tile, 1, 1);
+        CK_IF(t == 0, gread, kOpBScales, b_scales, b_scales + row[2], 1, 1);
         sa[0] = a_scales[a_tile];
         sb = b_scales[row[2]];
       } else if constexpr (kRowwise) {
+        CK_IF(t == 0, gread, kOpAScales, a_scales,
+              a_scales + static_cast<long long>(a_tile) * kT, 1, kT);
         sa[0] = a_scales[static_cast<long long>(a_tile) * kT + r0];
         sa[1] = a_scales[static_cast<long long>(a_tile) * kT + r0 + 8];
       }
       const int sa_slot = n % kStages;
-      mbar_wait(full(sa_slot), (n / kStages) & 1);
+      mbar_wait(full(sa_slot), (n / kStages) & 1,
+                CK_TAG(t == 0, 2 * pipe, sa_slot, 1));
       ++n;
       const int sb_slot = n % kStages;
-      mbar_wait(full(sb_slot), (n / kStages) & 1);
+      mbar_wait(full(sb_slot), (n / kStages) & 1,
+                CK_TAG(t == 0, 2 * pipe, sb_slot, 1));
       ++n;
       pipe_sync(pipe);   // every warp is past the last item's wgmma
+      CK_IF(t == 0, read, 2 * pipe, sa_slot, 1);
+      CK_IF(t == 0, read, 2 * pipe, sb_slot, 1);
       split_tile<PAY, false, Lay::kAParts>(gpipe + slot(sa_slot), nullptr,
                                            gpipe, t);
       split_tile<PAY, kRowwise, Lay::kBParts>(
@@ -471,8 +500,8 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       pipe_sync(pipe);
       if (t == 0) {
-        mbar_arrive(empty(sa_slot));
-        mbar_arrive(empty(sb_slot));
+        mbar_arrive(empty(sa_slot), CK_TAG(true, 2 * pipe, sa_slot, 1));
+        mbar_arrive(empty(sb_slot), CK_TAG(true, 2 * pipe, sb_slot, 1));
       }
       float part[32];
       wgmma_fence();
@@ -503,6 +532,7 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE>::kThreads, 1)
         }
       }
     }
+    CK_IF(t == 0 && (fl & kWrite), gwrite, kOpC, c, ct, 1, kT * kT);
     if (fl & kWrite) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -548,6 +578,7 @@ int launch(const Args& x) {
     attr_set[dev] = true;
   }
   const int blocks = min(sms[dev], (x.n_runs + Lay::kPipes - 1) / Lay::kPipes);
+  CK_LAUNCH("segment_spgemm_tc_kernel", x.stream);
   kernel<<<blocks, Lay::kThreads, Lay::kSmem, x.stream>>>(
       static_cast<const uint8_t*>(x.a), static_cast<const uint8_t*>(x.b),
       static_cast<TO*>(x.c), x.a_scales, x.b_scales, x.run_steps, x.steps,
@@ -569,6 +600,11 @@ int by_mode(int payload, int scale_mode, const Args& x) {
 }
 
 }  // namespace
+
+CK_NAMES("op:0:a op:1:b op:2:c op:3:a_scales op:4:b_scales op:5:run_steps "
+         "op:6:steps op:7:next_run ring:0:tiles.0 ring:1:rows.0 "
+         "ring:2:tiles.1 ring:3:rows.1 ring:4:tiles.2 ring:5:rows.2 "
+         "ring:6:tiles.3 ring:7:rows.3")
 
 extern "C" {
 

@@ -122,10 +122,19 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kStages = 3;       // depth of the A-tile ring
 constexpr int kMaxDevices = 64;
+// the checked build's operands and ring (check.cuh); the schedule arrays
+// are numbered in their argument order from kOpSlot on
+enum CkOp {
+  kOpA = 0, kOpScales, kOpB, kOpC, kOpSlot, kOpM, kOpK, kOpStart, kOpWrite,
+  kOpPrev, kOpValid, kOpRuns, kOpWork, kOpCounters
+};
+constexpr int kRingA = 0;
 
 enum Payload { kF32 = 0, kI8 = 1, kF8 = 2 };
 enum ScaleMode { kNone = 0, kBlock = 1, kRow = 2 };
@@ -158,19 +167,6 @@ __device__ __forceinline__ void word_to_f32x4(unsigned w, float* v) {
     v[2] = hi.x;
     v[3] = hi.y;
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // P consecutive floats from shared memory, in the widest aligned vectors
@@ -259,11 +255,29 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
   const long long row0 = static_cast<long long>(m_idx[lo]) * OM;
   const bool k_fast = sbk == 1;  // B is k-contiguous (x.T or dy views)
   auto out_row = [&](int i) { return TRANS ? grp * P + i : grp + i * NG; };
+  CK_BEGIN();
+  CK(operand, kOpA, static_cast<const unsigned char*>(a), ck::kInput);
+  CK(operand, kOpScales, a_scales, ck::kInput);
+  CK(operand, kOpB, b, ck::kInput);
+  CK(operand, kOpC, c, ck::kOutput);
+  CK(operand_each, kOpSlot, ck::kInput, slot_idx, m_idx, k_idx, seg_start,
+     seg_write, accum_prev, valid);
+  CK(operand, kOpRuns, run_off, ck::kInput);
+  CK(ring, kRingA, kStages, ck::kGroups);
+  CK_IF(t == 0, gread, kOpRuns, run_off, run_off + blockIdx.y, 1, 2);
+  CK_IF(t == 0, gread, kOpM, m_idx, m_idx + lo, 1, 1);
+  CK_IF(t == 0, gread_each, kOpSlot, lo, hi - lo, slot_idx, m_idx, k_idx,
+        seg_start, seg_write, accum_prev, valid);
 
   auto issue_a = [&](int it) {
     if (it < hi && valid[it]) {
       unsigned char* dst = ring + ((it - lo) % kStages) * RING;
       const long long slot = slot_idx[it];
+      CK_IF(t == 0, issue, kRingA, (it - lo) % kStages);
+      CK_IF(t == 0, gread, kOpA, static_cast<const unsigned char*>(a),
+            static_cast<const unsigned char*>(a) +
+                slot * (BM * BK * (PAY == kF32 ? 4 : 1)),
+            1, BM * BK * (PAY == kF32 ? 4 : 1));
       if constexpr (PAY == kF32) {
         const float* src = static_cast<const float*>(a) + slot * (BM * BK);
         float* d = reinterpret_cast<float*>(dst);
@@ -284,7 +298,8 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
         }
       }
     }
-    cp_async_commit();  // empty groups keep the wait count uniform
+    // empty groups keep the wait count uniform
+    cp_async_commit(CK_TAG(t == 0, kRingA, 0, 0));
   };
 
   // 1-byte payloads: the 16-byte chunks this thread copied for item `it`,
@@ -304,6 +319,8 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
         word_to_f32x4<PAY>(w.z, v + 8);
         word_to_f32x4<PAY>(w.w, v + 12);
         if constexpr (SCALE == kRow) {
+          CK_IF(t == 0 && q == 0, gread, kOpScales, a_scales,
+                a_scales + static_cast<long long>(slot_idx[it]) * BM, 1, BM);
           const float s =
               a_scales[static_cast<long long>(slot_idx[it]) * BM + r];
 #pragma unroll
@@ -331,6 +348,8 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
   auto load_b = [&](int it) {
     if (it < hi && valid[it]) {
       const TB* src = b + static_cast<long long>(k_idx[it]) * KC * sbk;
+      CK_IF(t == 0, gread, kOpB, b, src + n0 * sbn, KC, min(TN, n - n0), sbk,
+            static_cast<int>(sbn));
 #pragma unroll
       for (int e = 0; e < BEL; ++e) {
         int kk, nn;
@@ -396,8 +415,12 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
     cp_async_wait<kStages - 2>();  // this thread's copies of item `it` landed
     __syncthreads();               // everyone's copies and B stores visible;
                                    // item it-1's buffers are free again
+    CK_IF(t == 0, groups, kRingA, kStages - 2);
+    CK_IF(t == 0 && it > lo && valid[it - 1], release, kRingA,
+          (it - 1 - lo) % kStages);
     issue_a(it + kStages - 1);
     load_b(it + 1);
+    CK_IF(t == 0 && valid[it], read, kRingA, (it - lo) % kStages);
     const float* at;
     if constexpr (PAY == kF32) {
       at = reinterpret_cast<const float*>(ring + ((it - lo) % kStages) * RING);
@@ -409,6 +432,8 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
 
     if (seg_start[it]) {
       if (accum_prev[it]) {
+        CK_IF(t == 0, gread, kOpC, c, c + row0 * n + n0, OM, min(TN, n - n0),
+              n);
 #pragma unroll
         for (int i = 0; i < P; ++i)
           acc[i] = col_ok ? to_f32(c[(row0 + out_row(i)) * n + n0 + col])
@@ -425,6 +450,8 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
 #pragma unroll
         for (int i = 0; i < P; ++i) part[i] = 0.f;
         mac(at, bt, part);
+        CK_IF(t == 0, gread, kOpScales, a_scales, a_scales + slot_idx[it], 1,
+              1);
         const float s = a_scales[slot_idx[it]];
 #pragma unroll
         for (int i = 0; i < P; ++i)
@@ -433,6 +460,8 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
         mac(at, bt, acc);
       }
     }
+    CK_IF(t == 0 && seg_write[it], gwrite, kOpC, c, c + row0 * n + n0, OM,
+          min(TN, n - n0), n);
     if (seg_write[it] && col_ok) {
 #pragma unroll
       for (int i = 0; i < P; ++i)
@@ -441,6 +470,7 @@ __global__ void __launch_bounds__(4 * BM) segment_spmm_kernel(
     store_b(it + 1);
   }
   cp_async_wait<0>();
+  CK_IF(t == 0, groups, kRingA, 0);
 }
 
 struct Args {
@@ -483,6 +513,7 @@ int launch(const Args& x) {
     smem_set[dev] = true;
   }
   const dim3 grid((x.n + TN - 1) / TN, x.n_runs);
+  CK_LAUNCH("segment_spmm_kernel", x.stream);
   kernel<<<grid, 4 * BM, smem, x.stream>>>(
       x.a, x.a_scales, static_cast<const TB*>(x.b), static_cast<TO*>(x.c),
       x.slot_idx, x.m_idx, x.k_idx, x.seg_start, x.seg_write, x.accum_prev,
@@ -586,12 +617,6 @@ constexpr int min_blocks() {
   return by_regs < by_smem ? by_regs : by_smem;
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
 // Sums v over the L lanes that differ in lane bits 0 .. log2(L) - 1, as a
 // reduce-scatter: each round a lane keeps one half of its values (the
 // upper half where the round's lane bit is set), adds its partner's copy
@@ -661,11 +686,36 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
   const bool k_fast = sbk == 1;   // B is k-contiguous (x.T or dy views)
   // outputs 4 og .. 4 og + 3; contraction share rs
   const int rs = t & 15, og = t >> 4;
+  CK_BEGIN();
+  CK(operand, kOpA, static_cast<const unsigned char*>(a), ck::kInput);
+  CK(operand, kOpScales, a_scales, ck::kInput);
+  CK(operand, kOpB, b, ck::kInput);
+  CK(operand, kOpC, c, ck::kOutput);
+  CK(operand_each, kOpSlot, ck::kInput, slot_idx, m_idx, k_idx);
+  CK(operand, kOpValid, valid, ck::kInput);
+  CK(operand, kOpRuns, reinterpret_cast<const int*>(chunks), ck::kInput);
+  CK(operand, kOpWork, work, ck::kWorkspace);
+  CK(operand, kOpCounters, counters, ck::kCounterOp);
+  CK(ring, kRingA, kStages, ck::kGroups);
+  CK_IF(t == 0, gread, kOpRuns, reinterpret_cast<const int*>(chunks),
+        reinterpret_cast<const int*>(chunks) + 4 * blockIdx.y, 1, 4);
+  CK_IF(t == 0, gread, kOpM, m_idx, m_idx + lo, 1, 1);
+  CK_IF(t == 0, gread_each, kOpSlot, lo, hi - lo, slot_idx);
+  CK_IF(t == 0, gread, kOpK, k_idx, k_idx + lo, 1, hi - lo);
+  CK_IF(t == 0, gread, kOpValid, valid, valid + lo, 1, hi - lo);
 
   auto issue_a = [&](int it) {
     if (it < hi && valid[it]) {
       unsigned char* dst = ring + ((it - lo) % kStages) * STAGE;
       const long long slot = slot_idx[it];
+      CK_IF(t == 0, issue, kRingA, (it - lo) % kStages);
+      CK_IF(t == 0, gread, kOpA, static_cast<const unsigned char*>(a),
+            static_cast<const unsigned char*>(a) +
+                slot * (kBM * kBM * (PAY == kF32 ? 4 : 1)),
+            1, kBM * kBM * (PAY == kF32 ? 4 : 1));
+      CK_IF(t == 0 && SCALE != kNone, gread, kOpScales, a_scales,
+            a_scales + slot * (SCALE == kRow ? kBM : 1), 1,
+            SCALE == kRow ? kBM : 1);
       if constexpr (PAY == kF32) {
         const float* src = static_cast<const float*>(a) + slot * (kBM * kBM);
 #pragma unroll
@@ -688,7 +738,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
         }
       }
     }
-    cp_async_commit();  // empty groups keep the wait count uniform
+    // empty groups keep the wait count uniform
+    cp_async_commit(CK_TAG(t == 0, kRingA, 0, 0));
   };
 
   float breg[BEL];
@@ -706,6 +757,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
     if (it < hi && valid[it]) {
       const __nv_bfloat16* src =
           b + static_cast<long long>(k_idx[it]) * kBM * sbk;
+      CK_IF(t == 0, gread, kOpB, b, src + n0 * sbn, kBM, min(TN, n - n0), sbk,
+            static_cast<int>(sbn));
 #pragma unroll
       for (int e = 0; e < BEL; ++e) {
         int kk, nn;
@@ -810,9 +863,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
     cp_async_wait<kStages - 2>();  // this thread's copies of item `it` landed
     __syncthreads();               // everyone's copies and B stores visible;
                                    // item it-1's buffers are free again
+    CK_IF(t == 0, groups, kRingA, kStages - 2);
+    CK_IF(t == 0 && it > lo && valid[it - 1], release, kRingA,
+          (it - 1 - lo) % kStages);
     issue_a(it + kStages - 1);
     load_b(it + 1);
     if (valid[it]) {
+      CK_IF(t == 0, read, kRingA, (it - lo) % kStages);
       const unsigned char* st = ring + ((it - lo) % kStages) * STAGE;
       const float* bt = bs + ((it - lo) & 1) * (kBM * BP);
       if constexpr (SCALE == kBlock) {
@@ -831,6 +888,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
     store_b(it + 1);
   }
   cp_async_wait<0>();
+  CK_IF(t == 0, groups, kRingA, 0);
 
   // the chunk's sums: values base .. base + NV - 1 of this thread's V
   int base = 0;
@@ -841,6 +899,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
     col = idx % TN;
   };
   const int count = ch.w;
+  CK_IF(t == 0 && count == 1, gwrite, kOpC, c, c + row0 * n + n0, kBM,
+        min(TN, n - n0), n);
   if (count == 1) {   // a run of one chunk: no partials
 #pragma unroll
     for (int x = 0; x < NV; ++x) {
@@ -853,6 +913,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
   const long long tile_elems = kBM * TN;
   float* mine = work + (static_cast<long long>(blockIdx.y) * gridDim.x +
                         tile) * tile_elems;
+  CK_IF(t == 0, gwrite, kOpWork, work, mine, 1, kBM * TN);
 #pragma unroll
   for (int x = 0; x < NV; ++x) {
     int row, col;
@@ -865,6 +926,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
   if (t == 0) {
     int* ctr = counters + static_cast<long long>(ch.z) * gridDim.x + tile;
     const int done = atomicAdd(ctr, 1);
+    CK(counter, kOpCounters, ctr - counters, done, count);
     last = done == count - 1;
     if (last) *ctr = 0;   // ready for the next launch
   }
@@ -874,6 +936,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TN, PAY, SCALE>())
   const float* first = work + static_cast<long long>(ch.z) * gridDim.x *
                                   tile_elems + tile * tile_elems;
   const long long stride = static_cast<long long>(gridDim.x) * tile_elems;
+  CK_IF(t == 0, gread, kOpWork, work, first, count, kBM * TN, stride);
+  CK_IF(t == 0, gwrite, kOpC, c, c + row0 * n + n0, kBM, min(TN, n - n0), n);
 #pragma unroll
   for (int x = 0; x < NV; ++x) {
     int row, col;
@@ -921,6 +985,7 @@ int launch(const Args& x) {
     smem_set[dev] = true;
   }
   const dim3 grid((x.n + TN - 1) / TN, x.n_chunks);
+  CK_LAUNCH("segment_spmm_fold_kernel", x.stream);
   kernel<<<grid, kThreads, smem, x.stream>>>(
       x.a, x.a_scales, static_cast<const __nv_bfloat16*>(x.b),
       static_cast<TO*>(x.c), x.slot_idx, x.m_idx, x.k_idx, x.valid,
@@ -1000,6 +1065,10 @@ long long split_smem(int tile_n) {
 }
 
 }  // namespace
+
+CK_NAMES("op:0:a op:1:a_scales op:2:b op:3:c op:4:slot_idx op:5:m_idx "
+         "op:6:k_idx op:7:seg_start op:8:seg_write op:9:accum_prev "
+         "op:10:valid op:11:runs op:12:work op:13:counters ring:0:a_tiles")
 
 extern "C" {
 

@@ -95,6 +95,12 @@ constexpr int kWgN = 128;                // columns of one consumer warpgroup
 constexpr int kProducerWarps = 4;
 constexpr int kTile = kBM * kBM * 2;     // one bf16 64 x 64 tile, 8 KiB
 constexpr int kBox = 64 * 64 * 2;        // one 64 x 64 bf16 TMA box
+// the checked build's operands and ring (check.cuh)
+enum CkOp {
+  kOpA = 0, kOpScales, kOpB, kOpC, kOpSlot, kOpM, kOpK, kOpStart, kOpWrite,
+  kOpPrev, kOpValid, kOpRuns
+};
+constexpr int kRingB = 0;   // a stage: B's slice, the stored tile, scales
 constexpr int kSmemMax = 232448;         // opt-in shared memory of a block
 constexpr int kMaxStages = 6;
 
@@ -122,26 +128,6 @@ struct Layout {
                                + 3 * kStages * 8;        // the mbarriers
   static_assert(kStages >= 3, "ring too shallow");
 };
-
-// `bytes` contiguous bytes from global to shared memory, completing on
-// mbarrier `bar` (both addresses and the size multiples of 16).
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 #define SEGMENT_SPMM_WGMMA_ARGS                                            \
   "{"                                                                      \
@@ -339,6 +325,19 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
   const int hi = run_off[blockIdx.y + 1];
   const int n0 = blockIdx.x * kBN;
   const int wg = threadIdx.x / 128;
+  CK_BEGIN();
+  CK(operand, kOpA, static_cast<const unsigned char*>(a), ck::kInput);
+  CK(operand, kOpScales, a_scales, ck::kInput);
+  CK(operand, kOpC, c, ck::kOutput);
+  CK(operand_each, kOpSlot, ck::kInput, slot_idx, m_idx, k_idx, seg_start,
+     seg_write, accum_prev, valid);
+  CK(operand, kOpRuns, run_off, ck::kInput);
+  CK(ring, kRingB, kStages, ck::kMbarrier);
+  CK_IF(threadIdx.x == 0, gread, kOpRuns, run_off, run_off + blockIdx.y, 1,
+        2);
+  CK_IF(threadIdx.x == 0, gread, kOpM, m_idx, m_idx + lo, 1, 1);
+  CK_IF(threadIdx.x == 0, gread_each, kOpSlot, lo, hi - lo, slot_idx, m_idx,
+        k_idx, seg_start, seg_write, accum_prev, valid);
 
   if (wg == 0) {
     // producer: thread 0 loads kStages - 1 valid items ahead; all 128
@@ -357,19 +356,23 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
       mbar_wait(empty(s), ((n_ld / kStages) & 1) ^ 1);
       const uint32_t st = base + s * Lay::kStage;
       const long long slot = slot_idx[ld];
-      mbar_expect_tx(full(s), bytes);
+      mbar_expect_tx(full(s), bytes, CK_TAG(true, kRingB, s, 0));
       bulk_copy(st + Lay::kRaw,
                 static_cast<const uint8_t*>(a) + slot * Lay::kRawBytes,
-                Lay::kRawBytes, full(s));
+                Lay::kRawBytes, full(s), CK_COPY(true, kOpA, a, 0));
       if constexpr (SCALE == kRow)
         bulk_copy(st + Lay::kScales, a_scales + slot * kBM, Lay::kScaleBytes,
-                  full(s));
+                  full(s), CK_COPY(true, kOpScales, a_scales, 0));
       const int k0 = k_idx[ld] * kBM;
+      // a slice past N relies on TMA's zero fill: its columns are never
+      // stored
       if constexpr (KB) {
-        tma_2d(st, &map_b, full(s), k0, n0);
+        tma_2d(st, &map_b, full(s), k0, n0,
+               CK_BOX(true, kOpB, 64, kBN, 1, ck::kZeroFill));
       } else {
         for (int bx = 0; bx < boxes; ++bx)
-          tma_2d(st + bx * kBox, &map_b, full(s), n0 + 64 * bx, k0);
+          tma_2d(st + bx * kBox, &map_b, full(s), n0 + 64 * bx, k0,
+                 CK_BOX(true, kOpB, 64, 64, 1, ck::kZeroFill));
       }
       ++ld;
       ++n_ld;
@@ -380,7 +383,8 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
     for (int it = lo; it < hi; ++it) {
       if (!valid[it]) continue;
       const int s = q % kStages;
-      mbar_wait(full(s), (q / kStages) & 1);
+      mbar_wait(full(s), (q / kStages) & 1, CK_TAG(t == 0, kRingB, s, 0));
+      CK_IF(t == 0, read, kRingB, s, 0);
       uint8_t* st = gbase + s * Lay::kStage;
       split_tile<TRANS, PAY, SCALE>(
           st + Lay::kRaw, reinterpret_cast<const float*>(st + Lay::kScales),
@@ -388,7 +392,9 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
       // the split tiles are read by wgmma, through the async proxy
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncwarp();
-      if ((t & 31) == 0) mbar_arrive(ready(s));
+      // the split tiles are the producer warpgroup's hand-off: its read of
+      // the stage ends here
+      if ((t & 31) == 0) mbar_arrive(ready(s), CK_TAG(t == 0, kRingB, s, 0));
       if (t == 0) load_next();
       ++q;
     }
@@ -417,6 +423,8 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
   for (int it = lo; it < hi; ++it) {
     if (seg_start[it]) {
       if (accum_prev[it] && mine) {
+        CK_IF(ct == 0, gread, kOpC, c, c + row0 * n + nc0, kBM,
+              min(kWgN, n - nc0), n);
 #pragma unroll
         for (int i = 0; i < 16; ++i)
 #pragma unroll
@@ -433,8 +441,9 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
     if (valid[it]) {
       const int s = q % kStages;
       const uint32_t ph = (q / kStages) & 1;
-      mbar_wait(full(s), ph);
+      mbar_wait(full(s), ph, CK_TAG(ct == 0, kRingB, s, wg));
       mbar_wait(ready(s), ph);
+      CK_IF(ct == 0 && mine, read, kRingB, s, wg);
       if (mine) {
         const uint32_t st = base + s * Lay::kStage;
         const uint32_t bw = st + cw * (kWgN * kBM * 2);   // its columns
@@ -457,6 +466,8 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
         wgmma_commit();
         wgmma_wait0();
         if constexpr (SCALE == kBlock) {
+          CK_IF(ct == 0, gread, kOpScales, a_scales, a_scales + slot_idx[it],
+                1, 1);
           const float sb = a_scales[slot_idx[it]];
 #pragma unroll
           for (int i = 0; i < 64; ++i) {
@@ -472,9 +483,11 @@ __global__ void __launch_bounds__(Layout<PAY, SCALE, WGS>::kThreads, 1)
         }
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty(s));
+      if (lane == 0) mbar_arrive(empty(s), CK_TAG(ct == 0, kRingB, s, wg));
       ++q;
     }
+    CK_IF(ct == 0 && seg_write[it] && mine, gwrite, kOpC, c,
+          c + row0 * n + nc0, kBM, min(kWgN, n - nc0), n);
     if (seg_write[it] && mine) {
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
@@ -556,6 +569,12 @@ int launch(const Args& x) {
     attr_set = true;
   }
   const dim3 grid((x.n + kBN - 1) / kBN, x.n_runs);
+  if (KB) {
+    CK_MAP(kOpB, x.k_dim, x.n, 1, x.stream);
+  } else {
+    CK_MAP(kOpB, x.n, x.k_dim, 1, x.stream);
+  }
+  CK_LAUNCH("segment_spmm_tc_kernel", x.stream);
   kernel<<<grid, Lay::kThreads, Lay::kSmem, x.stream>>>(
       map, x.a, x.a_scales, static_cast<TO*>(x.c), x.slot_idx, x.m_idx,
       x.k_idx, x.seg_start, x.seg_write, x.accum_prev, x.valid, x.run_off,
@@ -604,6 +623,10 @@ long long smem(int n) {
 }
 
 }  // namespace
+
+CK_NAMES("op:0:a op:1:a_scales op:2:b op:3:c op:4:slot_idx op:5:m_idx "
+         "op:6:k_idx op:7:seg_start op:8:seg_write op:9:accum_prev "
+         "op:10:valid op:11:runs ring:0:stages")
 
 extern "C" {
 
