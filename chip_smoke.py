@@ -301,7 +301,7 @@
    of this script (``--phase zero3``, builds one rank at a time, each
    process's allocator on ``expandable_segments``) on a (2, 2)
    ``(data, model)`` gloo mesh.  Phi-3.5-MoE at published widths cut to
-   ``ZERO3_LAYERS`` = 2 layers, fp32, remat, 2 x 1024 tokens (one row a
+   ``ZERO3_LAYERS`` = 1 layer, fp32, remat, 2 x 1024 tokens (one row a
    dp rank): rank 0 first runs it at world size 1, then all four run it
    with the experts split over ``model`` and every parameter held as its
    rule shard, gathered a unit at a time: the loss and norm of
@@ -321,15 +321,15 @@
    block-sparse FFN, fp32, remat: its 20 heads do not split over 3 ranks,
    so its attention runs whole on every rank.  Rank 0 first runs it at
    world size 1, then all three run it split: ``SEQ_STEPS`` ``Trainer``
-   steps on 1 x ``SEQ_T`` = 3072 tokens with ``seq_shard`` (each block's
-   input holds 1024 rows a rank, checked by a hook) under [tp]'s gates
+   steps on 1 x ``SEQ_T`` = 1536 tokens with ``seq_shard`` (each block's
+   input holds 512 rows a rank, checked by a hook) under [tp]'s gates
    and every gradient; a chunked prefill (``SEQ_CHUNKS``, the second
    across a shard edge) and ``SEQ_DECODE`` greedy steps over the KV cache
    split on time (256 of ``SEQ_MAX_LEN`` = 768 positions a rank, its
    bytes exactly a third of world size 1's): the same tokens on every
    rank, logits within ``LOGIT_RTOL``; each rank's exact ``segment_spmm``
    launches (all ``simt``: fp32 B) equal to world size 1's; the kernel
-   against its plain version at a rank's 1024 rows (forward and
+   against its plain version at a rank's 512 rows (forward and
    ``transpose_lhs``) and at the decode's 2 rows; peak memory per rank.
 13e. Head-parallel RWKV-6 ([rwkv_tp], after [seq]): four processes of
    this script (``--phase rwkv_tp``) on a (1, 4) ``(data, model)`` gloo
@@ -338,8 +338,8 @@
    of the 7168 hidden units of the channel mix and its 8 heads of the
    wkv state.  Rank 0 first runs it at world size 1, then all four run
    it split: ``RWKV_TP_STEPS`` ``Trainer`` steps on 1 x ``RWKV_TP_T`` =
-   512 tokens, loss, norm and every gradient (gathered) within the
-   fp32 gate ``RWKV_TP_RTOL``; one ``seq_shard`` step (128 rows a rank
+   256 tokens, loss, norm and every gradient (gathered) within the
+   fp32 gate ``RWKV_TP_RTOL``; one ``seq_shard`` step (64 rows a rank
    at every block, checked by a hook) against world size 1's first; a
    64-token prefill and 16 greedy steps: the same tokens on every rank,
    logits within ``RWKV_TP_RTOL``; a rank's S bytes and its split
@@ -347,10 +347,29 @@
    kernel launch (the wkv recurrence is a
    torch loop in both packages, so no kernel is held against a plain
    version here); times and peak memory per rank as information.
+13f. The KV cache split over the ranks that share its KV heads
+   ([kv_group], after [rwkv_tp]): four processes of this script
+   (``--phase kv_group``) on a (1, 4) gloo mesh.  RecurrentGemma-9B at
+   published widths cut to ``KV_GROUP_LAYERS`` = 3 layers (rec, rec,
+   local), fp32: each rank runs 4 of the 16 query heads of the one KV
+   head, which all four share, so the local layer's ring of 2048 slots
+   splits 512 a rank, and 1024 of the 4096 RG-LRU channels.  Rank 0
+   first decodes at world size 1, then all four split: a prefill of 2 x
+   2048 tokens in two chunks, 24 greedy steps past the ring's end and
+   two calls at per-row positions (one row across ranks 0 and 1); the
+   same tokens on every rank, logits within ``LOGIT_RTOL``; a rank's
+   ring bytes exactly a quarter of world size 1's; each rank's exact
+   launches (``rg_lru`` ``tile`` a prefill chunk and layer, ``simt``
+   a decode call and layer) equal to world size 1's; ``rg_lru`` against
+   its plain version at a rank's 1024 channels; times and peak memory
+   per rank as information.
    Before each phase that starts ranks ([tp], [zero3], [seq],
-   [rwkv_tp]), the parent drops its plan cache and prints the card's
-   free memory and what it still holds (``free_parent``).
-14. The dry run ([dryrun], after [rwkv_tp]):
+   [rwkv_tp], [kv_group]), the parent drops its plan cache and prints
+   the card's free memory and what it still holds (``free_parent``).
+14. The dry run ([dryrun], after [kv_group]): first the fake rules of
+   ``moe_gemm`` and ``segment_spgemm`` against one real launch each on
+   every path (the same outputs and scratch, shape and dtype, and the
+   bytes the launch's results hold in the allocator).  Then
    ``repro_torch.launch.dryrun.run_cell`` traces ``DRYRUN_CELLS`` on fake
    CUDA tensors in a fake process group of 256 ranks (``pod_16x16``),
    the model split tensor parallel over the 16 ``model`` ranks, its
@@ -361,8 +380,11 @@
    per-rank bytes by MemTracker category, FLOPs, bytes, collective bytes
    by opcode, roofline terms, fit against the card's memory and
    ``useful_flops_ratio`` printed; each must complete with
-   ``tensor_parallel`` true, the training cells' ``useful_flops_ratio``
-   at least ``DRYRUN_USEFUL_MIN``, the parameters at least
+   ``tensor_parallel`` true, granite's decode_32k must fit with its KV
+   cache split on time over the two ranks of each KV head and a rank's
+   KV bytes equal to ``repro``'s ``cache_pspec`` share in closed form,
+   the training cells' ``useful_flops_ratio`` at least
+   ``DRYRUN_USEFUL_MIN``, the parameters at least
    ``DRYRUN_PARAM_CUT`` times under the gathered layout's, and its
    ``Parameter`` and ``Optstate`` bytes equal to the closed form of the
    rules' shard sizes (each rank's masters are its rule shards, plus the
@@ -389,7 +411,7 @@ Prints a JSON line of kernel numbers and, last, ``{"ok": true, ...}``.
 ``--only kernel,edges`` (any of ``PHASES``) runs those phases alone, after
 the build, and prints neither line; ``--only ops`` (or ``spgemm,ops``,
 ``hybrid``, ``hybrid_train``, or any of ``ssm,moe,vlm,encdec,dist,tp,
-zero3,seq,dryrun,rwkv_tp``) builds no 40-layer granite model.
+zero3,seq,dryrun,rwkv_tp,kv_group``) builds no 40-layer granite model.
 Exits non-zero without that line when there is no CUDA device, when the
 package is not beside this script, or when any check fails.
 """
@@ -5426,14 +5448,16 @@ def _tp_report(ranks):
           f"1 x {TP_T} tokens, (1, {TP_WORLD}) mesh on one card over gloo")
 
 
-# [zero3]: Phi-3.5-MoE at its published widths, its depth cut 32 -> 2, on a
+# [zero3]: Phi-3.5-MoE at its published widths, its depth cut 32 -> 1, on a
 # (2, 2) data x model mesh of four gloo ranks sharing the card: experts
 # split over model, every parameter held as its rule shard and gathered a
 # unit at a time; one row of 1024 tokens a dp rank.  In fp32: in bf16 the
 # split's other rounding moves some tokens' top-2 choices, and the
 # world-size-1 comparison then sees the routing, not the sharding (bf16,
 # step 1: loss 1.46e-3 and norm 9.39e-3 off world size 1)
-ZERO3_LAYERS = 2
+# (one layer: a split step's gloo collectives grow with the depth, ~27 s
+# a step at two, and the smoke's time limit is shared by every phase)
+ZERO3_LAYERS = 1
 ZERO3_T = 1024
 ZERO3_STEPS = 2
 ZERO3_SIZES = (2, 2)
@@ -5614,7 +5638,7 @@ def zero3_rank(rank, port, out_dir, dev=None):
 
 def phase_zero3(dev):
     """[zero3]: four processes on the one card (gloo with CUDA tensors),
-    Phi-3.5-MoE at published widths and 2 layers (fp32) on a (2, 2)
+    Phi-3.5-MoE at published widths and 1 layer (fp32) on a (2, 2)
     data x model mesh, 2 ``Trainer`` steps on 2 x 1024 tokens (one row a
     dp rank, remat), against a world-size-1 run of the same model and
     batch: loss, norm and every gradient (gathered full) under [tp]'s
@@ -5704,7 +5728,8 @@ def _zero3_report(ranks):
           f"{GRAD_RTOL}): {len(errs)} parameters, worst {worst} "
           f"{errs[worst]:.3e}; " + ", ".join(
               f"{k} {v:.2e}" for k, v in sorted(errs.items())
-              if k.startswith("layers.1.") or "embed" in k))
+              if k.startswith(f"layers.{ZERO3_LAYERS - 1}.")
+              or "embed" in k))
     check(errs[worst] <= GRAD_RTOL, f"[zero3] {worst} gradient err "
                                     f"{errs[worst]:.3g}")
     for name, (path, e) in ranks[0]["kernels"].items():
@@ -5725,7 +5750,7 @@ def _zero3_report(ranks):
 # model from the same seed
 SEQ_LAYERS = 2
 SEQ_WORLD = 3
-SEQ_T = 3072                   # training tokens: 1024 rows a rank
+SEQ_T = 1536                   # training tokens: 512 rows a rank
 SEQ_STEPS = 2
 SEQ_BATCH = 2                  # decode rows
 SEQ_MAX_LEN = 768              # 256 positions a rank
@@ -5886,8 +5911,8 @@ def phase_seq(dev):
     Qwen1.5-4B at published widths and 2 layers (fp32, block-sparse FFN)
     on a (1, 3) mesh: its 20 heads do not split, so the attention runs
     whole on every rank.  Against a world-size-1 run of the same model:
-    2 ``Trainer`` steps on 1 x 3072 tokens with ``seq_shard`` (each
-    block's input holds 1024 rows a rank) within the training gates, and
+    2 ``Trainer`` steps on 1 x 1536 tokens with ``seq_shard`` (each
+    block's input holds 512 rows a rank) within the training gates, and
     every gradient; a chunked prefill across a shard edge of the KV cache
     split on time (256 of 768 positions a rank, its bytes exactly a third)
     and 16 greedy steps, the same tokens and logits within the decode
@@ -5982,7 +6007,7 @@ def _seq_report(ranks):
 RWKV_TP_LAYERS = 2
 RWKV_TP_SIZES = (1, 4)
 RWKV_TP_WORLD = RWKV_TP_SIZES[0] * RWKV_TP_SIZES[1]
-RWKV_TP_T = 512                # training tokens: 1 x 512, 128 rows a rank
+RWKV_TP_T = 256                # training tokens: 1 x 256, 64 rows a rank
 RWKV_TP_STEPS = 2
 RWKV_TP_BATCH = 2              # decode rows
 RWKV_TP_PROMPT = 64            # one prefill call
@@ -6131,8 +6156,8 @@ def phase_rwkv_tp(dev):
     RWKV-6 1.6B at published widths and 2 layers (fp32) on a (1, 4) mesh,
     each rank running 8 of the 32 heads and 1792 of the 7168 hidden units.
     Against a world-size-1 run of the same model: 2 ``Trainer`` steps on
-    1 x 512 tokens, loss, norm and every gradient (gathered) within
-    ``RWKV_TP_RTOL``; one ``seq_shard`` step (each block's input 128 rows a
+    1 x 256 tokens, loss, norm and every gradient (gathered) within
+    ``RWKV_TP_RTOL``; one ``seq_shard`` step (each block's input 64 rows a
     rank) against world size 1's first; a 64-token prefill and 16 greedy
     steps, the same tokens and logits within ``RWKV_TP_RTOL``; a rank's S
     bytes and the split projections' parameter bytes exactly a quarter of
@@ -6225,6 +6250,316 @@ def _rwkv_tp_report(ranks):
           f"fp32, {RWKV_TP_SIZES} mesh on one card over gloo: "
           f"{cfg.n_heads // tp} heads and {cfg.d_ff // tp} hidden units a "
           f"rank")
+
+
+# [kv_group]: RecurrentGemma-9B at its published widths (d_model 4096, 16
+# heads of 256 on 1 KV head, window 2048, RG-LRU width 4096), its depth
+# cut 38 -> 3 (one rec, rec, local unit), fp32 (greedy tokens must match
+# world size 1 exactly): four gloo ranks on the one card on a (1, 4) mesh,
+# each running 4 query heads of the one KV head, its 512 of the ring's
+# 2048 slots and 1024 RG-LRU channels; against a world-size-1 run of the
+# same model from the same seed
+KV_GROUP_LAYERS = 3
+KV_GROUP_SIZES = (1, 4)
+KV_GROUP_WORLD = KV_GROUP_SIZES[0] * KV_GROUP_SIZES[1]
+KV_GROUP_BATCH = 2             # decode rows
+KV_GROUP_CHUNKS = (1024, 1024)  # prefill chunks: 2048 tokens, W a call at most
+KV_GROUP_DECODE = 24           # greedy steps after the prefill: the ring wraps
+# per-row positions after the greedy steps: row 0 goes on, row 1 writes
+# positions 511 and 512, ring slots across rank 0's and rank 1's ranges
+KV_GROUP_EDGE = 511
+KV_GROUP_MAX_LEN = 4096        # the ring holds min(max_len, window) slots
+KV_GROUP_TIMEOUT = 600
+
+
+def kv_group_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("recurrentgemma-9b"),
+                               n_layers=KV_GROUP_LAYERS, dtype="float32")
+
+
+def _kv_group_decode(model, dev):
+    """From the model's seeded weights: a chunked prefill of
+    ``KV_GROUP_BATCH`` random prompts (``KV_GROUP_CHUNKS``), then
+    ``KV_GROUP_DECODE`` greedy steps (past the ring's end), then two calls
+    at per-row positions, one row across a shard edge of the ring, all
+    through ``decode_step``, with every launch count set to 0 just before
+    and read just after.  Returns every call's logits and tokens after the
+    prefill (on the host), the counts, the time, the ring's bytes and
+    shape and the peak allocated."""
+    cfg = model.cfg
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    prompt = torch.randint(0, cfg.vocab, (KV_GROUP_BATCH,
+                                          sum(KV_GROUP_CHUNKS)),
+                           generator=gen, device=dev)
+    cache = model.init_cache(KV_GROUP_BATCH, KV_GROUP_MAX_LEN)
+    ring = sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+    logits, tokens = [], []
+
+    def keep(out):
+        logits.append(out.cpu())
+        tokens.append(out.argmax(-1).cpu())
+        return out.argmax(-1)
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pos = 0
+        for c in KV_GROUP_CHUNKS:
+            out, _ = model.decode_step(cache, prompt[:, pos:pos + c], pos)
+            pos += c
+        for i in range(KV_GROUP_DECODE):
+            tok = keep(out)
+            out, _ = model.decode_step(cache, tok[:, None], pos + i)
+        pos += KV_GROUP_DECODE
+        tok = keep(out)
+        rows = torch.tensor([pos, KV_GROUP_EDGE], device=dev)
+        out, _ = model.decode_step(cache, torch.stack([tok, tok], 1), rows)
+        tok = keep(out)
+        out, _ = model.decode_step(cache, tok[:, None], rows + 2)
+        keep(out)
+    counts = _counts()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (torch.stack(logits), torch.stack(tokens), counts, ms, ring,
+            list(cache["k"].shape), torch.cuda.max_memory_allocated())
+
+
+def _kv_group_kernels(model, dev):
+    """``rg_lru`` against its plain version on random inputs at the shape
+    a rank's decode step gives it (``KV_GROUP_BATCH`` rows, one step, its
+    1024 channels, fp32: the ``simt`` path), one launch by its own count;
+    its device time, the plain version's and the bound.  Returns the
+    record."""
+    from repro_torch.kernels.rg_lru import choose_path, rg_lru, rg_lru_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    rec = next(b.rec for b in model.layers if hasattr(b, "rec"))
+    d = rec.a_param.shape[0] // rec.tp.size
+    b = KV_GROUP_BATCH
+    x, a_gate, x_gate = (torch.randn(b, 1, d, generator=gen, device=dev)
+                         for _ in range(3))
+    a_param = torch.randn(d, generator=gen, device=dev)
+    h0 = torch.randn(b, d, generator=gen, device=dev)
+    check(choose_path(b, 1, d) == "simt",
+          f"[kv_group] rg_lru path {choose_path(b, 1, d)} at {(b, 1, d)}")
+
+    def kern():
+        return rg_lru(x, a_gate, x_gate, a_param, h0, ct=1)
+
+    def plain():
+        return rg_lru_plain(x, a_gate, x_gate, a_param, h0)
+
+    out, h_t = lru_call("simt", kern, "a rank's decode step", "[kv_group]")
+    po, ph = plain()
+    (rel_o, abs_o), (rel_h, abs_h) = _rel(out, po), _rel(h_t, ph)
+    check(max(rel_o, rel_h) <= KERNEL_RTOL,
+          f"[kv_group] rg_lru kernel vs plain out {rel_o:.3g}, h_T "
+          f"{rel_h:.3g}")
+    bound_ms, bound_by, terms = rg_lru_bound(
+        _nbytes(x, a_gate, x_gate, po, a_param, h0, ph), x.numel(),
+        rg_lru_sfu_per_element())
+    rec = dict(case=f"rg_lru decode, {b} x 1 x {d}", kernel="rg_lru",
+               path="simt", d=d, rel_err=max(rel_o, rel_h),
+               max_abs_err=max(abs_o, abs_h), ms=scaled_device_ms(kern),
+               plain_ms=event_ms(plain, 3), bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    print(f"[kv_group] rg_lru B={b} T=1 D={d} fp32 (a rank's channels): "
+          f"path simt, rel_err {rec['rel_err']:.2e}, {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; bytes {terms[0]:.4f}, fp32 ops {terms[1]:.4f}, SFU "
+          f"{terms[2]:.4f})")
+    return rec
+
+
+def kv_group_rank(rank, port, out_dir, dev=None):
+    """One rank of [kv_group] (``chip_smoke.py --phase kv_group --rank
+    R``): rank 0 first decodes at world size 1 while the others wait; then
+    all four decode split on the (1, 4) mesh, the ring split on time over
+    the KV group.  Rank 0 holds the kernel to its plain version at a
+    rank's shapes; each rank writes its numbers to
+    ``out_dir/r<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=KV_GROUP_WORLD,
+        timeout=datetime.timedelta(seconds=KV_GROUP_TIMEOUT))
+    cfg = kv_group_config()
+    res = {"rank": rank}
+    if rank == 0:
+        model = build_model(cfg, device=dev)
+        (one_logits, tokens, counts, ms, ring, shape,
+         peak) = _kv_group_decode(model, dev)
+        one = {"tokens": tokens.tolist(), "counts": counts, "ms": ms,
+               "ring": ring, "shape": shape, "peak": peak}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[kv_group] world size 1: decode {ms:.1f} ms; ring "
+              f"{ring / 1e6:.2f} MB {shape}; peak {peak / 1e9:.2f} GB; "
+              f"launches {counts}", flush=True)
+    dist.barrier()
+    mesh = make_mesh(KV_GROUP_SIZES, ("data", "model"), device=dev.type)
+    model = build_model(cfg, device=dev, mesh=mesh)
+    logits, tokens, counts, ms, ring, shape, peak = _kv_group_decode(model,
+                                                                     dev)
+    res.update(tokens=tokens.tolist(), counts=counts, ms=ms, ring=ring,
+               shape=shape, peak=peak, gathered=sorted(model.tp_gathered),
+               kv=[model.kv_tp.rank, model.kv_tp.size],
+               split=model.kv_split_on_time(KV_GROUP_MAX_LEN))
+    if rank == 0:
+        res["one"] = one
+        res["logit_err"] = _rel(logits, one_logits)[0]
+        res["kernels"] = [_kv_group_kernels(model, dev)]
+    dist.barrier()
+    with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_kv_group(dev):
+    """[kv_group]: four processes on the one card (gloo with CUDA
+    tensors), RecurrentGemma-9B at published widths and 3 layers (fp32) on
+    a (1, 4) mesh: its one KV head is shared by all four ranks, so its
+    local layer's ring of 2048 slots splits 512 a rank and decode reduces
+    the ring attention over the ranks.  Against a world-size-1 run of the
+    same model: a 2 x 2048-token prefill in two chunks, 24 greedy steps
+    (the ring wraps) and two calls at per-row positions (one row across
+    ranks 0 and 1), the same tokens on every rank, logits within
+    ``LOGIT_RTOL``; a rank's ring bytes exactly a quarter of world size
+    1's; each rank's exact launches (``rg_lru``: ``tile`` for each
+    prefill chunk, ``simt`` for each decode call, 2 a call) equal to world
+    size 1's; the kernel against its plain version at a rank's 1024
+    channels.  Times and peak memory per rank are information only: four
+    ranks share one card and gloo stages every collective through the
+    host."""
+    t0 = time.perf_counter()
+    ranks = _run_ranks("kv_group", KV_GROUP_WORLD, KV_GROUP_TIMEOUT)
+    _kv_group_report(ranks)
+    print(f"[kv_group] phase {time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def _kv_group_report(ranks):
+    """[kv_group]'s gates over the ranks' numbers (see
+    :func:`phase_kv_group`)."""
+    cfg = kv_group_config()
+    one = ranks[0]["one"]
+    tp = KV_GROUP_SIZES[1]
+    n_rec = cfg.layer_pattern.count("rec")
+    calls = KV_GROUP_DECODE + 2
+    want = dict(rg_lru=n_rec * (len(KV_GROUP_CHUNKS) + calls),
+                rg_lru_tile=n_rec * len(KV_GROUP_CHUNKS),
+                rg_lru_simt=n_rec * calls, flash=0, spmm=0)
+    gb = 1e9
+    for r, res in enumerate(ranks):
+        check(res["gathered"] == [] and res["kv"] == [r, tp] and res["split"],
+              f"[kv_group] rank {r}: gathered {res['gathered']}, KV group "
+              f"{res['kv']}, split on time {res['split']}")
+        bad = {k: (res["counts"][k], v) for k, v in want.items()
+               if res["counts"][k] != v}
+        check(not bad and res["counts"] == one["counts"],
+              f"[kv_group] rank {r}: launches (got, expected) {bad}; world "
+              f"size 1 {one['counts']}")
+        check(res["ring"] * tp == one["ring"]
+              and res["shape"][2] * tp == one["shape"][2] == cfg.local_window,
+              f"[kv_group] rank {r}: ring {res['shape']} {res['ring']} B, "
+              f"world size 1 {one['shape']} {one['ring']} B")
+        check(res["tokens"] == one["tokens"],
+              f"[kv_group] rank {r}: greedy tokens differ from world size 1")
+        print(f"[kv_group] rank {r}: ring {res['shape']} "
+              f"{res['ring'] / 1e6:.2f} MB (world size 1 {one['shape']} "
+              f"{one['ring'] / 1e6:.2f} MB); rg_lru simt "
+              f"{res['counts']['rg_lru_simt'] // calls} a decode call, tile "
+              f"{res['counts']['rg_lru_tile']}; decode {res['ms']:.1f} ms "
+              f"(world size 1 {one['ms']:.1f} ms; information only); peak "
+              f"allocated {res['peak'] / gb:.2f} GB (world size 1 "
+              f"{one['peak'] / gb:.2f} GB)")
+    le = ranks[0]["logit_err"]
+    print(f"[kv_group] decode: prefill chunks {KV_GROUP_CHUNKS}, "
+          f"{KV_GROUP_DECODE} greedy steps past the ring's end, 2 calls at "
+          f"per-row positions; tokens equal on every rank, logits vs world "
+          f"size 1 {le:.2e} (tol {LOGIT_RTOL})")
+    check(le <= LOGIT_RTOL, f"[kv_group] decode logits err {le:.3g}")
+    print(f"[kv_group] summary: {cfg.name} full width, {cfg.n_layers} "
+          f"layers, fp32, {KV_GROUP_SIZES} mesh on one card over gloo: "
+          f"{cfg.n_heads // tp} query heads, {cfg.local_window // tp} ring "
+          f"slots and {cfg.d_model // tp} RG-LRU channels a rank")
+
+
+def _fake_rule_cases(dev):
+    """``(label, operator, arguments, kernel, a path's count, its launches)``
+    of one launch each: ``moe_gemm`` on its tensor-core kernel (bf16, a
+    strided weight and int64 expert ids, which the launch copies) and its
+    SIMT kernel (fp32: no tensor-core launch), ``segment_spgemm`` on
+    ``"tc"`` (64 x 64 tiles) and ``"simt"`` (32 x 32)."""
+    from repro_torch import api
+    from repro_torch.core.formats import BSR
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.segment_spgemm import segment_spgemm
+    ops = torch.ops.repro_torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    rng = np.random.default_rng(SEED + 53)
+    cases = []
+    for dt, path in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        x = torch.randn(4 * 128, 256, generator=gen, device=dev).to(dt)
+        w = torch.randn(4, 512, 256, generator=gen, device=dev).to(dt)
+        ids = torch.tensor([0, 1, 1, 3], device=dev)
+        live = torch.tensor([128, 5, 0, 64], dtype=torch.int32, device=dev)
+        cases.append((f"moe_gemm {path}", ops.moe_gemm,
+                      (x, w.transpose(1, 2), ids, live, 128, torch.float32),
+                      moe_gemm, "tensor_core_launches", int(path == "tc")))
+    for block, path in ((64, "tc"), (32, "simt")):
+        a = BSR.random(rng, (512, 512), (block, block), 0.3)
+        plan = api.plan_matmul(a, a, device=dev)
+        cases.append((f"segment_spgemm {path}", ops.segment_spgemm, (
+            plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx,
+            plan.c_idx, plan.seg_start, plan.seg_write, plan.accum_prev,
+            plan.valid, None, None, plan.run_offsets, plan.tc_runs,
+            plan.tc_steps, plan.n_out_blocks, torch.float32, None),
+            segment_spgemm, f"{path}_launches", 1))
+    return cases
+
+
+def fake_rule_checks(dev):
+    """The fake rules of ``moe_gemm`` and ``segment_spgemm`` against one
+    real launch each on the card (:func:`_fake_rule_cases`): the same
+    outputs and scratch, shape and dtype, in order, and the bytes the
+    real launch's results hold in the allocator (``memory_allocated``
+    while they live) equal to the fake ones' rounded to the allocator's
+    512 bytes; each launch on its path by that path's own count."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    for label, op, args, kernel, name, n in _fake_rule_cases(dev):
+        torch.cuda.synchronize()
+        counts = (kernel.launches, getattr(kernel, name))
+        before = torch.cuda.memory_allocated()
+        outs = op(*args)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        got = (kernel.launches - counts[0], getattr(kernel, name) - counts[1])
+        with FakeTensorMode():
+            fake = op(*(torch.empty_strided(a.shape, a.stride(),
+                                            dtype=a.dtype, device=dev)
+                        if isinstance(a, torch.Tensor) else a for a in args))
+        real = [(tuple(o.shape), o.dtype) for o in outs]
+        want = [(tuple(o.shape), o.dtype) for o in fake]
+        rounded = sum(-(-o.numel() * o.element_size() // 512) * 512
+                      for o in fake)
+        print(f"[dryrun] fake rule {label}: launch {real}, fake rule {want}; "
+              f"held {held} B, fake rule {rounded} B (512-byte blocks); "
+              f"launches {got}")
+        check(real == want and held == rounded and got == (1, n),
+              f"[dryrun] fake rule {label}: launch {real} {held} B, fake "
+              f"{want} {rounded} B, launches {got}")
+        del outs
 
 
 # [dryrun]: the production cells traced on fake CUDA tensors (pod_16x16)
@@ -6362,6 +6697,29 @@ def _dryrun_real(tag, cfg, shape, accum, dev):
             "flops": cost.flops, "ms": step_ms, "bound_ms": bound_ms}
 
 
+def _repro_kv_share(cfg, shape, sizes=(16, 16)):
+    """``repro``'s ``cache_pspec`` share a rank of a decode cell's KV
+    caches on a (data, model) mesh of ``sizes``, in closed form: each
+    (layers, B, T, n_kv, hd) leaf, k and v, its B over ``data`` and its T
+    (a ring's ``min(T, local_window)`` slots) over ``model`` where they
+    divide (``sanitize_pspec``), at the cache dtype's bytes."""
+    from repro_torch.models.transformer import act_dtype
+    data, model = sizes
+    item = torch.empty((), dtype=act_dtype(cfg)).element_size()
+    total = 0
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind in ("rec", "rwkv"):
+            continue
+        b, t = shape.global_batch, shape.seq_len
+        if kind == "local":
+            t = min(t, cfg.local_window)
+        b //= data if b % data == 0 else 1
+        t //= model if t % model == 0 else 1
+        total += 2 * b * t * cfg.n_kv * cfg.hd * item
+    return total
+
+
 def phase_dryrun(dev):
     """[dryrun]: the dry run over the production cells, then its
     predictions against two real steps (see the module docstring)."""
@@ -6370,6 +6728,7 @@ def phase_dryrun(dev):
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.launch import dryrun
 
+    fake_rule_checks(dev)
     total = torch.cuda.get_device_properties(dev).total_memory
     print(f"[dryrun] card memory (total_memory) {total} bytes")
     with tempfile.TemporaryDirectory() as out:
@@ -6413,6 +6772,18 @@ def phase_dryrun(dev):
                   f"[dryrun] {arch} {shape_name}: parameters "
                   f"{got[0] / 1e9:.2f} GB, not {DRYRUN_PARAM_CUT} x under "
                   f"{gathered / 1e9:.2f} GB")
+            if SHAPES[shape_name].kind == "decode":
+                # 8 KV heads on 16 ranks: the two ranks of each KV head
+                # split its timeline, so a rank holds repro's share
+                share = _repro_kv_share(cfg, SHAPES[shape_name])
+                print(f"[dryrun]   KV cache {res['kv_cache_bytes']} B a "
+                      f"rank, repro's cache_pspec share {share} B")
+                check(res["kv_split_on_time"] and res["fit"]
+                      and res["kv_cache_bytes"] == share,
+                      f"[dryrun] {arch} {shape_name}: KV cache "
+                      f"{res['kv_cache_bytes']} B a rank, repro's share "
+                      f"{share} B, split on time {res['kv_split_on_time']},"
+                      f" fit {res['fit']}")
         # Qwen1.5's 20 heads do not split over 16 ranks: its attention runs
         # whole on every rank, so its decode cell's KV cache splits on time
         res = dryrun.run_cell("qwen1.5-4b", "decode_32k", out_dir=out,
@@ -6444,7 +6815,7 @@ def phase_dryrun(dev):
 PHASES = ("spgemm", "ops", "tune", "check", "kernel", "crossover", "edges",
           "serve", "qkernel", "qserve", "qgrad", "train", "verify", "hybrid",
           "mixed", "hybrid_train", "ssm", "moe", "vlm", "encdec", "dist",
-          "tp", "zero3", "seq", "dryrun", "rwkv_tp")
+          "tp", "zero3", "seq", "dryrun", "rwkv_tp", "kv_group")
 # the phases that need granite-3-8b built (``--only spgemm,ops,tune,check``,
 # ``--only hybrid,mixed`` or ``--only ssm,moe,vlm,encdec`` skips it)
 GRANITE_PHASES = PHASES[PHASES.index("kernel"):PHASES.index("hybrid")]
@@ -6452,7 +6823,7 @@ GRANITE_PHASES = PHASES[PHASES.index("kernel"):PHASES.index("hybrid")]
 
 # the function one rank of each multi-rank phase runs
 RANK_MAIN = {"tp": tp_rank, "zero3": zero3_rank, "seq": seq_rank,
-             "rwkv_tp": rwkv_tp_rank}
+             "rwkv_tp": rwkv_tp_rank, "kv_group": kv_group_rank}
 
 
 def main():
@@ -6635,6 +7006,10 @@ def main():
         free_parent("rwkv_tp")
         phase_rwkv_tp(dev)
         clock("rwkv_tp")
+    if "kv_group" in only:
+        free_parent("kv_group")
+        kv_group_ranks = phase_kv_group(dev)
+        clock("kv_group")
     if "dryrun" in only:
         gc.collect()
         torch.cuda.empty_cache()
@@ -6878,18 +7253,26 @@ def main():
            for seq_recs in (seq_ranks[0]["kernels"],)
            for name, mode, path, n, case in (
                ("segment_spmm.simt", "simt: fp32 B, Qwen1.5-4B, 2 layers, "
-                "seq_shard Trainer forward at a rank's 1024 of 3072 rows, "
+                "seq_shard Trainer forward at a rank's 512 of 1536 rows, "
                 "(1, 3) mesh", "seq-train",
                 lambda r: r["counts"]["spmm"] - r["counts"]["spmm_t"],
                 "up, a rank's rows"),
                ("segment_spmm.transpose_lhs", "simt: fp32 B, Qwen1.5-4B, 2 "
-                "layers, seq_shard Trainer dx at a rank's 1024 rows",
+                "layers, seq_shard Trainer dx at a rank's 512 rows",
                 "seq-train", lambda r: r["counts"]["spmm_t"],
                 "up dx, a rank's rows"),
                ("segment_spmm.simt", "simt: fp32 B, Qwen1.5-4B decode (2 "
                 "rows) over the KV cache split on time, (1, 3) mesh",
                 "seq-decode", lambda r: r["decode_counts"]["spmm"],
-                "up, decode"))]}))
+                "up, decode"))]
+        # [kv_group]: the four ranks' RG-LRU decode launches (simt) on the
+        # (1, 4) mesh over the ring split on time, timed at a rank's call
+        + [entry("rg_lru.simt", "simt (one thread a channel): fp32, "
+                 "RecurrentGemma-9B decode at a rank's 1024 channels over "
+                 "the ring split on time, (1, 4) mesh", "kv_group-decode",
+                 sum(r["counts"]["rg_lru_simt"] for r in kv_group_ranks),
+                 kv_rec, [kv_rec], kernel="rg_lru")
+           for kv_rec in kv_group_ranks[0]["kernels"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,12 +4,13 @@
     python3 scripts/zero3_memory.py
 
 Starts the four gloo ranks of ``chip_smoke.py``'s [zero3] phase on the
-card (Phi-3.5-MoE at published widths, 2 layers, fp32, a (2, 2) data x
-model mesh, ``expandable_segments``), builds the sharded model one rank
-at a time, and runs the phase's two ``Trainer`` steps.  Rank 0 records
-the allocator's history over the steps (``torch.cuda.memory``, Python
-stacks) and prints: the peak above the bytes held before the steps (the
-masters and the moments), the blocks live at that peak summed by the
+card (Phi-3.5-MoE at published widths, ``ZERO3_LAYERS`` layers, fp32, a
+(2, 2) data x model mesh, ``expandable_segments``), builds the sharded
+model one rank at a time, and runs the phase's two ``Trainer`` steps.
+Rank 0 records the allocator's history over the steps
+(``torch.cuda.memory``, Python stacks) and prints: the peak above the
+bytes held before the steps (the masters and the moments), the blocks
+live at that peak summed by the
 first three frames of the port that allocated them (``?`` for the
 autograd engine's own buffers, which have no Python frame), and the
 allocations just before it.  Needs one card; prints nothing else.

@@ -1,8 +1,8 @@
 """What the kernels' custom operators share: telling fake tensors from
 real ones, and the address a fake tensor would have on the card.
 
-Each kernel entry that a model path reaches is a ``torch.library``
-operator in the ``repro_torch`` namespace, with three implementations:
+Each kernel entry is a ``torch.library`` operator in the ``repro_torch``
+namespace, with three implementations:
 the launch for CUDA tensors, the plain version for CPU tensors, and a fake
 rule (``register_fake``) for fake and meta tensors, which have a device
 but no memory.  The fake rule picks the launch's path from the shapes,
@@ -63,13 +63,3 @@ def copies(pairs) -> List[torch.Tensor]:
     """The tensors of ``(new, old)`` pairs that a launch allocated: those
     that are not the operand they were made from."""
     return [new for new, old in pairs if new is not old]
-
-
-def no_fake_rule(name: str, *tensors) -> None:
-    """Raise for a fake or meta operand of a kernel that has no fake rule:
-    its plain version would run on it and hide that the card's launch
-    cannot be traced."""
-    if any(isinstance(t, torch.Tensor) and is_abstract(t) for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no fake rule: it cannot be traced on fake or meta "
-            f"tensors (no model path reaches it)")

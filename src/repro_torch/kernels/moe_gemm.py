@@ -7,7 +7,8 @@ the bound are noted at the top of that source.  :func:`moe_gemm` picks one
 before the launch, by type and shape: bf16 ``x`` and ``w`` with ``d_in``
 and ``d_out`` multiples of 8 and 16-byte-aligned bases take the
 tensor-core kernel (TMA and ``wgmma``), every other call the SIMT kernel.
-It runs :func:`moe_gemm_plain` for CPU tensors.  :func:`build_moe_chunks`
+It runs :func:`moe_gemm_plain` for CPU tensors, and its fake rule
+(:func:`launch_allocations`) for fake and meta ones.  :func:`build_moe_chunks`
 is ``repro``'s in-graph SELECTA for MoE (sort tokens by expert, pad each
 expert's group to whole chunks), in torch on the tokens' device.
 """
@@ -15,11 +16,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import List, Optional
 
 import torch
 
 from . import build
-from .fake import no_fake_rule
+from .fake import addr, copies, is_abstract
 
 _SOURCE = "moe_gemm.cu"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -77,7 +79,7 @@ def _check_live_rows(live_rows, n_chunks: int, chunk_rows: int,
     if live_rows.device != device:
         raise ValueError(f"live_rows is on {live_rows.device}, the tokens "
                          f"on {device}")
-    if device.type == "cpu" and n_chunks and (
+    if device.type == "cpu" and n_chunks and not is_abstract(live_rows) and (
             int(live_rows.min()) < 0 or int(live_rows.max()) > chunk_rows):
         raise ValueError(f"live_rows must lie in [0, chunk_rows="
                          f"{chunk_rows}], got [{int(live_rows.min())}, "
@@ -121,24 +123,54 @@ def moe_gemm(x_sorted, w, chunk_expert, *, chunk_rows: int = 128,
         raise ValueError(f"d_out={d_out} must be a multiple of the N tile "
                          f"bn={bn}")
     device = x_sorted.device
-    no_fake_rule("moe_gemm", x_sorted, w, chunk_expert, live_rows)
     if live_rows is not None:
         _check_live_rows(live_rows, n_chunks, chunk_rows, device)
-    if device.type == "cpu":
-        return moe_gemm_plain(x_sorted, w, chunk_expert,
-                              chunk_rows=chunk_rows, out_dtype=out_dtype,
-                              live_rows=live_rows)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"moe_gemm runs on cuda or cpu tensors, got "
                          f"{device}")
+    return moe_gemm_op(x_sorted, w, chunk_expert, live_rows, chunk_rows,
+                       out_dtype)[0]
+
+
+@torch.library.custom_op("repro_torch::moe_gemm", mutates_args=())
+def moe_gemm_op(x_sorted: torch.Tensor, w: torch.Tensor,
+                chunk_expert: torch.Tensor, live_rows: Optional[torch.Tensor],
+                chunk_rows: int, out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """The operator :func:`moe_gemm` calls once its arguments are checked:
+    ``[out, *scratch]`` (the copies the launch makes).  The launch for
+    CUDA tensors, the plain version for CPU tensors, the fake rule
+    (:func:`launch_allocations`) for fake and meta tensors."""
+    raise NotImplementedError(f"moe_gemm has no kernel for "
+                              f"{x_sorted.device}")
+
+
+@moe_gemm_op.register_kernel("cpu")
+def _moe_cpu(x_sorted, w, chunk_expert, live_rows, chunk_rows, out_dtype):
+    return [moe_gemm_plain(x_sorted, w, chunk_expert, chunk_rows=chunk_rows,
+                           out_dtype=out_dtype, live_rows=live_rows)]
+
+
+@moe_gemm_op.register_kernel("cuda")
+def _moe_cuda(x_sorted, w, chunk_expert, live_rows, chunk_rows, out_dtype):
     return _launch(x_sorted, w, chunk_expert, chunk_rows, out_dtype,
                    live_rows)
 
 
-def _launch(x, w, chunk_expert, chunk_rows, out_dtype, live_rows):
+@moe_gemm_op.register_fake
+def _moe_fake(x_sorted, w, chunk_expert, live_rows, chunk_rows, out_dtype):
+    if x_sorted.device.type != "cuda":
+        return [torch.empty((x_sorted.shape[0], w.shape[2]), dtype=out_dtype,
+                            device=x_sorted.device)]
+    return launch_allocations(x_sorted, w, chunk_expert, live_rows,
+                              out_dtype)[0]
+
+
+def _operands(x, w, chunk_expert, live_rows, out_dtype):
+    """Raise what the launch raises on these operands; returns the
+    operands as the kernels read them: row-major, int32 ids (a strided
+    view, say a transposed weight, or int64 ids are copied, as on the CPU
+    any layout is taken)."""
     device = x.device
-    n_chunks = chunk_expert.shape[0]
-    d_in, d_out = w.shape[1], w.shape[2]
     for name, ten in (("x_sorted", x), ("w", w)):
         if ten.dtype not in _DTYPES:
             raise NotImplementedError(f"moe_gemm: the CUDA kernel takes "
@@ -148,22 +180,61 @@ def _launch(x, w, chunk_expert, chunk_rows, out_dtype, live_rows):
                                   f"{_DTYPES}, got {out_dtype}")
     if w.device != device or chunk_expert.device != device:
         raise ValueError(f"moe_gemm: all operands must be on {device}")
-    # the kernels read row-major operands and int32 expert ids: a strided
-    # view (a transposed weight, say) or int64 ids are copied, as on the
-    # CPU any layout is taken; alignment only picks the kernel and its loads
-    x, w = x.contiguous(), w.contiguous()
-    chunk_expert = chunk_expert.to(torch.int32).contiguous()
-    if live_rows is not None:
-        live_rows = live_rows.contiguous()
+    if not is_abstract(x):
+        return [x.contiguous(), w.contiguous(),
+                chunk_expert.to(torch.int32).contiguous(),
+                None if live_rows is None else live_rows.contiguous()]
+    # fake tensors: a new tensor where the launch makes a copy
+    return [None if t is None else
+            t if t.is_contiguous() and t.dtype == dt else
+            torch.empty(t.shape, dtype=dt, device=device)
+            for t, dt in ((x, x.dtype), (w, w.dtype),
+                          (chunk_expert, torch.int32),
+                          (live_rows, torch.int32))]
+
+
+def choose_path(x_dtype, w_dtype, d_in: int, d_out: int,
+                aligned: bool) -> str:
+    """The kernel a CUDA call runs on: ``"tc"`` (tensor cores, TMA and
+    ``wgmma``) for bf16 x and w with d_in and d_out multiples of 8 and
+    16-byte-aligned bases (TMA's stride and base rule), else ``"simt"``."""
+    bf16 = torch.bfloat16
+    if x_dtype == bf16 and w_dtype == bf16 and d_in % 8 == 0 \
+            and d_out % 8 == 0 and aligned:
+        return "tc"
+    return "simt"
+
+
+def launch_allocations(x, w, chunk_expert, live_rows, out_dtype):
+    """What one launch allocates, as fake tensors on x's device, and the
+    path it takes: ``([out, *copies], path)``.  Both paths allocate the
+    same: out, and the copies of operands the kernels cannot read in
+    place (not row-major, or int64 expert ids)."""
+    xc, wc, ce, lr = _operands(x, w, chunk_expert, live_rows, out_dtype)
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=out_dtype,
+                      device=x.device)
+    path = choose_path(xc.dtype, wc.dtype, w.shape[1], w.shape[2],
+                       all(addr(t) % 16 == 0 for t in (xc, wc, out)))
+    return ([out] + copies(zip((xc, wc, ce, lr),
+                               (x, w, chunk_expert, live_rows))), path)
+
+
+def _launch(x, w, chunk_expert, chunk_rows, out_dtype, live_rows):
+    """One launch: ``[out, *scratch]`` (:func:`launch_allocations`)."""
+    device = x.device
+    src = (x, w, chunk_expert, live_rows)
+    x, w, chunk_expert, live_rows = _operands(*src, out_dtype)
+    scratch = copies(zip((x, w, chunk_expert, live_rows), src))
+    n_chunks = chunk_expert.shape[0]
+    d_in, d_out = w.shape[1], w.shape[2]
     out = torch.empty((x.shape[0], d_out), dtype=out_dtype, device=device)
     if n_chunks == 0:
-        return out
+        return [out] + scratch
     aligned = all(ten.data_ptr() % 16 == 0 for ten in (x, w, out))
     bf16 = torch.bfloat16
-    # path 2: the tensor-core kernel (bf16 operands; TMA's 16-byte stride
-    # and base rule); 1 / 0: the SIMT kernel with or without vector loads
-    if x.dtype == bf16 and w.dtype == bf16 and d_in % 8 == 0 \
-            and d_out % 8 == 0 and aligned:
+    # path 2: the tensor-core kernel; 1 / 0: the SIMT kernel with or
+    # without vector loads
+    if choose_path(x.dtype, w.dtype, d_in, d_out, aligned) == "tc":
         path = 2
     else:
         path = int(d_in % 4 == 0 and d_out % 4 == 0 and aligned)
@@ -180,7 +251,7 @@ def _launch(x, w, chunk_expert, chunk_rows, out_dtype, live_rows):
     moe_gemm.launches += 1
     if path == 2:
         moe_gemm.tensor_core_launches += 1
-    return out
+    return [out] + scratch
 
 
 #: Kernel launches since the count was last set to 0 (only :func:`moe_gemm`

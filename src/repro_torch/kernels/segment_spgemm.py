@@ -19,8 +19,9 @@ shapes, the storage mode and the output dtype alone:
   non-square tiles (each of bm, bk, bn 32 or 64).
 
 The designs and their bounds are noted at the top of the two sources.
-:func:`segment_spgemm` launches the chosen kernel for CUDA tensors and
-runs :func:`segment_spgemm_plain` for CPU tensors.  It takes the plan's
+:func:`segment_spgemm` launches the chosen kernel for CUDA tensors, runs
+:func:`segment_spgemm_plain` for CPU tensors and its fake rule
+(:func:`launch_allocations`) for fake and meta ones.  It takes the plan's
 lane-major triple arrays as they are, plus the owner-run offsets of
 ``c_idx`` (:func:`~repro_torch.kernels.segment_spmm.run_offsets`, for
 ``"simt"``) and the work table (for ``"tc"``) that the planner derives
@@ -34,13 +35,13 @@ change no result; these kernels do not read them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import build, ref
-from .fake import no_fake_rule
+from .fake import addr
 from .segment_spmm import validate_schedule_args
 
 _SOURCE = "segment_spgemm.cu"
@@ -284,25 +285,91 @@ def segment_spgemm(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start,
         able = paths_for(bm, bk, bn, mode, out_dtype)
         if path not in able:
             raise ValueError(f"path={path!r}: this call can take {able}")
-    no_fake_rule("segment_spgemm", a_blocks, b_blocks, a_idx, b_idx, c_idx,
-                 a_scales, b_scales)
     device = a_blocks.device
-    if device.type == "cpu":
-        return segment_spgemm_plain(a_blocks, b_blocks, a_idx, b_idx, c_idx,
-                                    valid, n_c_blocks=n_c_blocks,
-                                    a_scales=a_scales, b_scales=b_scales,
-                                    out_dtype=out_dtype)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"segment_spgemm runs on cuda or cpu tensors, got "
                          f"{device}")
+    work_runs, work_steps = work if work is not None else (None, None)
+    return segment_spgemm_op(a_blocks, b_blocks, a_idx, b_idx, c_idx,
+                             seg_start, seg_write, accum_prev, valid,
+                             a_scales, b_scales, runs, work_runs, work_steps,
+                             n_c_blocks, out_dtype, path)[0]
+
+
+@torch.library.custom_op("repro_torch::segment_spgemm", mutates_args=())
+def segment_spgemm_op(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
+                      a_idx: torch.Tensor, b_idx: torch.Tensor,
+                      c_idx: torch.Tensor, seg_start: torch.Tensor,
+                      seg_write: torch.Tensor, accum_prev: torch.Tensor,
+                      valid: torch.Tensor, a_scales: Optional[torch.Tensor],
+                      b_scales: Optional[torch.Tensor],
+                      runs: Optional[torch.Tensor],
+                      work_runs: Optional[torch.Tensor],
+                      work_steps: Optional[torch.Tensor], n_c_blocks: int,
+                      out_dtype: torch.dtype,
+                      path: Optional[str]) -> List[torch.Tensor]:
+    """The operator :func:`segment_spgemm` calls once its arguments are
+    checked: ``[C, *scratch]`` (``"tc"``'s run counter).  The launch for
+    CUDA tensors, the plain version for CPU tensors, the fake rule
+    (:func:`launch_allocations`) for fake and meta tensors."""
+    raise NotImplementedError(f"segment_spgemm has no kernel for "
+                              f"{a_blocks.device}")
+
+
+@segment_spgemm_op.register_kernel("cpu")
+def _spgemm_cpu(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start,
+                seg_write, accum_prev, valid, a_scales, b_scales, runs,
+                work_runs, work_steps, n_c_blocks, out_dtype, path):
+    return [segment_spgemm_plain(a_blocks, b_blocks, a_idx, b_idx, c_idx,
+                                 valid, n_c_blocks=n_c_blocks,
+                                 a_scales=a_scales, b_scales=b_scales,
+                                 out_dtype=out_dtype)]
+
+
+@segment_spgemm_op.register_kernel("cuda")
+def _spgemm_cuda(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start,
+                 seg_write, accum_prev, valid, a_scales, b_scales, runs,
+                 work_runs, work_steps, n_c_blocks, out_dtype, path):
     return _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start,
                    seg_write, accum_prev, valid, n_c_blocks, out_dtype,
-                   a_scales, b_scales, runs, work, path)
+                   a_scales, b_scales, runs, (work_runs, work_steps), path)
 
 
-def _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
-            accum_prev, valid, n_c_blocks, out_dtype, a_scales, b_scales,
-            runs, work, path) -> torch.Tensor:
+@segment_spgemm_op.register_fake
+def _spgemm_fake(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start,
+                 seg_write, accum_prev, valid, a_scales, b_scales, runs,
+                 work_runs, work_steps, n_c_blocks, out_dtype, path):
+    """What the launch on ``a_blocks``' device allocates: C, and on
+    ``"tc"`` its run counter (:func:`launch_allocations`)."""
+    device = a_blocks.device
+    shape = (n_c_blocks, a_blocks.shape[1], b_blocks.shape[2])
+    if device.type != "cuda":
+        return [torch.empty(shape, dtype=out_dtype, device=device)]
+    path, n_runs = _check_launch(
+        a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
+        accum_prev, valid, out_dtype, a_scales, b_scales, runs,
+        (work_runs, work_steps), path)
+    return [torch.empty(s, dtype=dt, device=device)
+            for s, dt in launch_allocations(n_c_blocks, shape[1:], out_dtype,
+                                            path, n_runs)]
+
+
+def launch_allocations(n_c_blocks: int, tile: Tuple[int, int], out_dtype,
+                       path: str, n_runs: int) -> list:
+    """``[(shape, dtype), ...]`` of what one launch allocates, C first:
+    ``(n_c_blocks, bm, bn)`` in ``out_dtype``, and on ``"tc"`` (with a run
+    to take) the one int32 counter its blocks take runs from."""
+    allocs = [((n_c_blocks, *tile), out_dtype)]
+    if path == "tc" and n_runs:
+        allocs.append(((1,), torch.int32))
+    return allocs
+
+
+def _check_launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start,
+                  seg_write, accum_prev, valid, out_dtype, a_scales,
+                  b_scales, runs, work, path) -> Tuple[str, int]:
+    """Raise what the launch raises on these operands; returns the path it
+    takes and its number of owner runs."""
     _, bm, bk = a_blocks.shape
     bn = b_blocks.shape[2]
     device = a_blocks.device
@@ -312,13 +379,13 @@ def _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
     if path is None:
         path = choose_path(bm, bk, bn, mode, out_dtype)
     for t in (a_blocks, b_blocks):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or addr(t) % 16:
             raise ValueError("segment_spgemm: a_blocks and b_blocks must be "
                              "contiguous and 16-byte aligned")
     scales = tuple(s for s in (a_scales, b_scales) if s is not None)
     for s in scales:
         if (s.dtype != torch.float32 or not s.is_contiguous()
-                or s.data_ptr() % 16):
+                or addr(s) % 16):
             raise ValueError("segment_spgemm: scales must be contiguous, "
                              "16-byte aligned fp32")
     sched = (a_idx, b_idx, c_idx, seg_start, seg_write, accum_prev, valid)
@@ -339,10 +406,29 @@ def _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
                 + ("owner-run offsets (plan.run_offsets)" if path == "simt"
                    else "work table (plan.tc_runs, plan.tc_steps)")
                 + f" as contiguous int32 on {device}")
+    if path == "tc" and (table[1].ndim != 2 or table[1].shape[1] != 5):
+        raise ValueError(f"segment_spgemm: work table steps of shape "
+                         f"{tuple(table[1].shape)}, expected (n_steps, 5)")
+    return path, table[0].shape[0] - 1
+
+
+def _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
+            accum_prev, valid, n_c_blocks, out_dtype, a_scales, b_scales,
+            runs, work, path) -> List[torch.Tensor]:
+    """One launch: ``[C, *scratch]`` (:func:`launch_allocations`)."""
+    path, n_runs = _check_launch(
+        a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
+        accum_prev, valid, out_dtype, a_scales, b_scales, runs, work, path)
+    _, bm, bk = a_blocks.shape
+    bn = b_blocks.shape[2]
+    device = a_blocks.device
+    mode = storage_mode(a_blocks.dtype, b_blocks.dtype,
+                        None if a_scales is None else a_scales.ndim,
+                        None if b_scales is None else b_scales.ndim)
+    sched = (a_idx, b_idx, c_idx, seg_start, seg_write, accum_prev, valid)
     out = torch.empty((n_c_blocks, bm, bn), dtype=out_dtype, device=device)
-    n_runs = runs.shape[0] - 1 if path == "simt" else table[0].shape[0] - 1
     if n_runs == 0:
-        return out.zero_()
+        return [out.zero_()]
     a_s = a_scales.data_ptr() if a_scales is not None else None
     b_s = b_scales.data_ptr() if b_scales is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -354,11 +440,9 @@ def _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
             b_s, *(t.data_ptr() for t in sched), runs.data_ptr(), n_runs,
             bm, bk, bn, _PAYLOADS[a_blocks.dtype], mode, c_bf16, stream)
         err = lib.segment_spgemm_error_string
+        scratch = []
     else:
-        run_steps, steps = table
-        if steps.ndim != 2 or steps.shape[1] != 5:
-            raise ValueError(f"segment_spgemm: work table steps of shape "
-                             f"{tuple(steps.shape)}, expected (n_steps, 5)")
+        run_steps, steps = work
         lib = _lib(_TC_SOURCE)
         # the counter the kernel's blocks take runs from
         next_run = torch.zeros(1, dtype=torch.int32, device=device)
@@ -367,6 +451,7 @@ def _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
             b_s, run_steps.data_ptr(), steps.data_ptr(), next_run.data_ptr(),
             n_runs, _PAYLOADS[a_blocks.dtype], mode, c_bf16, stream)
         err = lib.segment_spgemm_tc_error_string
+        scratch = [next_run]
     if rc != 0:
         raise RuntimeError(f"segment_spgemm ({path}) launch failed: "
                            f"{err(rc).decode()}")
@@ -377,7 +462,7 @@ def _launch(a_blocks, b_blocks, a_idx, b_idx, c_idx, seg_start, seg_write,
         segment_spgemm.tc_launches += 1
     else:
         segment_spgemm.simt_launches += 1
-    return out
+    return [out] + scratch
 
 
 #: Kernel launches since the count was last set to 0 (only

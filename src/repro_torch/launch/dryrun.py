@@ -41,11 +41,16 @@ result rather than hidden:
   split over the 16 ranks (Whisper's 6, Qwen1.5's 20, Maverick's 40).
   Prefill and decode cells split the batch and the cache over the dp
   axes; RWKV-6's wkv state holds each rank's 2 of 32 heads.  A decode
-  cell's KV cache holds each rank's KV heads where the attention splits
-  by heads, and where it runs whole on every rank its timeline split
-  over ``model``, as ``repro``'s ``cache_pspec`` shards it
-  (``"kv_split_on_time"``): 1/16 of every head's 32768 positions a
-  rank.
+  cell's KV caches (full attention and the rings of ``local`` layers)
+  hold the KV heads each rank's query heads read, their time axis split
+  over the ranks that hold the same KV heads (``Transformer.kv_tp``):
+  all 16 where the attention runs whole on every rank, the two that
+  share one of 8 KV heads for granite, command-r-plus, Phi-3.5-MoE and
+  InternVL2-2B, all 16 for RecurrentGemma-9B's one KV head (its 2048
+  ring slots, 128 a rank), none for Phi-3-mini's 32 (each rank owns
+  two).  So a rank holds exactly ``repro``'s ``cache_pspec`` share
+  (``"kv_split_on_time"``, ``"kv_cache_bytes"``); the decode step's
+  all-reduces over those groups are recorded at their bytes.
 * ``"seq_shard_effect"``: true where ``seq_shard`` (:data:`CELL_OVERRIDES`)
   split the residual stream's T over ``model`` between blocks
   (``Transformer.seq_parallel``; a training or prefill cell).
@@ -113,9 +118,12 @@ CELL_OVERRIDES = {
 # cells whose per-rank peak exceeds the card's memory in the port, with
 # what puts them over ((arch, shape, mesh) → why).  None: the step holds
 # every parameter as its rule shard, gathers one unit at a time and splits
-# the MoE experts over model, and a decode cell whose attention runs whole
-# on every rank (Qwen1.5's 20 heads, Whisper's 6, Maverick's 40 over 16
-# ranks) splits its KV cache's timeline over model
+# the MoE experts over model, and every decode cell holds repro's
+# cache_pspec share of its KV caches: the timeline split over the ranks
+# that hold the same KV heads (all of model for Qwen1.5's 20 heads,
+# Whisper's 6 and Maverick's 40, which run whole on every rank; the two
+# ranks of one KV head for 8 KV heads on 16 ranks; every rank for
+# RecurrentGemma's one KV head and its rings)
 EXPECTED_OVER_HBM: Dict[tuple, str] = {}
 
 
@@ -316,6 +324,13 @@ def cell_config(arch: str, shape: ShapeConfig,
     return dataclasses.replace(cfg, **merged) if merged else cfg
 
 
+def kv_cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
+    """The bytes of a decode cache's KV entries (full attention and rings,
+    values and int8 scales) on this rank."""
+    return sum(t.numel() * t.element_size() for k, t in cache.items()
+               if k.split("_")[0] in ("k", "v"))
+
+
 def make_step(cfg: ModelConfig, shape: ShapeConfig, model, mesh, dp: int,
               *, accum: int, fsdp="data", dev,
               traced: Optional[int] = None) -> tuple:
@@ -393,6 +408,9 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *, dev,
                                           accum=accum, fsdp=fsdp, dev=dev,
                                           traced=traced)
             res = measure(fn, external, opt, model=model)
+            if shape.kind == "decode":
+                res["kv_cache_bytes"] = kv_cache_bytes(model.init_cache(
+                    _rows(shape.global_batch, dp), shape.seq_len))
     finally:
         clear_plan_cache()
     specs = input_specs(cfg, shape)
@@ -548,6 +566,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "seq_shard": cfg.seq_shard,
         "seq_shard_effect": res["seq_shard_effect"],
         "kv_split_on_time": res["kv_split_on_time"],
+        "kv_cache_bytes": res.get("kv_cache_bytes"),
         "traced": dict(res.get("traced", {}), microbatches=res.get(
             "microbatches_traced", accum)),
         "memory": {"argument_bytes": res["argument"].get("Total", 0),
@@ -590,8 +609,10 @@ def summary(res: dict) -> str:
             + (f", gathered: {'; '.join(res['tp_gathered'])}"
                if res["tp_gathered"] else "")
             + f"); seq_shard_effect {res['seq_shard_effect']}, "
-            f"kv_split_on_time {res['kv_split_on_time']}; traced in "
-            f"{res['trace_s']} s")
+            f"kv_split_on_time {res['kv_split_on_time']}"
+            + ("" if res.get("kv_cache_bytes") is None else
+               f", KV cache {res['kv_cache_bytes'] / 1e9:.4f} GB a rank")
+            + f"; traced in {res['trace_s']} s")
 
 
 def over_hbm(res: dict) -> Optional[str]:

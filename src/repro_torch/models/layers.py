@@ -30,10 +30,11 @@ list) computes on full tensors.  Under sequence parallelism (``seq=``, the
 model's ``model`` axis when ``cfg.seq_shard`` splits the residual stream's
 T) each module's forward takes and returns this rank's rows of T
 (:func:`~repro_torch.sharding.tensor_parallel.seq_enter` /
-``seq_exit``).  An attention that runs whole on every rank of a split
-model decodes over a KV cache split on time (``kv_shard=``): each rank
-writes and attends over its positions, and the softmax's max and sum and
-the P·V products are reduced over ``model``.
+``seq_exit``).  On a split model an attention decodes over a KV cache
+split on time over the ranks that hold its KV heads (``kv_shard=``, the
+model's KV group): each rank writes and attends over its positions (its
+ring slots, for local attention), and the softmax's max and sum and the
+P·V products are reduced over the group.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ from repro_torch.kernels.ops import flash_mha
 from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
                                                   TensorParallelError,
                                                   all_reduce, copy_in, gather,
-                                                  local, reduce_stat,
+                                                  gather_full, local,
+                                                  reduce_stat,
                                                   seq_enter, seq_exit,
                                                   vocab_embed)
 
@@ -177,7 +179,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset: Pos = 0,
     absolute position of q[0] and ``kv_len`` masks padded keys; both take a
     shared scalar or a per-row ``(B,)`` vector.  ``shard``: k/v are this
     rank's positions ``[rank·Tk, (rank+1)·Tk)`` of a cache split on time;
-    the ranks' running max, sum and products are combined over ``model``.
+    the ranks' running max, sum and products are combined over its ranks.
     """
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -241,7 +243,7 @@ def _decode_mask(b, tq, tk, *, q_offset: Pos, kv_len: Pos, causal, window,
 
 def _softmax(s: torch.Tensor, shard: TP) -> torch.Tensor:
     """Softmax over the last axis; with ``shard`` on, over every rank's
-    keys: the max and the sum of ``exp`` all-reduced over ``model``, as
+    keys: the max and the sum of ``exp`` all-reduced over its ranks, as
     ``repro``'s compiled softmax reduces scores sharded on T
     (``act_constrain(s, "scores_t")``).  A rank whose keys a row masks
     (-1e30) adds ``exp(-1e30 - max)`` = 0."""
@@ -258,7 +260,7 @@ def _direct_attention(q, k, v, *, q_offset: Pos, kv_len: Pos, causal,
     cache-dtype operands are summed in fp32, as JAX's
     ``preferred_element_type=float32`` does.  ``shard``: k/v are this
     rank's positions of a cache split on time (:func:`_softmax`; the P·V
-    products summed over ``model``)."""
+    products summed over its ranks)."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -315,7 +317,7 @@ def _quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def ring_decode_attention(q, ck, cv, k_pos, pos, window):
+def ring_decode_attention(q, ck, cv, k_pos, pos, window, shard: TP = NO_TP):
     """Attention over a ring-buffer KV cache.
 
     q: (B, Tq, H, D); ck/cv: (B, W, Hkv, D); k_pos: (B, W) absolute position
@@ -323,7 +325,10 @@ def ring_decode_attention(q, ck, cv, k_pos, pos, window):
     absolute position of q[:, 0].  Each query attends only to the slots in
     its own (q_pos - window, q_pos]: causal within a multi-token write, and
     slots that still hold an earlier occupant's keys (ahead of this row's
-    timeline, or negative) are masked out."""
+    timeline, or negative) are masked out.  ``shard``: ck/cv/k_pos are this
+    rank's slots of a ring split over its ranks (:func:`ring_cache_write`):
+    the softmax's max and sum and the P·V products are reduced over them
+    (:func:`_softmax`); a rank with no valid slot for a row adds 0."""
     b, tq, h, d = q.shape
     rep = h // ck.shape[2]
     if rep > 1:
@@ -334,27 +339,48 @@ def ring_decode_attention(q, ck, cv, k_pos, pos, window):
     kp, qp = k_pos[:, None, :], q_pos[..., None]
     valid = (kp <= qp) & (kp > qp - window) & (kp >= 0)            # (B, Tq, W)
     s = torch.where(valid[:, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s, shard)
     out = torch.einsum("bhqk,bkhd->bqhd", p, cv.float())
-    return out.to(q.dtype)
+    return all_reduce(out, shard).to(q.dtype)
 
 
 def ring_cache_write(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, pos: Pos) -> torch.Tensor:
+                     v: torch.Tensor, pos: Pos,
+                     shard: TP = NO_TP) -> torch.Tensor:
     """Scatter each of the t new keys and values (B, t, Hkv, D) into ring
     slot ``(pos + i) mod W`` of ``ck``/``cv`` (B, W, Hkv, D), in place, with
     per-row positions and writes that wrap around the ring.  Returns k_pos
-    (B, W): the absolute position each slot holds after the write."""
+    (B, W): the absolute position each slot holds after the write.
+
+    ``shard``: ``ck``/``cv`` (B, W / g, Hkv, D) are rank r's slots
+    ``[r·W/g, (r+1)·W/g)`` of a ring of W split over g ranks; of the new
+    keys (at most W) only those whose slot it owns are written, and k_pos
+    covers its slots."""
     b, t = k.shape[:2]
-    w = ck.shape[1]
+    wl = ck.shape[1]
+    w = wl * shard.size
     dev = ck.device
     pos_v = _per_row(pos, b, dev)
-    slot = (pos_v[:, None] + torch.arange(t, device=dev)) % w
+    slots = shard.rank * wl + torch.arange(wl, device=dev)
     rows = torch.arange(b, device=dev)[:, None]
-    ck[rows, slot] = k.to(ck.dtype)
-    cv[rows, slot] = v.to(cv.dtype)
+    if not shard.on:
+        slot = (pos_v[:, None] + torch.arange(t, device=dev)) % w
+        ck[rows, slot] = k.to(ck.dtype)
+        cv[rows, slot] = v.to(cv.dtype)
+    else:
+        if t > w:
+            raise ValueError(f"a ring of {w} slots takes at most {w} new "
+                             f"keys a call, got {t}")
+        # the new key (if any) each owned slot takes: key i lands on slot
+        # (pos + i) mod W, at most one a slot; a gather, not a scatter,
+        # so that keys outside this rank's slots write nothing
+        i = (slots[None, :] - pos_v[:, None]) % w                 # (B, W/g)
+        new = (i < t)[..., None, None]
+        i = i.clamp_max(t - 1)
+        ck.copy_(torch.where(new, k.to(ck.dtype)[rows, i], ck))
+        cv.copy_(torch.where(new, v.to(cv.dtype)[rows, i], cv))
     last = (pos_v + (t - 1))[:, None]
-    return last - (last - torch.arange(w, device=dev)) % w
+    return last - (last - slots) % w
 
 
 def kv_cache_write(buf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
@@ -481,10 +507,15 @@ class Attention(nn.Module):
 
         ``seq``: ``x`` and the output are this rank's rows of T (sequence
         parallelism; ``positions`` cover the whole sequence).
-        ``kv_shard``: the cache (not a ring) holds this rank's positions
-        ``[rank·L, (rank+1)·L)`` of a timeline split on ``model``: the new
-        keys land on the ranks that hold their positions and the
-        attention is reduced over the ranks."""
+        ``kv_shard``: the cache holds this rank's positions ``[rank·L,
+        (rank+1)·L)`` of a timeline split over ``kv_shard``'s ranks (those
+        that hold these KV heads), or for a ring its slots ``[rank·W/g,
+        (rank+1)·W/g)`` of W: the new keys land on the ranks that hold
+        their positions (slots) and the attention is reduced over the
+        ranks.  Where those ranks run different query heads (an attention
+        split by heads with fewer KV heads than ranks), each attends with
+        all of the group's queries (gathered) over its share and keeps its
+        own heads of the reduced output."""
         x = seq_enter(x, self.tp, seq)
         b, t, _ = x.shape
         src = x if kv_ctx is None else copy_in(kv_ctx, self.tp)
@@ -496,12 +527,17 @@ class Attention(nn.Module):
         if kv_ctx is None and rope_theta:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
+        grouped = cache is not None and kv_shard.on and self.tp.on
+        if grouped:
+            q = gather_full(q, 2, kv_shard)
         if cache is not None and ring:
-            k_pos = ring_cache_write(cache["k"], cache["v"], k, v, cache_pos)
-            w = cache["k"].shape[1]
+            k_pos = ring_cache_write(cache["k"], cache["v"], k, v, cache_pos,
+                                     kv_shard)
+            w = cache["k"].shape[1] * kv_shard.size
             out = ring_decode_attention(
                 q, cache["k"], cache["v"], k_pos,
-                _per_row(cache_pos, b, x.device), window or w)
+                _per_row(cache_pos, b, x.device), window or w,
+                shard=kv_shard)
         elif cache is not None and "k_s" in cache:
             if t > 8:
                 # a named error, not an assert (asserts vanish under -O)
@@ -540,6 +576,8 @@ class Attention(nn.Module):
             out = chunked_attention(q, k, v,
                                     causal=causal and kv_ctx is None,
                                     window=window, q_offset=0, chunk=chunk)
+        if grouped:
+            out = local(out, 2, kv_shard)
         return seq_exit(
             self.wo(out.reshape(b, t, self.n_heads * self.head_dim)),
             self.tp, seq)

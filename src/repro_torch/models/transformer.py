@@ -57,10 +57,13 @@ this rank's share of the vocabulary, ``loss_fn`` takes the vocab-parallel
 cross entropy and ``decode_step`` gathers the whole vocabulary.  The MoE
 router and the frontend still compute on full tensors on every rank
 (:attr:`Transformer.tp_gathered`); the block-sparse
-FFN is replicated, as in ``repro``.  An attention that runs whole on every
-rank keeps its full-attention KV cache split on time over ``model``
-(``repro``'s ``cache_pspec``): each rank holds ``max_len / tp`` positions
-and decode reduces the attention over the ranks.  With ``cfg.seq_shard``
+FFN is replicated, as in ``repro``.  The KV caches (full attention and
+rings) split their time axis over the ranks that share their KV heads
+(``repro``'s ``cache_pspec``, :attr:`Transformer.kv_tp`): all of
+``model`` for an attention that runs whole on every rank, the ranks of one
+KV head where there are fewer KV heads than ranks; each rank holds its
+share of the positions (ring slots) and decode reduces the attention over
+the group.  With ``cfg.seq_shard``
 a forward without a cache splits the residual stream's T over ``model``
 between blocks (:meth:`Transformer.seq_parallel`; Megatron's sequence
 parallelism, ``repro``'s ``act_constrain(x, "seq")``).
@@ -86,7 +89,7 @@ from repro_torch.core.formats import BSR
 from repro_torch.sharding.tensor_parallel import (NO_TP, TP,
                                                   TensorParallelError,
                                                   gather, local, split,
-                                                  tp_group,
+                                                  tp_group, tp_subgroup,
                                                   vocab_cross_entropy)
 
 from . import layers
@@ -340,10 +343,13 @@ class Transformer(nn.Module):
         self._cache_groups = groups
         self._cache_index = [groups[:i].count(g) for i, g in enumerate(groups)]
         self._cache_keys = [_cache_keys(g, groups) for g in groups]
-        #: a full-attention cache's length a rank → split on time or not
-        #: (the layout :meth:`init_cache` made it in)
-        self._kv_split: Dict[int, bool] = {}
+        #: (cache group, its length a rank) → split on time or not (the
+        #: layout :meth:`init_cache` made it in)
+        self._kv_split: Dict[Tuple[str, int], bool] = {}
         self.tp = NO_TP
+        #: the ranks that hold the same KV heads, over which the KV
+        #: caches split their time axis (:meth:`shard_`)
+        self.kv_tp = NO_TP
         #: module name → why it computes on full tensors under TP
         self.tp_gathered: Dict[str, str] = {}
         #: the per-unit gather of the sharded parameters (:meth:`zero3_`)
@@ -365,7 +371,14 @@ class Transformer(nn.Module):
         expert's logit), the frontend, and an attention, FFN, RWKV-6 block
         or MoE whose heads, width or experts do not split over the
         ranks.  The block-sparse FFN is replicated, as
-        ``repro``'s rules replicate its blocks."""
+        ``repro``'s rules replicate its blocks.
+
+        The KV group (:attr:`kv_tp`) is made here, once, on every rank:
+        all of ``model`` for an attention that runs whole on every rank,
+        the ``rep / mine`` consecutive ranks whose query heads read one KV
+        head where the KV heads are fewer than the ranks (a subgroup of
+        ``model``; every rank makes every such group, in the same order),
+        and no group where each rank owns its KV heads."""
         tp = tp_group(mesh) if tp is None else tp
         if self.tp.on:
             if (tp.rank, tp.size) != (self.tp.rank, self.tp.size):
@@ -405,7 +418,19 @@ class Transformer(nn.Module):
                     gathered[f"{name}.moe.router"] = \
                         "the MoE router (top-k reads every expert's logit)"
         self.tp, self.tp_gathered = tp, gathered
+        self.kv_tp = tp_subgroup(tp, self._kv_group_size(tp), mesh)
         return self
+
+    def _kv_group_size(self, tp: TP) -> int:
+        """The number of ``model`` ranks that hold the same KV heads."""
+        attn = self._attention()
+        if attn is None:
+            return 1
+        if not attn.tp.on:
+            return tp.size
+        rep = self.cfg.n_heads // self.cfg.n_kv
+        mine = self.cfg.n_heads // tp.size
+        return rep // mine if rep > mine else 1
 
     def zero3_(self, mesh, fsdp="data"):
         """Hold every parameter as this rank's shard of ``params_pspecs``
@@ -687,15 +712,25 @@ class Transformer(nn.Module):
         return next((m for m in self.modules()
                      if isinstance(m, layers.Attention)), None)
 
+    def kv_shard(self, group: str, max_len: int) -> TP:
+        """The ranks over which :meth:`init_cache` splits the time axis of
+        ``group``'s KV cache for ``max_len`` positions (``"attn"``: the
+        full-attention cache of ``max_len``; ``"local"``: the rings of
+        ``min(max_len, local_window)`` slots): the KV group
+        (:attr:`kv_tp`) where the length divides over it, else
+        :data:`NO_TP`, as ``repro``'s ``sanitize_pspec`` falls back to
+        replication."""
+        g = self.kv_tp
+        if not g.on or group not in self._cache_groups:
+            return NO_TP
+        n = max_len if group == "attn" else min(max_len,
+                                                self.cfg.local_window)
+        return g if n % g.size == 0 else NO_TP
+
     def kv_split_on_time(self, max_len: int) -> bool:
-        """True when :meth:`init_cache` splits the full-attention KV cache
-        of ``max_len`` positions on time over ``model``: a split model
-        whose attention runs whole on every rank, where tp divides
-        ``max_len``."""
-        attn, tp = self._attention(), self.tp
-        return (tp.on and attn is not None and not attn.tp.on
-                and "attn" in self._cache_groups
-                and max_len % tp.size == 0)
+        """True when :meth:`init_cache` splits a KV cache (full attention
+        or rings) of ``max_len`` positions on time (:meth:`kv_shard`)."""
+        return any(self.kv_shard(g, max_len).on for g in ("attn", "local"))
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Zero cache for ``batch_size`` slots of ``max_len`` positions (the
@@ -706,37 +741,38 @@ class Transformer(nn.Module):
         (``repro``'s ring write drops the scales).
 
         On a split model each rank's cache holds the RG-LRU channels and
-        the RWKV-6 heads (``S``) it runs, and for an attention split by
-        heads the KV heads its query
-        heads read (``Attention.kv_span``: one KV head shared by several
-        ranks is held by each of them).  An attention that runs whole on
-        every rank (heads that do not split over ``model``) keeps its
-        full-attention cache split on time where tp divides ``max_len``,
-        as ``repro``'s ``cache_pspec`` shards it: rank r holds positions
-        ``[r·max_len/tp, (r+1)·max_len/tp)`` of every head (int8 scales
-        with their values), and :meth:`decode_step` reduces the attention
-        over the ranks.  Elsewhere it stays whole, as ``repro``'s rule
-        falls back to replication; rings stay whole."""
+        the RWKV-6 heads (``S``) it runs, and the KV heads its query heads
+        read (``Attention.kv_span``; all of them for an attention that
+        runs whole on every rank).  Each KV cache splits its time axis
+        over the ranks that hold the same KV heads (:attr:`kv_tp`) where
+        its length divides over them (:meth:`kv_shard`), so a rank holds
+        exactly the bytes of ``repro``'s ``cache_pspec`` share: rank r of
+        a group of g holds positions ``[r·L, (r+1)·L)``, ``L = max_len /
+        g``, of its KV heads (int8 scales with their values; ``repro``
+        shards the scales only from 1024 positions, so below that a
+        rank's scales are smaller than its), and ring slots ``[r·W/g,
+        (r+1)·W/g)`` of a ring of W.  :meth:`decode_step` then reduces the
+        attention over the group.  Elsewhere a cache stays whole, as
+        ``repro``'s rule falls back to replication."""
         cfg = self.cfg
         dev, dt = self.device, act_dtype(cfg)
         attn = self._attention()
         n_kv = cfg.n_kv if attn is None else attn.n_kv
         groups = self._cache_groups
-        split_t = self.kv_split_on_time(max_len)
-        full_len = max_len // self.tp.size if split_t else max_len
-        if "attn" in groups:
-            if self._kv_split.get(full_len, split_t) != split_t:
-                raise ValueError(
-                    f"a cache of {full_len} positions a rank was made "
-                    f"{'whole' if split_t else 'split on time'} before; "
-                    f"this one would be the other layout")
-            self._kv_split[full_len] = split_t
         cache = {}
-        for group, t_len in (("attn", full_len),
+        for group, t_len in (("attn", max_len),
                              ("local", min(max_len, cfg.local_window))):
             n = groups.count(group)
             if not n:
                 continue
+            split_t = self.kv_shard(group, max_len).on
+            t_len //= self.kv_tp.size if split_t else 1
+            if self._kv_split.get((group, t_len), split_t) != split_t:
+                raise ValueError(
+                    f"a {group} cache of {t_len} positions a rank was made "
+                    f"{'whole' if split_t else 'split on time'} before; "
+                    f"this one would be the other layout")
+            self._kv_split[(group, t_len)] = split_t
             keys = _cache_keys(group, groups)
             shape = (n, batch_size, t_len, n_kv, cfg.hd)
             if cfg.kv_cache_dtype == "int8":
@@ -791,10 +827,14 @@ class Transformer(nn.Module):
         ``cache`` in place and returns ``(logits (B, padded_vocab),
         cache)``: the whole vocabulary on a split model too (each rank's
         share all-gathered).  A cache split on time (:meth:`init_cache`)
-        takes the new keys on the ranks that hold their positions."""
-        kv_shard = NO_TP
-        if "k" in cache and self._kv_split.get(cache["k"].shape[2]):
-            kv_shard = self.tp
+        takes the new keys on the ranks that hold their positions (ring
+        slots), and each attention over it reduces over the KV group."""
+        shards = {}
+        for group in ("attn", "local"):
+            k = cache.get(_cache_keys(group, self._cache_groups)["k"])
+            shards[group] = (self.kv_tp if k is not None and
+                             self._kv_split.get((group, k.shape[2]))
+                             else NO_TP)
         x = self._call("embed", self.embed, token,
                        backward=False).to(act_dtype(self.cfg))
         b, t, _ = x.shape
@@ -807,8 +847,8 @@ class Transformer(nn.Module):
                                                self._cache_index)):
             mine = {name: cache[key][i] for name, key in keys.items()
                     if key in cache}
-            kw = ({"kv_shard": kv_shard}
-                  if self._cache_groups[j] == "attn" else {})
+            group = self._cache_groups[j]
+            kw = {"kv_shard": shards[group]} if group in shards else {}
             x, _ = self._call(f"layers.{j}", blk, x, positions=positions,
                               cache=mine, cache_pos=pos, enc_out=enc_out,
                               **kw)

@@ -35,7 +35,9 @@ the same) and keeps its rows of the output (:func:`split`; backward:
 all-gather).  Position-wise work on the local rows (norms, the replicated
 block-sparse FFN) reads its replicated parameters through ``copy_in``, so
 their gradient is summed over the ranks' rows.  Decode over a KV cache
-split on time reduces with the plain :func:`all_reduce` (no autograd).
+split on time reduces with the plain :func:`all_reduce` (no autograd)
+over the ranks that share the cache's KV heads: all of ``model``, or a
+subgroup of it (:func:`tp_subgroup`).
 
 The vocabulary is split too: :func:`vocab_embed` looks up this rank's rows
 of the table and all-reduces; :func:`vocab_cross_entropy` takes the max and
@@ -98,6 +100,48 @@ def tp_group(mesh) -> TP:
     if coord is None:
         raise RuntimeError("this rank is not in the mesh")
     return TP(coord[i], size, mesh.get_group(i))
+
+
+def tp_subgroup(tp: TP, size: int, mesh=None) -> TP:
+    """This rank's place among the ``size`` consecutive ranks of ``tp``
+    that it shares something with (the ranks of one KV head, say): ranks
+    ``[k·size, (k+1)·size)`` on ``model``.  ``tp`` itself at ``size ==
+    tp.size`` and :data:`NO_TP` at 1.
+
+    Making a process group is collective over the whole world, so every
+    rank makes the group of every such block of every ``model`` row of
+    ``mesh``, in the same order, and keeps its own; without ``mesh`` the
+    ranks of ``tp`` must be the whole world.  Call it once, where every
+    rank builds the same model.  Without a process group (a model split
+    on meta tensors) the group is ``None``."""
+    if size == tp.size:
+        return tp
+    if size == 1:
+        return NO_TP
+    if size < 1 or tp.size % size:
+        raise TensorParallelError(
+            f"groups of {size} do not split {tp.size} model ranks")
+    if tp.group is None:
+        return TP(tp.rank % size, size)
+    if mesh is not None:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        i = mesh.mesh_dim_names.index("model")
+        with unset_fake_temporarily():     # a model built on fake tensors
+            rows = mesh.mesh.movedim(i, -1).reshape(-1, tp.size).tolist()
+    else:
+        rows = [dist.get_process_group_ranks(tp.group)]
+        if len(rows[0]) != dist.get_world_size():
+            raise TensorParallelError(
+                "the model ranks are not the whole world: pass the mesh, "
+                "so that every rank makes every subgroup")
+    me, mine = dist.get_rank(), None
+    for row in rows:
+        for lo in range(0, tp.size, size):
+            ranks = row[lo:lo + size]
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine = group
+    return TP(tp.rank % size, size, mine)
 
 
 def local(full: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
@@ -272,8 +316,9 @@ def seq_exit(y: torch.Tensor, tp: TP, seq: TP) -> torch.Tensor:
 
 @torch.no_grad()
 def all_reduce(t: torch.Tensor, tp: TP, op: str = "sum") -> torch.Tensor:
-    """The sum (``"sum"``) or max (``"max"``) of ``t`` over ``model``, as
-    a new tensor (no autograd: decode over a cache split on time)."""
+    """The sum (``"sum"``) or max (``"max"``) of ``t`` over ``tp``'s
+    ranks, as a new tensor (no autograd: decode over a cache split on
+    time)."""
     if not tp.on:
         return t
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}

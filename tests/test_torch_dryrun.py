@@ -550,3 +550,54 @@ def test_seq_shard_train_cell_takes_effect():
     assert {op for op, _ in res[False]["records"]} == {"all-reduce"}
     assert {"all-gather", "reduce-scatter"} <= {
         op for op, _ in res[True]["records"]}
+
+
+#: the KV group's size of each arch with attention on 16 model ranks
+KV_GROUPS = {"internvl2-2b": 2, "whisper-tiny": 16, "phi3-mini-3.8b": 1,
+             "qwen1.5-4b": 16, "granite-3-8b": 2, "command-r-plus-104b": 2,
+             "recurrentgemma-9b": 16, "llama4-maverick-400b-a17b": 16,
+             "phi3.5-moe-42b-a6.6b": 2}
+
+
+def test_decode_cells_hold_repro_cache_share():
+    """Every live decode cell on ``pod_16x16`` (fake group of 256, the
+    model split on ``meta``): a rank's KV cache bytes (full attention and
+    rings) equal ``repro``'s ``cache_pspec`` share, sanitized on an
+    ``AbstractMesh((16, 16))`` (its KV leaves' bytes over the mesh axes
+    that shard them), and a KV cache splits on time wherever the KV group
+    has more than one rank."""
+    from repro_torch.launch.mesh import make_production_mesh
+    amesh = AbstractMesh((16, 16), ("data", "model"))
+    cells = [(a, s) for a in sorted(REGISTRY) for s in ("decode_32k",
+                                                         "long_500k")
+             if cell_is_live(a, s)]
+    got, want = {}, {}
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device="cpu")
+        for arch, name in cells:
+            shape = SHAPES[name]
+            cfg = dryrun.cell_config(arch, shape)
+            model = Transformer(cfg, device="meta", mesh=mesh)
+            assert model.kv_tp.size == KV_GROUPS.get(arch, 1), arch
+            assert model.kv_split_on_time(shape.seq_len) == (
+                model.kv_tp.size > 1), (arch, name)
+            b = dryrun._rows(shape.global_batch, 16)
+            got[arch, name] = dryrun.kv_cache_bytes(
+                model.init_cache(b, shape.seq_len))
+            jmodel = jax_build(JAX_REGISTRY[arch])
+            jcache = jax.eval_shape(lambda: jmodel.init_cache(
+                shape.global_batch, shape.seq_len))
+            total = 0
+            for path, leaf in jax.tree_util.tree_flatten_with_path(jcache)[0]:
+                if path[-1].key not in ("k", "v", "k_s", "v_s"):
+                    continue
+                spec = jrules.sanitize_pspec(
+                    amesh, jrules.cache_pspec(amesh, leaf), leaf.shape)
+                div = 1
+                for axes in spec:
+                    for a in (axes if isinstance(axes, tuple) else (axes,)):
+                        div *= amesh.shape.get(a, 1) if a else 1
+                total += leaf.size * leaf.dtype.itemsize // div
+            want[arch, name] = total
+    assert got == want
+    assert all(v > 0 for (a, _), v in got.items() if a in KV_GROUPS)

@@ -215,6 +215,29 @@ def _lru_bwd_args():
             c, None)
 
 
+def _moe_args(live=False, dtype=torch.float32, transposed=False):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3 * 16, 24, generator=g).to(dtype)
+    w = torch.randn(4, 24, 16, generator=g).to(dtype)
+    if transposed:          # a strided weight, which the launch copies
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    live_rows = torch.tensor([16, 5, 0], dtype=torch.int32) if live else None
+    return (x, w, torch.tensor([0, 2, 2], dtype=torch.int32), live_rows, 16,
+            torch.float32)
+
+
+def _spgemm_args(quant=None, block=64, path=None):
+    rng = np.random.default_rng(4)
+    a = BSR.random(rng, (192, 128), (block, block), 0.6)
+    b = BSR.random(rng, (128, 256), (block, block), 0.6)
+    plan = api.plan_matmul(a, b, quantize=quant, device="cpu")
+    return (plan.lhs_blocks, plan.rhs_blocks, plan.a_idx, plan.b_idx,
+            plan.c_idx, plan.seg_start, plan.seg_write, plan.accum_prev,
+            plan.valid, plan.lhs_scales, plan.rhs_scales, plan.run_offsets,
+            plan.tc_runs, plan.tc_steps, plan.n_out_blocks, torch.float32,
+            path)
+
+
 OPCHECK_CASES = {
     "segment_spmm": (lambda: OPS.segment_spmm, _spmm_args),
     "segment_spmm transpose_lhs": (lambda: OPS.segment_spmm,
@@ -233,6 +256,12 @@ OPCHECK_CASES = {
                             _attn_bwd_args),
     "rg_lru": (lambda: OPS.rg_lru, _lru_args),
     "rg_lru_bwd": (lambda: OPS.rg_lru_bwd, _lru_bwd_args),
+    "moe_gemm": (lambda: OPS.moe_gemm, _moe_args),
+    "moe_gemm live_rows": (lambda: OPS.moe_gemm,
+                           lambda: _moe_args(live=True)),
+    "segment_spgemm": (lambda: OPS.segment_spgemm, _spgemm_args),
+    "segment_spgemm int8 rowwise": (lambda: OPS.segment_spgemm,
+                                    lambda: _spgemm_args("int8.rowwise")),
 }
 
 
@@ -323,15 +352,65 @@ def test_rg_lru_fake_rules_are_the_launch_allocations():
                              + b * t * d * 4 + b * d * 4)
 
 
+def test_moe_gemm_fake_rule_is_the_launch_allocations():
+    """On fake CUDA tensors, on both kernels: out, and the copies the
+    launch makes (a strided weight, int64 expert ids), with or without
+    live-row counts; none for row-major operands.  The path: bf16 x and
+    w whose widths are multiples of 8 take the tensor cores, the rest the
+    SIMT kernel."""
+    from repro_torch.kernels.moe_gemm import launch_allocations
+    out = 48 * 16 * 4
+    for dtype, path in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        args = _moe_args(dtype=dtype)
+        outs = _fake_cuda_outputs(OPS.moe_gemm, args)
+        assert [tuple(o.shape) for o in outs] == [(48, 16)]
+        assert outs[0].dtype == torch.float32 and _nbytes(outs) == out
+        with _fake():
+            fake = [torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                        device="cuda") for a in args[:3]]
+            assert launch_allocations(*fake, None, torch.float32)[1] == path
+        x, w, ce, live, rows, odt = _moe_args(live=True, dtype=dtype,
+                                              transposed=True)
+        outs = _fake_cuda_outputs(OPS.moe_gemm,
+                                  (x, w, ce.long(), live, rows, odt))
+        assert _nbytes(outs) == (out + w.numel() * w.element_size()
+                                 + 3 * 4), dtype
+
+
+def test_spgemm_fake_rule_is_the_launch_allocations():
+    """On fake CUDA tensors: the C blocks, and on ``"tc"`` (64×64 tiles,
+    every storage mode) its one int32 run counter; nothing more on
+    ``"simt"`` (32×32 tiles, or forced)."""
+    for quant in (None, "int8", "fp8.rowwise"):
+        args = _spgemm_args(quant)
+        n_c = args[14]
+        c = n_c * 64 * 64 * 4
+        outs = _fake_cuda_outputs(OPS.segment_spgemm, args)
+        assert tuple(outs[0].shape) == (n_c, 64, 64)
+        assert _nbytes(outs) == c + 4, quant
+        outs = _fake_cuda_outputs(OPS.segment_spgemm, args[:-1] + ("simt",))
+        assert _nbytes(outs) == c, quant
+    args = _spgemm_args(block=32)
+    outs = _fake_cuda_outputs(OPS.segment_spgemm, args)
+    assert _nbytes(outs) == args[14] * 32 * 32 * 4
+
+
 def test_kernels_without_fake_rules_raise_on_fake_tensors():
+    """No kernel entry is left without a fake rule: ``moe_gemm`` and the
+    SpGEMM, the last two, trace on fake and meta tensors to the plain
+    version's shapes and dtypes (a meta SpGEMM plan's ``plan()`` too)
+    instead of raising."""
     from repro_torch.kernels import moe_gemm
+    x, w, ce = torch.randn(128, 16), torch.randn(2, 16, 8), \
+        torch.zeros(1, dtype=torch.int32)
+    want = moe_gemm(x, w, ce)
     with _fake():
-        x = torch.empty(128, 16)
-        w = torch.empty(2, 16, 8)
-        with pytest.raises(NotImplementedError, match="no fake rule"):
-            moe_gemm(x, w, torch.zeros(1, dtype=torch.int32))
+        got = moe_gemm(torch.empty(128, 16), torch.empty(2, 16, 8),
+                       torch.zeros(1, dtype=torch.int32))
+    assert (tuple(got.shape), got.dtype) == (tuple(want.shape), want.dtype)
     rng = np.random.default_rng(0)
     a = BSR.random(rng, (64, 64), (32, 32), 1.0)
-    plan = api.plan_matmul(a, a, device="meta")
-    with pytest.raises(NotImplementedError, match="no fake rule"):
-        plan()
+    want = api.plan_matmul(a, a, device="cpu")()
+    got = api.plan_matmul(a, a, device="meta")()
+    assert got.device.type == "meta"
+    assert (tuple(got.shape), got.dtype) == (tuple(want.shape), want.dtype)
